@@ -6,12 +6,13 @@
 Needs one CUDA card and ``nvcc``; imports nothing of JAX or of the JAX
 package.  Phases, each ending the run with a non-zero exit on failure:
 
-1. print the card's name and power limit, build the four kernels from
-   this checkout's sources (one ``nvcc`` per source, in parallel) and
-   record threefry's opcode counts (``cuobjdump -sass``);
-2. hold each kernel against its plain PyTorch version on the card, on
-   the inputs the headline's tick 7 (a sync tick, partition in force)
-   gives it, and time both with CUDA events;
+1. print the card's name and power limit, build the five kernel sources
+   of this checkout (one ``nvcc`` per source, in parallel) and record
+   threefry's opcode counts (``cuobjdump -sass``);
+2. hold the perm-fanout kernels against their plain PyTorch versions
+   on the card, on the inputs the headline's tick 7 (a sync tick,
+   partition in force) gives them, and time both with CUDA events; time
+   the stable ``torch.sort`` the headline leaves to PyTorch;
 3. run the headline — 100k nodes x 32 seeds, R = 8, 5% loss, two
    partition blocks healing at tick 12 — on the card, require every
    seed to converge, and require every kernel's launch counter (zeroed
@@ -19,9 +20,25 @@ package.  Phases, each ending the run with a non-zero exit on failure:
 4. run the same config at 4096 nodes x 4 seeds on the card (kernels)
    and on the CPU (plain versions) and require per-tick rows / tx /
    msgs / hops / next_send and the stats dicts to be equal; the same
-   for five 1024-node variants that take the kernels' other paths.
+   for five 1024-node variants that take the kernels' other paths;
+5. hold ``exact_send`` (bitmap and ring) and ``exact_commit`` against
+   their plain versions (max |diff| 0 on every output leaf and the
+   rejection counters) at ticks 1 and 6 of the exact column's
+   full-width configs at their own seed counts (16 x 100k, 4 x 1M) and
+   of a WAN-latency variant of each, and time them at tick 6;
+6. run the exact column at full width through ``run_exact_headline``:
+   dense 100k nodes x 16 seeds (a 20 GB bitmap, partitioned) and
+   sparse 1M nodes x 4 seeds, each with the launch counters zeroed just
+   before; require convergence and that ``exact_send``, ``exact_commit``,
+   ``sync_pull``, ``tick_stats`` and ``threefry_bits`` all ran; then
+   run the 100k config through the sparse kernel and require per-seed
+   statistics identical to the dense run's;
+7. run both exact kernels at 1024 nodes x 2 seeds on the card and on
+   the CPU, on tests/test_frontier.py's headline shape and four
+   scenario families, and require every leaf (bitmap or ring included),
+   the per-tick statistics and the run's stats dict to be equal.
 
-Prints the ``kernels`` JSON line, the headline stats and, last, the
+Prints the card line, the ``kernels`` JSON line and, last, the
 ``{"ok": true, "device": ...}`` line; writes the full record (with
 the compiler's register report) to
 ``corrosion_tpu_torch/kernels/build/chip_smoke.json``.
@@ -38,6 +55,7 @@ import sys
 import time
 from dataclasses import replace
 
+import numpy as np
 import torch
 
 HERE = os.path.dirname(os.path.abspath(__file__))
@@ -80,15 +98,21 @@ def nbytes(*tensors) -> int:
 
 def max_abs_err(a, b) -> float:
     """Largest |a - b| over paired tensors (NaN where both are NaN
-    counts as equal); 0.0 means bitwise-equal integers."""
+    counts as equal); 0.0 means bitwise-equal integers.  Unequal
+    tensors are compared in float64 slices, so a 20 GB bitmap needs no
+    160 GB copy."""
     worst = 0.0
+    step = 1 << 26
     for x, y in zip(a, b):
-        if x is None and y is None:
+        if x is None and y is None or torch.equal(x, y):
             continue
-        x, y = x.double(), y.double()
-        both_nan = torch.isnan(x) & torch.isnan(y)
-        d = torch.where(both_nan, torch.zeros_like(x), (x - y).abs())
-        worst = max(worst, float(torch.nan_to_num(d, nan=math.inf).max()))
+        x, y = x.reshape(-1), y.reshape(-1)
+        for i in range(0, x.numel(), step):
+            xs, ys = x[i:i + step].double(), y[i:i + step].double()
+            both_nan = torch.isnan(xs) & torch.isnan(ys)
+            d = torch.where(both_nan, torch.zeros_like(xs), (xs - ys).abs())
+            worst = max(worst,
+                        float(torch.nan_to_num(d, nan=math.inf).max()))
     return worst
 
 
@@ -247,7 +271,7 @@ def kernel_checks(cfg, mods, dev):
     results.append(dict(
         name="sync_pull", route="cuda",
         source="corrosion_tpu_torch/kernels/csrc/sync_pull.cu",
-        replaces="corrosion_tpu/models/sync.py:89",
+        replaces="corrosion_tpu/models/sync.py:90",
         max_abs_err=max_abs_err(got_s, want_s),
         ms=time_ms(lambda: sync_pull.sync_pull(rows_b, msgs_b, offs, u,
                                                **sargs), 20),
@@ -296,15 +320,21 @@ def kernel_checks(cfg, mods, dev):
     ))
 
     for r in results:
-        b, ops = r.pop("bound")
-        t_bytes = b / HBM_BYTES_PER_S * 1e3
-        t_ops = ops / INT32_OPS_PER_S * 1e3
-        r["bound_ms"] = max(t_bytes, t_ops)
-        r["bound_by"] = "bytes" if t_bytes >= t_ops else "operations"
+        set_bound(r)
         if r["name"] != "tick_stats" and r["max_abs_err"] != 0.0:
             fail(f"{r['name']} differs from its plain version "
                  f"(max |diff| {r['max_abs_err']})")
     return results
+
+
+def set_bound(r: dict) -> None:
+    """Replace ``r["bound"]`` (bytes, INT32-pipe operations) by the
+    least time of the two on the card and which one it is."""
+    b, ops = r.pop("bound")
+    t_bytes = b / HBM_BYTES_PER_S * 1e3
+    t_ops = ops / INT32_OPS_PER_S * 1e3
+    r["bound_ms"] = max(t_bytes, t_ops)
+    r["bound_by"] = "bytes" if t_bytes >= t_ops else "operations"
 
 
 def states_equal(a, b) -> bool:
@@ -372,14 +402,355 @@ def run_equal(cfg, seeds: int, dev, label: str) -> dict:
     return {"ticks_compared": ticks, "stats": a}
 
 
+# -- the exact sampler ----------------------------------------------------
+
+# threefry2x32 operations per hash that only the INT32 pipe runs: the
+# 20 rotates and 20 xors of the rounds and the output xor (see
+# INT_PIPE_OPS_PER_UNIFORM)
+INT_PIPE_OPS_PER_HASH = 41
+SECTOR = 32  # bytes a random access moves at least
+BUSY_TICK = 6  # most rows of the writer's block are active by then
+# a GPU-side wait queued before a timed call, so the host's enqueue of
+# the call hides behind it (about 1 ms at 1.98 GHz)
+SLEEP_CYCLES = 2_000_000
+
+
+def exact_cfgs():
+    """The full-width exact configs (``sim.calibrate.EXACT_DENSE`` and
+    ``EXACT_SPARSE``: bench.py ``_frontier_exact_cfg`` at 100k
+    partitioned and 1M loss-only, bench.py:2538-2553) and their seeds
+    (``_exact_seed_policy``, bench.py:3576-3584)."""
+    from corrosion_tpu_torch.sim import calibrate as cal
+
+    return ((cal.EXACT_DENSE, cal.EXACT_DENSE_SEEDS),
+            (cal.EXACT_SPARSE, cal.EXACT_SPARSE_SEEDS))
+
+
+def frontier_cap(cfg) -> int:
+    return cfg.max_transmissions * cfg.fanout
+
+
+def time_inplace_ms(restore, fn, reps: int, warm: int = 2) -> float:
+    """Mean ms of ``fn`` on the card (a CUDA event pair around each
+    call) when ``fn`` updates its inputs in place: ``restore`` puts the
+    inputs back before every call, outside the timed pair (its copies
+    also evict the L2 cache, as a tick's other work would).  A GPU-side
+    sleep before the pair keeps the host's enqueue of ``fn`` out of
+    the time."""
+    for _ in range(warm):
+        restore()
+        fn()
+    pairs = []
+    for _ in range(reps):
+        restore()
+        torch.cuda._sleep(SLEEP_CYCLES)
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        end.record()
+        pairs.append((start, end))
+    torch.cuda.synchronize()
+    return sum(a.elapsed_time(b) for a, b in pairs) / reps
+
+
+def exact_advance(state, base, cfg, tick: int, sparse: bool):
+    """Tick ``state`` (seed keys ``base``) on through ``tick - 1``."""
+    from corrosion_tpu_torch.random import fold_in
+    from corrosion_tpu_torch.sim import calibrate as cal
+
+    tick_fn = cal.frontier_exact_tick if sparse else cal.packed_exact_tick
+    while state.tick < tick:
+        state = tick_fn(state, [fold_in(k, state.tick) for k in base], cfg)
+    return state
+
+
+def exact_state_at(cfg, seeds: int, tick: int, sparse: bool, dev):
+    """The first ``seeds`` seeds of ``run_exact_headline(seed=0)`` at
+    ``tick``, reached through the port on ``dev``; and the seed keys."""
+    from corrosion_tpu_torch.random import PRNGKey, fold_in
+    from corrosion_tpu_torch.sim import calibrate as cal
+
+    base = [PRNGKey(s) for s in range(seeds)]
+    init = cal.frontier_exact_init if sparse else cal.packed_exact_init
+    state = init(cfg, [fold_in(k, 2**20) for k in base], device=dev)
+    return exact_advance(state, base, cfg, tick, sparse), base
+
+
+MUTATED = ("tx", "next_send", "msgs", "pending", "sent")
+
+
+def exact_kernel_checks(dev):
+    """``exact_send`` (both representations) and ``exact_commit``
+    against their plain versions on the card, on the inputs of ticks 1
+    and ``BUSY_TICK`` of the full-width runs at their own seed counts
+    (the shapes the main path launches), and of a WAN latency variant
+    of each (which fills the queue); timed at ``BUSY_TICK``.  The dense
+    check holds three copies of the 20 GB bitmap (the state, the
+    kernel's and the plain version's); the timed calls reuse the
+    kernel's."""
+    from corrosion_tpu_torch.kernels import exact_send as es
+    from corrosion_tpu_torch.random import fold_in
+    from corrosion_tpu_torch.sim import calibrate as cal
+
+    (dense, dense_seeds), (sparse, sparse_seeds) = exact_cfgs()
+    latency = dict(topology="wan_two_region", partition_blocks=1,
+                   heal_tick=0, wan_latency_ticks=2)
+    cases = (
+        ("bitmap", dense, dense_seeds, False),
+        ("bitmap", replace(dense, **latency), 2, False),
+        ("ring", sparse, sparse_seeds, True),
+        ("ring", replace(sparse, **latency), sparse_seeds, True),
+    )
+    errs = {"bitmap": 0.0, "ring": 0.0, "commit": 0.0}
+    timed, checks = {}, []
+
+    def diag():
+        return torch.zeros(len(es.DIAG), dtype=torch.int64, device=dev)
+
+    for rep, cfg, seeds, ring in cases:
+        state, base = exact_state_at(cfg, seeds, 0, ring, dev)
+        for tick in (1, BUSY_TICK):
+            state = exact_advance(state, base, cfg, tick, ring)
+            args, _, _ = cal._send_inputs(
+                state, [fold_in(k, tick) for k in base], cfg)
+            saved = {f: args[f] for f in MUTATED if args[f] is not None}
+            got = {**args, **{f: v.clone() for f, v in saved.items()}}
+            want = {**args, **{f: v.clone() for f, v in saved.items()}}
+            got_d, want_d = diag(), diag()
+            got_inf = es.exact_send(**got, diag=got_d)
+            want_inf = es.exact_send_plain(**want, diag=want_d)
+            names = ["new_infected", *saved, "diag"]
+            a = [got_inf, *(got[f] for f in saved), got_d]
+            b = [want_inf, *(want[f] for f in saved), want_d]
+            err = max_abs_err(a, b)
+            errs[rep] = max(errs[rep], err)
+            bad = [nm for nm, x, y in zip(names, a, b)
+                   if not torch.equal(x, y)]
+            del a, b, want, want_inf
+            # the commit on the kernel's send results
+            c_got = [got["tx"].clone(), got["next_send"].clone()]
+            c_want = [t.clone() for t in c_got]
+            es.exact_commit(args["infected"], got_inf, *c_got, tick,
+                            cfg.max_transmissions, args["tier"])
+            es.exact_commit_plain(args["infected"], got_inf, *c_want,
+                                  tick, cfg.max_transmissions, args["tier"])
+            c_err = max_abs_err(c_got, c_want)
+            errs["commit"] = max(errs["commit"], c_err)
+            d = got_d.tolist()
+            learned = int((got_inf & ~args["infected"]).sum())
+            checks.append(dict(
+                rep=rep, n=cfg.n_nodes, seeds=seeds, tick=tick,
+                topology=cfg.topology, max_abs_err=err, differs=bad,
+                commit_max_abs_err=c_err, active_rows=d[0],
+                rounds_mean=d[1] / max(1, d[0]), rounds_max=d[2],
+                learned=learned))
+            if cfg.topology == "uniform" and tick == BUSY_TICK:
+                timed.update(exact_times(es, cfg, seeds, ring, rep, tick,
+                                         args, saved, got, got_inf, d,
+                                         learned, diag()))
+            del got, got_inf, args, saved, c_got, c_want
+            torch.cuda.empty_cache()
+        del state
+        torch.cuda.empty_cache()
+    for c in checks:
+        if c["differs"] or c["commit_max_abs_err"] != 0.0:
+            fail(f"exact kernels differ from their plain versions: {c}")
+    source = "corrosion_tpu_torch/kernels/csrc/exact_send.cu"
+    results = []
+    for name, key, replaces in (
+        ("exact_send<Bitmap>", "bitmap",
+         "corrosion_tpu/sim/calibrate.py:587"),
+        ("exact_send<Ring>", "ring", "corrosion_tpu/sim/calibrate.py:1157"),
+        ("exact_commit", "commit", "corrosion_tpu/sim/calibrate.py:658"),
+    ):
+        results.append(dict(
+            name=name, route="cuda", source=source, replaces=replaces,
+            max_abs_err=errs[key], library_ms=None, **timed[key]))
+        set_bound(results[-1])
+    return results, checks
+
+
+def exact_times(es, cfg, seeds, ring, rep, tick, args, saved, work,
+                new_infected, d, learned, t_diag) -> dict:
+    """Times of ``exact_send`` (and for the bitmap ``exact_commit``) on
+    one tick's inputs, with their bounds.  ``work`` is the kernel's
+    copy of the inputs; ``restore`` puts ``saved`` back into it before
+    every call."""
+    def restore():
+        for f, v in saved.items():
+            work[f].copy_(v)
+
+    total = seeds * cfg.n_nodes
+    k = cfg.fanout
+    # every row's activity test; an active row's own leaves (17 bytes
+    # read, 12 written), its infection stores, and its bitmap sectors
+    # read and marked, or its ring row read and its slots written
+    memory = 4 * frontier_cap(cfg) + SECTOR if ring else 2 * k * SECTOR
+    send_bytes = total * 9 + d[0] * (17 + 12 + k * SECTOR + memory)
+    hashes = d[1] * (3 + 2 * k) + d[0] * k * (cfg.loss > 0)
+    out = {rep: dict(
+        ms=time_inplace_ms(
+            restore, lambda: es.exact_send(**work, diag=t_diag), 20),
+        plain_ms=time_inplace_ms(
+            restore, lambda: es.exact_send_plain(**work, diag=t_diag), 1, 1),
+        bound=(send_bytes, hashes * INT_PIPE_OPS_PER_HASH),
+        shape=f"{rep} {seeds} seeds x {cfg.n_nodes}, tick {tick}, "
+              f"{d[0]} active rows",
+    )}
+    if ring:
+        return out
+    cw = [work["tx"].clone(), work["next_send"].clone()]
+    c_src = [t.clone() for t in cw]
+
+    def c_restore():
+        for x, y in zip(cw, c_src):
+            x.copy_(y)
+
+    def commit(fn):
+        return lambda: fn(args["infected"], new_infected, *cw, tick,
+                          cfg.max_transmissions, args["tier"])
+
+    out["commit"] = dict(
+        ms=time_inplace_ms(c_restore, commit(es.exact_commit), 20),
+        plain_ms=time_inplace_ms(c_restore, commit(es.exact_commit_plain),
+                                 3),
+        bound=(total * 2 + learned * 8, 0),
+        shape=f"{seeds} seeds x {cfg.n_nodes}, tick {tick}, "
+              f"{learned} learners",
+    )
+    return out
+
+
+def sort_times(dev) -> list:
+    """``torch.sort(stable=True)`` of ``_perm_senders`` at the
+    headline's two shapes, with its bytes bound (keys read, sorted keys
+    and int64 indices written)."""
+    from corrosion_tpu_torch.random import PRNGKey, uniform
+
+    out = []
+    for shape in ((32, 100_000), (12_800, 250)):
+        scores = uniform(PRNGKey(1), shape, dev)
+        ms = time_ms(lambda: torch.sort(scores, dim=1, stable=True), 20)
+        b = scores.numel() * (4 + 4 + 8)
+        out.append(dict(shape=list(shape), ms=ms,
+                        bound_ms=b / HBM_BYTES_PER_S * 1e3,
+                        bound_by="bytes"))
+    return out
+
+
+EXACT_COUNTED = ("exact_send", "exact_commit", "sync_pull", "tick_stats",
+                 "threefry_bits")
+
+
+def exact_full_width(counted) -> dict:
+    """The dense 100k x 16-seed and sparse 1M x 4-seed runs through
+    ``run_exact_headline`` on the card, each with the launch counters
+    zeroed just before; then the 100k partitioned config through the
+    sparse kernel, whose per-seed statistics must equal the dense
+    run's."""
+    from corrosion_tpu_torch.sim.calibrate import run_exact_headline
+
+    (dense, dense_seeds), (sparse, sparse_seeds) = exact_cfgs()
+    runs = {}
+    for label, cfg, seeds, kernel in (
+        ("dense_100k", dense, dense_seeds, "dense"),
+        ("sparse_1m", sparse, sparse_seeds, "sparse"),
+        ("sparse_100k", dense, dense_seeds, "sparse"),
+    ):
+        torch.cuda.empty_cache()
+        torch.cuda.synchronize()
+        for fn in counted.values():
+            fn.launches = 0
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        res = run_exact_headline(cfg, n_seeds=seeds, seed=0, kernel=kernel,
+                                 device="cuda")
+        torch.cuda.synchronize()
+        res["run_s"] = time.perf_counter() - t0
+        res["launches"] = {name: counted[name].launches
+                           for name in EXACT_COUNTED}
+        res["peak_mem_gb"] = torch.cuda.max_memory_allocated() / 1e9
+        runs[label] = res
+        print(f"exact {label}: " + json.dumps({k: res[k] for k in (
+            "converged_frac", "ticks_p50", "ticks_p99",
+            "msgs_per_node_mean", "msgs_per_node_p99", "seed_batch",
+            "budget_bytes", "budget_source", "wall_s", "peak_mem_gb",
+            "rejection", "launches")}), flush=True)
+        if res["converged_frac"] != 1.0:
+            fail(f"exact {label} did not converge: {res}")
+        idle = [n for n, c in res["launches"].items() if c == 0]
+        if idle:
+            fail(f"exact {label}: kernels never launched: {idle}")
+    for key in ("seed_ticks", "seed_msgs_mean", "seed_msgs_p99"):
+        if runs["dense_100k"][key] != runs["sparse_100k"][key]:
+            fail(f"dense and sparse differ at 100k in {key}")
+    return runs
+
+
+# card against CPU at 1024 nodes: tests/test_frontier.py's headline
+# shape (ring0 64, loss, partition healing at tick 3, sync every 2
+# ticks, backoff 0.5) and the scenario families
+UNPARTITIONED = dict(partition_blocks=1, heal_tick=0)
+EXACT_VARIANTS = {
+    "headline": {},
+    "het_ring": dict(topology="het_ring", **UNPARTITIONED),
+    "wan_two_region": dict(topology="wan_two_region", **UNPARTITIONED),
+    "measured_ring": dict(topology="measured_ring",
+                          rtt_tier_weights=(0, 0, 2, 2, 6, 1),
+                          **UNPARTITIONED),
+    "wan_latency": dict(topology="wan_two_region", wan_latency_ticks=3,
+                        **UNPARTITIONED),
+}
+
+
+def exact_equal(cfg, seeds: int, sparse: bool, dev, label: str) -> dict:
+    """The exact kernels on the card equal the plain versions on the CPU
+    tick by tick (every leaf, bitmap or ring, and the tick statistics)
+    until every seed has converged, and in ``run_exact_headline``."""
+    from corrosion_tpu_torch.convert import exact_state_to_numpy
+    from corrosion_tpu_torch.kernels.tick_stats import CONVERGED, tick_stats
+    from corrosion_tpu_torch.random import fold_in
+    from corrosion_tpu_torch.sim import calibrate as cal
+
+    gpu, base = exact_state_at(cfg, seeds, 0, sparse, dev)
+    cpu, _ = exact_state_at(cfg, seeds, 0, sparse, "cpu")
+    tick_fn = cal.frontier_exact_tick if sparse else cal.packed_exact_tick
+    one = torch.ones(1, dtype=torch.int32)
+    while gpu.tick < cfg.max_ticks:
+        keys = [fold_in(k, gpu.tick) for k in base]
+        gpu, cpu = tick_fn(gpu, keys, cfg), tick_fn(cpu, keys, cfg)
+        a, b = exact_state_to_numpy(gpu), exact_state_to_numpy(cpu)
+        for f in a:
+            if not np.array_equal(a[f], b[f]):
+                fail(f"{label}: card and CPU differ in {f} at tick "
+                     f"{gpu.tick}")
+        st = [tick_stats(s.infected.to(torch.int32).reshape(-1, 1),
+                         one.to(s.infected.device), s.msgs.reshape(-1),
+                         None, seeds).cpu() for s in (gpu, cpu)]
+        if not torch.equal(torch.nan_to_num(st[0]), torch.nan_to_num(st[1])):
+            fail(f"{label}: tick stats differ at tick {gpu.tick}")
+        if bool((st[1][:, CONVERGED] == 1.0).all()):
+            break
+    kernel = "sparse" if sparse else "dense"
+    runs = [cal.run_exact_headline(cfg, n_seeds=seeds, kernel=kernel,
+                                   device=d) for d in (dev, "cpu")]
+    for r in runs:
+        for k in ("wall_s", "budget_bytes", "budget_source"):
+            r.pop(k)
+    if runs[0] != runs[1]:
+        fail(f"{label}: run stats differ:\ncard {runs[0]}\ncpu  {runs[1]}")
+    return {"ticks_compared": gpu.tick, "stats": runs[0]}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
         return 1
     sys.path.insert(0, HERE)
     from corrosion_tpu_torch import kernels
-    from corrosion_tpu_torch.kernels import deliver, sync_pull, threefry
-    from corrosion_tpu_torch.kernels import tick_stats
+    from corrosion_tpu_torch.kernels import deliver, exact_send, sync_pull
+    from corrosion_tpu_torch.kernels import threefry, tick_stats
     from corrosion_tpu_torch.sim.epidemic import (
         HEADLINE,
         HEADLINE_SEEDS,
@@ -387,9 +758,14 @@ def main() -> int:
     )
 
     mods = (threefry, deliver, sync_pull, tick_stats)
-    counted = (threefry.threefry_bits, deliver.deliver_perm,
-               sync_pull.sync_pull, tick_stats.tick_stats)
+    counted = {fn.__name__: fn for fn in (
+        threefry.threefry_bits, deliver.deliver_perm, sync_pull.sync_pull,
+        tick_stats.tick_stats, exact_send.exact_send,
+        exact_send.exact_commit)}
+    headline_counted = ("threefry_bits", "deliver_perm", "sync_pull",
+                        "tick_stats")
     record = {}
+    cuda = torch.device("cuda")
 
     # phase 1: the card, then the build
     card = card_line()
@@ -406,18 +782,20 @@ def main() -> int:
 
     headline, seeds = HEADLINE, HEADLINE_SEEDS
 
-    # phase 2: kernels against their plain versions
+    # phase 2: the perm-fanout kernels against their plain versions, and
+    # the stable sort they leave to torch.sort
     results = kernel_checks(replace(headline, n_universes=seeds), mods,
-                            torch.device("cuda"))
+                            cuda)
+    record["sort"] = sort_times(cuda)
     print("kernels match their plain versions: "
-          + ", ".join(f"{r['name']} {r['max_abs_err']}" for r in results),
-          flush=True)
+          + ", ".join(f"{r['name']} {r['max_abs_err']}" for r in results)
+          + "; torch.sort " + json.dumps(record["sort"]), flush=True)
 
     # phase 3: the headline on the card, counters from this run only
     run_epidemic_seeds(replace(headline, n_nodes=1000, max_ticks=16),
                        n_seeds=2, device="cuda")  # warm the allocator
     torch.cuda.synchronize()
-    for fn in counted:
+    for fn in counted.values():
         fn.launches = 0
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
@@ -425,21 +803,14 @@ def main() -> int:
                                device="cuda")
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    launches = {fn.__name__: fn.launches for fn in counted}
+    launches = {name: counted[name].launches for name in headline_counted}
     stats["device"] = torch.cuda.get_device_name(0)
     stats["card"] = card
     stats["run_s"] = wall
     stats["peak_mem_gb"] = torch.cuda.max_memory_allocated() / 1e9
     for r in results:
         r["launches"] = launches[r["name"]]
-    line = {"kernels": [
-        {key: r[key] for key in (
-            "name", "route", "source", "replaces", "launches",
-            "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
-            "library_ms")}
-        for r in results
-    ]}
-    record.update(card=card, kernels=results, headline=stats)
+    record.update(card=card, headline=stats)
     if stats["converged_frac"] != 1.0:
         fail(f"headline did not converge: {stats}")
     idle = [name for name, c in launches.items() if c == 0]
@@ -447,7 +818,6 @@ def main() -> int:
         fail(f"kernels never launched on the main path: {idle}")
 
     # phase 4: kernels on the card == plain versions on the CPU
-    cuda = torch.device("cuda")
     record["small"] = run_equal(replace(headline, n_nodes=4096), 4, cuda,
                                 "4096-node run")
     for name, kw in VARIANTS.items():
@@ -458,9 +828,55 @@ def main() -> int:
     print(f"card == CPU per tick: 4096 x 4 headline ({ticks} ticks) and "
           f"{len(VARIANTS)} variants", flush=True)
 
+    # phase 5: the exact sampler's kernels against their plain versions
+    exact_results, record["exact_checks"] = exact_kernel_checks(cuda)
+    print("exact kernels match their plain versions: "
+          + ", ".join(f"{r['name']} {r['max_abs_err']}"
+                      for r in exact_results), flush=True)
+
+    # phase 6: the exact column at full width, dense against sparse
+    runs = exact_full_width(counted)
+    record["exact_runs"] = runs
+    dense, sparse = (runs[k]["launches"] for k in ("dense_100k",
+                                                   "sparse_1m"))
+    for r, n in zip(exact_results, (dense["exact_send"],
+                                    sparse["exact_send"],
+                                    dense["exact_commit"]
+                                    + sparse["exact_commit"])):
+        r["launches"] = n
+    print("exact dense == sparse per seed at 100k x 16", flush=True)
+
+    # phase 7: the exact kernels on the card == plain versions on the CPU
+    from corrosion_tpu_torch.sim.calibrate import HeadlineExactConfig
+
+    for name, kw in EXACT_VARIANTS.items():
+        cfg = HeadlineExactConfig(**{
+            "n_nodes": 1024, "fanout": 4, "ring0_size": 64,
+            "max_transmissions": 8, "loss": 0.05, "partition_blocks": 2,
+            "heal_tick": 3, "sync_interval": 2, "backoff_ticks": 0.5,
+            "max_ticks": 48, "chunk_ticks": 8, **kw})
+        for sp in (False, True):
+            label = f"exact {name} {'sparse' if sp else 'dense'}"
+            record[label] = exact_equal(cfg, 2, sp, cuda, label)
+    print(f"exact card == CPU per tick: 1024 x 2, {len(EXACT_VARIANTS)} "
+          "variants, both kernels", flush=True)
+
+    results += exact_results
+    record["kernels"] = results
     with open(kernels.BUILD_DIR / "chip_smoke.json", "w") as f:
         json.dump(record, f, indent=1, default=str)
     print(json.dumps({"headline": stats}), flush=True)
+    print(json.dumps({"exact": {k: {f: v[f] for f in (
+        "converged_frac", "ticks_p50", "ticks_p99", "msgs_per_node_mean",
+        "msgs_per_node_p99", "seed_batch", "wall_s", "peak_mem_gb")}
+        for k, v in runs.items()}}), flush=True)
+    line = {"kernels": [
+        {key: r[key] for key in (
+            "name", "route", "source", "replaces", "launches",
+            "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
+            "library_ms")}
+        for r in results
+    ]}
     print(json.dumps(line), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

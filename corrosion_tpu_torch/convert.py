@@ -2,10 +2,14 @@
 port.
 
 The simulator has no weights; its state plays that role.  A reference
-``EpidemicState`` (any NamedTuple or mapping with its fields, the
-values numpy arrays or anything ``np.asarray`` takes) becomes the
-port's tensors on a given device, and back, so both sides can start
-from the same state and keys.
+``EpidemicState``, ``PackedExactState`` or ``FrontierExactState`` (any
+NamedTuple or mapping with its fields, the values numpy arrays or
+anything ``np.asarray`` takes) becomes the port's tensors on a given
+device, and back, so both sides can start from the same state and
+keys.  An exact-sampler state may be one seed's (leaves [N, ...], as
+``packed_exact_tick`` holds it) or a seed batch's (leaves [S, N, ...]
+and ticks [S], as the vmapped runners hold it); the port's always has
+the seed axis.
 """
 
 from __future__ import annotations
@@ -16,9 +20,17 @@ import torch
 from corrosion_tpu_torch import resolve_device
 from corrosion_tpu_torch.models.broadcast import TRACK_SENT_TODO
 from corrosion_tpu_torch.random import key_words
+from corrosion_tpu_torch.sim.calibrate import (
+    FrontierExactState,
+    PackedExactState,
+)
 from corrosion_tpu_torch.sim.epidemic import EpidemicState
 
 TENSOR_FIELDS = ("rows", "tx_remaining", "msgs", "hops", "next_send")
+# the exact-sampler leaves and their dtypes (``sent`` / ``ring`` by type)
+EXACT_FIELDS = {"infected": np.bool_, "tx": np.int32,
+                "next_send": np.int32, "msgs": np.int32,
+                "pending": np.int32}
 
 
 def _fields(state) -> dict:
@@ -51,6 +63,48 @@ def state_to_numpy(state: EpidemicState) -> dict:
         else getattr(state, f).cpu().numpy()
         for f in TENSOR_FIELDS
     }
+    out["tick"] = int(state.tick)
+    return out
+
+
+def _exact_from_numpy(cls, memory: str, dtype, state, device):
+    device = resolve_device(device)
+    d = _fields(state)
+    batched = np.ndim(d["infected"]) == 2
+    ticks = np.unique(np.asarray(d["tick"]))
+    if ticks.size != 1:
+        raise ValueError(f"the seeds of a batch tick together, got ticks "
+                         f"{ticks.tolist()}")
+
+    def tensor(x, dt):
+        a = np.array(x, dtype=dt)
+        return torch.from_numpy(a if batched else a[None]).to(device)
+
+    leaves = {f: tensor(d[f], dt) for f, dt in EXACT_FIELDS.items()}
+    return cls(tick=int(ticks[0]), **{memory: tensor(d[memory], dtype)},
+               **leaves)
+
+
+def packed_state_from_numpy(state, device="cuda") -> PackedExactState:
+    """The port's ``PackedExactState`` on ``device`` from a reference
+    one (single-seed or seed-batched) given as numpy arrays."""
+    return _exact_from_numpy(PackedExactState, "sent", np.uint8, state,
+                             device)
+
+
+def frontier_state_from_numpy(state, device="cuda") -> FrontierExactState:
+    """The port's ``FrontierExactState`` on ``device`` from a reference
+    one (single-seed or seed-batched) given as numpy arrays."""
+    return _exact_from_numpy(FrontierExactState, "ring", np.int32, state,
+                             device)
+
+
+def exact_state_to_numpy(state) -> dict:
+    """{field: numpy array with the seed axis} of a port
+    ``PackedExactState`` or ``FrontierExactState``, tick as an int (the
+    inverse of both ``*_from_numpy``)."""
+    out = {f: v.cpu().numpy() for f, v in state._asdict().items()
+           if f != "tick"}
     out["tick"] = int(state.tick)
     return out
 

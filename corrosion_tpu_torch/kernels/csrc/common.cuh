@@ -1,9 +1,69 @@
 // Device helpers shared by the simulator's kernels.
 #pragma once
 
+#include <cstdint>
 #include <cuda_runtime.h>
 
 namespace common {
+
+// -- jax.random's threefry2x32 (jax/_src/prng.py _threefry2x32_lowering,
+// 20 rounds) and the uniform / randint epilogues of jax/_src/random.py,
+// shared by the kernels that draw in-thread.
+
+__device__ __forceinline__ uint32_t rotl32(uint32_t x, uint32_t d) {
+  return (x << d) | (x >> (32u - d));
+}
+
+#define TF_ROUND(r)         \
+  x0 += x1;                 \
+  x1 = rotl32(x1, (r));     \
+  x1 ^= x0;
+
+// Both output words of threefry2x32 under key (k0, k1) on the counter
+// pair (x0, x1): a split or fold_in key, or the two halves of a draw.
+__device__ __forceinline__ void threefry2x32(uint32_t k0, uint32_t k1,
+                                             uint32_t x0, uint32_t x1,
+                                             uint32_t& o0, uint32_t& o1) {
+  const uint32_t k2 = k0 ^ k1 ^ 0x1BD11BDAu;
+  x0 += k0;
+  x1 += k1;
+  TF_ROUND(13) TF_ROUND(15) TF_ROUND(26) TF_ROUND(6)
+  x0 += k1; x1 += k2 + 1u;
+  TF_ROUND(17) TF_ROUND(29) TF_ROUND(16) TF_ROUND(24)
+  x0 += k2; x1 += k0 + 2u;
+  TF_ROUND(13) TF_ROUND(15) TF_ROUND(26) TF_ROUND(6)
+  x0 += k0; x1 += k1 + 3u;
+  TF_ROUND(17) TF_ROUND(29) TF_ROUND(16) TF_ROUND(24)
+  x0 += k1; x1 += k2 + 4u;
+  TF_ROUND(13) TF_ROUND(15) TF_ROUND(26) TF_ROUND(6)
+  x0 += k2; x1 += k0 + 5u;
+  o0 = x0;
+  o1 = x1;
+}
+
+#undef TF_ROUND
+
+// The random word at flat index i of a draw under key (k0, k1): the
+// xor of the two output words on the counter (i >> 32, i & 0xFFFFFFFF).
+__device__ __forceinline__ uint32_t threefry_xor(uint32_t k0, uint32_t k1,
+                                                 unsigned long long i) {
+  uint32_t o0, o1;
+  threefry2x32(k0, k1, (uint32_t)(i >> 32), (uint32_t)i, o0, o1);
+  return o0 ^ o1;
+}
+
+// uniform: the top 23 bits as a mantissa in [1, 2), minus 1
+__device__ __forceinline__ float uniform_of(uint32_t bits) {
+  return __uint_as_float((bits >> 9) | 0x3F800000u) - 1.0f;
+}
+
+// randint: ((hi % span) * mult + lo % span) % span in wrapping uint32
+// arithmetic, plus minval (hi, lo the words under split(key)[0], [1])
+__device__ __forceinline__ int randint_of(uint32_t hi, uint32_t lo,
+                                          uint32_t span, uint32_t mult,
+                                          int minval) {
+  return minval + (int)(((hi % span) * mult + lo % span) % span);
+}
 
 // "not infected yet" hop depth (models/broadcast.py HOP_UNSET)
 constexpr int HOP_UNSET = 1 << 30;

@@ -1,6 +1,6 @@
 // sync_pull: one anti-entropy round, every node pulling from its peers.
 //
-// Replaces corrosion_tpu/models/sync.py sync_step (:89) with
+// Replaces corrosion_tpu/models/sync.py sync_step (:90) with
 // session_msgs (:66) and the peer draw / bidirectional partition test
 // of models/common.py (rand_peers :35, partition_ok :65).  The
 // reference gathers [N, P, R] peer rows, counts the cells each peer is

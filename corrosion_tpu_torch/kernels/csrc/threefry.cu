@@ -27,34 +27,11 @@
 #include <cstdint>
 #include <cuda_runtime.h>
 
+#include "common.cuh"
+
 namespace {
 
-__device__ __forceinline__ uint32_t rotl32(uint32_t x, uint32_t d) {
-  return (x << d) | (x >> (32u - d));
-}
-
-#define TF_ROUND(r)        \
-  x0 += x1;                \
-  x1 = rotl32(x1, (r));    \
-  x1 ^= x0;
-
-__device__ __forceinline__ uint32_t threefry_xor(uint32_t k0, uint32_t k1,
-                                                 uint32_t x0, uint32_t x1) {
-  const uint32_t k2 = k0 ^ k1 ^ 0x1BD11BDAu;
-  x0 += k0;
-  x1 += k1;
-  TF_ROUND(13) TF_ROUND(15) TF_ROUND(26) TF_ROUND(6)
-  x0 += k1; x1 += k2 + 1u;
-  TF_ROUND(17) TF_ROUND(29) TF_ROUND(16) TF_ROUND(24)
-  x0 += k2; x1 += k0 + 2u;
-  TF_ROUND(13) TF_ROUND(15) TF_ROUND(26) TF_ROUND(6)
-  x0 += k0; x1 += k1 + 3u;
-  TF_ROUND(17) TF_ROUND(29) TF_ROUND(16) TF_ROUND(24)
-  x0 += k1; x1 += k2 + 4u;
-  TF_ROUND(13) TF_ROUND(15) TF_ROUND(26) TF_ROUND(6)
-  x0 += k2; x1 += k0 + 5u;
-  return x0 ^ x1;
-}
+using common::threefry_xor;
 
 __global__ void threefry_kernel(void* __restrict__ out, long long n,
                                 uint32_t ka0, uint32_t ka1, uint32_t kb0,
@@ -63,18 +40,15 @@ __global__ void threefry_kernel(void* __restrict__ out, long long n,
   const long long stride = (long long)gridDim.x * blockDim.x;
   for (long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x; i < n;
        i += stride) {
-    const uint32_t hi = (uint32_t)((unsigned long long)i >> 32);
-    const uint32_t lo = (uint32_t)i;
-    const uint32_t b = threefry_xor(ka0, ka1, hi, lo);
+    const uint32_t b = threefry_xor(ka0, ka1, (unsigned long long)i);
     if (mode == 0) {
       static_cast<uint32_t*>(out)[i] = b;
     } else if (mode == 1) {
-      static_cast<float*>(out)[i] =
-          __uint_as_float((b >> 9) | 0x3F800000u) - 1.0f;
+      static_cast<float*>(out)[i] = common::uniform_of(b);
     } else {
-      const uint32_t lb = threefry_xor(kb0, kb1, hi, lo);
-      const uint32_t off = ((b % span) * mult + lb % span) % span;
-      static_cast<int*>(out)[i] = minval + (int)off;
+      const uint32_t lb = threefry_xor(kb0, kb1, (unsigned long long)i);
+      static_cast<int*>(out)[i] =
+          common::randint_of(b, lb, span, mult, minval);
     }
   }
 }

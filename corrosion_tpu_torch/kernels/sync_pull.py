@@ -1,6 +1,6 @@
 """``sync_pull``: one anti-entropy pull round (csrc/sync_pull.cu).
 
-Replaces corrosion_tpu/models/sync.py ``sync_step`` (:89) with its
+Replaces corrosion_tpu/models/sync.py ``sync_step`` (:90) with its
 ``session_msgs`` charge (:66), the peer formula of ``rand_peers`` and
 the bidirectional ``partition_ok`` (models/common.py :35, :65).  Bound
 on the H100: bytes — the client row, one random peer row per draw and

@@ -33,7 +33,7 @@ from corrosion_tpu_torch.random import fold_in, randint, split, uniform
 
 TRACK_SENT_TODO = (
     "track_sent (the exact [N, N] sent_to sampler) is not ported yet: "
-    "ROADMAP queue 1 item 5, the track_sent path"
+    "ROADMAP queue 1 item 2, the track_sent path"
 )
 
 

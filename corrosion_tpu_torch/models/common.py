@@ -52,12 +52,12 @@ def rand_peers(key, n: int, shape, universe: Optional[int] = None,
     return peers_from_offsets(offs, u)
 
 
-def severance_matrix(oneway, device="cpu") -> torch.Tensor:
+def severance_matrix(oneway, device) -> torch.Tensor:
     """Directed-severance lookup for one-way partitions: ``[B, B]`` bool
-    where ``m[s, d]`` = traffic from block ``s`` to block ``d`` is cut.
-    Sized one past the largest listed block so clamped ids (blocks never
-    named by a pair) land on an all-False pad row/column — unlisted
-    directions always flow."""
+    on ``device`` where ``m[s, d]`` = traffic from block ``s`` to block
+    ``d`` is cut.  Sized one past the largest listed block so clamped
+    ids (blocks never named by a pair) land on an all-False pad
+    row/column — unlisted directions always flow."""
     b = max(max(s, d) for s, d in oneway) + 2
     m = torch.zeros((b, b), dtype=torch.bool)
     for s, d in oneway:

@@ -238,6 +238,7 @@ def test_port_imports_neither_jax_nor_the_jax_package():
     code = (
         "import sys\n"
         "import corrosion_tpu_torch.sim.epidemic\n"
+        "import corrosion_tpu_torch.sim.calibrate\n"
         "import corrosion_tpu_torch.convert\n"
         "import corrosion_tpu_torch.profile_tick, chip_smoke\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in "
