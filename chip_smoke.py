@@ -6,7 +6,7 @@
 Needs one CUDA card and ``nvcc``; imports nothing of JAX or of the JAX
 package.  Phases, each ending the run with a non-zero exit on failure:
 
-1. print the card's name and power limit, build the five kernel sources
+1. print the card's name and power limit, build the seven kernel sources
    of this checkout (one ``nvcc`` per source, in parallel) and record
    threefry's opcode counts (``cuobjdump -sass``);
 2. hold the perm-fanout kernels against their plain PyTorch versions
@@ -36,7 +36,24 @@ package.  Phases, each ending the run with a non-zero exit on failure:
 7. run both exact kernels at 1024 nodes x 2 seeds on the card and on
    the CPU, on tests/test_frontier.py's headline shape and four
    scenario families, and require every leaf (bitmap or ring included),
-   the per-tick statistics and the run's stats dict to be equal.
+   the per-tick statistics and the run's stats dict to be equal;
+8. hold ``seq_sync`` and ``seq_stats`` against their plain versions at
+   config #4's full width (10k nodes x 32 seeds, 64 seqs) at ticks 1
+   and 20, and the SWIM kernels (``swim_tick``: probe/select, spread,
+   gather, settle) at N = 64 and 4096 at a tick during suspicion, the
+   revive tick, a 15%-loss tick, a tick without gossip targets and a
+   crafted-tie state at 8 gossip entries, every leaf bitwise; time each
+   kernel with CUDA events;
+9. run config #4 (``run_anti_entropy_seeds``, 10k x 32 seeds), config
+   #2 (``run_churn``, 64 nodes) and the 4096-node churn cycle on the
+   card, each with the launch counters zeroed just before, and hold
+   them to the reference's numbers (converged 1.0, ticks 32/37,
+   msgs/node 73.2255; detect 15, rejoin 4, 4.982421875 msgs/node/tick;
+   detect and rejoin None, 4.99986 msgs/node/tick);
+10. run anti-entropy at 1000 nodes x 4 seeds (default, and 3 peers with
+    a budget of 2) and SWIM at 256 nodes over two 128-tick churn cycles
+    (lossless and 15% loss) on the card and on the CPU, and require
+    every leaf per tick and the stats to be equal.
 
 Prints the card line, the ``kernels`` JSON line and, last, the
 ``{"ok": true, "device": ...}`` line; writes the full record (with
@@ -743,14 +760,449 @@ def exact_equal(cfg, seeds: int, sparse: bool, dev, label: str) -> dict:
     return {"ticks_compared": gpu.tick, "stats": runs[0]}
 
 
+# -- anti-entropy (config #4) and SWIM churn (config #2) ------------------
+
+# the reference's numbers on the CPU (seed 0): config #4 at 10k x 32
+# seeds, config #2 at 64 nodes, and the 4096-node churn cycle, whose
+# detection does not finish in the reference either
+CONFIG4_WANT = dict(converged_frac=1.0, ticks_p50=32.0, ticks_p99=37.0,
+                    msgs_per_node_mean=73.22553253173828, ticks_run=40)
+CONFIG2_WANT = dict(detect_latency=15, rejoin_latency=4,
+                    msgs_per_node_per_tick=4.982421875, ticks_run=64)
+CHURN4096_WANT = dict(detect_latency=None, rejoin_latency=None,
+                      msgs_per_node_per_tick=4.999860763549805,
+                      ticks_run=128)
+AE_TICKS = (1, 20)  # phase 8's anti-entropy ticks
+SWIM_SIZES = (64, 4096)  # phase 8's SWIM clusters; the last is timed
+SWIM_KERNELS = ("swim_probe_select", "swim_spread", "swim_gather",
+                "swim_settle")
+
+
+def ae_state_at(cfg, seeds: int, tick: int, dev):
+    """Config ``cfg``'s seed-flattened carry after ``tick`` ticks of
+    ``run_anti_entropy_seeds(seed=0)``, reached through the port on
+    ``dev``."""
+    from corrosion_tpu_torch.models.sync import seq_sync_step
+    from corrosion_tpu_torch.random import PRNGKey, fold_in
+    from corrosion_tpu_torch.sim import antientropy as ae
+
+    flat = replace(cfg, n_universes=seeds)
+    bits, msgs = ae.anti_entropy_init(flat, device=dev)
+    for t in range(tick):
+        bits, msgs = seq_sync_step(bits, msgs, fold_in(PRNGKey(0), t),
+                                   flat.params)
+    return flat, bits, msgs
+
+
+def seq_sync_checks(dev) -> list:
+    """Phase 8a: ``seq_sync`` and ``seq_stats`` against their plain
+    versions at config #4's full width (10k x 32 seeds) on the inputs
+    of ticks ``AE_TICKS``, timed at the last (each call behind a
+    GPU-side sleep, so the host's enqueue stays out of the time)."""
+    from corrosion_tpu_torch.kernels import seq_sync as ks
+    from corrosion_tpu_torch.random import (
+        PRNGKey,
+        fold_in,
+        key_words,
+        randint_span,
+        split,
+    )
+    from corrosion_tpu_torch.sim.antientropy import CONFIG4, CONFIG4_SEEDS
+
+    err_sync = err_stats = 0.0
+    for tick in AE_TICKS:
+        flat, bits, msgs = ae_state_at(CONFIG4, CONFIG4_SEEDS, tick - 1, dev)
+        p = flat.params
+        k_peers, k_drop = split(fold_in(PRNGKey(0), tick - 1))
+        peer_keys = tuple(key_words(k) for k in split(k_peers))
+        span, mult = randint_span(1, p.universe)
+        args = (bits, msgs, peer_keys, key_words(k_drop), p.universe, span,
+                mult)
+        kw = dict(peers_per_round=p.peers_per_round,
+                  seqs_per_chunk=p.seqs_per_chunk,
+                  chunk_budget=p.chunk_budget, loss=p.loss,
+                  handshake_msgs=p.handshake_msgs)
+        got = ks.seq_sync(*args, **kw)
+        want = ks.seq_sync_plain(*args, **kw)
+        err_sync = max(err_sync, max_abs_err(got, want))
+        s_got = ks.seq_stats(got[0], got[1], CONFIG4_SEEDS)
+        s_want = ks.seq_stats_plain(got[0], got[1], CONFIG4_SEEDS,
+                                    torch.empty_like(s_got))
+        err_stats = max(err_stats, max_abs_err([s_got], [s_want]))
+    # the kernel's other paths on random bitmaps: byte loads (S % 16 !=
+    # 0), two 64-bit masks, several peers, lost chunks, budget cuts
+    g = torch.Generator().manual_seed(3)
+    for seqs, peers, budget, spc, loss in ((40, 3, 2, 4, 0.3),
+                                           (128, 2, 32, 3, 0.5),
+                                           (100, 1, 5, 8, 0.15)):
+        n_small = 2000
+        rb = (torch.rand((n_small, seqs), generator=g) < 0.4).to(dev)
+        rm = torch.randint(0, 50, (n_small,), generator=g,
+                           dtype=torch.int32).to(dev)
+        span_s, mult_s = randint_span(1, 500)
+        sargs = (rb, rm, peer_keys, key_words(k_drop), 500, span_s, mult_s)
+        skw = dict(peers_per_round=peers, seqs_per_chunk=spc,
+                   chunk_budget=budget, loss=loss, handshake_msgs=3)
+        err_sync = max(err_sync, max_abs_err(
+            ks.seq_sync(*sargs, **skw), ks.seq_sync_plain(*sargs, **skw)))
+        s_got = ks.seq_stats(rb, rm, 4)
+        err_stats = max(err_stats, max_abs_err(
+            [s_got], [ks.seq_stats_plain(rb, rm, 4, torch.empty_like(s_got))]))
+    if err_sync != 0.0 or err_stats != 0.0:
+        fail(f"seq_sync / seq_stats differ from their plain versions "
+             f"(max |diff| {err_sync}, {err_stats})")
+    n, seqs = bits.shape
+    s_got = ks.seq_stats(got[0], got[1], CONFIG4_SEEDS)
+    out = torch.empty_like(s_got)
+    shape = (f"{CONFIG4_SEEDS} seeds x {CONFIG4.n_nodes}, {seqs} seqs, "
+             f"tick {AE_TICKS[-1]}")
+    res = [
+        dict(name="seq_sync", route="cuda",
+             source="corrosion_tpu_torch/kernels/csrc/seq_sync.cu",
+             replaces="corrosion_tpu/models/sync.py:167",
+             max_abs_err=err_sync,
+             ms=time_inplace_ms(lambda: None,
+                                lambda: ks.seq_sync(*args, **kw), 20),
+             plain_ms=time_ms(lambda: ks.seq_sync_plain(*args, **kw), 3),
+             # own row, one peer row per draw, the written row; msgs read
+             # and written
+             bound=(n * seqs * (2 + p.peers_per_round) + 8 * n, 0),
+             library_ms=None, shape=shape),
+        dict(name="seq_stats", route="cuda",
+             source="corrosion_tpu_torch/kernels/csrc/seq_sync.cu",
+             replaces="corrosion_tpu/sim/antientropy.py:77",
+             max_abs_err=err_stats,
+             ms=time_inplace_ms(lambda: None, lambda: ks.seq_stats(
+                 got[0], got[1], CONFIG4_SEEDS, out=out), 20),
+             plain_ms=time_ms(lambda: ks.seq_stats_plain(
+                 got[0], got[1], CONFIG4_SEEDS, out), 3),
+             bound=(nbytes(got[0], got[1], out), 0),
+             library_ms=None, shape=shape),
+    ]
+    for r in res:
+        set_bound(r)
+    return res
+
+
+def churn_state_at(cfg, tick: int, dev, **overrides):
+    """``run_churn(cfg)``'s state before tick ``tick`` (through the port
+    on ``dev``, ``cfg.params`` with ``overrides``), the params, and the
+    tick's (key, alive, revived, victim)."""
+    from corrosion_tpu_torch.models.swim import swim_init, swim_step
+    from corrosion_tpu_torch.random import PRNGKey, fold_in
+    from corrosion_tpu_torch.sim.churn import _schedule
+
+    params = replace(cfg.params, **overrides)
+
+    def inputs(t):
+        victim, dead, rev = _schedule(cfg, t)
+        alive = torch.ones(cfg.n_nodes, dtype=torch.bool, device=dev)
+        revived = torch.zeros(cfg.n_nodes, dtype=torch.bool, device=dev)
+        alive[victim] = not dead
+        revived[victim] = rev
+        return fold_in(PRNGKey(0), t), alive, revived, victim
+
+    state = swim_init(cfg.n_nodes, device=dev)
+    for t in range(tick):
+        key, alive, revived, _ = inputs(t)
+        state = swim_step(state, key, t, params, alive, revived=revived)
+    return state, params, inputs(tick)
+
+
+def crafted_tie_state(n: int):
+    """A state whose update_tx + uniform scores tie in most entries
+    (update_tx at 2**24 and 2**24 + 2, a limit far above): the selection
+    must break ties by the lower index first."""
+    from corrosion_tpu_torch.models.swim import SwimState
+
+    g = torch.Generator().manual_seed(11)
+    base = 2**24
+    return SwimState(
+        view=torch.randint(0, 3, (n, n), generator=g, dtype=torch.int32),
+        suspect_since=torch.full((n, n), 2**31 - 1, dtype=torch.int32),
+        incarnation=torch.zeros(n, dtype=torch.int32),
+        msgs=torch.zeros(n, dtype=torch.int32),
+        update_tx=base + 2 * torch.randint(0, 2, (n, n), generator=g,
+                                           dtype=torch.int32),
+    )
+
+
+def swim_kernel_checks(dev):
+    """Phase 8b: the SWIM kernels against their plain version on the
+    card, every leaf and the victim counters bitwise, at N = 64 and
+    4096: a tick during suspicion, the revive tick, a loss = 0.15 run,
+    a run without gossip targets (no gossip pass) and a crafted-tie
+    state at the widest gossip the kernel takes (``MAX_ENTRIES``); each
+    kernel timed at N = 4096's suspicion tick (CUDA events around each
+    launch, the host's enqueue hidden behind a GPU-side sleep)."""
+    from corrosion_tpu_torch.kernels import swim as ksw
+    from corrosion_tpu_torch.models.swim import SwimState
+    from corrosion_tpu_torch.sim.churn import ChurnConfig
+
+    checks, timed = [], None
+    for n in SWIM_SIZES:
+        cfg = ChurnConfig(n_nodes=n)
+        cases = [("suspicion", cfg.kill_tick + 3, {}),
+                 ("revive", cfg.revive_tick, {}),
+                 ("loss_0.15", cfg.kill_tick + 6, dict(loss=0.15)),
+                 ("no_gossip_targets", cfg.kill_tick + 3,
+                  dict(gossip_targets=0))]
+        for label, tick, overrides in cases:
+            state, params, (key, alive, revived, victim) = churn_state_at(
+                cfg, tick, dev, **overrides)
+            fa = torch.zeros(2, dtype=torch.int32, device=dev)
+            fb = torch.zeros_like(fa)
+            got = ksw.swim_tick(*state, key, tick, params, alive, revived,
+                                victim=victim, flags=fa)
+            want = ksw.swim_tick_plain(*state, ksw.tick_keys(key), tick,
+                                       params, alive, revived, victim, fb)
+            err = max_abs_err([*got, fa], [*want, fb])
+            checks.append(dict(n=n, case=label, tick=tick, max_abs_err=err,
+                               differs=[f for f, x, y in zip(
+                                   SwimState._fields, got, want)
+                                   if not torch.equal(x, y)],
+                               flags=fa.tolist()))
+            if n == SWIM_SIZES[-1] and label == "suspicion":
+                timed = swim_times(ksw, state, key, tick, params, alive,
+                                   revived)
+        tie = SwimState(*(t.to(dev) for t in crafted_tie_state(n)))
+        params = replace(cfg.params, update_tx_limit=2**30, loss=0.15,
+                         gossip_entries=ksw.MAX_ENTRIES)
+        alive = torch.ones(n, dtype=torch.bool, device=dev)
+        got = ksw.swim_tick(*tie, key, 3, params, alive)
+        want = ksw.swim_tick_plain(*tie, ksw.tick_keys(key), 3, params,
+                                   alive)
+        checks.append(dict(n=n, case="crafted_ties", tick=3,
+                           max_abs_err=max_abs_err(got, want),
+                           differs=[f for f, x, y in zip(
+                               SwimState._fields, got, want)
+                               if not torch.equal(x, y)]))
+    for c in checks:
+        if c["max_abs_err"] != 0.0 or c["differs"]:
+            fail(f"swim kernels differ from their plain version: {c}")
+    err = max(c["max_abs_err"] for c in checks)
+    res = []
+    for name, line in (("swim_probe_select", 108), ("swim_spread", 233),
+                       ("swim_gather", 253), ("swim_settle", 277)):
+        t = timed[name]
+        res.append(dict(
+            name=name, route="cuda",
+            source="corrosion_tpu_torch/kernels/csrc/swim.cu",
+            replaces=f"corrosion_tpu/models/swim.py:{line}",
+            max_abs_err=err, ms=t["ms"], plain_ms=timed["plain_ms"],
+            bound=t["bound"], library_ms=None,
+            shape=f"N = {SWIM_SIZES[-1]}, tick {cfg.kill_tick + 3}, "
+                  f"{t['launches']} launch(es) a tick; plain_ms is the "
+                  "whole tick's"))
+        set_bound(res[-1])
+    return res, checks, timed
+
+
+def swim_times(ksw, state, key, tick, params, alive, revived,
+               reps: int = 10) -> dict:
+    """Device ms of each kernel's launch (mean over ``reps`` ticks on the
+    same inputs and over its launches in a tick), the whole tick's ms
+    and the plain version's, with each kernel's bound from this tick's
+    data (bytes, INT32-pipe operations; a launch's mean where a tick
+    launches it more than once)."""
+    from corrosion_tpu_torch.kernels.threefry import threefry_bits_plain
+    from corrosion_tpu_torch.models.common import peers_from_offsets
+    from corrosion_tpu_torch.random import randint_span
+
+    n = state.view.shape[0]
+    keys = ksw.tick_keys(key)
+    order = ksw.launch_order(params.gossip_targets)
+    names = [fn.__name__ for fn, _ in order]
+    per = dict.fromkeys(SWIM_KERNELS, 0.0)
+    tick_ms = 0.0
+    for r in range(reps + 1):
+        launch = ksw.prepare(*state, keys, tick, params, alive, revived)
+        events = [torch.cuda.Event(enable_timing=True)
+                  for _ in range(len(order) + 1)]
+        torch.cuda.synchronize()
+        torch.cuda._sleep(SLEEP_CYCLES)  # covers the seven enqueues
+        events[0].record()
+        for (fn, extra), ev in zip(order, events[1:]):
+            fn(launch, *extra)
+            ev.record()
+        torch.cuda.synchronize()
+        if r == 0:
+            continue  # warm
+        for name, a, b in zip(names, events, events[1:]):
+            per[name] += a.elapsed_time(b) / reps
+        tick_ms += events[0].elapsed_time(events[-1]) / reps
+    plain_ms = time_ms(lambda: ksw.swim_tick_plain(
+        *state, keys, tick, params, alive, revived), 3)
+
+    # what this tick's data makes each kernel move
+    w = launch.work
+    mat = 4 * n * n  # one [N, N] int32 leaf
+    entries = w["ge"].numel()
+    sendable = w["sendable"].bool()
+    g = params.gossip_targets
+    span, mult = randint_span(1, max(n, 2))
+    offs = torch.empty((n, g), dtype=torch.int32, device=state.view.device)
+    threefry_bits_plain(offs, *keys["gt"], span=span, mult=mult, minval=1)
+    gt = peers_from_offsets(offs, n).long()
+    ok = (alive[:, None, None] & alive[gt][:, :, None]
+          & sendable[:, None, :])
+    if params.loss > 0.0:
+        u = torch.empty(ok.shape, dtype=torch.float32, device=ok.device)
+        ok &= threefry_bits_plain(u, keys["gloss"]) >= params.loss
+    probe = w["probe"].long()
+    per_row = sendable.sum(dim=1)
+    scatters = {  # cells each pass scatters into
+        ksw.GOSSIP: int(ok.sum()),
+        ksw.PING: int(((probe & 1) * per_row).sum()),
+        ksw.ACK: int((((probe >> 1) & 1) * per_row[w["target"].long()]).sum()),
+    }
+    spreads = [extra[0] for fn, extra in order if fn is ksw.swim_spread]
+    hashed = int((state.update_tx < params.update_tx_limit).sum())
+    bounds = {
+        # the three inputs read, the view written, the selection written;
+        # a tie uniform for each cell under the retransmission limit
+        "swim_probe_select": (4 * mat + entries * 9,
+                              hashed * INT_PIPE_OPS_PER_UNIFORM),
+        # the selection and payload read (ge, sendable, pay), a sector
+        # for each cell scattered into
+        "swim_spread": (sum(entries * 9 + scatters[mode] * SECTOR
+                            for mode in spreads) / len(spreads), 0),
+        # ge read, the payload written, a sector for each gathered cell
+        "swim_gather": (entries * (8 + SECTOR), 0),
+        # the tick's and the input view, suspect_since and update_tx
+        # read, suspect_since and update_tx written, the selection read
+        "swim_settle": (6 * mat + entries * 5, 0),
+    }
+    launches = {name: names.count(name) for name in SWIM_KERNELS}
+    return {
+        **{name: dict(ms=per[name] / launches[name], bound=bounds[name],
+                      launches=launches[name]) for name in SWIM_KERNELS},
+        "tick_ms": tick_ms, "plain_ms": plain_ms, "scatters": scatters,
+    }
+
+
+def full_width_paths(counted) -> dict:
+    """Phase 9: config #4 (10k x 32 seeds), config #2 (64 nodes) and the
+    4096-node churn cycle through their entry points on the card, the
+    launch counters zeroed just before each; each held to the
+    reference's numbers."""
+    from corrosion_tpu_torch.sim.antientropy import (
+        CONFIG4,
+        CONFIG4_SEEDS,
+        run_anti_entropy_seeds,
+    )
+    from corrosion_tpu_torch.sim.churn import ChurnConfig, run_churn
+
+    runs = {}
+    for label, run, want, kernels_ in (
+        ("config4", lambda: run_anti_entropy_seeds(
+            CONFIG4, n_seeds=CONFIG4_SEEDS, seed=0, device="cuda"),
+         CONFIG4_WANT, ("seq_sync", "seq_stats")),
+        ("config2", lambda: run_churn(ChurnConfig(n_nodes=64), seed=0,
+                                      device="cuda"),
+         CONFIG2_WANT, SWIM_KERNELS),
+        ("churn4096", lambda: run_churn(ChurnConfig(n_nodes=4096), seed=0,
+                                        device="cuda"),
+         CHURN4096_WANT, SWIM_KERNELS),
+    ):
+        torch.cuda.synchronize()
+        for fn in counted.values():
+            fn.launches = 0
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        res = run()
+        torch.cuda.synchronize()
+        res["run_s"] = time.perf_counter() - t0
+        res["peak_mem_gb"] = torch.cuda.max_memory_allocated() / 1e9
+        res["launches"] = {name: counted[name].launches
+                           for name in kernels_}
+        runs[label] = res
+        print(f"{label}: " + json.dumps(res), flush=True)
+        for k, v in want.items():
+            ok = (res[k] == v if not isinstance(v, float)
+                  else math.isclose(res[k], v, rel_tol=1e-6))
+            if not ok:
+                fail(f"{label}: {k} = {res[k]}, the reference gives {v}")
+        idle = [name for name, c in res["launches"].items() if c == 0]
+        if idle:
+            fail(f"{label}: kernels never launched: {idle}")
+    return runs
+
+
+def ae_equal(cfg, seeds: int, dev, label: str) -> dict:
+    """Anti-entropy on the card == the plain path on the CPU: carry and
+    statistics every tick until every seed has converged, and the run's
+    stats."""
+    from corrosion_tpu_torch.kernels.seq_sync import CONVERGED, seq_stats
+    from corrosion_tpu_torch.models.sync import seq_sync_step
+    from corrosion_tpu_torch.random import PRNGKey, fold_in
+    from corrosion_tpu_torch.sim import antientropy as ae
+
+    flat = replace(cfg, n_universes=seeds)
+    gpu = ae.anti_entropy_init(flat, device=dev)
+    cpu = ae.anti_entropy_init(flat, device="cpu")
+    tick = 0
+    while tick < cfg.max_ticks:
+        key = fold_in(PRNGKey(0), tick)
+        gpu = seq_sync_step(*gpu, key, flat.params)
+        cpu = seq_sync_step(*cpu, key, flat.params)
+        tick += 1
+        for x, y in zip(gpu, cpu):
+            if not torch.equal(x.cpu(), y):
+                fail(f"{label}: card and CPU differ at tick {tick}")
+        sg, sc = seq_stats(*gpu, seeds).cpu(), seq_stats(*cpu, seeds)
+        if not torch.equal(sg, sc):
+            fail(f"{label}: tick stats differ at tick {tick}")
+        if bool((sc[:, CONVERGED] == 1.0).all()):
+            break
+    runs = [ae.run_anti_entropy_seeds(cfg, n_seeds=seeds, device=d)
+            for d in (dev, "cpu")]
+    for r in runs:
+        r.pop("wall_s")
+    if runs[0] != runs[1]:
+        fail(f"{label}: stats differ:\ncard {runs[0]}\ncpu  {runs[1]}")
+    return {"ticks_compared": tick, "stats": runs[0]}
+
+
+def churn_equal(cfg, dev, label: str) -> dict:
+    """SWIM on the card == the plain path on the CPU: every leaf and the
+    detection flags every tick of ``run_churn_cycles``' schedule, and
+    the run's stats."""
+    from corrosion_tpu_torch.models.swim import swim_init
+    from corrosion_tpu_torch.random import PRNGKey
+    from corrosion_tpu_torch.sim import churn as ch
+
+    total = cfg.cycles * cfg.cycle_period + cfg.cycle_period // 2
+    total = -(-total // cfg.chunk_ticks) * cfg.chunk_ticks
+    key = PRNGKey(0)
+    gpu = swim_init(cfg.n_nodes, device=dev)
+    cpu = swim_init(cfg.n_nodes, device="cpu")
+    one = replace(cfg, chunk_ticks=1)
+    for t in range(total):
+        gpu, fg = ch._scan_chunk(gpu, key, t, one)
+        cpu, fc = ch._scan_chunk(cpu, key, t, one)
+        for f, x, y in zip(gpu._fields, gpu, cpu):
+            if not torch.equal(x.cpu(), y):
+                fail(f"{label}: card and CPU differ in {f} at tick {t}")
+        if any((a != b).any() for a, b in zip(fg, fc)):
+            fail(f"{label}: detection flags differ at tick {t}")
+    runs = [ch.run_churn_cycles(cfg, device=d) for d in (dev, "cpu")]
+    for r in runs:
+        r.pop("wall_s")
+    if runs[0] != runs[1]:
+        fail(f"{label}: stats differ:\ncard {runs[0]}\ncpu  {runs[1]}")
+    return {"ticks_compared": total, "stats": runs[0]}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
         return 1
     sys.path.insert(0, HERE)
     from corrosion_tpu_torch import kernels
-    from corrosion_tpu_torch.kernels import deliver, exact_send, sync_pull
-    from corrosion_tpu_torch.kernels import threefry, tick_stats
+    from corrosion_tpu_torch.kernels import deliver, exact_send, seq_sync
+    from corrosion_tpu_torch.kernels import swim, sync_pull, threefry
+    from corrosion_tpu_torch.kernels import tick_stats
     from corrosion_tpu_torch.sim.epidemic import (
         HEADLINE,
         HEADLINE_SEEDS,
@@ -761,7 +1213,9 @@ def main() -> int:
     counted = {fn.__name__: fn for fn in (
         threefry.threefry_bits, deliver.deliver_perm, sync_pull.sync_pull,
         tick_stats.tick_stats, exact_send.exact_send,
-        exact_send.exact_commit)}
+        exact_send.exact_commit, seq_sync.seq_sync, seq_sync.seq_stats,
+        swim.swim_probe_select, swim.swim_spread, swim.swim_gather,
+        swim.swim_settle)}
     headline_counted = ("threefry_bits", "deliver_perm", "sync_pull",
                         "tick_stats")
     record = {}
@@ -861,7 +1315,46 @@ def main() -> int:
     print(f"exact card == CPU per tick: 1024 x 2, {len(EXACT_VARIANTS)} "
           "variants, both kernels", flush=True)
 
-    results += exact_results
+    # phase 8: the anti-entropy and SWIM kernels against their plain
+    # versions
+    ae_results = seq_sync_checks(cuda)
+    swim_results, record["swim_checks"], record["swim_times"] = (
+        swim_kernel_checks(cuda))
+    print("seq_sync / swim kernels match their plain versions: "
+          + ", ".join(f"{r['name']} {r['max_abs_err']}"
+                      for r in ae_results + swim_results), flush=True)
+
+    # phase 9: config #4, config #2 and the 4096-node churn cycle
+    paths = full_width_paths(counted)
+    record["paths"] = paths
+    for r in ae_results:
+        r["launches"] = paths["config4"]["launches"][r["name"]]
+    for r in swim_results:
+        r["launches"] = (paths["config2"]["launches"][r["name"]]
+                         + paths["churn4096"]["launches"][r["name"]])
+
+    # phase 10: card == CPU per tick for both paths
+    from corrosion_tpu_torch.sim.antientropy import AntiEntropyConfig
+    from corrosion_tpu_torch.sim.churn import ChurnConfig
+
+    for label, kw in (("default", {}),
+                      ("three_peers_budget_2", dict(peers_per_round=3,
+                                                    chunk_budget=2))):
+        record[f"ae_equal_{label}"] = ae_equal(
+            AntiEntropyConfig(n_nodes=1000, **kw), 4, cuda,
+            f"anti-entropy {label}")
+    churn_cfg = ChurnConfig(n_nodes=256, cycles=2, cycle_period=128,
+                            kill_tick=4, revive_tick=96)
+    for label, cfg in (
+        ("lossless", churn_cfg),
+        ("loss_0.15", replace(churn_cfg, params=replace(churn_cfg.params,
+                                                        loss=0.15))),
+    ):
+        record[f"churn_equal_{label}"] = churn_equal(cfg, cuda,
+                                                     f"churn {label}")
+    print("anti-entropy and churn card == CPU per tick", flush=True)
+
+    results += exact_results + ae_results + swim_results
     record["kernels"] = results
     with open(kernels.BUILD_DIR / "chip_smoke.json", "w") as f:
         json.dump(record, f, indent=1, default=str)
@@ -870,6 +1363,11 @@ def main() -> int:
         "converged_frac", "ticks_p50", "ticks_p99", "msgs_per_node_mean",
         "msgs_per_node_p99", "seed_batch", "wall_s", "peak_mem_gb")}
         for k, v in runs.items()}}), flush=True)
+    print(json.dumps({"paths": {k: {f: v.get(f) for f in (
+        "converged_frac", "ticks_p50", "ticks_p99", "msgs_per_node_mean",
+        "detect_latency", "rejoin_latency", "msgs_per_node_per_tick",
+        "ticks_run", "wall_s", "peak_mem_gb")}
+        for k, v in paths.items()}}), flush=True)
     line = {"kernels": [
         {key: r[key] for key in (
             "name", "route", "source", "replaces", "launches",

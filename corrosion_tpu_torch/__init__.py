@@ -1,9 +1,13 @@
 """PyTorch/CUDA port of the corrosion_tpu convergence simulator.
 
 The JAX package ``corrosion_tpu`` is the reference; this package mirrors
-its layout (``ops/``, ``models/``, ``sim/``) so each module's
-counterpart is easy to find, and runs the headline epidemic simulation
-through four hand-written CUDA kernels (``kernels/``).
+its layout (``ops/``, ``models/``, ``sim/``, ``utils/``) so each
+module's counterpart is easy to find, and runs the headline epidemic
+simulation, the exact-sampler column, anti-entropy reassembly and SWIM
+churn through hand-written CUDA kernels (``kernels/``).  The entry
+points: ``sim.run_epidemic_seeds``, ``sim.calibrate.run_exact_headline``,
+``sim.run_anti_entropy_seeds``, ``sim.run_churn`` and
+``sim.run_churn_cycles``.
 
 Every entry point takes an explicit ``device`` (default ``"cuda"``).
 Asking for ``"cuda"`` without a card raises; pass ``device="cpu"`` for

@@ -2,11 +2,12 @@
 port.
 
 The simulator has no weights; its state plays that role.  A reference
-``EpidemicState``, ``PackedExactState`` or ``FrontierExactState`` (any
-NamedTuple or mapping with its fields, the values numpy arrays or
-anything ``np.asarray`` takes) becomes the port's tensors on a given
-device, and back, so both sides can start from the same state and
-keys.  An exact-sampler state may be one seed's (leaves [N, ...], as
+``EpidemicState``, ``PackedExactState``, ``FrontierExactState`` or
+``SwimState`` (any NamedTuple or mapping with its fields, the values
+numpy arrays or anything ``np.asarray`` takes), or an anti-entropy
+carry ``(bits, msgs)``, becomes the port's tensors on a given device,
+and back, so both sides can start from the same state and keys.  An
+exact-sampler state may be one seed's (leaves [N, ...], as
 ``packed_exact_tick`` holds it) or a seed batch's (leaves [S, N, ...]
 and ticks [S], as the vmapped runners hold it); the port's always has
 the seed axis.
@@ -19,6 +20,7 @@ import torch
 
 from corrosion_tpu_torch import resolve_device
 from corrosion_tpu_torch.models.broadcast import TRACK_SENT_TODO
+from corrosion_tpu_torch.models.swim import SwimState
 from corrosion_tpu_torch.random import key_words
 from corrosion_tpu_torch.sim.calibrate import (
     FrontierExactState,
@@ -107,6 +109,36 @@ def exact_state_to_numpy(state) -> dict:
            if f != "tick"}
     out["tick"] = int(state.tick)
     return out
+
+
+def anti_entropy_from_numpy(carry, device="cuda") -> tuple:
+    """The port's anti-entropy carry (bits [N, S] bool, msgs [N] int32)
+    on ``device`` from a reference ``(bits, msgs)``."""
+    device = resolve_device(device)
+    bits, msgs = carry
+    return (torch.from_numpy(np.array(bits, dtype=np.bool_)).to(device),
+            torch.from_numpy(np.array(msgs, dtype=np.int32)).to(device))
+
+
+def anti_entropy_to_numpy(carry) -> tuple:
+    """(bits, msgs) numpy arrays of a port anti-entropy carry."""
+    return tuple(t.cpu().numpy() for t in carry)
+
+
+def swim_state_from_numpy(state, device="cuda") -> SwimState:
+    """The port's ``SwimState`` on ``device`` from a reference one given
+    as numpy arrays (every leaf int32)."""
+    device = resolve_device(device)
+    d = _fields(state)
+    return SwimState(**{
+        f: torch.from_numpy(np.array(d[f], dtype=np.int32)).to(device)
+        for f in SwimState._fields
+    })
+
+
+def swim_state_to_numpy(state: SwimState) -> dict:
+    """{field: numpy array} of a port ``SwimState``."""
+    return {f: getattr(state, f).cpu().numpy() for f in SwimState._fields}
 
 
 def key_from_numpy(key) -> torch.Tensor:

@@ -8,12 +8,12 @@ rebuilds), one ``nvcc`` per source, all started together.  ``load``
 opens a library with ctypes, building it first when it is missing.
 
 Each kernel module (``threefry``, ``deliver``, ``sync_pull``,
-``tick_stats``, ``exact_send``) holds the wrapper, the kernel's plain
-PyTorch version and a launch counter.  The wrapper takes the plain version only for
-tensors on the CPU; for CUDA tensors it launches the kernel or raises.
-Kernels run on PyTorch's current stream and allocate nothing: wrappers
-allocate outputs with ``torch.empty`` and check the launch's
-``cudaGetLastError`` code.
+``tick_stats``, ``exact_send``, ``seq_sync``, ``swim``) holds the
+wrapper, the kernel's plain PyTorch version and a launch counter.  The
+wrapper takes the plain version only for tensors on the CPU; for CUDA
+tensors it launches the kernel or raises.  Kernels run on PyTorch's
+current stream and allocate nothing: wrappers allocate outputs with
+``torch.empty`` and check the launch's ``cudaGetLastError`` code.
 """
 
 from __future__ import annotations
@@ -30,7 +30,7 @@ import torch
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent / "build"
 KERNELS = ("threefry", "deliver_perm", "sync_pull", "tick_stats",
-           "exact_send")
+           "exact_send", "seq_sync", "swim")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",

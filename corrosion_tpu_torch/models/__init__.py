@@ -1,2 +1,2 @@
-"""Protocol models: gossip broadcast and anti-entropy sync (port of
-``corrosion_tpu.models``)."""
+"""Protocol models: gossip broadcast, anti-entropy sync and SWIM
+membership (port of ``corrosion_tpu.models``)."""

@@ -1,13 +1,16 @@
-"""Where the time goes on the card, for the headline and the exact
-column.
+"""Where the time goes on the card, for the headline, the exact
+column, anti-entropy and SWIM churn.
 
     python -m corrosion_tpu_torch.profile_tick
 
-Times three pieces of work: one chunk (16 ticks; the headline
+Times six pieces of work: one chunk (16 ticks; the headline
 converges within it) of the headline epidemic (100k nodes x 32 seeds)
-from its initial state, and the two full-width exact-sampler runs
+from its initial state; the two full-width exact-sampler runs
 (``run_exact_headline`` on ``sim.calibrate.EXACT_DENSE`` x 16 seeds and
-``EXACT_SPARSE`` x 4 seeds, set-up and all chunks included).  Each is
+``EXACT_SPARSE`` x 4 seeds, set-up and all chunks included); the whole
+config #4 run (``run_anti_entropy_seeds``, 10k nodes x 32 seeds); and
+the first 32-tick chunk of the churn schedule at 64 (config #2) and
+4096 nodes from the initial state.  Each is
 run first untimed to warm up, then ``REPS`` times with a host clock
 around work that ends in ``torch.cuda.synchronize()``, then ``REPS``
 times under ``torch.profiler``, each of those with its own host clock.
@@ -30,8 +33,9 @@ from dataclasses import replace
 import torch
 
 from corrosion_tpu_torch import resolve_device
+from corrosion_tpu_torch.models.swim import swim_init
 from corrosion_tpu_torch.random import PRNGKey
-from corrosion_tpu_torch.sim import calibrate
+from corrosion_tpu_torch.sim import antientropy, calibrate, churn
 from corrosion_tpu_torch.sim.epidemic import (
     HEADLINE,
     HEADLINE_SEEDS,
@@ -111,6 +115,23 @@ def exact_run(cfg, seeds: int, kernel: str):
     return prepare
 
 
+def anti_entropy_run(cfg, seeds: int):
+    """A whole ``run_anti_entropy_seeds`` call."""
+    def prepare():
+        return lambda: antientropy.run_anti_entropy_seeds(
+            cfg, n_seeds=seeds, device="cuda")
+    return prepare
+
+
+def churn_chunk(cfg):
+    """The first chunk of ``cfg``'s churn schedule from the initial
+    state (made untimed)."""
+    def prepare():
+        state = swim_init(cfg.n_nodes, device="cuda")
+        return lambda: churn._scan_chunk(state, PRNGKey(0), 0, cfg)
+    return prepare
+
+
 def main() -> int:
     argparse.ArgumentParser(description=__doc__.splitlines()[0]).parse_args()
     cfg = replace(HEADLINE, n_universes=HEADLINE_SEEDS)
@@ -125,6 +146,13 @@ def main() -> int:
     ):
         out[label] = profile(exact_run(ecfg, seeds, kernel),
                              nodes=ecfg.n_nodes, seeds=seeds, kernel=kernel)
+    out["anti_entropy_config4"] = profile(
+        anti_entropy_run(antientropy.CONFIG4, antientropy.CONFIG4_SEEDS),
+        nodes=antientropy.CONFIG4.n_nodes, seeds=antientropy.CONFIG4_SEEDS)
+    for n in (64, 4096):
+        ccfg = churn.ChurnConfig(n_nodes=n)
+        out[f"churn_{n}_chunk"] = profile(churn_chunk(ccfg), nodes=n,
+                                          ticks=ccfg.chunk_ticks)
     print(json.dumps(out))
     return 0
 
