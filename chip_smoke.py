@@ -6,7 +6,7 @@
 Needs one CUDA card and ``nvcc``; imports nothing of JAX or of the JAX
 package.  Phases, each ending the run with a non-zero exit on failure:
 
-1. print the card's name and power limit, build the seven kernel sources
+1. print the card's name and power limit, build the eight kernel sources
    of this checkout (one ``nvcc`` per source, in parallel) and record
    threefry's opcode counts (``cuobjdump -sass``);
 2. hold the perm-fanout kernels against their plain PyTorch versions
@@ -53,7 +53,27 @@ package.  Phases, each ending the run with a non-zero exit on failure:
 10. run anti-entropy at 1000 nodes x 4 seeds (default, and 3 peers with
     a budget of 2) and SWIM at 256 nodes over two 128-tick churn cycles
     (lossless and 15% loss) on the card and on the CPU, and require
-    every leaf per tick and the stats to be equal.
+    every leaf per tick and the stats to be equal;
+11. hold ``sent_select`` and ``sent_commit`` (the exact ``sent_to``
+    sampler) against their plain versions, every output leaf bitwise
+    (``sent`` included): calibration mode at ``ExactConfig(16000)``
+    seed 0 at tick 1 and at its busiest tick, which must hold active
+    rows with tied scores in their k + 1 smallest; broadcast mode at
+    512 nodes x 8 seeds on ``sim_trace``'s config (with int32 keys and
+    with int64 keys) and on two variants (10% loss, a one-way partition
+    in force, hops; WAN drop or RTT tiers); time both kernels behind a
+    GPU-side sleep;
+12. run ``run_msgs_calibration(ns=(1000, 4000, 16000), seeds=3)``, the
+    ``sim_trace`` config at 64, 256 and 512 nodes x 8 seeds and
+    ``sim_obs_trace``'s (sync every 8 ticks) at 512 x 8 on the card,
+    each with the launch counters zeroed just before, and hold them to
+    ``CALIB_MSGS.json``'s points, ``SIMDIFF_N*.json``'s sim numbers and
+    the reference's numbers (hard-coded here);
+13. run ``exact_tick`` at 2000 nodes (a short last sender chunk,
+    backoff 1.5) and the ``track_sent`` runner at 256 nodes x 4 seeds
+    (phase 11's variants and ``sim_obs_trace``'s) on the card and on
+    the CPU, and require every leaf per tick and the results to be
+    equal.
 
 Prints the card line, the ``kernels`` JSON line and, last, the
 ``{"ok": true, "device": ...}`` line; writes the full record (with
@@ -355,13 +375,16 @@ def set_bound(r: dict) -> None:
 
 
 def states_equal(a, b) -> bool:
-    for f in ("rows", "tx_remaining", "msgs", "hops", "next_send"):
-        x, y = getattr(a, f), getattr(b, f)
-        if (x is None) != (y is None):
+    """Every leaf of two states of one type equal (tensors compared on
+    the host; ints and None as values)."""
+    for x, y in zip(a, b):
+        tx, ty = isinstance(x, torch.Tensor), isinstance(y, torch.Tensor)
+        if tx or ty:
+            if not (tx and ty and torch.equal(x.cpu(), y.cpu())):
+                return False
+        elif x != y:
             return False
-        if x is not None and not torch.equal(x.cpu(), y.cpu()):
-            return False
-    return a.tick == b.tick
+    return True
 
 
 # phase 4's variants of the headline at 1024 nodes: the kernel paths
@@ -1194,6 +1217,413 @@ def churn_equal(cfg, dev, label: str) -> dict:
     return {"ticks_compared": total, "stats": runs[0]}
 
 
+# -- the exact sent_to sampler (calibration and track_sent) ---------------
+
+SENT_SOURCE = "corrosion_tpu_torch/kernels/csrc/sent_sampler.cu"
+SENT_KERNELS = ("sent_select", "sent_commit")
+# CALIB_MSGS.json's points, which the reference reproduces digit for digit
+CALIB_WANT = [
+    dict(n=1000, msgs_exact=10.04, msgs_perm=6.26, exact_over_perm=1.604,
+         exact_converged_ticks=[7, 7, 7], perm_ticks_p50=6.0, seeds=3),
+    dict(n=4000, msgs_exact=10.6, msgs_perm=6.8, exact_over_perm=1.558,
+         exact_converged_ticks=[8, 8, 8], perm_ticks_p50=7.0, seeds=3),
+    dict(n=16000, msgs_exact=12.41, msgs_perm=7.34, exact_over_perm=1.69,
+         exact_converged_ticks=[10, 9, 9], perm_ticks_p50=8.0, seeds=3),
+]
+# SIMDIFF_N64/256/512.json's "sim" numbers (sim_trace, 8 seeds, no sync)
+SIMDIFF_WANT = {
+    64: dict(converged_frac=1.0, ticks_p50=6.0, ticks_p99=7.0,
+             msgs_per_node_mean=4.53515625, hops_p50=3.0,
+             hops_p99=4.921249866485596),
+    256: dict(converged_frac=1.0, ticks_p50=12.0, ticks_p99=13.0,
+              msgs_per_node_mean=6.9990234375, hops_p50=4.0, hops_p99=6.0),
+    512: dict(converged_frac=1.0, ticks_p50=12.5, ticks_p99=14.0,
+              msgs_per_node_mean=7.301513671875, hops_p50=4.125,
+              hops_p99=6.875),
+}
+# sim_obs_trace's config (sync every 8 ticks, 16-tick chunks) at 512
+# nodes x 8 seeds: the reference's numbers on the CPU (seed 0)
+OBS512_WANT = dict(converged_frac=1.0, ticks_p50=8.0, ticks_p99=8.0,
+                   msgs_per_node_mean=6.52197265625,
+                   msgs_per_node_p99=10.361244201660156, hops_p50=4.125,
+                   hops_p99=6.875, hops_broadcast_frac=0.9912109375)
+SENT_CHECK_TICK = 4  # phase 11's broadcast tick: the partition holds
+SENT_FAULTS = dict(loss=0.1, partition_blocks=2, heal_tick=8,
+                   oneway_blocks=((0, 1),))
+
+
+def sent_variants(n: int) -> dict:
+    """The track_sent configs of phases 11 and 13 at ``n`` nodes:
+    sim_trace's, two variants with 10% loss, a one-way partition in
+    force until tick 8 and hops, on the WAN and the tiered topology,
+    and sim_obs_trace's (sync every 8 ticks)."""
+    from corrosion_tpu_torch.sim.epidemic import sent_trace_cfg
+
+    base = sent_trace_cfg(n)
+    return {
+        "sim_trace": base,
+        "wan_faults": replace(base, topology="wan_two_region",
+                              **SENT_FAULTS),
+        "het_ring_faults": replace(base, topology="het_ring",
+                                   **SENT_FAULTS),
+        "obs_sync": sent_trace_cfg(n, sync_interval=8, chunk_ticks=16),
+    }
+
+
+def clone_state(state):
+    return type(state)(*(x.clone() if isinstance(x, torch.Tensor) else x
+                         for x in state))
+
+
+def calib_check_states(cfg, dev):
+    """Seed 0 of ``run_exact(cfg)`` advanced on the card: the inputs of
+    tick 1 and of the tick with the most active rows (clones)."""
+    from corrosion_tpu_torch.kernels.sent_sampler import active_rows
+    from corrosion_tpu_torch.random import PRNGKey, fold_in
+    from corrosion_tpu_torch.sim import calibrate as cal
+
+    key = PRNGKey(0)
+    state = cal.exact_init(cfg, device=dev)
+    picked, best = {}, (-1, None)
+    while not bool(state.infected.all()) and state.tick < cfg.max_ticks:
+        active = int(active_rows(state.tx, state.next_send, state.tick,
+                                 state.infected).sum())
+        if state.tick == 1:
+            picked[1] = clone_state(state)
+        if active > best[0]:
+            best = (active, clone_state(state))
+        state = cal.exact_tick(state, fold_in(key, state.tick), cfg)
+    picked[best[1].tick] = best[1]
+    return key, picked
+
+
+def tied_rows(select) -> int:
+    """Active rows of a calibration tick whose k + 1 smallest scores
+    hold a tie (the order among equal scores decides a target)."""
+    from corrosion_tpu_torch.kernels.sent_sampler import (
+        active_rows,
+        chunk_scores,
+    )
+
+    sent = select["sent"][0]
+    keys = select["keys"][0].tolist()
+    c, k = select["chunk"], select["fanout"]
+    active = active_rows(select["tx"], select["next_send"], select["tick"],
+                         select["infected"])[0]
+    ties = 0
+    for ck, start in enumerate(range(0, sent.shape[0], c)):
+        sc = chunk_scores(sent[start:start + c], tuple(keys[ck]), start)
+        v = torch.topk(sc, k + 1, dim=1, largest=False).values
+        tie = ((v[:, 1:] == v[:, :-1]) & (v[:, 1:] < math.inf)).any(dim=1)
+        ties += int((tie & active[start:start + c]).sum())
+        del sc, v
+    return ties
+
+
+def sent_kernel_checks(dev):
+    """Phase 11: ``sent_select`` and ``sent_commit`` against their plain
+    versions on the card at the main path's shapes, every output leaf
+    bitwise (``sent``, the counts and the fresh buffers included):
+    calibration at ``ExactConfig(16000)`` seed 0, ticks 1 and the
+    busiest tick (which must hold tied scores); broadcast at 512 nodes x
+    8 seeds on the sim_trace config and two fault variants at a tick
+    where the partition holds.  Times both kernels behind a GPU-side
+    sleep."""
+    from corrosion_tpu_torch.kernels import sent_sampler as ss
+    from corrosion_tpu_torch.models.broadcast import sent_inputs
+    from corrosion_tpu_torch.random import PRNGKey, fold_in, split
+    from corrosion_tpu_torch.sim import calibrate as cal
+    from corrosion_tpu_torch.sim.epidemic import (
+        _partition_ids,
+        sent_seeds_init,
+        sent_seeds_tick,
+    )
+
+    errs = {name: 0.0 for name in SENT_KERNELS}
+    checks, timed = [], {}
+
+    def compare(label, kernel, got, want, names):
+        err = max_abs_err(got, want)
+        errs[kernel] = max(errs[kernel], err)
+        bad = [nm for nm, x, y in zip(names, got, want)
+               if (x is None) != (y is None)
+               or x is not None and not torch.equal(x, y)]
+        return err, bad
+
+    def run_pair(mode, select, commit):
+        sent_k, sent_p = select["sent"].clone(), select["sent"].clone()
+        got = ss.sent_select(**{**select, "sent": sent_k})
+        want = ss.sent_select_plain(**{**select, "sent": sent_p})
+        sel_names = (("new_infected", "counts") if mode == "calibration"
+                     else ("new_rows", "cand", "counts"))
+        err, bad = compare(mode, "sent_select", [*got, sent_k],
+                           [*want, sent_p], [*sel_names, "sent"])
+        if mode == "calibration":
+            extra = dict(new_infected=got[0])
+        else:
+            extra = dict(new_rows=got[0], cand=got[1])
+        c_got = ss.sent_commit(got[-1], **extra, **commit)
+        c_want = ss.sent_commit_plain(got[-1], **extra, **commit)
+        c_names = (("tx", "next_send", "msgs") if mode == "calibration"
+                   else ("tx", "msgs", "hops", "next_send"))
+        c_err, c_bad = compare(mode, "sent_commit", list(c_got),
+                               list(c_want), c_names)
+        active = int(ss.active_rows(select["tx"], select["next_send"],
+                                    select["tick"],
+                                    select.get("infected")).sum())
+        return dict(max_abs_err=err, differs=bad, commit_max_abs_err=c_err,
+                    commit_differs=c_bad, active_rows=active,
+                    sends=int(got[-1].sum())), got
+
+    # -- calibration mode: ExactConfig(16000), seed 0
+    ccfg = cal.ExactConfig(16000)
+    key, states = calib_check_states(ccfg, dev)
+    ties_total = 0
+    for tick, state in sorted(states.items()):
+        select, commit = cal.exact_inputs(state, fold_in(key, tick), ccfg)
+        ties = tied_rows(select)
+        ties_total += ties
+        rec, got = run_pair("calibration", select, commit)
+        rec.update(mode="calibration", n=ccfg.n_nodes, seeds=1, tick=tick,
+                   tied_rows=ties)
+        checks.append(rec)
+        if tick > 1:
+            timed.update(sent_times(ss, "calibration", select, commit, got,
+                                    rec, ccfg.n_nodes, 1))
+        del select, commit, got
+        torch.cuda.empty_cache()
+    del states
+    if ties_total == 0:
+        fail("phase 11: no active row held a tied score in its k + 1 "
+             "smallest: the tie path did not run")
+
+    # -- broadcast mode: 512 nodes x 8 seeds at SENT_CHECK_TICK
+    for label, cfg in sent_variants(512).items():
+        if label == "obs_sync":
+            continue  # its broadcast phase is sim_trace's; phase 13 runs it
+        seed_keys = list(split(PRNGKey(0), 8))
+        state = sent_seeds_init(cfg, 8, device=dev)
+        while state.tick < SENT_CHECK_TICK:
+            state = sent_seeds_tick(
+                state, [fold_in(k, state.tick) for k in seed_keys], cfg)
+        pairs = []
+        for k in seed_keys:
+            k_b, _ = split(fold_in(k, state.tick))
+            pairs.append(tuple(split(k_b)))
+        select, commit = sent_inputs(
+            state.rows, state.tx_remaining, state.msgs, state.hops,
+            state.tick, state.next_send, state.sent, pairs,
+            cfg.broadcast_params, _partition_ids(cfg, dev),
+            state.tick < cfg.heal_tick)
+        rec, got = run_pair("broadcast", select, commit)
+        rec.update(mode="broadcast", variant=label, n=cfg.n_nodes, seeds=8,
+                   tick=state.tick,
+                   partition_in_force=state.tick < cfg.heal_tick)
+        checks.append(rec)
+        if label == "sim_trace":
+            timed.update(sent_times(ss, "broadcast", select, commit, got,
+                                    rec, cfg.n_nodes, 8))
+            # the int64 keys of a wide codec (WIDE_CODEC), on the same
+            # inputs moved into the high word
+            wide = select["rows"].to(torch.int64) * (1 << 32) + 7
+            rec, _ = run_pair("broadcast", {**select, "rows": wide},
+                              {**commit, "rows": wide})
+            rec.update(mode="broadcast", variant="sim_trace_int64",
+                       n=cfg.n_nodes, seeds=8, tick=state.tick)
+            checks.append(rec)
+    for c in checks:
+        if c["differs"] or c["commit_differs"]:
+            fail(f"sent kernels differ from their plain versions: {c}")
+    results = []
+    for name, replaces in (
+        ("sent_select", "corrosion_tpu/sim/calibrate.py:71"),
+        ("sent_commit", "corrosion_tpu/sim/calibrate.py:105"),
+    ):
+        t = timed[f"{name}/calibration"]
+        results.append(dict(
+            name=name, route="cuda", source=SENT_SOURCE, replaces=replaces,
+            max_abs_err=errs[name], library_ms=None,
+            ms=t["ms"], plain_ms=t["plain_ms"], bound=t["bound"],
+            shape=t["shape"]))
+        set_bound(results[-1])
+    for t in timed.values():
+        b, ops = t["bound"]
+        t["bound_ms"] = max(b / HBM_BYTES_PER_S, ops / INT32_OPS_PER_S) * 1e3
+    return results, checks, timed
+
+
+def sent_times(ss, mode, select, commit, got, rec, n, seeds) -> dict:
+    """Times of ``sent_select`` and ``sent_commit`` (kernel and plain) on
+    one tick's inputs, with their bounds: (bytes, INT32-pipe
+    operations)."""
+    work = select["sent"].clone()
+
+    def restore():
+        work.copy_(select["sent"])
+
+    sel = {**select, "sent": work}
+    total, active, sends = seeds * n, rec["active_rows"], rec["sends"]
+    k = select["fanout"]
+    calib = mode == "calibration"
+    if calib:
+        extra = dict(new_infected=got[0])
+        # activity reads, new_infected and counts written, the active
+        # rows' sent rows, and a sector each for a mark and an infection
+        sel_bytes = total * (9 + 5) + active * n + sends * 2 * SECTOR
+        draws = active * n
+        com_bytes = total * (18 + 12)
+    else:
+        r = select["rows"].shape[2] * select["rows"].element_size()
+        extra = dict(new_rows=got[0], cand=got[1])
+        # activity reads; new rows, counts and hop candidates written;
+        # the active rows' sent rows and own keys; a sector for a mark
+        # and one for each merged row
+        sel_bytes = (total * (8 + r + 8) + active * (n + r + 4)
+                     + sends * 2 * SECTOR)
+        draws = active * n + active * k * ((select["loss"] > 0)
+                                           + (select["region"] is not None))
+        com_bytes = total * (2 * r + 24 + 16)
+    out = {}
+    out[f"sent_select/{mode}"] = dict(
+        ms=time_inplace_ms(restore, lambda: ss.sent_select(**sel), 20),
+        plain_ms=time_inplace_ms(restore,
+                                 lambda: ss.sent_select_plain(**sel), 1, 1),
+        bound=(sel_bytes, draws * INT_PIPE_OPS_PER_UNIFORM),
+        shape=f"{mode} {seeds} x {n}, tick {select['tick']}, "
+              f"{active} active rows, {sends} sends")
+    out[f"sent_commit/{mode}"] = dict(
+        ms=time_inplace_ms(lambda: None,
+                           lambda: ss.sent_commit(got[-1], **extra, **commit),
+                           20),
+        plain_ms=time_inplace_ms(
+            lambda: None,
+            lambda: ss.sent_commit_plain(got[-1], **extra, **commit), 3),
+        bound=(com_bytes, 0),
+        shape=f"{mode} {seeds} x {n}, tick {select['tick']}")
+    return out
+
+
+# every run of phase 12 launches these; the calibration's perm column
+# and the sync variant also draw through threefry_bits
+SENT_COUNTED = ("sent_select", "sent_commit", "tick_stats")
+
+
+def sent_full_width(counted) -> dict:
+    """Phase 12: ``run_msgs_calibration`` at N = 1000, 4000 and 16000 x 3
+    seeds, the sim_trace config at 64, 256 and 512 nodes x 8 seeds and
+    sim_obs_trace's (sync) at 512 x 8 through their entry points on the
+    card, the launch counters zeroed just before each; each held to the
+    reference's numbers."""
+    from corrosion_tpu_torch.sim.calibrate import run_msgs_calibration
+    from corrosion_tpu_torch.sim.epidemic import (
+        run_epidemic_seeds,
+        sent_trace_cfg,
+    )
+
+    jobs = [("calibration", lambda: run_msgs_calibration(
+        ns=(1000, 4000, 16000), seeds=3, device="cuda"), None,
+        ("threefry_bits",))]
+    for n in SIMDIFF_WANT:
+        jobs.append((f"sim_trace_{n}", lambda n=n: run_epidemic_seeds(
+            sent_trace_cfg(n), n_seeds=8, seed=0, device="cuda"),
+            SIMDIFF_WANT[n], ()))
+    jobs.append(("obs_sync_512", lambda: run_epidemic_seeds(
+        sent_trace_cfg(512, sync_interval=8, chunk_ticks=16), n_seeds=8,
+        seed=0, device="cuda"), OBS512_WANT, ("threefry_bits", "sync_pull")))
+    runs = {}
+    for label, run, want, more in jobs:
+        torch.cuda.synchronize()
+        for fn in counted.values():
+            fn.launches = 0
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        res = run()
+        torch.cuda.synchronize()
+        res["run_s"] = time.perf_counter() - t0
+        res["peak_mem_gb"] = torch.cuda.max_memory_allocated() / 1e9
+        res["launches"] = {name: counted[name].launches
+                           for name in SENT_COUNTED + more}
+        runs[label] = res
+        print(f"{label}: " + json.dumps(res), flush=True)
+        if want is None:
+            if res["points"] != CALIB_WANT:
+                fail(f"calibration points differ from CALIB_MSGS.json: "
+                     f"{res['points']}")
+        else:
+            for k, v in want.items():
+                if not math.isclose(res[k], v, rel_tol=1e-6):
+                    fail(f"{label}: {k} = {res[k]}, the reference gives {v}")
+        idle = [name for name, c in res["launches"].items() if c == 0]
+        if idle:
+            fail(f"{label}: kernels never launched: {idle}")
+    return runs
+
+
+def calib_equal(cfg, dev, label: str) -> dict:
+    """``exact_tick`` on the card == on the CPU, every leaf every tick
+    of seed 0's run, and the ``run_exact`` results."""
+    from corrosion_tpu_torch.random import PRNGKey, fold_in
+    from corrosion_tpu_torch.sim import calibrate as cal
+
+    key = PRNGKey(0)
+    gpu = cal.exact_init(cfg, device=dev)
+    cpu = cal.exact_init(cfg, device="cpu")
+    while not bool(cpu.infected.all()) and cpu.tick < cfg.max_ticks:
+        k = fold_in(key, cpu.tick)
+        gpu, cpu = cal.exact_tick(gpu, k, cfg), cal.exact_tick(cpu, k, cfg)
+        if not states_equal(gpu, cpu):
+            fail(f"{label}: card and CPU differ at tick {cpu.tick}")
+    runs = [cal.run_exact(cfg, seed=0, device=d) for d in (dev, "cpu")]
+    for r in runs:
+        r.pop("wall_s")
+    if runs[0] != runs[1]:
+        fail(f"{label}: results differ:\ncard {runs[0]}\ncpu  {runs[1]}")
+    return {"ticks_compared": cpu.tick, "stats": runs[0]}
+
+
+def track_sent_equal(cfg, seeds: int, dev, label: str) -> dict:
+    """The ``track_sent`` runner's tick on the card == on the CPU, every
+    leaf and the tick statistics every tick until every seed has
+    converged, and the ``run_epidemic_seeds`` stats."""
+    from corrosion_tpu_torch.kernels.tick_stats import CONVERGED, tick_stats
+    from corrosion_tpu_torch.random import PRNGKey, fold_in, split
+    from corrosion_tpu_torch.sim.epidemic import (
+        run_epidemic_seeds,
+        sent_seeds_init,
+        sent_seeds_tick,
+    )
+
+    seed_keys = list(split(PRNGKey(0), seeds))
+    gpu = sent_seeds_init(cfg, seeds, device=dev)
+    cpu = sent_seeds_init(cfg, seeds, device="cpu")
+    n, r = cfg.n_nodes, cfg.n_rows
+    target = cpu.rows[0, 0].clone()
+
+    def stats(st):
+        hops = None if st.hops is None else st.hops.reshape(-1)
+        return tick_stats(st.rows.reshape(-1, r), target.to(st.rows.device),
+                          st.msgs.reshape(-1), hops, seeds).cpu()
+
+    while cpu.tick < cfg.max_ticks:
+        keys = [fold_in(k, cpu.tick) for k in seed_keys]
+        gpu = sent_seeds_tick(gpu, keys, cfg)
+        cpu = sent_seeds_tick(cpu, keys, cfg)
+        if not states_equal(gpu, cpu):
+            fail(f"{label}: card and CPU differ at tick {cpu.tick}")
+        sg, sc = stats(gpu), stats(cpu)
+        if not torch.equal(torch.nan_to_num(sg), torch.nan_to_num(sc)):
+            fail(f"{label}: tick stats differ at tick {cpu.tick}")
+        if bool((sc[:, CONVERGED] == 1.0).all()):
+            break
+    runs = [run_epidemic_seeds(cfg, n_seeds=seeds, seed=0, device=d)
+            for d in (dev, "cpu")]
+    for x in runs:
+        x.pop("wall_s")
+    if runs[0] != runs[1]:
+        fail(f"{label}: stats differ:\ncard {runs[0]}\ncpu  {runs[1]}")
+    return {"ticks_compared": cpu.tick, "nodes": n, "stats": runs[0]}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
@@ -1201,8 +1631,8 @@ def main() -> int:
     sys.path.insert(0, HERE)
     from corrosion_tpu_torch import kernels
     from corrosion_tpu_torch.kernels import deliver, exact_send, seq_sync
-    from corrosion_tpu_torch.kernels import swim, sync_pull, threefry
-    from corrosion_tpu_torch.kernels import tick_stats
+    from corrosion_tpu_torch.kernels import sent_sampler, swim, sync_pull
+    from corrosion_tpu_torch.kernels import threefry, tick_stats
     from corrosion_tpu_torch.sim.epidemic import (
         HEADLINE,
         HEADLINE_SEEDS,
@@ -1215,7 +1645,8 @@ def main() -> int:
         tick_stats.tick_stats, exact_send.exact_send,
         exact_send.exact_commit, seq_sync.seq_sync, seq_sync.seq_stats,
         swim.swim_probe_select, swim.swim_spread, swim.swim_gather,
-        swim.swim_settle)}
+        swim.swim_settle, sent_sampler.sent_select,
+        sent_sampler.sent_commit)}
     headline_counted = ("threefry_bits", "deliver_perm", "sync_pull",
                         "tick_stats")
     record = {}
@@ -1354,7 +1785,8 @@ def main() -> int:
                                                      f"churn {label}")
     print("anti-entropy and churn card == CPU per tick", flush=True)
 
-    results += exact_results + ae_results + swim_results
+    sent_results = sent_phases(record, counted, cuda)
+    results += exact_results + ae_results + swim_results + sent_results
     record["kernels"] = results
     with open(kernels.BUILD_DIR / "chip_smoke.json", "w") as f:
         json.dump(record, f, indent=1, default=str)
@@ -1368,6 +1800,15 @@ def main() -> int:
         "detect_latency", "rejoin_latency", "msgs_per_node_per_tick",
         "ticks_run", "wall_s", "peak_mem_gb")}
         for k, v in paths.items()}}), flush=True)
+    sent_runs = dict(record["sent_runs"])
+    calib = sent_runs.pop("calibration")
+    print(json.dumps({"sent": {
+        "calibration": {f: calib[f] for f in ("points", "run_s",
+                                              "launches")},
+        **{k: {f: v[f] for f in (
+            "converged_frac", "ticks_p50", "ticks_p99",
+            "msgs_per_node_mean", "hops_p50", "hops_p99", "wall_s",
+            "launches")} for k, v in sent_runs.items()}}}), flush=True)
     line = {"kernels": [
         {key: r[key] for key in (
             "name", "route", "source", "replaces", "launches",
@@ -1380,6 +1821,37 @@ def main() -> int:
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)
     return 0
+
+
+def sent_phases(record: dict, counted: dict, cuda) -> list:
+    """Phases 11-13, the exact ``sent_to`` sampler; returns the kernels'
+    results with the main path's launches (phase 12's runs summed)."""
+    # phase 11: sent_select / sent_commit against their plain versions
+    results, record["sent_checks"], record["sent_times"] = (
+        sent_kernel_checks(cuda))
+    ties = sum(c.get("tied_rows", 0) for c in record["sent_checks"])
+    print("sent kernels match their plain versions: "
+          + ", ".join(f"{r['name']} {r['max_abs_err']}" for r in results)
+          + f"; {ties} active rows with tied scores", flush=True)
+
+    # phase 12: run_msgs_calibration and the track_sent runs at full
+    # width, each held to the reference's numbers
+    runs = sent_full_width(counted)
+    record["sent_runs"] = runs
+    for r in results:
+        r["launches"] = sum(v["launches"][r["name"]] for v in runs.values())
+
+    # phase 13: card == CPU per tick, calibration and track_sent
+    from corrosion_tpu_torch.sim.calibrate import ExactConfig
+
+    record["calib_equal"] = calib_equal(
+        ExactConfig(2000, sender_chunk=512, backoff_ticks=1.5), cuda,
+        "exact_tick 2000")
+    for label, cfg in sent_variants(256).items():
+        record[f"track_sent_equal_{label}"] = track_sent_equal(
+            cfg, 4, cuda, f"track_sent {label}")
+    print("exact_tick and track_sent card == CPU per tick", flush=True)
+    return results
 
 
 if __name__ == "__main__":

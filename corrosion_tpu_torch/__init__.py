@@ -3,9 +3,12 @@
 The JAX package ``corrosion_tpu`` is the reference; this package mirrors
 its layout (``ops/``, ``models/``, ``sim/``, ``utils/``) so each
 module's counterpart is easy to find, and runs the headline epidemic
-simulation, the exact-sampler column, anti-entropy reassembly and SWIM
-churn through hand-written CUDA kernels (``kernels/``).  The entry
-points: ``sim.run_epidemic_seeds``, ``sim.calibrate.run_exact_headline``,
+simulation, the exact-sampler column, anti-entropy reassembly, SWIM
+churn and the calibration-scale exact ``sent_to`` sampler through
+hand-written CUDA kernels (``kernels/``).  The entry points:
+``sim.run_epidemic_seeds`` (``track_sent`` included),
+``sim.calibrate.run_exact_headline``,
+``sim.calibrate.run_msgs_calibration``, ``sim.calibrate.run_exact``,
 ``sim.run_anti_entropy_seeds``, ``sim.run_churn`` and
 ``sim.run_churn_cycles``.
 

@@ -2,7 +2,8 @@
 port.
 
 The simulator has no weights; its state plays that role.  A reference
-``EpidemicState``, ``PackedExactState``, ``FrontierExactState`` or
+``EpidemicState`` (with ``sent`` when tracked), ``PackedExactState``,
+``FrontierExactState``, calibration-scale ``ExactState`` or
 ``SwimState`` (any NamedTuple or mapping with its fields, the values
 numpy arrays or anything ``np.asarray`` takes), or an anti-entropy
 carry ``(bits, msgs)``, becomes the port's tensors on a given device,
@@ -19,10 +20,10 @@ import numpy as np
 import torch
 
 from corrosion_tpu_torch import resolve_device
-from corrosion_tpu_torch.models.broadcast import TRACK_SENT_TODO
 from corrosion_tpu_torch.models.swim import SwimState
 from corrosion_tpu_torch.random import key_words
 from corrosion_tpu_torch.sim.calibrate import (
+    ExactState,
     FrontierExactState,
     PackedExactState,
 )
@@ -39,22 +40,27 @@ def _fields(state) -> dict:
     return dict(state._asdict() if hasattr(state, "_asdict") else state)
 
 
+def _tensor(x, dtype, device):
+    if x is None:
+        return None
+    return torch.from_numpy(np.array(x, dtype=dtype)).to(device)
+
+
 def state_from_numpy(state, device="cuda") -> EpidemicState:
     """The port's ``EpidemicState`` on ``device`` from a reference
-    state given as numpy arrays."""
+    state given as numpy arrays (``sent`` [N, N] bool when tracked;
+    with a leading seed axis on every leaf for the ``track_sent``
+    runner's batched state).  The tick must be one for all seeds."""
     device = resolve_device(device)
     d = _fields(state)
-    if d.get("sent") is not None:
-        raise NotImplementedError(TRACK_SENT_TODO)
-
-    def tensor(x):
-        if x is None:
-            return None
-        return torch.from_numpy(np.array(x, dtype=np.int32)).to(device)
-
+    ticks = np.unique(np.asarray(d["tick"]))
+    if ticks.size != 1:
+        raise ValueError(f"the seeds of a batch tick together, got ticks "
+                         f"{ticks.tolist()}")
     return EpidemicState(
-        tick=int(np.asarray(d["tick"])),
-        **{f: tensor(d[f]) for f in TENSOR_FIELDS},
+        tick=int(ticks[0]),
+        sent=_tensor(d.get("sent"), np.bool_, device),
+        **{f: _tensor(d[f], np.int32, device) for f in TENSOR_FIELDS},
     )
 
 
@@ -63,10 +69,24 @@ def state_to_numpy(state: EpidemicState) -> dict:
     out = {
         f: None if getattr(state, f) is None
         else getattr(state, f).cpu().numpy()
-        for f in TENSOR_FIELDS
+        for f in (*TENSOR_FIELDS, "sent")
     }
     out["tick"] = int(state.tick)
     return out
+
+
+def exact_state_from_numpy(state, device="cuda") -> ExactState:
+    """The port's calibration-scale ``ExactState`` on ``device`` from a
+    reference one ([N] leaves, ``sent`` [N, N]) given as numpy arrays;
+    ``exact_state_to_numpy`` is its inverse."""
+    device = resolve_device(device)
+    d = _fields(state)
+    return ExactState(
+        tick=int(np.asarray(d["tick"])),
+        sent=_tensor(d["sent"], np.bool_, device),
+        **{f: _tensor(d[f], EXACT_FIELDS[f], device)
+           for f in ("infected", "tx", "next_send", "msgs")},
+    )
 
 
 def _exact_from_numpy(cls, memory: str, dtype, state, device):
@@ -102,9 +122,9 @@ def frontier_state_from_numpy(state, device="cuda") -> FrontierExactState:
 
 
 def exact_state_to_numpy(state) -> dict:
-    """{field: numpy array with the seed axis} of a port
-    ``PackedExactState`` or ``FrontierExactState``, tick as an int (the
-    inverse of both ``*_from_numpy``)."""
+    """{field: numpy array} of a port ``PackedExactState`` or
+    ``FrontierExactState`` (with the seed axis) or ``ExactState``, tick
+    as an int (the inverse of the ``*_from_numpy`` of each)."""
     out = {f: v.cpu().numpy() for f, v in state._asdict().items()
            if f != "tick"}
     out["tick"] = int(state.tick)

@@ -8,7 +8,8 @@ rebuilds), one ``nvcc`` per source, all started together.  ``load``
 opens a library with ctypes, building it first when it is missing.
 
 Each kernel module (``threefry``, ``deliver``, ``sync_pull``,
-``tick_stats``, ``exact_send``, ``seq_sync``, ``swim``) holds the
+``tick_stats``, ``exact_send``, ``seq_sync``, ``swim``,
+``sent_sampler``) holds the
 wrapper, the kernel's plain PyTorch version and a launch counter.  The
 wrapper takes the plain version only for tensors on the CPU; for CUDA
 tensors it launches the kernel or raises.  Kernels run on PyTorch's
@@ -30,7 +31,7 @@ import torch
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent / "build"
 KERNELS = ("threefry", "deliver_perm", "sync_pull", "tick_stats",
-           "exact_send", "seq_sync", "swim")
+           "exact_send", "seq_sync", "swim", "sent_sampler")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",

@@ -12,8 +12,12 @@ unique sender that picked it.  ``_perm_senders`` draws the
 receiver→sender map of a column (uniform scores from the threefry
 kernel, a stable ``torch.sort`` as ``jnp.argsort`` is stable), and the
 ``deliver_perm`` kernel runs the K gathers, validity masks, merge and
-epilogue in one pass.  The exact sender-side sampler of the reference
-(``track_sent``) is not ported yet.
+epilogue in one pass.
+
+The exact sender-side sampler (``sent``: the agents' per-payload
+``sent_to`` exclusion, calibration scale) runs through the
+``sent_select`` / ``sent_commit`` kernels instead, for S universes of N
+nodes at once (``deliver_sent``).
 """
 
 from __future__ import annotations
@@ -28,13 +32,13 @@ from corrosion_tpu_torch.kernels.deliver import (  # noqa: F401 - HOP_UNSET
     HOP_UNSET,
     deliver_perm,
 )
+from corrosion_tpu_torch.kernels.sent_sampler import (
+    key_tensor,
+    sent_commit,
+    sent_select,
+)
 from corrosion_tpu_torch.models.common import severance_matrix
 from corrosion_tpu_torch.random import fold_in, randint, split, uniform
-
-TRACK_SENT_TODO = (
-    "track_sent (the exact [N, N] sent_to sampler) is not ported yet: "
-    "ROADMAP queue 1 item 2, the track_sent path"
-)
 
 
 @dataclass(frozen=True)
@@ -200,13 +204,67 @@ def _deliver_perm(rows, tx_remaining, msgs_sent, hops, tick, next_send,
     )
 
 
+def sent_inputs(rows, tx_remaining, msgs_sent, hops, tick, next_send, sent,
+                keys, params: BroadcastParams, partition_id=None,
+                partition_active=False):
+    """(select, commit): the keyword arguments of a tick's
+    ``sent_select`` call and of its ``sent_commit`` call (less the
+    selection's outputs), for S universes of N nodes (``params.n_nodes``
+    = N): every leaf [S, N, ...], ``sent`` [S, N, N] bool, ``keys`` S
+    host pairs ``(key_t, key_l)`` (each universe's ``split`` of its
+    broadcast key), ``partition_id`` [N] int32 or None."""
+    n = params.n_nodes
+    device = rows.device
+    sev = None
+    if params.oneway_blocks:
+        sev = severance_matrix(params.oneway_blocks, device=device)
+    tick = 0 if tick is None else int(tick)
+    select = dict(
+        sent=sent, keys=key_tensor([[t] for t, _ in keys], device),
+        fanout=params.fanout, chunk=n, tx=tx_remaining, next_send=next_send,
+        tick=tick, rows=rows, hops=hops,
+        # loss uniforms under key_l; the WAN drop under fold_in(key_l, 1)
+        loss_keys=key_tensor([[l, fold_in(l, 1)] for _, l in keys],
+                              device),
+        loss=params.loss, wan_loss=params.wan_cross_loss,
+        region=_wan_region(params, device),
+        partition_id=(None if partition_id is None
+                      else partition_id.to(torch.int32)),
+        sev=sev, partition_active=bool(partition_active))
+    commit = dict(
+        tx=tx_remaining, msgs=msgs_sent, tick=tick,
+        max_tx=params.max_transmissions, backoff=params.backoff_ticks,
+        next_send=next_send, rows=rows, hops=hops,
+        tier=_rtt_tier(params, device))
+    return select, commit
+
+
+def deliver_sent(rows, tx_remaining, msgs_sent, hops, tick, next_send, sent,
+                 keys, params: BroadcastParams, partition_id=None,
+                 partition_active=False):
+    """The exact ``sent_to`` sampler's delivery and epilogue for S
+    universes (arguments as :func:`sent_inputs`): each active sender
+    sends to the ``fanout`` peers of lowest uniform score it has not
+    sent to yet (``sent_select``; ``sent`` is marked in place), then
+    ``sent_commit`` runs the epilogue.  Returns (rows, tx, msgs, hops,
+    next_send) as fresh tensors."""
+    select, commit = sent_inputs(rows, tx_remaining, msgs_sent, hops, tick,
+                                 next_send, sent, keys, params, partition_id,
+                                 partition_active)
+    new_rows, cand, counts = sent_select(**select)
+    tx, msgs, new_hops, nxt = sent_commit(counts, new_rows=new_rows,
+                                          cand=cand, **commit)
+    return new_rows, tx, msgs, new_hops, nxt
+
+
 def broadcast_step(rows, tx_remaining, msgs_sent, key,
                    params: BroadcastParams, partition_id=None,
                    partition_active=False, hops=None, tick=None,
                    next_send=None, sent=None) -> BroadcastStep:
     """One gossip tick for every node at once.
 
-    rows:         [N, R] int32 packed CRDT keys
+    rows:         [N, R] int32 packed CRDT keys (int64 with ``sent``
+                  for a wide codec)
     tx_remaining: [N] int32 remaining transmissions (0 = quiescent)
     msgs_sent:    [N] int32 cumulative sent-message counter
     key:          uint32[2] PRNG key for this tick
@@ -216,14 +274,35 @@ def broadcast_step(rows, tx_remaining, msgs_sent, key,
                   not infected)
     tick:         host int, needed with ``next_send``
     next_send:    optional [N] int32 earliest tick of the next send
-    sent:         the [N, N] sent_to memory — not ported yet, raises
+    sent:         optional [N, N] bool per-payload transmission memory
+                  (the agents' ``sent_to``): draws become uniform
+                  without replacement over the peers not sent to yet,
+                  the ring0/global split is ignored, the marks are set
+                  on send (before loss) and each send is charged.
+                  Marked IN PLACE; the result's ``sent`` is the same
+                  tensor.  Calibration scale only: incompatible with
+                  seed-flattened universes.
 
     Runs on the device of ``rows``."""
-    if sent is not None:
-        raise NotImplementedError(TRACK_SENT_TODO)
     if next_send is not None and tick is None:
         raise ValueError("next_send requires tick")
     key_t, key_l = split(key)
+    if sent is not None:
+        if params.universe is not None:
+            raise ValueError(
+                "sent-tracking ([N, N] memory) is calibration-scale "
+                "only and incompatible with seed-flattened universes"
+            )
+
+        def one(x):
+            return None if x is None else x[None]
+
+        out = deliver_sent(
+            rows[None], tx_remaining[None], msgs_sent[None], one(hops), tick,
+            one(next_send), sent[None], [(key_t, key_l)], params,
+            partition_id, partition_active)
+        return BroadcastStep(*(None if x is None else x[0] for x in out),
+                             sent=sent)
     out = _deliver_perm(rows, tx_remaining, msgs_sent, hops, tick,
                         next_send, key_t, key_l, params, partition_id,
                         partition_active)

@@ -3,14 +3,17 @@ column, anti-entropy and SWIM churn.
 
     python -m corrosion_tpu_torch.profile_tick
 
-Times six pieces of work: one chunk (16 ticks; the headline
+Times eight pieces of work: one chunk (16 ticks; the headline
 converges within it) of the headline epidemic (100k nodes x 32 seeds)
 from its initial state; the two full-width exact-sampler runs
 (``run_exact_headline`` on ``sim.calibrate.EXACT_DENSE`` x 16 seeds and
 ``EXACT_SPARSE`` x 4 seeds, set-up and all chunks included); the whole
-config #4 run (``run_anti_entropy_seeds``, 10k nodes x 32 seeds); and
-the first 32-tick chunk of the churn schedule at 64 (config #2) and
-4096 nodes from the initial state.  Each is
+config #4 run (``run_anti_entropy_seeds``, 10k nodes x 32 seeds); the
+first 32-tick chunk of the churn schedule at 64 (config #2) and 4096
+nodes from the initial state; one seed of the calibration-scale exact
+sampler at 16k nodes (``run_exact(ExactConfig(16000))``, the 16k point
+of ``run_msgs_calibration``); and the whole ``track_sent`` run of
+``sim_trace``'s config at 512 nodes x 8 seeds.  Each is
 run first untimed to warm up, then ``REPS`` times with a host clock
 around work that ends in ``torch.cuda.synchronize()``, then ``REPS``
 times under ``torch.profiler``, each of those with its own host clock.
@@ -42,6 +45,8 @@ from corrosion_tpu_torch.sim.epidemic import (
     EpidemicConfig,
     _scan_chunk,
     epidemic_init,
+    run_epidemic_seeds,
+    sent_trace_cfg,
 )
 
 
@@ -132,6 +137,21 @@ def churn_chunk(cfg):
     return prepare
 
 
+def calib_seed(cfg):
+    """A whole ``run_exact`` call (one seed, host fetch a tick)."""
+    def prepare():
+        return lambda: calibrate.run_exact(cfg, seed=0, device="cuda")
+    return prepare
+
+
+def track_sent_run(cfg, seeds: int):
+    """A whole ``run_epidemic_seeds`` call on a ``track_sent`` config."""
+    def prepare():
+        return lambda: run_epidemic_seeds(cfg, n_seeds=seeds, seed=0,
+                                          device="cuda")
+    return prepare
+
+
 def main() -> int:
     argparse.ArgumentParser(description=__doc__.splitlines()[0]).parse_args()
     cfg = replace(HEADLINE, n_universes=HEADLINE_SEEDS)
@@ -153,6 +173,11 @@ def main() -> int:
         ccfg = churn.ChurnConfig(n_nodes=n)
         out[f"churn_{n}_chunk"] = profile(churn_chunk(ccfg), nodes=n,
                                           ticks=ccfg.chunk_ticks)
+    ecfg = calibrate.ExactConfig(16_000)
+    out["calib_exact_16k"] = profile(calib_seed(ecfg), nodes=ecfg.n_nodes,
+                                     seeds=1)
+    out["track_sent_512"] = profile(track_sent_run(sent_trace_cfg(512), 8),
+                                    nodes=512, seeds=8)
     print(json.dumps(out))
     return 0
 

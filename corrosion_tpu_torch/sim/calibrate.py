@@ -1,21 +1,30 @@
-"""The exact sampler at headline scale (port of
-``corrosion_tpu/sim/calibrate.py``: the bitpacked and frontier-sparse
-kernels, their seed-batched runners and ``run_exact_headline``).
+"""The exact sampler (port of ``corrosion_tpu/sim/calibrate.py``): the
+calibration-scale scores sampler and ``run_msgs_calibration``, and at
+headline scale the bitpacked and frontier-sparse kernels, their
+seed-batched runners and ``run_exact_headline``.
 
-The exact column of every sweep row: each sender draws its k targets
-uniformly WITHOUT replacement from the nodes it has not sent the
-payload to yet (the agents' ``sent_to``-excluding sampler), by
-full-tuple rejection — redraw the whole tuple while it holds self, a
-duplicate or an already-sent target.  Two representations of
-``sent_to``, bitwise equal in every trajectory:
+Calibration scale (``ExactConfig``, N = 1k-16k, one seed at a time):
+``sent`` is one [N, N] bool; each tick every active sender scores its
+peers with a uniform draw (one [C, N] draw per sender chunk), drops the
+ones it has sent to and itself, and sends to the ``fanout`` lowest —
+the ``sent_select`` / ``sent_commit`` kernels.  ``run_msgs_calibration``
+sets msgs/node at convergence of this sampler against the matched
+perm-fanout config (``CALIB_MSGS.json``'s exact/perm ratio).
+
+Headline scale, the exact column of every sweep row: each sender
+draws its k targets uniformly WITHOUT replacement from the nodes it has
+not sent the payload to yet (the agents' ``sent_to``-excluding
+sampler), by full-tuple rejection — redraw the whole tuple while it
+holds self, a duplicate or an already-sent target.  Two representations
+of ``sent_to``, bitwise equal in every trajectory:
 
 * dense: a ``[S, N, ceil(N/8)]`` uint8 bitmap (``PackedExactState``);
 * sparse: a ``[S, N, max_tx * fanout]`` int32 ring of the targets each
   node sent to, plus the writer's ring0 tier as arithmetic
   (``FrontierExactState``) — the only one that reaches N = 1M.
 
-Every leaf carries a leading seed axis ``[S, ...]``, as the reference's
-vmapped runners hold it; a single seed is the ``S = 1`` case.  The
+At headline scale every leaf carries a leading seed axis ``[S, ...]``,
+as the reference's vmapped runners hold it; a single seed is the ``S = 1`` case.  The
 tick counter is a host int shared by the batch, so the partition and
 the sync cadence are plain ``if``s.  One tick is: the WAN latency
 queue's promote pass (latency family only), the ``exact_send`` kernel
@@ -26,13 +35,13 @@ from the ``tick_stats`` kernel and reach the host once per chunk.
 
 Tensors are updated in place tick by tick (the dense bitmap is 20 GB
 at the headline's width); a tick returns the next state, whose leaves
-may be the same tensors as its argument's.  The calibration-scale
-``ExactConfig`` / ``exact_tick`` / ``run_exact`` and the mesh kernels
-are not ported yet.
+may be the same tensors as its argument's.  The mesh kernels are not
+ported yet.
 """
 
 from __future__ import annotations
 
+import json
 import time
 from dataclasses import dataclass
 from typing import Dict, List, NamedTuple, Optional
@@ -48,6 +57,11 @@ from corrosion_tpu_torch.kernels.exact_send import (
     exact_commit,
     exact_send,
     raise_on_capped,
+)
+from corrosion_tpu_torch.kernels.sent_sampler import (
+    key_tensor,
+    sent_commit,
+    sent_select,
 )
 from corrosion_tpu_torch.kernels.sync_pull import sync_pull
 from corrosion_tpu_torch.kernels.tick_stats import (
@@ -67,7 +81,179 @@ from corrosion_tpu_torch.random import (
     split,
     uniform,
 )
-from corrosion_tpu_torch.sim.epidemic import stats_at_convergence
+from corrosion_tpu_torch.sim.epidemic import (
+    EpidemicConfig,
+    run_epidemic_seeds,
+    stats_at_convergence,
+)
+
+# -- calibration scale: the scores sampler ------------------------------
+
+
+@dataclass(frozen=True)
+class ExactConfig:
+    n_nodes: int
+    fanout: int = 4
+    max_transmissions: int = 8
+    backoff_ticks: float = 0.0
+    max_ticks: int = 192
+    sender_chunk: int = 2048
+
+
+class ExactState(NamedTuple):
+    infected: torch.Tensor  # [N] bool
+    tx: torch.Tensor  # [N] int32 remaining transmissions
+    next_send: torch.Tensor  # [N] int32
+    sent: torch.Tensor  # [N, N] bool per-payload sent_to
+    msgs: torch.Tensor  # [N] int32
+    tick: int  # host counter
+
+
+def exact_init(cfg: ExactConfig, writer: int = 0,
+               device="cuda") -> ExactState:
+    device = resolve_device(device)
+    n = cfg.n_nodes
+    i32 = dict(dtype=torch.int32, device=device)
+    infected = torch.zeros((n,), dtype=torch.bool, device=device)
+    infected[writer] = True
+    tx = torch.zeros((n,), **i32)
+    tx[writer] = cfg.max_transmissions
+    return ExactState(
+        infected=infected, tx=tx, next_send=torch.zeros((n,), **i32),
+        sent=torch.zeros((n, n), dtype=torch.bool, device=device),
+        msgs=torch.zeros((n,), **i32), tick=0,
+    )
+
+
+def chunk_keys(key, cfg: ExactConfig) -> list:
+    """The score key of each sender chunk of a tick: ``fold_in(key,
+    start)``, start the chunk's first row."""
+    c = min(cfg.sender_chunk, cfg.n_nodes)
+    return [fold_in(key, start) for start in range(0, cfg.n_nodes, c)]
+
+
+def exact_inputs(state: ExactState, key, cfg: ExactConfig):
+    """(select, commit): the keyword arguments of a tick's
+    ``sent_select`` call and of its ``sent_commit`` call (less the
+    selection's outputs), with the seed axis of one seed."""
+    infected, tx, next_send = (state.infected[None], state.tx[None],
+                               state.next_send[None])
+    select = dict(
+        sent=state.sent[None],
+        keys=key_tensor([chunk_keys(key, cfg)], state.infected.device),
+        fanout=cfg.fanout, chunk=min(cfg.sender_chunk, cfg.n_nodes), tx=tx,
+        next_send=next_send, tick=state.tick, infected=infected)
+    commit = dict(
+        tx=tx, msgs=state.msgs[None], tick=state.tick,
+        max_tx=cfg.max_transmissions, backoff=cfg.backoff_ticks,
+        next_send=next_send, infected=infected)
+    return select, commit
+
+
+def exact_tick(state: ExactState, key, cfg: ExactConfig) -> ExactState:
+    """One tick: every active sender (infected, budget left, schedule
+    due) sends to its ``fanout`` lowest-scored peers not yet sent to
+    (``sent_select``), then the budget / backoff epilogue
+    (``sent_commit``): a send decrements, exhausted coverage retires,
+    learners get a fresh budget and forward next tick.  ``sent`` is
+    marked in place; the other leaves are fresh tensors."""
+    select, commit = exact_inputs(state, key, cfg)
+    new_infected, counts = sent_select(**select)
+    tx, next_send, msgs = sent_commit(counts, new_infected=new_infected,
+                                      **commit)
+    return ExactState(new_infected[0], tx[0], next_send[0], state.sent,
+                      msgs[0], state.tick + 1)
+
+
+def run_exact(cfg: ExactConfig, seed: int = 0, device="cuda") -> Dict:
+    """One exact-sampler epidemic; msgs/node measured at convergence
+    (one bool host fetch a tick)."""
+    state = exact_init(cfg, device=device)
+    key = PRNGKey(seed)
+    t0 = time.perf_counter()
+    converged_tick: Optional[int] = None
+    for t in range(cfg.max_ticks):
+        state = exact_tick(state, fold_in(key, t), cfg)
+        if converged_tick is None and bool(state.infected.all()):
+            converged_tick = t + 1
+            break
+    msgs = state.msgs.cpu().numpy()
+    return {
+        "n_nodes": cfg.n_nodes,
+        "converged_tick": converged_tick,
+        "msgs_per_node_mean": float(msgs.mean()),
+        "wall_s": time.perf_counter() - t0,
+    }
+
+
+def run_msgs_calibration(
+    ns: List[int] = (1000, 4000, 16000),
+    seeds: int = 3,
+    fanout: int = 4,
+    max_transmissions: int = 8,
+    out_path: Optional[str] = None,
+    device="cuda",
+) -> Dict:
+    """Exact vs perm-fanout msgs/node under matched conditions (uniform
+    sampling, no loss, no sync, no partitions) — the measured correction
+    factor for the sweep's perm-fanout lower bound."""
+    device = resolve_device(device)
+    points = []
+    for n in ns:
+        ecfg = ExactConfig(
+            n_nodes=n, fanout=fanout, max_transmissions=max_transmissions
+        )
+        exact_msgs = []
+        conv = []
+        for s in range(seeds):
+            r = run_exact(ecfg, seed=s, device=device)
+            exact_msgs.append(r["msgs_per_node_mean"])
+            conv.append(r["converged_tick"])
+        pcfg = EpidemicConfig(
+            n_nodes=n, n_rows=4,
+            fanout_ring0=0, fanout_global=fanout, ring0_size=1,
+            max_transmissions=max_transmissions, loss=0.0,
+            sync_interval=0, track_hops=False,
+            max_ticks=ecfg.max_ticks, chunk_ticks=8,
+        )
+        # warm run, as the reference's compile warm-up
+        run_epidemic_seeds(pcfg, n_seeds=seeds, seed=1, device=device)
+        perm = run_epidemic_seeds(pcfg, n_seeds=seeds, seed=0, device=device)
+        exact_mean = float(np.mean(exact_msgs))
+        points.append({
+            "n": n,
+            "msgs_exact": round(exact_mean, 2),
+            "msgs_perm": round(perm["msgs_per_node_mean"], 2),
+            "exact_over_perm": round(
+                exact_mean / max(perm["msgs_per_node_mean"], 1e-9), 3
+            ),
+            "exact_converged_ticks": conv,
+            "perm_ticks_p50": perm["ticks_p50"],
+            "seeds": seeds,
+        })
+    out = {
+        "metric": "exact_vs_perm_msgs_calibration",
+        "fanout": fanout,
+        "max_transmissions": max_transmissions,
+        "conditions": "uniform sampling, no loss/sync/partition",
+        "points": points,
+    }
+    if out_path:
+        with open(out_path, "w") as f:
+            json.dump(out, f, indent=1)
+    return out
+
+
+def ratio_for(calib: Dict, n: int) -> Optional[float]:
+    """exact/perm correction factor at the calibrated N nearest to n."""
+    pts = calib.get("points") or []
+    if not pts:
+        return None
+    best = min(pts, key=lambda p: abs(p["n"] - n))
+    return best["exact_over_perm"]
+
+
+# -- headline scale ------------------------------------------------------
 
 MESH_TODO = (
     "run_exact_headline over a mesh (mesh=, host_sharded=) is not ported "

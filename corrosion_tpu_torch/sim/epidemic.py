@@ -15,6 +15,12 @@ cadence is a plain ``if``; per-tick statistics stay on the device and
 come back to the host once per chunk, where the runner checks
 convergence.  The S seeds are laid side by side in one flat index
 space (seed-flattening), as in the reference.
+
+``track_sent`` (the agents' exact ``sent_to`` sampler, [N, N] bool
+memory per universe) takes the reference's vmapped path instead: every
+leaf gains a leading seed axis, each seed is one universe of N nodes
+with its own key, and one ``sent_select`` / ``sent_commit`` launch
+serves all seeds (``_run_epidemic_seeds_sent``).
 """
 
 from __future__ import annotations
@@ -39,15 +45,17 @@ from corrosion_tpu_torch.kernels.tick_stats import (
     raise_on_overflow,
     tick_stats,
 )
+from corrosion_tpu_torch.kernels.sync_pull import sync_pull
 from corrosion_tpu_torch.models.broadcast import (
     HOP_UNSET,
-    TRACK_SENT_TODO,
     BroadcastParams,
     broadcast_step,
+    deliver_sent,
 )
+from corrosion_tpu_torch.models.common import severance_matrix
 from corrosion_tpu_torch.models.sync import SyncParams, sync_step
 from corrosion_tpu_torch.ops.keys import DEFAULT_CODEC
-from corrosion_tpu_torch.random import PRNGKey, fold_in, split
+from corrosion_tpu_torch.random import PRNGKey, fold_in, randint, split
 
 
 @dataclass(frozen=True)
@@ -68,7 +76,8 @@ class EpidemicConfig:
     oneway_blocks: Optional[tuple] = None
     # nth retransmission waits backoff_ticks*n; 0 = send every tick
     backoff_ticks: float = 0.0
-    # the exact [N, N] sent_to sampler: not ported yet (raises)
+    # model the agents' per-payload sent_to exclusion exactly ([N, N]
+    # bool memory per universe: calibration scale only)
     track_sent: bool = False
     # infection-depth (hop) tracking
     track_hops: bool = True
@@ -155,6 +164,22 @@ HEADLINE = EpidemicConfig(
 HEADLINE_SEEDS = 32
 
 
+def sent_trace_cfg(n: int, sync_interval: int = 0,
+                   chunk_ticks: int = 8) -> EpidemicConfig:
+    """The ``track_sent`` config the sim-vs-agents comparisons run:
+    corrosion_tpu/sim/simdiff.py ``sim_trace`` (:68-84; its ``sync``
+    is ``sync_interval=8``), and with ``sync_interval=8,
+    chunk_ticks=16`` sim/obs.py ``sim_obs_trace`` (:53-67).  Uniform
+    sampling without a ring0 tier, fanout 3, 5 transmissions, no loss,
+    the agents' backoff ratio of 2.5 ticks; run with 8 seeds."""
+    return EpidemicConfig(
+        n_nodes=n, n_rows=4, fanout_ring0=0, fanout_global=3, ring0_size=1,
+        max_transmissions=5, loss=0.0, backoff_ticks=2.5, track_sent=True,
+        sync_interval=sync_interval, sync_peers=1, max_ticks=256,
+        chunk_ticks=chunk_ticks,
+    )
+
+
 class EpidemicState(NamedTuple):
     rows: torch.Tensor  # [N, R] int32 packed CRDT keys
     tx_remaining: torch.Tensor  # [N] int32
@@ -164,14 +189,14 @@ class EpidemicState(NamedTuple):
     # cfg.track_hops is off
     hops: Optional[torch.Tensor]
     next_send: torch.Tensor  # [N] int32 earliest tick of the next send
+    # [N, N] bool sent_to memory when cfg.track_sent, else None
+    sent: Optional[torch.Tensor] = None
 
 
 def epidemic_init(cfg: EpidemicConfig, writer: int = 0,
                   device="cuda") -> EpidemicState:
     """All nodes at the base state; each universe's writer holds one
     committed changeset (col_version 2) ready to broadcast."""
-    if cfg.track_sent:
-        raise NotImplementedError(TRACK_SENT_TODO)
     device = resolve_device(device)
     codec = DEFAULT_CODEC
     n, r = cfg.flat_nodes, cfg.n_rows
@@ -190,9 +215,12 @@ def epidemic_init(cfg: EpidemicConfig, writer: int = 0,
     if cfg.track_hops:
         hops = torch.full((n,), HOP_UNSET, **i32)
         hops[writers] = 0
+    sent = None
+    if cfg.track_sent:
+        sent = torch.zeros((n, n), dtype=torch.bool, device=device)
     return EpidemicState(rows=rows, tx_remaining=tx,
                          msgs=torch.zeros((n,), **i32), tick=0, hops=hops,
-                         next_send=torch.zeros((n,), **i32))
+                         next_send=torch.zeros((n,), **i32), sent=sent)
 
 
 def _partition_ids(cfg: EpidemicConfig, device) -> Optional[torch.Tensor]:
@@ -206,22 +234,32 @@ def _partition_ids(cfg: EpidemicConfig, device) -> Optional[torch.Tensor]:
 def epidemic_tick(state: EpidemicState, key,
                   cfg: EpidemicConfig) -> EpidemicState:
     """One protocol round: gossip fanout, then (on cadence)
-    anti-entropy.  Runs on the device of ``state``."""
+    anti-entropy.  Runs on the device of ``state``; with
+    ``cfg.track_sent`` the state's ``sent`` is marked in place and
+    passes through the sync unchanged."""
     part = _partition_ids(cfg, state.rows.device)
     part_active = state.tick < cfg.heal_tick
     k_b, k_s = split(key)
-    rows, tx, msgs, hops, next_send, _ = broadcast_step(
+    rows, tx, msgs, hops, next_send, sent = broadcast_step(
         state.rows, state.tx_remaining, state.msgs, k_b,
         cfg.broadcast_params, partition_id=part,
         partition_active=part_active, hops=state.hops, tick=state.tick,
         next_send=state.next_send,
+        sent=state.sent if cfg.track_sent else None,
     )
-    if (cfg.sync_interval > 0
-            and state.tick % cfg.sync_interval == cfg.sync_interval - 1):
+    if sent is None:
+        sent = state.sent
+    if _sync_due(cfg, state.tick):
         rows, msgs = sync_step(rows, msgs, k_s, cfg.sync_params,
                                partition_id=part,
                                partition_active=part_active)
-    return EpidemicState(rows, tx, msgs, state.tick + 1, hops, next_send)
+    return EpidemicState(rows, tx, msgs, state.tick + 1, hops, next_send,
+                         sent)
+
+
+def _sync_due(cfg: EpidemicConfig, tick: int) -> bool:
+    return (cfg.sync_interval > 0
+            and tick % cfg.sync_interval == cfg.sync_interval - 1)
 
 
 def _scan_chunk(state: EpidemicState, seed_key, target_row,
@@ -287,7 +325,10 @@ def run_epidemic_coverage(cfg: EpidemicConfig, n_seeds: int = 8,
     before a tick a caller probes."""
     device = resolve_device(device)
     if cfg.track_sent:
-        raise NotImplementedError(TRACK_SENT_TODO)
+        raise ValueError(
+            "run_epidemic_coverage runs the seed-flattened layout only "
+            "(track_sent needs the [N, N] vmap path)"
+        )
     flat_cfg = replace(cfg, n_universes=n_seeds)
     key = PRNGKey(seed)
     state = epidemic_init(flat_cfg, device=device)
@@ -327,23 +368,32 @@ def run_epidemic_seeds(cfg: EpidemicConfig, n_seeds: int = 16,
     """Multi-seed run; returns convergence distribution stats.
 
     The S universes advance together in chunks; the host loop stops as
-    soon as every universe has converged (or max_ticks hit).  Only the
-    seed-flattened layout is ported: ``track_sent`` (the reference's
-    vmap path) raises."""
+    soon as every universe has converged (or max_ticks hit).  They are
+    seed-flattened, except with ``track_sent``, which runs
+    ``_run_epidemic_seeds_sent`` (the reference's vmap path)."""
     device = resolve_device(device)
     if cfg.track_sent:
-        raise NotImplementedError(TRACK_SENT_TODO)
+        return _run_epidemic_seeds_sent(cfg, n_seeds, seed, device)
     flat_cfg = replace(cfg, n_universes=n_seeds)
     key = PRNGKey(seed)
     state = epidemic_init(flat_cfg, device=device)
     # convergence target = the writer's committed state
     target = state.rows[0]
 
+    return _run_chunks(cfg, n_seeds, lambda st: _scan_chunk(
+        st, key, target, flat_cfg), state)
+
+
+def _run_chunks(cfg: EpidemicConfig, n_seeds: int, chunk_fn, state):
+    """Advance ``state`` chunk by chunk (``chunk_fn``: state -> (state,
+    [C, S, len(STATS)] stats)) until every universe has converged or
+    ``max_ticks`` is reached; fold the statistics into the stats
+    dict."""
     t0 = time.perf_counter()
     chunks = []  # [S, C, len(STATS)] per chunk
     ticks_done = 0
     while ticks_done < cfg.max_ticks:
-        state, stats = _scan_chunk(state, key, target, flat_cfg)
+        state, stats = chunk_fn(state)
         stats = stats.cpu().numpy().transpose(1, 0, 2)
         raise_on_overflow(stats)
         chunks.append(stats)
@@ -360,6 +410,100 @@ def run_epidemic_seeds(cfg: EpidemicConfig, n_seeds: int = 16,
         col(MSGS_MEAN), col(MSGS_P99), col(HOPS_P50), col(HOPS_P99),
         col(HOPS_COV), wall, ticks_done,
     )
+
+
+# -- track_sent: the seed-batched [S, N, N] path ------------------------
+
+
+def sent_seeds_init(cfg: EpidemicConfig, n_seeds: int,
+                    device="cuda") -> EpidemicState:
+    """``epidemic_init(cfg)`` (one universe, ``sent`` [N, N]) repeated
+    for S seeds: every leaf [S, N, ...], ``sent`` [S, N, N]."""
+    one = epidemic_init(cfg, device=device)
+    return EpidemicState(*(
+        x if x is None or isinstance(x, int)
+        else x.expand((n_seeds,) + tuple(x.shape)).clone()
+        for x in one
+    ))
+
+
+def _sync_seeds(rows, msgs, k_sync: list, cfg: EpidemicConfig, part,
+                part_active: bool):
+    """``sync_step`` of every seed with its own key, one ``sync_pull``
+    launch: each seed's peer offsets ``randint(k_s, (N, P), 1, max(N,
+    2))``, the S universes side by side (u = N).  rows [S, N, R], msgs
+    [S, N]; part [N] or None."""
+    s, n, r = rows.shape
+    p = cfg.sync_peers
+    device = rows.device
+    offs = torch.cat([randint(k, (n, p), 1, max(n, 2), device=device)
+                      for k in k_sync])
+    sev = None
+    if cfg.oneway_blocks:
+        sev = severance_matrix(cfg.oneway_blocks, device=device)
+    rows, msgs = sync_pull(
+        rows.reshape(s * n, r), msgs.reshape(s * n), offs, n,
+        partition_id=None if part is None else part.repeat(s), sev=sev,
+        partition_active=part_active, cells_per_chunk=cfg.cells_per_chunk,
+        handshake_msgs=cfg.sync_params.handshake_msgs,
+    )
+    return rows.reshape(s, n, r), msgs.reshape(s, n)
+
+
+def sent_seeds_tick(state: EpidemicState, keys: list,
+                    cfg: EpidemicConfig) -> EpidemicState:
+    """``epidemic_tick`` of every seed at once (``keys`` the seeds' tick
+    keys), on the batched state of ``sent_seeds_init``: one broadcast
+    through the exact sampler for all seeds, then the sync on cadence.
+    ``sent`` is marked in place."""
+    part = _partition_ids(cfg, state.rows.device)
+    part_active = state.tick < cfg.heal_tick
+    pairs, k_sync = [], []
+    for key in keys:
+        k_b, k_s = split(key)
+        key_t, key_l = split(k_b)
+        pairs.append((key_t, key_l))
+        k_sync.append(k_s)
+    rows, tx, msgs, hops, next_send = deliver_sent(
+        state.rows, state.tx_remaining, state.msgs, state.hops, state.tick,
+        state.next_send, state.sent, pairs, cfg.broadcast_params,
+        partition_id=part, partition_active=part_active)
+    if _sync_due(cfg, state.tick):
+        rows, msgs = _sync_seeds(rows, msgs, k_sync, cfg, part, part_active)
+    return EpidemicState(rows, tx, msgs, state.tick + 1, hops, next_send,
+                         state.sent)
+
+
+def _sent_scan_chunk(state: EpidemicState, seed_keys: list, target_row,
+                     cfg: EpidemicConfig):
+    """``cfg.chunk_ticks`` batched ticks, tick keys ``fold_in(seed key,
+    tick)``; every tick's per-seed statistics from ``tick_stats`` over
+    the S universes.  Returns (state, [C, S, len(STATS)])."""
+    s, n, r = state.rows.shape
+    stats = torch.empty((cfg.chunk_ticks, s, len(STATS)),
+                        dtype=torch.float32, device=state.rows.device)
+    for c in range(cfg.chunk_ticks):
+        state = sent_seeds_tick(
+            state, [fold_in(k, state.tick) for k in seed_keys], cfg)
+        hops = None if state.hops is None else state.hops.reshape(s * n)
+        tick_stats(state.rows.reshape(s * n, r), target_row,
+                   state.msgs.reshape(s * n), hops, s, out=stats[c])
+    return state, stats
+
+
+def _run_epidemic_seeds_sent(cfg: EpidemicConfig, n_seeds: int, seed: int,
+                             device):
+    """The reference's vmapped multi-seed path (``track_sent``'s [N, N]
+    per-universe memory): seed s runs under ``split(PRNGKey(seed),
+    S)[s]`` with tick keys ``fold_in(seed key, tick)``."""
+    if cfg.n_universes is not None:
+        raise ValueError("track_sent runs one universe per seed: leave "
+                         "n_universes unset")
+    seed_keys = list(split(PRNGKey(seed), n_seeds))
+    state = sent_seeds_init(cfg, n_seeds, device=device)
+    target = state.rows[0, 0]
+    return _run_chunks(cfg, n_seeds, lambda st: _sent_scan_chunk(
+        st, seed_keys, target, cfg), state)
 
 
 def _epidemic_stats(cfg, n_seeds, flags, means, p99s, h50s, h99s, hcovs,

@@ -154,12 +154,3 @@ def test_measured_tier_map_matches_jax_and_rejects_bad_weights():
                                       np.asarray(jb.measured_tier_map(n, w)))
     with pytest.raises(ValueError):
         tb.measured_tier_map(10, (0, 0))
-
-
-def test_track_sent_is_not_ported_yet():
-    p = tb.BroadcastParams(n_nodes=8)
-    z = torch.zeros(8, dtype=torch.int32)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tb.broadcast_step(torch.zeros((8, 2), dtype=torch.int32), z, z,
-                          torch.zeros(2, dtype=torch.uint32), p,
-                          sent=torch.zeros((8, 8), dtype=torch.bool))
