@@ -6,17 +6,20 @@
 Needs one CUDA card and ``nvcc``; imports nothing of JAX or of the JAX
 package.  Phases, each ending the run with a non-zero exit on failure:
 
-1. print the card's name and power limit, build the eight kernel sources
+1. print the card's name and power limit, build the ten kernel sources
    of this checkout (one ``nvcc`` per source, in parallel) and record
    threefry's opcode counts (``cuobjdump -sass``);
-2. hold the perm-fanout kernels against their plain PyTorch versions
-   on the card, on the inputs the headline's tick 7 (a sync tick,
-   partition in force) gives them, and time both with CUDA events; time
-   the stable ``torch.sort`` the headline leaves to PyTorch;
+2. hold the perm-fanout kernels (the threefry draws, ``seg_argsort``,
+   ``deliver_perm``, ``sync_pull``, ``tick_stats``) against their plain
+   PyTorch versions on the card, on the inputs the headline's tick 7 (a
+   sync tick, partition in force) gives them, and time both with CUDA
+   events; ``seg_argsort`` at both column shapes, beside ``torch.sort``
+   of the uniform scores, which must give the same indices;
 3. run the headline — 100k nodes x 32 seeds, R = 8, 5% loss, two
-   partition blocks healing at tick 12 — on the card, require every
-   seed to converge, and require every kernel's launch counter (zeroed
-   just before) to have risen;
+   partition blocks healing at tick 12 — on the card, require its
+   numbers (converged 1.0, ticks 15, msgs/node 16.03, p99 34.97), and
+   require every kernel's launch counter (zeroed just before) to have
+   risen;
 4. run the same config at 4096 nodes x 4 seeds on the card (kernels)
    and on the CPU (plain versions) and require per-tick rows / tx /
    msgs / hops / next_send and the stats dicts to be equal; the same
@@ -73,7 +76,22 @@ package.  Phases, each ending the run with a non-zero exit on failure:
     backoff 1.5) and the ``track_sent`` runner at 256 nodes x 4 seeds
     (phase 11's variants and ``sim_obs_trace``'s) on the card and on
     the CPU, and require every leaf per tick and the results to be
-    equal.
+    equal;
+14. hold ``seg_argsort`` against its plain version, bitwise, on 23-bit
+    threefry keys at [32, 100000], [12800, 250], [128000, 250] and
+    [32, 1000000], on all-equal and two-valued keys at [32, 100000], on
+    int64 keys of 2**20 with many ties and on the regimes' edges; and
+    require a headline tick (``torch.profiler``) to sort with the
+    port's ``seg_sort_*`` kernels and none of PyTorch's;
+15. run ``select_winners(backend="torch", device="cuda")`` on 2**20
+    changes (262,144 rows x 4 cells, ``profile_tick.resync_batch``
+    through ``encode_changes``), cold and warm, pk-grouped and
+    interleaved, each with the launch counters zeroed just before, and
+    require every ``MergeDecision`` field and ``impacted`` bitwise equal
+    to the NumPy twin's and the plain torch core's on the card; then
+    hold ``seg_cummax``, ``winners_a`` and ``winners_b`` (and the int64
+    sort) against their plain versions on that batch's intermediates
+    and time them with CUDA events.
 
 Prints the card line, the ``kernels`` JSON line and, last, the
 ``{"ok": true, "device": ...}`` line; writes the full record (with
@@ -184,7 +202,9 @@ def sass_mix(kernels, name: str) -> dict:
 def kernel_checks(cfg, mods, dev):
     """Phase 2: each kernel against its plain version at tick 7 of the
     headline (state reached through the port on the card)."""
+    from corrosion_tpu_torch.kernels import seg_sort
     from corrosion_tpu_torch.models.broadcast import (
+        _largest_divisor_upto,
         _perm_senders,
         _rtt_tier,
         _wan_region,
@@ -259,6 +279,44 @@ def kernel_checks(cfg, mods, dev):
                loss_out.numel() * INT_PIPE_OPS_PER_UNIFORM),
         library_ms=None,
         shape=f"uniform float32 [{n}, {k}]",
+    ))
+
+    # -- seg_argsort: the tick's column keys (raw bits; the 23-bit
+    #    scores are bits >> 9) at the global [S, u] and ring0 [N / b0,
+    #    b0] shapes; torch.sort of the uniform scores, the library
+    #    call, must give the same indices
+    b0 = _largest_divisor_upto(u, bp.ring0_size)
+    shapes, err = [], 0.0
+    for j, block in ((k - 1, u), (0, b0)):
+        kw = key_words(fold_in(key_t, j))
+        raw = torch.empty((n // block, block), dtype=torch.uint32,
+                          device=dev)
+        threefry.threefry_bits(raw, kw)
+        scores = threefry.threefry_bits(torch.empty(raw.shape, device=dev),
+                                        kw)
+        got = seg_sort.seg_argsort(raw, 23, 9)
+        err = max(err, max_abs_err([got], [seg_sort.seg_argsort_plain(
+            raw, 23, 9)]))
+        lib = torch.sort(scores, dim=1, stable=True).indices
+        if not torch.equal(lib.to(torch.int32), got):
+            fail(f"seg_argsort differs from torch.sort of the uniform "
+                 f"scores at {list(raw.shape)}")
+        shapes.append(dict(
+            shape=list(raw.shape),
+            ms=time_ms(lambda: seg_sort.seg_argsort(raw, 23, 9), 20),
+            plain_ms=time_ms(lambda: seg_sort.seg_argsort_plain(raw, 23, 9),
+                             5),
+            library_ms=time_ms(
+                lambda: torch.sort(scores, dim=1, stable=True), 20),
+            bound_ms=raw.numel() * 8 / HBM_BYTES_PER_S * 1e3))
+    results.append(dict(
+        name="seg_argsort", route="cuda", source=SORT_SOURCE,
+        replaces="corrosion_tpu/models/broadcast.py:321",
+        max_abs_err=err, ms=shapes[0]["ms"], plain_ms=shapes[0]["plain_ms"],
+        bound=(n * 8, 0), library_ms=shapes[0]["library_ms"],
+        shape=f"uint32 {shapes[0]['shape']} (global column; ring0 "
+              f"{shapes[1]['shape']} in shapes)",
+        shapes=shapes,
     ))
 
     # -- deliver_perm: the tick's K sender maps and loss draws
@@ -659,23 +717,6 @@ def exact_times(es, cfg, seeds, ring, rep, tick, args, saved, work,
         shape=f"{seeds} seeds x {cfg.n_nodes}, tick {tick}, "
               f"{learned} learners",
     )
-    return out
-
-
-def sort_times(dev) -> list:
-    """``torch.sort(stable=True)`` of ``_perm_senders`` at the
-    headline's two shapes, with its bytes bound (keys read, sorted keys
-    and int64 indices written)."""
-    from corrosion_tpu_torch.random import PRNGKey, uniform
-
-    out = []
-    for shape in ((32, 100_000), (12_800, 250)):
-        scores = uniform(PRNGKey(1), shape, dev)
-        ms = time_ms(lambda: torch.sort(scores, dim=1, stable=True), 20)
-        b = scores.numel() * (4 + 4 + 8)
-        out.append(dict(shape=list(shape), ms=ms,
-                        bound_ms=b / HBM_BYTES_PER_S * 1e3,
-                        bound_by="bytes"))
     return out
 
 
@@ -1624,6 +1665,247 @@ def track_sent_equal(cfg, seeds: int, dev, label: str) -> dict:
     return {"ticks_compared": cpu.tick, "nodes": n, "stats": runs[0]}
 
 
+# -- the segmented sort and the winner selection ----------------------------
+
+SORT_SOURCE = "corrosion_tpu_torch/kernels/csrc/seg_sort.cu"
+WINNERS_SOURCE = "corrosion_tpu_torch/kernels/csrc/winners.cu"
+# 23-bit threefry scores: the headline's global and ring0 columns and the
+# 1M sweep row's (bench.py:3670)
+SORT_SHAPES = ((32, 100_000), (12_800, 250), (128_000, 250),
+               (32, 1_000_000))
+# the headline's numbers (PERF.md), which the sort kernel must keep
+HEADLINE_WANT = {"converged_frac": 1.0, "ticks_p50": 15.0, "ticks_p99": 15.0,
+                 "msgs_per_node_mean": 16.03, "msgs_per_node_p99": 34.97}
+WINNERS_COUNTED = ("seg_argsort", "seg_cummax", "winners_a", "winners_b")
+
+
+def sort_checks(dev) -> list:
+    """Phase 14: ``seg_argsort`` against its plain version, bitwise, on
+    23-bit threefry keys at every shape the sweeps sort, on all-equal
+    and two-valued keys, on int64 keys of 2**20 with many ties, and on
+    the regimes' edges (every key and composite width, L = 1, 7, 4097,
+    one-pass 8-bit keys)."""
+    from corrosion_tpu_torch.kernels import seg_sort
+    from corrosion_tpu_torch.random import PRNGKey, bits, fold_in
+
+    rng = np.random.default_rng(14)
+
+    def host(a):
+        return torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+
+    cases = [(f"threefry {list(shape)}", bits(fold_in(PRNGKey(7), i), shape,
+                                              dev), 23, 9)
+             for i, shape in enumerate(SORT_SHAPES)]
+    cases += [
+        ("all equal", host(np.full((32, 100_000), 0x2345 << 9, np.uint32)),
+         23, 9),
+        ("two-valued", host((rng.integers(0, 2, (32, 100_000)) << 9)
+                            .astype(np.uint32)), 23, 9),
+        ("int64 2^20, 4096 values", host(
+            rng.integers(0, 4096, (1, 1 << 20)) << 28), 40, 0),
+        ("int64 2^20 all equal", host(np.full((1, 1 << 20), 7, np.int64)),
+         21, 0),
+        ("uint32 [4, 4096] 64-bit composite", host(
+            rng.integers(0, 1 << 23, (4, 4096)).astype(np.uint32) << 9),
+         23, 9),
+        ("int64 [64, 3000] 32-bit composite", host(
+            rng.integers(0, 1 << 20, (64, 3000))), 20, 0),
+        ("int64 [1, 1000] 40 bits", host(rng.integers(0, 1 << 40,
+                                                      (1, 1000))), 40, 0),
+        ("L = 1", host(rng.integers(0, 9, (5, 1)).astype(np.uint32)), 4, 0),
+        ("L = 7", host(rng.integers(0, 3, (3, 7)).astype(np.uint32)), 2, 0),
+        ("L = 4097, 8-bit", host(rng.integers(0, 256, (2, 4097))
+                                 .astype(np.uint32)), 8, 0),
+    ]
+    checks = []
+    for label, keys, key_bits, shift in cases:
+        got = seg_sort.seg_argsort(keys, key_bits, shift)
+        want = seg_sort.seg_argsort_plain(keys, key_bits, shift)
+        err = max_abs_err([got], [want])
+        checks.append(dict(case=label, shape=list(keys.shape),
+                           key_bits=key_bits, max_abs_err=err))
+        if err != 0.0:
+            fail(f"seg_argsort differs from its plain version: {label}")
+    return checks
+
+
+def sort_kernel_names(cfg) -> list:
+    """The sort kernels one headline tick launches (``torch.profiler``):
+    the port's ``seg_sort_*``, and none of PyTorch's sorts."""
+    from corrosion_tpu_torch.random import PRNGKey
+    from corrosion_tpu_torch.sim.epidemic import epidemic_init, epidemic_tick
+
+    state = epidemic_init(cfg, device="cuda")
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=[
+            torch.profiler.ProfilerActivity.CUDA]) as prof:
+        epidemic_tick(state, PRNGKey(0), cfg)
+        torch.cuda.synchronize()
+    names = sorted({e.key for e in prof.key_averages()
+                    if e.device_type == torch.autograd.DeviceType.CUDA})
+    sorts = [k for k in names if "sort" in k.lower()]
+    foreign = [k for k in sorts if "seg_sort_" not in k]
+    if foreign or not sorts:
+        fail(f"a headline tick's sorts are not the port's: {sorts}")
+    return sorts
+
+
+def winners_full_width(counted) -> dict:
+    """Phase 15: ``select_winners(device="cuda")`` on 2**20 changes
+    (262,144 rows x 4 cells) encoded through ``encode_changes``, cold
+    and warm, pk-grouped and interleaved, each run with the launch
+    counters zeroed just before, held bitwise to the NumPy twin and to
+    the plain torch core on the card."""
+    from corrosion_tpu_torch.convert import decision_diff
+    from corrosion_tpu_torch.ops import merge
+    from corrosion_tpu_torch.profile_tick import resync_batch
+
+    runs, plans = {}, {}
+    warm_up = merge.encode_changes(*resync_batch(4096))
+    merge.select_winners(warm_up, backend="torch", device="cuda")
+    for interleaved in (False, True):
+        for warm in (False, True):
+            label = (f"{'interleaved' if interleaved else 'pk_grouped'}_"
+                     f"{'warm' if warm else 'cold'}")
+            t0 = time.perf_counter()
+            plan = merge.encode_changes(*resync_batch(
+                interleaved=interleaved, warm=warm))
+            encode_s = time.perf_counter() - t0
+            t0 = time.perf_counter()
+            want = merge.select_winners(plan, backend="numpy")
+            numpy_s = time.perf_counter() - t0
+            torch.cuda.synchronize()
+            for fn in counted.values():
+                fn.launches = 0
+            t0 = time.perf_counter()
+            got = merge.select_winners(plan, backend="torch", device="cuda")
+            call_s = time.perf_counter() - t0
+            launches = {k: counted[k].launches for k in WINNERS_COUNTED}
+            plain = merge._winners_torch(plan, "cuda", plain=True)
+            for other, name in ((want, "the NumPy twin"),
+                                (plain, "the plain torch core")):
+                diff = decision_diff(got, other)
+                if diff:
+                    fail(f"winners {label}: the kernels differ from {name} "
+                         f"in {diff}")
+            idle = [k for k, c in launches.items() if c == 0]
+            if idle:
+                fail(f"winners {label}: kernels never launched: {idle}")
+            runs[label] = dict(
+                n=plan.n, n_pk=plan.n_pk, n_cid=plan.n_cid,
+                impacted=got.impacted,
+                winners=int((got.winner_idx >= 0).sum()),
+                gen_rows=int(got.gen.sum()), encode_s=encode_s,
+                numpy_s=numpy_s, call_s=call_s, launches=launches)
+            plans[label] = plan
+            print(f"winners {label}: " + json.dumps(runs[label]), flush=True)
+    return runs, plans["interleaved_warm"]
+
+
+def winners_kernel_checks(plan, dev) -> list:
+    """Each winner-selection kernel against its plain version on the
+    card, on the intermediates of ``plan`` (every output bitwise), timed
+    with CUDA events, with its bytes bound."""
+    from corrosion_tpu_torch.kernels import seg_sort, winners
+    from corrosion_tpu_torch.kernels.winners import BIG
+
+    def put(a):
+        return torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+
+    pk, cid, sent, cl, key = (put(getattr(plan, f)) for f in (
+        "pk", "cid", "sent", "cl", "key"))
+    seed_cl, seed_key = put(plan.seed_cl), put(plan.seed_key)
+    n, n_pk, n_cid = plan.n, plan.n_pk, plan.n_cid
+    comp = pk * (n_cid + 2) + (cid + 1)
+    bits_b = ((n_pk - 1) * (n_cid + 2) + n_cid).bit_length()
+    sort_args = (comp[None], bits_b)
+    o_b = seg_sort.seg_argsort(*sort_args)[0]
+    o_a = seg_sort.seg_argsort(pk[None], (n_pk - 1).bit_length())[0]
+    err = max(max_abs_err([o_b], [seg_sort.seg_argsort_plain(
+        *sort_args)[0]]), max_abs_err([o_a], [seg_sort.seg_argsort_plain(
+            pk[None], (n_pk - 1).bit_length())[0]]))
+    res = [dict(
+        name="seg_argsort (int64, one segment)", max_abs_err=err,
+        ms=time_ms(lambda: seg_sort.seg_argsort(*sort_args), 20),
+        plain_ms=time_ms(lambda: seg_sort.seg_argsort_plain(*sort_args), 5),
+        library_ms=time_ms(lambda: torch.sort(comp, stable=True), 20),
+        bound=(n * (8 + 4), 0),
+        shape=f"int64 [1, {n}], {bits_b} key bits (the (pk, cid) sort)")]
+
+    def outputs():
+        final_cl = seed_cl.clone()
+        zeros = torch.zeros(n_pk, dtype=torch.int64, device=dev)
+        return dict(final_cl=final_cl, sent_flag=zeros.clone(),
+                    ensure=zeros.clone(),
+                    part=torch.zeros(n, dtype=torch.bool, device=dev),
+                    counts=torch.zeros(3, dtype=torch.int64, device=dev),
+                    winner=torch.full((n_pk * n_cid,), -1, dtype=torch.int64,
+                                      device=dev),
+                    clrow=torch.full((n_pk,), BIG, dtype=torch.int64,
+                                     device=dev))
+
+    def run_a(fn, o):
+        fn(o_a, prev_a, pk, cl, sent, seed_cl, o["final_cl"],
+           o["sent_flag"], o["ensure"], o["part"], o["counts"])
+        return o
+
+    def run_b(fn, o):
+        fn(o_b, prev_b, pk, cid, cl, key, part, seed_key, final_cl, n_cid,
+           o["winner"], o["clrow"], o["counts"])
+        return o
+
+    prev_a = winners.seg_cummax(o_a, pk, cl)
+    err = max_abs_err([prev_a], [winners.seg_cummax_plain(o_a, pk, cl)])
+    a_got = run_a(winners.winners_a, outputs())
+    a_want = run_a(winners.winners_a_plain, outputs())
+    a_keys = ("final_cl", "sent_flag", "ensure", "part", "counts")
+    a_err = max_abs_err([a_got[k] for k in a_keys],
+                        [a_want[k] for k in a_keys])
+    part, final_cl = a_got["part"], a_got["final_cl"]
+    prev_b = winners.seg_cummax(o_b, comp, key, mask=part)
+    err = max(err, max_abs_err([prev_b], [winners.seg_cummax_plain(
+        o_b, comp, key, mask=part)]))
+    b_got = run_b(winners.winners_b, outputs())
+    b_want = run_b(winners.winners_b_plain, outputs())
+    b_keys = ("winner", "clrow", "counts")
+    b_err = max_abs_err([b_got[k] for k in b_keys],
+                        [b_want[k] for k in b_keys])
+    scratch = outputs()
+    res += [
+        dict(name="seg_cummax", max_abs_err=err,
+             ms=time_ms(lambda: winners.seg_cummax(o_b, comp, key,
+                                                   mask=part), 20),
+             plain_ms=time_ms(lambda: winners.seg_cummax_plain(
+                 o_b, comp, key, mask=part), 3),
+             library_ms=None,
+             # order, the segment key and the value read, the mask, out
+             bound=(n * (4 + 8 + 8 + 1 + 8), 0),
+             shape=f"domain B, n = {n}"),
+        dict(name="winners_a", max_abs_err=a_err,
+             ms=time_ms(lambda: run_a(winners.winners_a, scratch), 20),
+             plain_ms=time_ms(lambda: run_a(winners.winners_a_plain,
+                                            outputs()), 3),
+             library_ms=None,
+             bound=(nbytes(o_a, prev_a, pk, cl, sent, seed_cl,
+                           *(a_got[k] for k in a_keys)), 0),
+             shape=f"n = {n}, {n_pk} rows"),
+        dict(name="winners_b", max_abs_err=b_err,
+             ms=time_ms(lambda: run_b(winners.winners_b, scratch), 20),
+             plain_ms=time_ms(lambda: run_b(winners.winners_b_plain,
+                                            outputs()), 3),
+             library_ms=None,
+             bound=(nbytes(o_b, prev_b, pk, cid, cl, key, part, seed_key,
+                           final_cl, *(b_got[k] for k in b_keys)), 0),
+             shape=f"n = {n}, {n_pk} x {n_cid} cells"),
+    ]
+    for r in res:
+        set_bound(r)
+        if r["max_abs_err"] != 0.0:
+            fail(f"{r['name']} differs from its plain version "
+                 f"(max |diff| {r['max_abs_err']})")
+    return res
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
@@ -1631,8 +1913,9 @@ def main() -> int:
     sys.path.insert(0, HERE)
     from corrosion_tpu_torch import kernels
     from corrosion_tpu_torch.kernels import deliver, exact_send, seq_sync
-    from corrosion_tpu_torch.kernels import sent_sampler, swim, sync_pull
-    from corrosion_tpu_torch.kernels import threefry, tick_stats
+    from corrosion_tpu_torch.kernels import seg_sort, sent_sampler, swim
+    from corrosion_tpu_torch.kernels import sync_pull, threefry, tick_stats
+    from corrosion_tpu_torch.kernels import winners
     from corrosion_tpu_torch.sim.epidemic import (
         HEADLINE,
         HEADLINE_SEEDS,
@@ -1646,9 +1929,10 @@ def main() -> int:
         exact_send.exact_commit, seq_sync.seq_sync, seq_sync.seq_stats,
         swim.swim_probe_select, swim.swim_spread, swim.swim_gather,
         swim.swim_settle, sent_sampler.sent_select,
-        sent_sampler.sent_commit)}
-    headline_counted = ("threefry_bits", "deliver_perm", "sync_pull",
-                        "tick_stats")
+        sent_sampler.sent_commit, seg_sort.seg_argsort, winners.seg_cummax,
+        winners.winners_a, winners.winners_b)}
+    headline_counted = ("threefry_bits", "seg_argsort", "deliver_perm",
+                        "sync_pull", "tick_stats")
     record = {}
     cuda = torch.device("cuda")
 
@@ -1667,14 +1951,12 @@ def main() -> int:
 
     headline, seeds = HEADLINE, HEADLINE_SEEDS
 
-    # phase 2: the perm-fanout kernels against their plain versions, and
-    # the stable sort they leave to torch.sort
+    # phase 2: the perm-fanout kernels against their plain versions
     results = kernel_checks(replace(headline, n_universes=seeds), mods,
                             cuda)
-    record["sort"] = sort_times(cuda)
     print("kernels match their plain versions: "
-          + ", ".join(f"{r['name']} {r['max_abs_err']}" for r in results)
-          + "; torch.sort " + json.dumps(record["sort"]), flush=True)
+          + ", ".join(f"{r['name']} {r['max_abs_err']}" for r in results),
+          flush=True)
 
     # phase 3: the headline on the card, counters from this run only
     run_epidemic_seeds(replace(headline, n_nodes=1000, max_ticks=16),
@@ -1696,8 +1978,9 @@ def main() -> int:
     for r in results:
         r["launches"] = launches[r["name"]]
     record.update(card=card, headline=stats)
-    if stats["converged_frac"] != 1.0:
-        fail(f"headline did not converge: {stats}")
+    got = {k: round(stats[k], 2) for k in HEADLINE_WANT}
+    if got != HEADLINE_WANT:
+        fail(f"headline moved: {got}, want {HEADLINE_WANT}")
     idle = [name for name, c in launches.items() if c == 0]
     if idle:
         fail(f"kernels never launched on the main path: {idle}")
@@ -1786,7 +2069,9 @@ def main() -> int:
     print("anti-entropy and churn card == CPU per tick", flush=True)
 
     sent_results = sent_phases(record, counted, cuda)
-    results += exact_results + ae_results + swim_results + sent_results
+    winners_results = sort_winners_phases(record, counted, results, cuda)
+    results += (exact_results + ae_results + swim_results + sent_results
+                + winners_results)
     record["kernels"] = results
     with open(kernels.BUILD_DIR / "chip_smoke.json", "w") as f:
         json.dump(record, f, indent=1, default=str)
@@ -1809,6 +2094,9 @@ def main() -> int:
             "converged_frac", "ticks_p50", "ticks_p99",
             "msgs_per_node_mean", "hops_p50", "hops_p99", "wall_s",
             "launches")} for k, v in sent_runs.items()}}}), flush=True)
+    print(json.dumps({"winners": {k: {f: v[f] for f in (
+        "impacted", "winners", "gen_rows", "call_s", "launches")}
+        for k, v in record["winners_runs"].items()}}), flush=True)
     line = {"kernels": [
         {key: r[key] for key in (
             "name", "route", "source", "replaces", "launches",
@@ -1852,6 +2140,44 @@ def sent_phases(record: dict, counted: dict, cuda) -> list:
             cfg, 4, cuda, f"track_sent {label}")
     print("exact_tick and track_sent card == CPU per tick", flush=True)
     return results
+
+
+
+def sort_winners_phases(record: dict, counted: dict, results: list,
+                        cuda) -> list:
+    """Phases 14-15, the segmented sort and the winner selection;
+    returns the three winner kernels' results and adds the winners
+    runs' launches to ``seg_argsort``'s (in ``results``, phase 2)."""
+    from corrosion_tpu_torch.sim.epidemic import HEADLINE, HEADLINE_SEEDS
+
+    # phase 14: the sort at every shape, and a headline tick's sorts
+    record["sort_checks"] = sort_checks(cuda)
+    record["headline_sorts"] = sort_kernel_names(
+        replace(HEADLINE, n_universes=HEADLINE_SEEDS))
+    print(f"seg_argsort matches its plain version in "
+          f"{len(record['sort_checks'])} cases; a headline tick sorts "
+          f"with {record['headline_sorts']}", flush=True)
+
+    # phase 15: the winner selection at full width
+    runs, plan = winners_full_width(counted)
+    record["winners_runs"] = runs
+    checks = winners_kernel_checks(plan, cuda)
+    record["winners_sort"] = checks[0]
+    replaces = {"seg_cummax": "corrosion_tpu/ops/merge.py:599",
+                "winners_a": "corrosion_tpu/ops/merge.py:619",
+                "winners_b": "corrosion_tpu/ops/merge.py:658"}
+    for r in checks[1:]:
+        r.update(route="cuda", source=WINNERS_SOURCE,
+                 replaces=replaces[r["name"]],
+                 launches=sum(v["launches"][r["name"]]
+                              for v in runs.values()))
+    sort = next(r for r in results if r["name"] == "seg_argsort")
+    sort["launches"] += sum(v["launches"]["seg_argsort"]
+                            for v in runs.values())
+    print("winner kernels match their plain versions: "
+          + ", ".join(f"{r['name']} {r['max_abs_err']}" for r in checks),
+          flush=True)
+    return checks[1:]
 
 
 if __name__ == "__main__":

@@ -4,13 +4,14 @@ The JAX package ``corrosion_tpu`` is the reference; this package mirrors
 its layout (``ops/``, ``models/``, ``sim/``, ``utils/``) so each
 module's counterpart is easy to find, and runs the headline epidemic
 simulation, the exact-sampler column, anti-entropy reassembly, SWIM
-churn and the calibration-scale exact ``sent_to`` sampler through
-hand-written CUDA kernels (``kernels/``).  The entry points:
+churn, the calibration-scale exact ``sent_to`` sampler and the
+columnar CRDT winner selection of a batched apply through hand-written
+CUDA kernels (``kernels/``).  The entry points:
 ``sim.run_epidemic_seeds`` (``track_sent`` included),
 ``sim.calibrate.run_exact_headline``,
 ``sim.calibrate.run_msgs_calibration``, ``sim.calibrate.run_exact``,
-``sim.run_anti_entropy_seeds``, ``sim.run_churn`` and
-``sim.run_churn_cycles``.
+``sim.run_anti_entropy_seeds``, ``sim.run_churn``,
+``sim.run_churn_cycles`` and ``ops.merge.select_winners``.
 
 Every entry point takes an explicit ``device`` (default ``"cuda"``).
 Asking for ``"cuda"`` without a card raises; pass ``device="cpu"`` for

@@ -7,7 +7,10 @@ The simulator has no weights; its state plays that role.  A reference
 ``SwimState`` (any NamedTuple or mapping with its fields, the values
 numpy arrays or anything ``np.asarray`` takes), or an anti-entropy
 carry ``(bits, msgs)``, becomes the port's tensors on a given device,
-and back, so both sides can start from the same state and keys.  An
+and back, so both sides can start from the same state and keys.  A
+reference ``MergePlan`` (an encoded change batch) becomes the port's,
+so one batch feeds both packages' ``select_winners``, and
+``decision_diff`` compares two ``MergeDecision``s.  An
 exact-sampler state may be one seed's (leaves [N, ...], as
 ``packed_exact_tick`` holds it) or a seed batch's (leaves [S, N, ...]
 and ticks [S], as the vmapped runners hold it); the port's always has
@@ -16,11 +19,14 @@ the seed axis.
 
 from __future__ import annotations
 
+from dataclasses import fields
+
 import numpy as np
 import torch
 
 from corrosion_tpu_torch import resolve_device
 from corrosion_tpu_torch.models.swim import SwimState
+from corrosion_tpu_torch.ops.merge import MergePlan
 from corrosion_tpu_torch.random import key_words
 from corrosion_tpu_torch.sim.calibrate import (
     ExactState,
@@ -168,3 +174,36 @@ def key_from_numpy(key) -> torch.Tensor:
 
 def key_to_numpy(key) -> np.ndarray:
     return np.asarray(key_words(key), dtype=np.uint32)
+
+
+# the array fields of a MergePlan and their dtypes
+PLAN_ARRAYS = {"pk": np.int64, "cid": np.int64, "sent": np.bool_,
+               "cl": np.int64, "key": np.int64, "seed_cl": np.int64,
+               "seed_key": np.int64}
+DECISION_ARRAYS = ("final_cl", "gen", "alive", "ensure", "sent_flag",
+                   "clrow_idx", "winner_idx")
+
+
+def merge_plan_from_reference(plan) -> MergePlan:
+    """The port's ``MergePlan`` from a reference one (any object with
+    its fields; arrays as numpy or anything ``np.asarray`` takes)."""
+    d = {f.name: getattr(plan, f.name) for f in fields(MergePlan)}
+    for name, dtype in PLAN_ARRAYS.items():
+        d[name] = np.array(d[name], dtype=dtype)
+    d["pk_values"], d["cid_values"] = list(d["pk_values"]), list(
+        d["cid_values"])
+    return MergePlan(**d)
+
+
+def decision_diff(a, b) -> list:
+    """Names of the fields in which two ``MergeDecision``s (the port's
+    or the reference's) differ, in value or dtype; ``impacted``
+    included.  Empty when they are bitwise equal."""
+    diff = []
+    for name in DECISION_ARRAYS:
+        x, y = np.asarray(getattr(a, name)), np.asarray(getattr(b, name))
+        if x.dtype != y.dtype or not np.array_equal(x, y):
+            diff.append(name)
+    if int(a.impacted) != int(b.impacted):
+        diff.append("impacted")
+    return diff

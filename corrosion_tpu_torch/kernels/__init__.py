@@ -9,7 +9,7 @@ opens a library with ctypes, building it first when it is missing.
 
 Each kernel module (``threefry``, ``deliver``, ``sync_pull``,
 ``tick_stats``, ``exact_send``, ``seq_sync``, ``swim``,
-``sent_sampler``) holds the
+``sent_sampler``, ``seg_sort``, ``winners``) holds the
 wrapper, the kernel's plain PyTorch version and a launch counter.  The
 wrapper takes the plain version only for tensors on the CPU; for CUDA
 tensors it launches the kernel or raises.  Kernels run on PyTorch's
@@ -31,7 +31,8 @@ import torch
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent / "build"
 KERNELS = ("threefry", "deliver_perm", "sync_pull", "tick_stats",
-           "exact_send", "seq_sync", "swim", "sent_sampler")
+           "exact_send", "seq_sync", "swim", "sent_sampler", "seg_sort",
+           "winners")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",

@@ -9,8 +9,9 @@ learn something new rebroadcast with a fresh budget.
 Delivery is receiver-side permutation fanout: each fanout column is a
 random within-block permutation, so every receiver hears from the
 unique sender that picked it.  ``_perm_senders`` draws the
-receiver→sender map of a column (uniform scores from the threefry
-kernel, a stable ``torch.sort`` as ``jnp.argsort`` is stable), and the
+receiver→sender map of a column: raw threefry bits, whose top 23 bits
+are the reference's uniform scores, sorted within segments by the
+stable ``seg_argsort`` kernel (``jnp.argsort`` is stable); the
 ``deliver_perm`` kernel runs the K gathers, validity masks, merge and
 epilogue in one pass.
 
@@ -32,13 +33,14 @@ from corrosion_tpu_torch.kernels.deliver import (  # noqa: F401 - HOP_UNSET
     HOP_UNSET,
     deliver_perm,
 )
+from corrosion_tpu_torch.kernels.seg_sort import seg_argsort
 from corrosion_tpu_torch.kernels.sent_sampler import (
     key_tensor,
     sent_commit,
     sent_select,
 )
 from corrosion_tpu_torch.models.common import severance_matrix
-from corrosion_tpu_torch.random import fold_in, randint, split, uniform
+from corrosion_tpu_torch.random import bits, fold_in, randint, split, uniform
 
 
 @dataclass(frozen=True)
@@ -146,10 +148,13 @@ def _perm_senders(key_t, j: int, n: int, u: int, ring0: bool,
 
     Global columns: inverse of a uniform random permutation within each
     width-``u`` universe (one stable sort of uniform scores per
-    universe).  Ring0 columns: permutation within aligned blocks of
-    b0 | u nodes, b0 the largest divisor of u <= ring0_size; when u has
-    no useful divisor, a receiver-side sliding-window draw
-    ``sender = t - off``, off in [1, min(ring0_size, u-1)]."""
+    universe: ``uniform`` is ``(bits >> 9) * 2**-23``, one-to-one and
+    monotone, so the stable ``seg_argsort`` of the 23-bit ``bits >> 9``
+    is the reference's ``jnp.argsort(uniform)``).  Ring0 columns:
+    permutation within aligned blocks of b0 | u nodes, b0 the largest
+    divisor of u <= ring0_size; when u has no useful divisor, a
+    receiver-side sliding-window draw ``sender = t - off``, off in
+    [1, min(ring0_size, u-1)]."""
     kj = fold_in(key_t, j)
     idx = torch.arange(n, dtype=torch.int32, device=device)
     if ring0:
@@ -162,9 +167,9 @@ def _perm_senders(key_t, j: int, n: int, u: int, ring0: bool,
         block = b0
     else:
         block = u
-    scores = uniform(kj, (n // block, block), device=device)
-    inv = torch.sort(scores, dim=1, stable=True).indices.reshape(-1)
-    return idx - idx % block + inv.to(torch.int32)
+    raw = bits(kj, (n // block, block), device=device)
+    inv = seg_argsort(raw, key_bits=23, shift=9).reshape(-1)
+    return idx - idx % block + inv
 
 
 def _deliver_perm(rows, tx_remaining, msgs_sent, hops, tick, next_send,

@@ -12,8 +12,10 @@ config #4 run (``run_anti_entropy_seeds``, 10k nodes x 32 seeds); the
 first 32-tick chunk of the churn schedule at 64 (config #2) and 4096
 nodes from the initial state; one seed of the calibration-scale exact
 sampler at 16k nodes (``run_exact(ExactConfig(16000))``, the 16k point
-of ``run_msgs_calibration``); and the whole ``track_sent`` run of
-``sim_trace``'s config at 512 nodes x 8 seeds.  Each is
+of ``run_msgs_calibration``); the whole ``track_sent`` run of
+``sim_trace``'s config at 512 nodes x 8 seeds; and one full-width
+``select_winners(backend="torch")`` call on a ``resync_batch`` of
+2**20 changes (warm, interleaved; the plan is encoded untimed).  Each is
 run first untimed to warm up, then ``REPS`` times with a host clock
 around work that ends in ``torch.cuda.synchronize()``, then ``REPS``
 times under ``torch.profiler``, each of those with its own host clock.
@@ -33,9 +35,11 @@ import json
 import time
 from dataclasses import replace
 
+import numpy as np
 import torch
 
 from corrosion_tpu_torch import resolve_device
+from corrosion_tpu_torch.ops import merge
 from corrosion_tpu_torch.models.swim import swim_init
 from corrosion_tpu_torch.random import PRNGKey
 from corrosion_tpu_torch.sim import antientropy, calibrate, churn
@@ -51,6 +55,9 @@ from corrosion_tpu_torch.sim.epidemic import (
 
 
 REPS = 5
+WINNERS_N = 1 << 20  # changes in the full-width winners batch
+# value columns as tests/test_merge_columnar.py draws them (every type)
+RESYNC_VALUES = (None, 1, -4, 2.5, "x", b"\x01", "yy", "")
 ACTIVITIES = (torch.profiler.ProfilerActivity.CPU,
               torch.profiler.ProfilerActivity.CUDA)
 
@@ -152,6 +159,57 @@ def track_sent_run(cfg, seeds: int):
     return prepare
 
 
+def resync_batch(n: int = WINNERS_N, interleaved: bool = True,
+                 warm: bool = True, seed: int = 0):
+    """``(records, seed_cls, seed_cells)`` of one table batch for
+    ``merge.encode_changes``: a full resync of a table of n / 4 rows x 4
+    columns (APPLY_BENCH's shape), each row's changes together
+    (pk-grouped) or in a seeded shuffle (``interleaved``).  A change is
+    a row sentinel with probability 1/4, else a cell change of a random
+    column; cl in 1..5, col_version in 1..4, values of every type, as
+    tests/test_merge_columnar.py draws them.  ``warm`` gives every row
+    a pre-batch causal length in 1..4 and about half the cells a clock
+    seed (col_version 1..4, a value); cold gives none."""
+    rng = np.random.default_rng(seed)
+    rows = n // 4
+    pk = np.repeat(np.arange(rows), 4)[:n]
+    sentinel = rng.random(n) < 0.25
+    cid = rng.integers(0, 4, n)
+    cl = rng.integers(1, 6, n)
+    ver = rng.integers(1, 5, n)
+    val = rng.integers(0, len(RESYNC_VALUES), n)
+    if interleaved:
+        perm = rng.permutation(n)
+        pk, sentinel, cid, cl, ver, val = (
+            a[perm] for a in (pk, sentinel, cid, cl, ver, val))
+    cols = [f"c{c}" for c in range(4)]
+    records = [
+        (p, None, c, 0, None) if s else (p, cols[ci], c, v, RESYNC_VALUES[x])
+        for p, s, ci, c, v, x in zip(pk.tolist(), sentinel.tolist(),
+                                     cid.tolist(), cl.tolist(), ver.tolist(),
+                                     val.tolist())
+    ]
+    if not warm:
+        return records, {}, {}
+    seed_cls = dict(zip(range(rows), rng.integers(1, 5, rows).tolist()))
+    cells = np.flatnonzero(rng.random(rows * 4) < 0.5)
+    sver = rng.integers(1, 5, cells.size).tolist()
+    sval = rng.integers(0, 3, cells.size).tolist()
+    seed_cells = {
+        (c // 4, cols[c % 4]): (v, (None, 1, "z")[x])
+        for c, v, x in zip(cells.tolist(), sver, sval)
+    }
+    return records, seed_cls, seed_cells
+
+
+def winners_call(plan):
+    """One ``select_winners(backend="torch")`` call on the card."""
+    def prepare():
+        return lambda: merge.select_winners(plan, backend="torch",
+                                            device="cuda")
+    return prepare
+
+
 def main() -> int:
     argparse.ArgumentParser(description=__doc__.splitlines()[0]).parse_args()
     cfg = replace(HEADLINE, n_universes=HEADLINE_SEEDS)
@@ -178,6 +236,9 @@ def main() -> int:
                                      seeds=1)
     out["track_sent_512"] = profile(track_sent_run(sent_trace_cfg(512), 8),
                                     nodes=512, seeds=8)
+    plan = merge.encode_changes(*resync_batch())
+    out["winners_1m"] = profile(winners_call(plan), changes=plan.n,
+                                rows=plan.n_pk, cells=plan.n_cid)
     print(json.dumps(out))
     return 0
 
