@@ -6,7 +6,7 @@
 Needs one CUDA card and ``nvcc``; imports nothing of JAX or of the JAX
 package.  Phases, each ending the run with a non-zero exit on failure:
 
-1. print the card's name and power limit, build the ten kernel sources
+1. print the card's name and power limit, build the eleven kernel sources
    of this checkout (one ``nvcc`` per source, in parallel) and record
    threefry's opcode counts (``cuobjdump -sass``);
 2. hold the perm-fanout kernels (the threefry draws, ``seg_argsort``,
@@ -45,8 +45,9 @@ package.  Phases, each ending the run with a non-zero exit on failure:
    and 20, and the SWIM kernels (``swim_tick``: probe/select, spread,
    gather, settle) at N = 64 and 4096 at a tick during suspicion, the
    revive tick, a 15%-loss tick, a tick without gossip targets and a
-   crafted-tie state at 8 gossip entries, every leaf bitwise; time each
-   kernel with CUDA events;
+   crafted-tie state at 8, 12 and 20 gossip entries (one, two and three
+   selection passes), every leaf bitwise; time each kernel with CUDA
+   events;
 9. run config #4 (``run_anti_entropy_seeds``, 10k x 32 seeds), config
    #2 (``run_churn``, 64 nodes) and the 4096-node churn cycle on the
    card, each with the launch counters zeroed just before, and hold
@@ -55,8 +56,10 @@ package.  Phases, each ending the run with a non-zero exit on failure:
    detect and rejoin None, 4.99986 msgs/node/tick);
 10. run anti-entropy at 1000 nodes x 4 seeds (default, and 3 peers with
     a budget of 2) and SWIM at 256 nodes over two 128-tick churn cycles
-    (lossless and 15% loss) on the card and on the CPU, and require
-    every leaf per tick and the stats to be equal;
+    (lossless and 15% loss), at 48 nodes with 12 gossip entries and 5
+    targets and at 64 nodes with 20 entries (15% loss) on the card and
+    on the CPU, and require every leaf per tick and the stats to be
+    equal;
 11. hold ``sent_select`` and ``sent_commit`` (the exact ``sent_to``
     sampler) against their plain versions, every output leaf bitwise
     (``sent`` included): calibration mode at ``ExactConfig(16000)``
@@ -91,7 +94,26 @@ package.  Phases, each ending the run with a non-zero exit on failure:
     to the NumPy twin's and the plain torch core's on the card; then
     hold ``seg_cummax``, ``winners_a`` and ``winners_b`` (and the int64
     sort) against their plain versions on that batch's intermediates
-    and time them with CUDA events.
+    and time them with CUDA events;
+16. hold ``store_set`` and ``store_gather`` (the device clock cache's
+    store) against their plain versions and NumPy on the card, bitwise,
+    at n in {0, 1, 2500, 10000, 65536, 262144} into arrays of 1024,
+    65536 and 524288 entries, unique and repeated indices (the last
+    pair wins); require an out-of-range index to raise; time both
+    beside ``index_select`` / ``index_put_``; then drive the
+    device-resident apply through the port's ``CrConn`` with
+    ``enable_device_cache()`` (the torch store, which must be on the
+    card): APPLY_BENCH ``device_arm``'s steady and flood scenarios
+    (bench.py:538; 12 waves of 10,000 changes) in four arms
+    (per-change, batched, NumPy store, torch store) that must leave one
+    state, and the capacity run (a 262,144-change prefill that fills
+    the cache, 12 steady waves and one over all 65,536 rows, 12 flood
+    waves with a local write, and a batch of more rows than the cache
+    holds), the torch store's counters, metrics and arrays equal to the
+    NumPy store's after each segment and its state after the steady and
+    the last, with the launch counters zeroed just before it.  The arms
+    held against the torch store's run in two spawned worker processes
+    beside it.
 
 Prints the card line, the ``kernels`` JSON line and, last, the
 ``{"ok": true, "device": ...}`` line; writes the full record (with
@@ -103,11 +125,14 @@ from __future__ import annotations
 
 import json
 import math
+import multiprocessing
 import os
 import re
 import subprocess
 import sys
+import tempfile
 import time
+from concurrent.futures import ProcessPoolExecutor
 from dataclasses import replace
 
 import numpy as np
@@ -838,6 +863,9 @@ CHURN4096_WANT = dict(detect_latency=None, rejoin_latency=None,
                       ticks_run=128)
 AE_TICKS = (1, 20)  # phase 8's anti-entropy ticks
 SWIM_SIZES = (64, 4096)  # phase 8's SWIM clusters; the last is timed
+# gossip widths of the crafted-tie checks: one selection pass of the
+# kernel, and two and three passes
+SWIM_TIE_ENTRIES = (8, 12, 20)
 SWIM_KERNELS = ("swim_probe_select", "swim_spread", "swim_gather",
                 "swim_settle")
 
@@ -996,7 +1024,8 @@ def swim_kernel_checks(dev):
     card, every leaf and the victim counters bitwise, at N = 64 and
     4096: a tick during suspicion, the revive tick, a loss = 0.15 run,
     a run without gossip targets (no gossip pass) and a crafted-tie
-    state at the widest gossip the kernel takes (``MAX_ENTRIES``); each
+    state at one selection pass of gossip entries (``MAX_ENTRIES``) and
+    at two and three passes (12, 20); each
     kernel timed at N = 4096's suspicion tick (CUDA events around each
     launch, the host's enqueue hidden behind a GPU-side sleep)."""
     from corrosion_tpu_torch.kernels import swim as ksw
@@ -1030,17 +1059,18 @@ def swim_kernel_checks(dev):
                 timed = swim_times(ksw, state, key, tick, params, alive,
                                    revived)
         tie = SwimState(*(t.to(dev) for t in crafted_tie_state(n)))
-        params = replace(cfg.params, update_tx_limit=2**30, loss=0.15,
-                         gossip_entries=ksw.MAX_ENTRIES)
         alive = torch.ones(n, dtype=torch.bool, device=dev)
-        got = ksw.swim_tick(*tie, key, 3, params, alive)
-        want = ksw.swim_tick_plain(*tie, ksw.tick_keys(key), 3, params,
-                                   alive)
-        checks.append(dict(n=n, case="crafted_ties", tick=3,
-                           max_abs_err=max_abs_err(got, want),
-                           differs=[f for f, x, y in zip(
-                               SwimState._fields, got, want)
-                               if not torch.equal(x, y)]))
+        for entries in SWIM_TIE_ENTRIES:
+            params = replace(cfg.params, update_tx_limit=2**30, loss=0.15,
+                             gossip_entries=entries)
+            got = ksw.swim_tick(*tie, key, 3, params, alive)
+            want = ksw.swim_tick_plain(*tie, ksw.tick_keys(key), 3, params,
+                                       alive)
+            checks.append(dict(n=n, case=f"crafted_ties_{entries}", tick=3,
+                               max_abs_err=max_abs_err(got, want),
+                               differs=[f for f, x, y in zip(
+                                   SwimState._fields, got, want)
+                                   if not torch.equal(x, y)]))
     for c in checks:
         if c["max_abs_err"] != 0.0 or c["differs"]:
             fail(f"swim kernels differ from their plain version: {c}")
@@ -1906,6 +1936,438 @@ def winners_kernel_checks(plan, dev) -> list:
     return res
 
 
+# -- the device-resident apply path (ops/devcache under agent/storage) ----
+
+STORE_SOURCE = "corrosion_tpu_torch/kernels/csrc/store.cu"
+STORE_NS = (0, 1, 2_500, 10_000, 65_536, 262_144)
+STORE_CAPS = (1_024, 65_536, 524_288)
+# the apply path's widest store calls: every cell of a full cache
+# (262,144 of a 524,288-slot cell_ver) and every row (65,536 of row_cl)
+STORE_TIMED = ((262_144, 524_288), (65_536, 65_536))
+APPLY_WAVE, APPLY_WAVES = 10_000, 12  # APPLY_BENCH device_arm's shape
+CACHE_METRICS = ("corro_apply_cache_hits_total",
+                 "corro_apply_cache_misses_total",
+                 "corro_apply_cache_evictions_total",
+                 "corro_apply_cache_invalidations_total")
+
+
+def store_case(g, cap: int, n: int, kind: str):
+    """(base [cap], idx [n], vals [n]) int64: ``kind`` "unique" draws
+    distinct indices, "repeat" with replacement (the last one repeats
+    the first, with another value)."""
+    base = g.integers(-5, 1 << 40, cap)
+    if kind == "unique":
+        idx = g.permutation(cap)[:n]
+    else:
+        idx = g.integers(0, cap, n)
+        if n > 1:
+            idx[-1] = idx[0]
+    vals = g.integers(-(1 << 62), 1 << 62, n)
+    return base, idx.astype(np.int64), vals
+
+
+def store_checks(dev) -> list:
+    """Phase 16a: ``store_set`` and ``store_gather`` against their
+    plain versions and NumPy on the card, bitwise, at every (cap, n) of
+    the apply path's range, unique and repeated indices (the last pair
+    wins), n = 0; an index out of range must raise ``IndexError`` and
+    leave the array untouched; the owner buffer must come back all -1."""
+    from corrosion_tpu_torch.kernels import store as kst
+
+    g = np.random.default_rng(16)
+    checks = []
+    for cap in STORE_CAPS:
+        owner = kst.new_owner(cap, dev)
+        for n in STORE_NS:
+            for kind in ("unique", "repeat"):
+                if kind == "unique" and n > cap:
+                    continue
+                base, idx, vals = store_case(g, cap, n, kind)
+                want = base.copy()
+                want[idx] = vals
+                arr = torch.from_numpy(base).to(dev)
+                plain = arr.clone()
+                kst.store_set(arr, idx, vals, owner)
+                kst.store_set_plain(plain, torch.from_numpy(idx).to(dev),
+                                    torch.from_numpy(vals).to(dev))
+                got_g = kst.store_gather(arr, idx)
+                plain_g = kst.store_gather_plain(
+                    arr, torch.from_numpy(idx).to(dev)).cpu().numpy()
+                torch.cuda.synchronize()
+                ok = (torch.equal(arr, plain)
+                      and np.array_equal(arr.cpu().numpy(), want)
+                      and np.array_equal(got_g, want[idx])
+                      and np.array_equal(plain_g, want[idx])
+                      and bool((owner == -1).all()))
+                checks.append(dict(cap=cap, n=n, kind=kind, equal=ok,
+                                   max_abs_err=max_abs_err(
+                                       [arr, torch.from_numpy(got_g)],
+                                       [plain, torch.from_numpy(plain_g)])))
+        arr = torch.zeros(cap, dtype=torch.int64, device=dev)
+        for bad in ([0, cap], [-cap - 1]):
+            for call in (lambda: kst.store_gather(arr, np.array(bad)),
+                         lambda: kst.store_set(arr, np.array(bad),
+                                               np.ones(len(bad)), owner)):
+                try:
+                    call()
+                except IndexError:
+                    continue
+                fail(f"store kernels: index {bad} into {cap} did not raise")
+        if bool(arr.any()):
+            fail("store_set wrote before refusing an out-of-range index")
+    bad = [c for c in checks if not c["equal"] or c["max_abs_err"] != 0.0]
+    if bad:
+        fail(f"store kernels differ from their plain versions: {bad}")
+    return checks
+
+
+def store_times(dev, checks: list) -> list:
+    """Both store kernels at the apply path's widest calls, unique
+    indices, on device tensors: an event pair around each of 30
+    launches behind a GPU-side sleep that hides the host's enqueue
+    (``ms``); the plain versions and ``index_select`` / ``index_put_``
+    (the library calls that compute the same functions) the same way;
+    and the whole wrapper call from host arrays (``call_ms``, events
+    over 20 calls: the range check, the host-to-device copies and, for
+    the gather, the fetch)."""
+    from corrosion_tpu_torch.kernels import store as kst
+
+    def timed(fn):
+        return time_inplace_ms(lambda: None, fn, 30)
+
+    g = np.random.default_rng(17)
+    err = max(c["max_abs_err"] for c in checks)
+    out = []
+    for n, cap in STORE_TIMED:
+        base, idx, vals = store_case(g, cap, n, "unique")
+        arr = torch.from_numpy(base).to(dev)
+        idx_d = torch.from_numpy(idx).to(dev)
+        vals_d = torch.from_numpy(vals).to(dev)
+        owner = kst.new_owner(cap, dev)
+        shape = f"n = {n} into cap {cap}, unique indices"
+        out.append(dict(
+            name="store_gather", max_abs_err=err, shape=shape,
+            ms=timed(lambda: kst.gather_launch(arr, idx_d)),
+            plain_ms=timed(lambda: kst.store_gather_plain(arr, idx_d)),
+            library_ms=timed(lambda: torch.index_select(arr, 0, idx_d)),
+            call_ms=time_ms(lambda: kst.store_gather(arr, idx), 20),
+            # idx read, one sector of arr a lookup, out written
+            bound=(n * (8 + SECTOR + 8), 0)))
+        out.append(dict(
+            name="store_set", max_abs_err=err, shape=shape,
+            ms=timed(lambda: kst.set_launch(arr, idx_d, vals_d, owner)),
+            plain_ms=timed(lambda: kst.store_set_plain(arr, idx_d, vals_d)),
+            library_ms=timed(lambda: arr.index_put_((idx_d,), vals_d)),
+            call_ms=time_ms(lambda: kst.store_set(arr, idx, vals, owner), 20),
+            # idx and vals read, one sector of arr written a pair; the
+            # owner passes (claim, test-and-reset) add 2 sectors a pair
+            bound=(n * (8 + 8 + SECTOR), 0),
+            bytes_with_owner=n * (8 + 8 + 3 * SECTOR)))
+    for r in out:
+        set_bound(r)
+    return out
+
+
+def bench_dump(db) -> dict:
+    """tests/test_apply_batched.py ``_dump``'s queries over ``bench``."""
+    q = db.conn.execute
+    return {
+        "data": sorted(q('SELECT * FROM "bench"').fetchall(), key=repr),
+        "clock": sorted(q(
+            'SELECT pk, cid, col_version, db_version, seq, site_ordinal '
+            'FROM "bench__corro_clock"').fetchall()),
+        "cl": sorted(q(
+            'SELECT pk, cl, db_version, seq, site_ordinal, sentinel '
+            'FROM "bench__corro_cl"').fetchall()),
+        "sites": q("SELECT ordinal, site_id FROM __corro_sites "
+                   "ORDER BY ordinal").fetchall(),
+        "impacted": sorted(q("SELECT site_ordinal, db_version FROM "
+                             "__corro_versions_impacted").fetchall()),
+    }
+
+
+def cache_state(db) -> dict:
+    """The cache's counters, metric series and, per table, its host
+    index and store arrays (``to_host``)."""
+    dc = db.device_cache
+    tables = {}
+    for name, tc in dc._tables.items():
+        tables[name] = dict(
+            pk_slot=dict(tc.pk_slot), next_slot=tc.next_slot,
+            caps=(tc.cap_rows, tc.cap_cells, tc.cells_used),
+            # copies: the NumPy store's to_host is the live array
+            row_cl=np.array(tc.store.to_host(tc.row_cl)),
+            cell_ver=np.array(tc.store.to_host(tc.cell_ver)),
+            cell_keys=tc.cell_keys.copy(), row_known=tc.row_known.copy(),
+            row_present=tc.row_present.copy())
+    return dict(stats=dc.stats(), invalidations=dict(dc.invalidations),
+                metrics={k: db.metrics.get_counter_sum(k)
+                         for k in CACHE_METRICS},
+                tables=tables)
+
+
+def state_diff(a: dict, b: dict, path: str = "") -> list:
+    """The keys (paths) where two nested dicts of values and ndarrays
+    differ."""
+    if a.keys() != b.keys():
+        return [path or "keys"]
+    out = []
+    for k in a:
+        x, y = a[k], b[k]
+        if isinstance(x, dict) and isinstance(y, dict):
+            out += state_diff(x, y, f"{path}{k}.")
+        elif isinstance(x, np.ndarray) or isinstance(y, np.ndarray):
+            if not np.array_equal(x, y):
+                out.append(f"{path}{k}")
+        elif x != y:
+            out.append(f"{path}{k}")
+    return out
+
+
+def local_write(db) -> None:
+    """bench.py's mid-flood local write (a whole-cache invalidation)."""
+    db.execute("INSERT OR REPLACE INTO bench (id, a) VALUES (?, ?)",
+               (-1, "local"))
+
+
+def capacity_streams() -> dict:
+    """The capacity run's batches, made once (port types): the prefill
+    (every row of the default cache, 4 cells each, so its cell budget
+    exactly), 12 steady waves over 2,500 hot rows and one superseding
+    wave over every row, 12 flood waves of fresh rows, and one batch of
+    more rows than the cache holds."""
+    from corrosion_tpu_torch.profile_tick import (
+        APPLY_ROWS,
+        APPLY_SITE,
+        apply_bench_changes,
+    )
+
+    rows, site = APPLY_ROWS, APPLY_SITE
+    steady = [apply_bench_changes(APPLY_WAVE, site, 2 + w)
+              for w in range(APPLY_WAVES)]
+    steady.append(apply_bench_changes(4 * rows, site, 2 + APPLY_WAVES))
+    flood = [apply_bench_changes(APPLY_WAVE, site, 1,
+                                 row_offset=rows + w * (APPLY_WAVE // 4))
+             for w in range(APPLY_WAVES)]
+    evict = apply_bench_changes(4 * (rows + 1), site, 1,
+                                row_offset=rows + APPLY_WAVES * APPLY_WAVE)
+    return dict(prefill=[apply_bench_changes(4 * rows, site, 1)],
+                steady=steady, flood=flood, eviction=[evict])
+
+
+def run_capacity(db, streams: dict, on_segment) -> dict:
+    """Apply every capacity segment in order (a local write before flood
+    wave 6), each ending in ``flush_barrier()``; ``on_segment(name)``
+    after each.  Returns the host-clock wall of each segment."""
+    walls = {}
+    for name, batches in streams.items():
+        t0 = time.perf_counter()
+        for w, batch in enumerate(batches):
+            if name == "flood" and w == APPLY_WAVES // 2:
+                local_write(db)
+            db.apply_changes_batched(batch)
+        db.flush_barrier()
+        walls[name] = time.perf_counter() - t0
+        on_segment(name)
+    return walls
+
+
+def capacity_arm(path: str, mode: str) -> dict:
+    """One arm of the capacity run at ``path``: ``"torch"``,
+    ``enable_device_cache()`` with its defaults (the store must be on
+    the card), or ``"numpy"``, the NumPy store.  Makes its own streams
+    and returns its changes per segment, its segment walls and, after
+    each segment, the cache's state (and the state dump after the steady
+    and the last segments)."""
+    from corrosion_tpu_torch.profile_tick import bench_conn
+
+    streams = capacity_streams()
+    db = bench_conn(path, {} if mode == "torch" else {"backend": "numpy"})
+    snaps = {}
+
+    def on_segment(name):
+        dump = bench_dump(db) if name in ("steady", "eviction") else None
+        snaps[name] = (dump, cache_state(db))
+
+    try:
+        dc = db.device_cache
+        if mode == "torch" and (dc.backend != "torch"
+                                or dc.store.device.type != "cuda"):
+            fail(f"enable_device_cache() chose {dc.backend} on "
+                 f"{getattr(dc.store, 'device', 'the host')}, not the card")
+        walls = run_capacity(db, streams, on_segment)
+        on_card = all(t.row_cl.is_cuda and t.cell_ver.is_cuda
+                      for t in dc._tables.values()) if mode == "torch" \
+            else None
+    finally:
+        db.close()
+    return dict(changes={k: sum(len(b) for b in v)
+                         for k, v in streams.items()},
+                walls=walls, snaps=snaps, on_card=on_card)
+
+
+def bench_scenarios() -> dict:
+    """APPLY_BENCH ``device_arm``'s two scenarios (bench.py:538):
+    (prefill or None, waves)."""
+    from corrosion_tpu_torch.profile_tick import APPLY_SITE, \
+        apply_bench_changes
+
+    site = APPLY_SITE
+    return {
+        "steady": (apply_bench_changes(APPLY_WAVE, site, 1),
+                   [apply_bench_changes(APPLY_WAVE, site, 2 + w)
+                    for w in range(APPLY_WAVES)]),
+        "flood": (None, [apply_bench_changes(APPLY_WAVE, site, 1,
+                                             row_offset=w * (APPLY_WAVE // 4))
+                         for w in range(APPLY_WAVES)]),
+    }
+
+
+def bench_arm(path: str, mode: str, prefill, waves) -> dict:
+    """One arm of bench.py ``_apply_device_arm``'s scenario: the wall of
+    its waves with the final ``flush_barrier()`` (host clock), its state
+    dump and, on the device arms, the cache's state."""
+    from corrosion_tpu_torch.profile_tick import bench_conn
+
+    cache = {"torch": {}, "numpy": {"backend": "numpy"}}.get(mode)
+    db = bench_conn(path, cache)
+    try:
+        if prefill is not None:
+            db.apply_changes_batched(prefill)
+            db.flush_barrier()
+        t0 = time.perf_counter()
+        for w, batch in enumerate(waves):
+            if prefill is None and w == APPLY_WAVES // 2:
+                local_write(db)
+            if mode == "per_change":
+                with db.apply_tx():
+                    db.apply_changes_sequential_in_tx(list(batch))
+            else:
+                db.apply_changes_batched(batch)
+        db.flush_barrier()
+        out = dict(wall_s=time.perf_counter() - t0, dump=bench_dump(db))
+        if db.device_cache is not None:
+            out["cache"] = cache_state(db)
+        return out
+    finally:
+        db.close()
+
+
+def bench_reference_arms(tmp: str) -> dict:
+    """The APPLY_BENCH scenarios' per-change, batched and NumPy-store
+    arms, {scenario: {mode: bench_arm's result}}."""
+    return {name: {mode: bench_arm(f"{tmp}/bench-{name}-{mode}.db", mode,
+                                   prefill, waves)
+                   for mode in ("per_change", "batched", "numpy")}
+            for name, (prefill, waves) in bench_scenarios().items()}
+
+
+def apply_phase(counted: dict, tmp: str) -> dict:
+    """Phase 16b: the device-resident apply through the port's
+    ``CrConn`` with ``enable_device_cache()`` (defaults: the torch store
+    on the card), held to a ``CrConn`` on the NumPy store and, at the
+    APPLY_BENCH shape, to one with no cache and to the per-change
+    oracle.  The arms it is held to run in two spawned worker processes
+    beside the torch store's arms, which run here (the host work is
+    SQLite and Python, a core each); every wall is its own arm's."""
+    record = {}
+    spawn = multiprocessing.get_context("spawn")
+    with ProcessPoolExecutor(max_workers=2, mp_context=spawn) as pool:
+        ref_bench = pool.submit(bench_reference_arms, tmp)
+        ref_cap = pool.submit(capacity_arm, f"{tmp}/cap-numpy.db", "numpy")
+        torch_bench = {name: bench_arm(f"{tmp}/bench-{name}-torch.db",
+                                       "torch", prefill, waves)
+                       for name, (prefill, waves)
+                       in bench_scenarios().items()}
+        torch.cuda.synchronize()
+        for fn in counted.values():
+            fn.launches = 0
+        cap = capacity_arm(f"{tmp}/cap-torch.db", "torch")
+        torch.cuda.synchronize()
+        launches = {k: counted[k].launches for k in (
+            "store_set", "store_gather", "seg_argsort", "seg_cummax",
+            "winners_a", "winners_b")}
+        bench = ref_bench.result()
+        cap_numpy = ref_cap.result()
+
+    # APPLY_BENCH device_arm's scenarios: four arms each, equal state
+    for name, arms in bench.items():
+        arms["torch"] = torch_bench[name]
+        want = arms["per_change"]["dump"]
+        for mode, arm in arms.items():
+            got = arm.pop("dump")
+            if got != want:
+                fail(f"apply {name}: the {mode} arm's state differs from "
+                     "the per-change oracle's in "
+                     f"{[k for k in want if got[k] != want[k]]}")
+        diff = state_diff(arms["torch"]["cache"], arms["numpy"]["cache"])
+        if diff:
+            fail(f"apply {name}: the torch store's cache differs from "
+                 f"the NumPy store's in {diff}")
+        record[f"bench_{name}"] = {
+            "walls_s": {m: a["wall_s"] for m, a in arms.items()},
+            "cache": arms["torch"]["cache"]["stats"],
+            "metrics": arms["torch"]["cache"]["metrics"]}
+        print(f"apply {name} (APPLY_BENCH shape): per-change == batched == "
+              f"numpy store == torch store; " + json.dumps(
+                  record[f"bench_{name}"]), flush=True)
+
+    # the capacity run: torch store (the main path) against NumPy store
+    for name in cap["snaps"]:
+        (dump_t, cache_t), (dump_n, cache_n) = (cap["snaps"][name],
+                                                cap_numpy["snaps"][name])
+        if dump_t is not None and dump_t != dump_n:
+            fail(f"apply capacity {name}: the torch store's state differs "
+                 "from the NumPy store's in "
+                 f"{[k for k in dump_n if dump_t[k] != dump_n[k]]}")
+        diff = state_diff(cache_t, cache_n)
+        if diff:
+            fail(f"apply capacity {name}: the caches differ in {diff}")
+    idle = [k for k, c in launches.items() if c == 0]
+    if idle or not cap["on_card"]:
+        fail(f"apply capacity: kernels never launched {idle} or arrays "
+             f"off the card (on card: {cap['on_card']})")
+    record["capacity"] = dict(
+        changes=cap["changes"],
+        walls_s={"torch": cap["walls"], "numpy": cap_numpy["walls"]},
+        stats={name: snap[1]["stats"] for name, snap in cap["snaps"].items()},
+        launches=launches)
+    print("apply capacity run (torch store == NumPy store per segment): "
+          + json.dumps(record["capacity"]), flush=True)
+    return record
+
+
+def apply_phases(record: dict, counted: dict, tmp: str,
+                 earlier: list) -> list:
+    """Phase 16: the store kernels, then the apply path; returns the
+    store kernels' results with the capacity run's launches, and adds
+    that run's winner-selection launches to their results in
+    ``earlier``."""
+    cuda = torch.device("cuda")
+    checks = store_checks(cuda)
+    record["store_checks"] = checks
+    record["store_times"] = store_times(cuda, checks)
+    widest = f"n = {STORE_TIMED[0][0]} into cap {STORE_TIMED[0][1]}"
+    results = [dict(r) for r in record["store_times"]
+               if r["shape"].startswith(widest)]
+    print(f"store kernels match their plain versions and NumPy in "
+          f"{len(checks)} cases; " + json.dumps(record["store_times"]),
+          flush=True)
+    t0 = time.perf_counter()
+    record["apply"] = apply_phase(counted, tmp)
+    record["apply"]["phase_s"] = time.perf_counter() - t0
+    launches = record["apply"]["capacity"]["launches"]
+    replaces = {"store_set": "corrosion_tpu/ops/devcache.py:143",
+                "store_gather": "corrosion_tpu/ops/devcache.py:155"}
+    for r in results:
+        r.update(route="cuda", source=STORE_SOURCE,
+                 replaces=replaces[r["name"]], launches=launches[r["name"]])
+    for r in earlier:
+        if r["name"] in launches:
+            r["launches"] += launches[r["name"]]
+    return results
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
@@ -1915,7 +2377,7 @@ def main() -> int:
     from corrosion_tpu_torch.kernels import deliver, exact_send, seq_sync
     from corrosion_tpu_torch.kernels import seg_sort, sent_sampler, swim
     from corrosion_tpu_torch.kernels import sync_pull, threefry, tick_stats
-    from corrosion_tpu_torch.kernels import winners
+    from corrosion_tpu_torch.kernels import store, winners
     from corrosion_tpu_torch.sim.epidemic import (
         HEADLINE,
         HEADLINE_SEEDS,
@@ -1930,7 +2392,8 @@ def main() -> int:
         swim.swim_probe_select, swim.swim_spread, swim.swim_gather,
         swim.swim_settle, sent_sampler.sent_select,
         sent_sampler.sent_commit, seg_sort.seg_argsort, winners.seg_cummax,
-        winners.winners_a, winners.winners_b)}
+        winners.winners_a, winners.winners_b, store.store_set,
+        store.store_gather)}
     headline_counted = ("threefry_bits", "seg_argsort", "deliver_perm",
                         "sync_pull", "tick_stats")
     record = {}
@@ -2066,12 +2529,29 @@ def main() -> int:
     ):
         record[f"churn_equal_{label}"] = churn_equal(cfg, cuda,
                                                      f"churn {label}")
-    print("anti-entropy and churn card == CPU per tick", flush=True)
+    # gossip wider than one selection pass: tests/test_torch_swim.py's
+    # wide-gossip case (12 entries, 5 targets, 15% loss, 48 nodes) and
+    # 20 entries at 64 nodes
+    for label, n, kw in (
+            ("wide_gossip_12", 48, dict(gossip_targets=5, gossip_entries=12,
+                                        loss=0.15)),
+            ("gossip_20", 64, dict(gossip_entries=20, loss=0.15))):
+        cfg = ChurnConfig(n_nodes=n, cycles=1, cycle_period=64,
+                          kill_tick=4, revive_tick=20)
+        cfg = replace(cfg, params=replace(cfg.params, **kw))
+        record[f"churn_equal_{label}"] = churn_equal(cfg, cuda,
+                                                     f"churn {label}")
+    print("anti-entropy and churn card == CPU per tick (gossip 12 and 20 "
+          "entries included)", flush=True)
 
     sent_results = sent_phases(record, counted, cuda)
     winners_results = sort_winners_phases(record, counted, results, cuda)
+    with tempfile.TemporaryDirectory(prefix="apply-",
+                                     dir=kernels.BUILD_DIR) as tmp:
+        store_results = apply_phases(record, counted, tmp,
+                                     results + winners_results)
     results += (exact_results + ae_results + swim_results + sent_results
-                + winners_results)
+                + winners_results + store_results)
     record["kernels"] = results
     with open(kernels.BUILD_DIR / "chip_smoke.json", "w") as f:
         json.dump(record, f, indent=1, default=str)
@@ -2097,6 +2577,8 @@ def main() -> int:
     print(json.dumps({"winners": {k: {f: v[f] for f in (
         "impacted", "winners", "gen_rows", "call_s", "launches")}
         for k, v in record["winners_runs"].items()}}), flush=True)
+    print(json.dumps({"apply": {
+        k: v for k, v in record["apply"].items()}}), flush=True)
     line = {"kernels": [
         {key: r[key] for key in (
             "name", "route", "source", "replaces", "launches",

@@ -1,22 +1,30 @@
 """PyTorch/CUDA port of the corrosion_tpu convergence simulator.
 
 The JAX package ``corrosion_tpu`` is the reference; this package mirrors
-its layout (``ops/``, ``models/``, ``sim/``, ``utils/``) so each
-module's counterpart is easy to find, and runs the headline epidemic
-simulation, the exact-sampler column, anti-entropy reassembly, SWIM
-churn, the calibration-scale exact ``sent_to`` sampler and the
-columnar CRDT winner selection of a batched apply through hand-written
-CUDA kernels (``kernels/``).  The entry points:
+its layout (``ops/``, ``models/``, ``sim/``, ``utils/``, ``agent/``,
+``types/``) so each module's counterpart is easy to find, and runs the
+headline epidemic simulation, the exact-sampler column, anti-entropy
+reassembly, SWIM churn, the calibration-scale exact ``sent_to``
+sampler, the columnar CRDT winner selection of a batched apply and the
+device-resident apply path (the storage engine's batched apply over a
+clock cache kept on the card) through hand-written CUDA kernels
+(``kernels/``).  The entry points:
 ``sim.run_epidemic_seeds`` (``track_sent`` included),
 ``sim.calibrate.run_exact_headline``,
 ``sim.calibrate.run_msgs_calibration``, ``sim.calibrate.run_exact``,
 ``sim.run_anti_entropy_seeds``, ``sim.run_churn``,
-``sim.run_churn_cycles`` and ``ops.merge.select_winners``.
+``sim.run_churn_cycles``, ``ops.merge.select_winners``,
+``ops.devcache.DeviceClockCache`` and ``agent.storage.CrConn`` (with
+``enable_device_cache``).
 
-Every entry point takes an explicit ``device`` (default ``"cuda"``).
-Asking for ``"cuda"`` without a card raises; pass ``device="cpu"`` for
-the plain-PyTorch path the CPU tests hold against the reference.  The
-package imports neither ``jax`` nor anything of ``corrosion_tpu``.
+Every simulator entry point takes an explicit ``device`` (default
+``"cuda"``).  Asking for ``"cuda"`` without a card raises; pass
+``device="cpu"`` for the plain-PyTorch path the CPU tests hold against
+the reference.  The host layers follow the reference's defaults:
+``select_winners`` and the clock cache's ``backend="auto"`` take the
+card when one is present and the NumPy twin otherwise, and an explicit
+``backend="torch"`` without a card raises.  The package imports neither
+``jax`` nor anything of ``corrosion_tpu``.
 """
 
 from __future__ import annotations

@@ -10,7 +10,11 @@ carry ``(bits, msgs)``, becomes the port's tensors on a given device,
 and back, so both sides can start from the same state and keys.  A
 reference ``MergePlan`` (an encoded change batch) becomes the port's,
 so one batch feeds both packages' ``select_winners``, and
-``decision_diff`` compares two ``MergeDecision``s.  An
+``decision_diff`` compares two ``MergeDecision``s.  Reference ``Change``
+objects become the port's (``changes_from_reference``), so one stream
+feeds both packages' ``CrConn``, and a reference ``DeviceClockCache``
+becomes the port's on a device (``devcache_from_reference``), so a
+warmed cache carries across.  An
 exact-sampler state may be one seed's (leaves [N, ...], as
 ``packed_exact_tick`` holds it) or a seed batch's (leaves [S, N, ...]
 and ticks [S], as the vmapped runners hold it); the port's always has
@@ -20,12 +24,18 @@ the seed axis.
 from __future__ import annotations
 
 from dataclasses import fields
+from types import SimpleNamespace
 
 import numpy as np
 import torch
 
 from corrosion_tpu_torch import resolve_device
 from corrosion_tpu_torch.models.swim import SwimState
+from corrosion_tpu_torch.ops.devcache import (
+    VAL_UNKNOWN,
+    DeviceClockCache,
+    _TableCache,
+)
 from corrosion_tpu_torch.ops.merge import MergePlan
 from corrosion_tpu_torch.random import key_words
 from corrosion_tpu_torch.sim.calibrate import (
@@ -34,6 +44,8 @@ from corrosion_tpu_torch.sim.calibrate import (
     PackedExactState,
 )
 from corrosion_tpu_torch.sim.epidemic import EpidemicState
+from corrosion_tpu_torch.types.base import CrsqlDbVersion, CrsqlSeq
+from corrosion_tpu_torch.types.change import Change
 
 TENSOR_FIELDS = ("rows", "tx_remaining", "msgs", "hops", "next_send")
 # the exact-sampler leaves and their dtypes (``sent`` / ``ring`` by type)
@@ -207,3 +219,53 @@ def decision_diff(a, b) -> list:
     if int(a.impacted) != int(b.impacted):
         diff.append("impacted")
     return diff
+
+
+def changes_from_reference(changes) -> list:
+    """The port's ``Change`` for each reference ``Change`` (any object
+    with its fields), every field value identical."""
+    return [
+        Change(table=c.table, pk=c.pk, cid=c.cid, val=c.val,
+               col_version=c.col_version,
+               db_version=CrsqlDbVersion(int(c.db_version)),
+               seq=CrsqlSeq(int(c.seq)), site_id=c.site_id, cl=c.cl)
+        for c in changes
+    ]
+
+
+def devcache_from_reference(ref_cache, device="cuda") -> DeviceClockCache:
+    """The port's ``DeviceClockCache`` (torch store on ``device``) from a
+    reference one between transactions (empty shadow): every table's
+    slot map, capacities, packed-key index, values (the reference's
+    version-only marker mapped to this package's ``VAL_UNKNOWN``), row
+    flags and the store arrays (``to_host``), and the counters.  The
+    reference cache is left as it was."""
+    if ref_cache._shadow:
+        raise ValueError("devcache_from_reference: the reference cache "
+                         "holds an open transaction's shadow")
+    out = DeviceClockCache(slots=ref_cache.slots, backend="torch",
+                           device=device)
+    store = out.store
+    for name, rt in ref_cache._tables.items():
+        cols = sorted(rt.cid_ord, key=rt.cid_ord.get)
+        info = SimpleNamespace(name=name, data_cols=cols)
+        tc = _TableCache(info, store, rt.max_rows, rt.max_cells)
+        tc.n_cid = rt.n_cid
+        tc.pk_slot = dict(rt.pk_slot)
+        tc.next_slot = rt.next_slot
+        tc.cap_rows = rt.cap_rows
+        tc.row_cl = store.from_host(rt.store.to_host(rt.row_cl))
+        tc.row_known = np.array(rt.row_known, dtype=bool)
+        tc.row_present = np.array(rt.row_present, dtype=bool)
+        tc.cap_cells = rt.cap_cells
+        tc.capbits = rt.capbits
+        tc.cell_keys = np.array(rt.cell_keys, dtype=np.int64)
+        tc.cell_ver = store.from_host(rt.store.to_host(rt.cell_ver))
+        # the reference's version-only marker becomes this package's
+        tc.cell_val = [VAL_UNKNOWN if type(v).__name__ == "_ValUnknown"
+                       else v for v in rt.cell_val]
+        tc.cells_used = rt.cells_used
+        out._tables[name] = tc
+    out.counters = dict(ref_cache.counters)
+    out.invalidations = dict(ref_cache.invalidations)
+    return out

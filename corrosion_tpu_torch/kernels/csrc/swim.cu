@@ -22,9 +22,11 @@
 //       counter i * N + j, one round-to-nearest add; +inf at or past the
 //       retransmission limit) into a sorted register list of
 //       (score, index) keys, MAX_M deep, a key past the list's last
-//       skipping the insert; M <= MAX_M block-wide minimum rounds pick
-//       the M freshest entries in the reference's top_k order (score,
-//       then lower index).  It stores them with their sendable flags and
+//       skipping the insert; MAX_M block-wide minimum rounds pick the
+//       freshest entries in the reference's top_k order (score, then
+//       lower index), and a gossip width M above MAX_M takes
+//       ceil(M / MAX_M) such passes, each keeping only keys after the
+//       last one taken.  It stores them with their sendable flags and
 //       their gossip payload, read back from the row it just wrote.
 //   swim_spread  one thread per (node, target, entry): the gossip pass
 //       (mode 0) scatters with atomicMax into the gossip targets' rows;
@@ -69,7 +71,7 @@ namespace {
 
 constexpr int ALIVE = 0, SUSPECT = 1, DOWN = 2;
 constexpr int NEVER = 0x7fffffff;
-constexpr int MAX_M = 8;  // gossip entries at most (swim.py MAX_ENTRIES)
+constexpr int MAX_M = 8;  // entries one selection pass takes
 constexpr int THREADS = 256;
 constexpr unsigned FULL = 0xffffffffu;
 constexpr unsigned char PING_OK = 1, ACK_OK = 2;
@@ -223,67 +225,82 @@ swim_probe_select(const SwimArgs a) {
   __syncthreads();
   const int t = s_target;
 
-  // row i of the view, and each thread's M smallest (score, index) keys
-  unsigned long long best[MAX_M];
+  // row i of the view (written on the first pass), then the M freshest
+  // entries in passes of at most MAX_M: each thread keeps its MAX_M
+  // smallest (score, index) keys strictly after the last key the
+  // previous pass took, and MAX_M block-wide minimum rounds pop them in
+  // the reference's top_k order (score, then lower index).  The keys
+  // are unique and totally ordered, so ceil(M / MAX_M) passes give the
+  // exact top M.
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  unsigned long long after = 0;  // keys <= after were taken
+  for (int base = 0; base < a.m; base += MAX_M) {
+    const int take = min(MAX_M, a.m - base);
+    unsigned long long best[MAX_M];
 #pragma unroll
-  for (int q = 0; q < MAX_M; ++q) best[q] = ~0ull;
-  for (int j = threadIdx.x; j < n; j += THREADS) {
-    const size_t c = cell(n, i, j);
-    int v = a.view_in[c];
-    if (j == i) {
-      v = s_diag;
-    } else if (j == t) {
-      v = s_probe;
-    } else if (a.revived != nullptr && a.revived[j]) {
-      const Announce aj = announce(a, j);
-      if (aj.seed == i) v = max(v, aj.diag);
-    }
-    if (v % 4 == SUSPECT && a.tick - a.ss_in[c] >= a.timeout)
-      v = (v / 4) * 4 + DOWN;
-    a.view[c] = v;
-    const int tx = a.tx_in[c];
-    float score = __int_as_float(0x7f800000);  // +inf
-    if (tx < a.limit)
-      score = __fadd_rn(__int2float_rn(tx),
-                        common::uniform_of(common::threefry_xor(
-                            a.k[K_GE], a.k[K_GE + 1], c)));
-    unsigned long long key =
-        ((unsigned long long)__float_as_uint(score) << 32) | (unsigned)j;
-    if (key < best[MAX_M - 1]) {
+    for (int q = 0; q < MAX_M; ++q) best[q] = ~0ull;
+    for (int j = threadIdx.x; j < n; j += THREADS) {
+      const size_t c = cell(n, i, j);
+      if (base == 0) {
+        int v = a.view_in[c];
+        if (j == i) {
+          v = s_diag;
+        } else if (j == t) {
+          v = s_probe;
+        } else if (a.revived != nullptr && a.revived[j]) {
+          const Announce aj = announce(a, j);
+          if (aj.seed == i) v = max(v, aj.diag);
+        }
+        if (v % 4 == SUSPECT && a.tick - a.ss_in[c] >= a.timeout)
+          v = (v / 4) * 4 + DOWN;
+        a.view[c] = v;
+      }
+      const int tx = a.tx_in[c];
+      float score = __int_as_float(0x7f800000);  // +inf
+      if (tx < a.limit)
+        score = __fadd_rn(__int2float_rn(tx),
+                          common::uniform_of(common::threefry_xor(
+                              a.k[K_GE], a.k[K_GE + 1], c)));
+      unsigned long long key =
+          ((unsigned long long)__float_as_uint(score) << 32) | (unsigned)j;
+      if (base > 0 && key <= after) continue;
+      if (key < best[MAX_M - 1]) {
 #pragma unroll
-      for (int q = 0; q < MAX_M; ++q) {  // sorted insert
-        const unsigned long long lo = umin64(key, best[q]);
-        key = key ^ best[q] ^ lo;
-        best[q] = lo;
+        for (int q = 0; q < MAX_M; ++q) {  // sorted insert
+          const unsigned long long lo = umin64(key, best[q]);
+          key = key ^ best[q] ^ lo;
+          best[q] = lo;
+        }
       }
     }
-  }
-  // M rounds of a block-wide minimum over the threads' heads
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  for (int r = 0; r < a.m; ++r) {
-    unsigned long long x = best[0];
+    // `take` rounds of a block-wide minimum over the threads' heads
+    for (int r = 0; r < take; ++r) {
+      unsigned long long x = best[0];
 #pragma unroll
-    for (int o = 16; o > 0; o >>= 1)
-      x = umin64(x, __shfl_xor_sync(FULL, x, o));
-    if (lane == 0) s_warp[warp] = x;
-    __syncthreads();
-    unsigned long long win = s_warp[0];
-    for (int w = 1; w < THREADS / 32; ++w) win = umin64(win, s_warp[w]);
-    if (best[0] == win) {  // keys are unique: one thread pops
+      for (int o = 16; o > 0; o >>= 1)
+        x = umin64(x, __shfl_xor_sync(FULL, x, o));
+      if (lane == 0) s_warp[warp] = x;
+      __syncthreads();
+      unsigned long long win = s_warp[0];
+      for (int w = 1; w < THREADS / 32; ++w) win = umin64(win, s_warp[w]);
+      if (best[0] == win) {  // keys are unique: one thread pops
 #pragma unroll
-      for (int q = 0; q + 1 < MAX_M; ++q) best[q] = best[q + 1];
-      best[MAX_M - 1] = ~0ull;
+        for (int q = 0; q + 1 < MAX_M; ++q) best[q] = best[q + 1];
+        best[MAX_M - 1] = ~0ull;
+      }
+      if (threadIdx.x == 0) s_sel[r] = win;
+      __syncthreads();
     }
-    if (threadIdx.x == 0) s_sel[r] = win;
-    __syncthreads();
-  }
-  if (threadIdx.x < a.m) {
-    const int j = (int)(s_sel[threadIdx.x] & 0xffffffffu);
-    const size_t c = cell(n, i, j);
-    const size_t o = (size_t)i * a.m + threadIdx.x;
-    a.ge[o] = j;
-    a.sendable[o] = a.tx_in[c] < a.limit;
-    a.pay[o] = a.view[c];  // written by this block before the barrier
+    after = s_sel[take - 1];
+    if (threadIdx.x < take) {
+      const int j = (int)(s_sel[threadIdx.x] & 0xffffffffu);
+      const size_t c = cell(n, i, j);
+      const size_t o = (size_t)i * a.m + base + threadIdx.x;
+      a.ge[o] = j;
+      a.sendable[o] = a.tx_in[c] < a.limit;
+      a.pay[o] = a.view[c];  // written by this block before the barrier
+    }
+    __syncthreads();  // s_sel is read above before the next pass writes it
   }
 }
 
@@ -323,7 +340,6 @@ __global__ void swim_gather(const SwimArgs a) {
 
 __global__ void __launch_bounds__(THREADS) swim_settle(const SwimArgs a) {
   __shared__ int s_diag, s_charge;
-  __shared__ int s_ge[MAX_M];
   const int i = blockIdx.x;
   const int n = a.n;
   if (threadIdx.x == 0) {
@@ -351,10 +367,6 @@ __global__ void __launch_bounds__(THREADS) swim_settle(const SwimArgs a) {
       if (st == ALIVE) atomicAdd(a.flags + 1, 1);
     }
   }
-  if (threadIdx.x < a.m) {
-    const size_t o = (size_t)i * a.m + threadIdx.x;
-    s_ge[threadIdx.x] = a.sendable[o] ? a.ge[o] : -1;
-  }
   __syncthreads();
   for (int j = threadIdx.x; j < n; j += THREADS) {
     const size_t c = cell(n, i, j);
@@ -367,11 +379,17 @@ __global__ void __launch_bounds__(THREADS) swim_settle(const SwimArgs a) {
     const bool now_suspect = v % 4 == SUSPECT;
     const int ss = a.ss_in[c];
     a.ss[c] = now_suspect ? (ss == NEVER ? a.tick : ss) : NEVER;
-    // backlog charges, then the reset of changed records (:313-314)
-    int tx = a.tx_in[c];
-    for (int r = 0; r < a.m; ++r)
-      if (s_ge[r] == j) tx += s_charge;
-    a.tx[c] = v != a.view_in[c] ? 0 : tx;
+    // the reset of changed records (:313-314); the charges follow
+    a.tx[c] = v != a.view_in[c] ? 0 : a.tx_in[c];
+  }
+  __syncthreads();
+  // backlog charges of the row's sendable selected entries (distinct
+  // columns, top_k's indices), where the record did not change
+  for (int r = threadIdx.x; r < a.m; r += THREADS) {
+    const size_t o = (size_t)i * a.m + r;
+    if (!a.sendable[o]) continue;
+    const size_t c = cell(n, i, a.ge[o]);
+    if (a.view[c] == a.view_in[c]) a.tx[c] += s_charge;
   }
 }
 
@@ -391,8 +409,7 @@ extern "C" int swim_launch(
     void* flags, int n, int h, int g, int m, int timeout, int limit,
     int tick, int victim, float loss, unsigned span, unsigned mult,
     const unsigned* keys, int phase, void* stream) {
-  if (n <= 1 || m < 1 || m > MAX_M || m > n || h < 0 || g < 0 || span == 0 ||
-      tick < 0)
+  if (n <= 1 || m < 1 || m > n || h < 0 || g < 0 || span == 0 || tick < 0)
     return (int)cudaErrorInvalidValue;
   SwimArgs a;
   a.view_in = static_cast<const int*>(view_in);

@@ -9,7 +9,8 @@ per-tick detection flags of corrosion_tpu/sim/churn.py ``_scan_chunk``
 written once; the N^2 tie hashes of the gossip selection come second.
 The kernels order the reference's whole-matrix phases by launch
 boundaries, select the freshest entries in registers in ``top_k``'s
-(score, lower index) order, and rebuild ``update_tx`` from the
+(score, lower index) order (``MAX_ENTRIES`` a pass, as many passes as
+the gossip width needs), and rebuild ``update_tx`` from the
 selection without a scatter.  See the source for the design.
 """
 
@@ -27,7 +28,7 @@ from corrosion_tpu_torch.random import key_words, randint_span, split
 
 ALIVE, SUSPECT, DOWN = 0, 1, 2
 NEVER = 2**31 - 1
-MAX_ENTRIES = 8  # the kernel's register list of freshest entries
+MAX_ENTRIES = 8  # entries one selection pass of the kernel takes
 
 # jax.random.split(key, 11) in the reference's order (swim.py:118-119)
 SPLIT_ORDER = ("probe", "loss1", "loss2", "help", "hloss", "gt", "ge",
@@ -232,9 +233,9 @@ def prepare(view, suspect_since, incarnation, msgs, update_tx, keys,
     n = view.shape[0]
     p = params
     m = min(p.gossip_entries, n)
-    if n < 2 or not 1 <= m <= MAX_ENTRIES or tick < 0:
-        raise ValueError(f"swim_tick: the kernels take N >= 2, 1..."
-                         f"{MAX_ENTRIES} gossip entries and tick >= 0")
+    if n < 2 or m < 1 or tick < 0:
+        raise ValueError("swim_tick: the kernels take N >= 2, at least "
+                         "one gossip entry and tick >= 0")
     i32, u8 = torch.int32, torch.uint8
     for name, t in (("view", view), ("suspect_since", suspect_since),
                     ("update_tx", update_tx)):
@@ -322,11 +323,11 @@ def swim_tick(view, suspect_since, incarnation, msgs, update_tx, key,
 
     view / suspect_since / update_tx [N, N] int32, incarnation / msgs
     [N] int32, alive / revived [N] bool (revived None: nobody comes
-    back).  ``params`` carries ``SwimParams``' fields; the card takes up
-    to ``MAX_ENTRIES`` gossip entries.  When ``flags`` ([2] int32) is
-    given, adds the count of nodes other than ``victim`` whose record of
-    it is DOWN, then ALIVE.  Returns (view, suspect_since, incarnation,
-    msgs, update_tx) as new tensors."""
+    back).  ``params`` carries ``SwimParams``' fields; the card takes
+    any gossip width, ``MAX_ENTRIES`` entries a selection pass.  When
+    ``flags`` ([2] int32) is given, adds the count of nodes other than
+    ``victim`` whose record of it is DOWN, then ALIVE.  Returns (view,
+    suspect_since, incarnation, msgs, update_tx) as new tensors."""
     n = view.shape[0]
     if flags is not None and not 0 <= victim < n:
         raise ValueError("swim_tick: flags need a victim in 0..N-1")

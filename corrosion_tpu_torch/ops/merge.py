@@ -567,8 +567,8 @@ def _winners_np(plan: MergePlan) -> MergeDecision:
 
 #: the reference's smallest jitted bucket; ``bucket_pow2`` rounds a size
 #: up to the next power of two from here, the shape discipline the
-#: device clock cache (ops/devcache.py) shares.  The torch backend takes
-#: n at launch and pads nothing.
+#: reference's device clock cache shares.  The torch backend and this
+#: package's clock cache take n at launch and pad nothing.
 MIN_BUCKET = 256
 #: ``backend="auto"`` sends batches of at least this many changes to the
 #: torch backend and smaller ones to the NumPy twin (the reference's
@@ -649,19 +649,26 @@ def _winners_torch(plan: MergePlan, device="cuda",
 
 
 def select_winners(plan: MergePlan, backend: str = "auto",
-                   device="cuda") -> MergeDecision:
+                   device=None) -> MergeDecision:
     """Resolve one encoded table batch to its net merge decision.
 
     ``backend``: ``"numpy"`` (the twin), ``"torch"`` (the kernels on
     ``device``, a card unless the caller asks for ``"cpu"``), or
     ``"auto"``: torch for batches of at least ``TORCH_AUTO_MIN``
-    changes, the twin below.  Both backends return bit-identical
+    changes when its device exists (a card, unless the caller asks for
+    ``"cpu"``), the twin otherwise — so a host with no card answers as
+    the reference's ``auto`` does.  Both backends return bit-identical
     decisions.  A torch batch that fails raises; nothing falls back."""
+    if device is None:
+        device = "cuda"
     if backend == "numpy":
         return _winners_np(plan)
-    if backend == "torch" or (backend == "auto"
-                              and plan.n >= TORCH_AUTO_MIN):
+    if backend == "torch":
         return _winners_torch(plan, device)
-    if backend == "auto":
-        return _winners_np(plan)
-    raise ValueError(f"unknown backend {backend!r}")
+    if backend != "auto":
+        raise ValueError(f"unknown backend {backend!r}")
+    present = (torch.device(device).type == "cpu"
+               or torch.cuda.is_available())
+    if plan.n >= TORCH_AUTO_MIN and present:
+        return _winners_torch(plan, device)
+    return _winners_np(plan)

@@ -3,7 +3,7 @@ column, anti-entropy and SWIM churn.
 
     python -m corrosion_tpu_torch.profile_tick
 
-Times eight pieces of work: one chunk (16 ticks; the headline
+Times ten pieces of work: one chunk (16 ticks; the headline
 converges within it) of the headline epidemic (100k nodes x 32 seeds)
 from its initial state; the two full-width exact-sampler runs
 (``run_exact_headline`` on ``sim.calibrate.EXACT_DENSE`` x 16 seeds and
@@ -13,9 +13,15 @@ first 32-tick chunk of the churn schedule at 64 (config #2) and 4096
 nodes from the initial state; one seed of the calibration-scale exact
 sampler at 16k nodes (``run_exact(ExactConfig(16000))``, the 16k point
 of ``run_msgs_calibration``); the whole ``track_sent`` run of
-``sim_trace``'s config at 512 nodes x 8 seeds; and one full-width
+``sim_trace``'s config at 512 nodes x 8 seeds; one full-width
 ``select_winners(backend="torch")`` call on a ``resync_batch`` of
-2**20 changes (warm, interleaved; the plan is encoded untimed).  Each is
+2**20 changes (warm, interleaved; the plan is encoded untimed); and two
+superseding waves of the device-resident apply (``CrConn`` with
+``enable_device_cache()``, its table prefilled to the cache's 65,536
+rows untimed): one steady wave of 10,000 changes over 2,500 hot rows
+and one wave over all 65,536 rows (262,144 changes), each timed with its
+``flush_barrier()``, as ``chip_smoke.py``'s apply phase streams them
+(``apply_bench_changes``).  Each is
 run first untimed to warm up, then ``REPS`` times with a host clock
 around work that ends in ``torch.cuda.synchronize()``, then ``REPS``
 times under ``torch.profiler``, each of those with its own host clock.
@@ -32,13 +38,14 @@ from __future__ import annotations
 import argparse
 import contextlib
 import json
+import tempfile
 import time
 from dataclasses import replace
 
 import numpy as np
 import torch
 
-from corrosion_tpu_torch import resolve_device
+from corrosion_tpu_torch import kernels, resolve_device
 from corrosion_tpu_torch.ops import merge
 from corrosion_tpu_torch.models.swim import swim_init
 from corrosion_tpu_torch.random import PRNGKey
@@ -210,6 +217,80 @@ def winners_call(plan):
     return prepare
 
 
+def apply_bench_changes(n: int, site: bytes, col_version: int,
+                        row_offset: int = 0) -> list:
+    """``n`` cell changes over ``n // 4`` rows x 4 cells (bench.py
+    ``_apply_bench_changes``, copied onto this package's types): rows
+    ``row_offset`` on, every cell at ``col_version``, causal length 1,
+    text values."""
+    from corrosion_tpu_torch.agent.pack import pack_values
+    from corrosion_tpu_torch.types.base import CrsqlDbVersion, CrsqlSeq
+    from corrosion_tpu_torch.types.change import Change
+
+    changes = []
+    seq = 0
+    for r in range(row_offset, row_offset + max(1, n // 4)):
+        pk = pack_values([r])
+        for cid in ("a", "b", "c", "d"):
+            changes.append(Change(
+                table="bench", pk=pk, cid=cid,
+                val=f"v{col_version}-{r}-{cid}",
+                col_version=col_version,
+                db_version=CrsqlDbVersion(col_version),
+                seq=CrsqlSeq(seq), site_id=site, cl=1,
+            ))
+            seq += 1
+            if len(changes) >= n:
+                return changes
+    return changes
+
+
+APPLY_SITE = b"\x42" * 16
+APPLY_ROWS = 65_536  # the default cache's rows (DEFAULT_SLOTS // 4)
+
+
+def bench_conn(path: str, cache=None):
+    """A ``CrConn`` at ``path`` with bench.py's apply table and a
+    metrics registry; ``cache`` given (``enable_device_cache``'s
+    arguments, ``{}`` for its defaults) switches on the device-resident
+    path, ``None`` keeps the plain batched one."""
+    from corrosion_tpu_torch.agent.metrics import Metrics
+    from corrosion_tpu_torch.agent.storage import CrConn
+
+    db = CrConn(path, site_id=b"\x77" * 16)  # one own site: comparable
+    db.conn.execute("CREATE TABLE IF NOT EXISTS bench ("
+                    " id INTEGER PRIMARY KEY NOT NULL, a, b, c, d)")
+    db.as_crr("bench")
+    db.metrics = Metrics()
+    if cache is not None:
+        db.enable_device_cache(**cache)
+    return db
+
+
+def apply_waves(path: str, n: int):
+    """Superseding waves of ``n`` changes (``n // 4`` hot rows) through
+    the device-resident apply on the card, its table prefilled to
+    ``APPLY_ROWS`` rows (and flushed) once, untimed; each wave's
+    changes are made untimed, at the next col_version."""
+    db = bench_conn(path, cache={})
+    if db.device_cache.backend != "torch":
+        raise RuntimeError("the device cache is not on the card")
+    db.apply_changes_batched(apply_bench_changes(4 * APPLY_ROWS, APPLY_SITE,
+                                                 col_version=1))
+    db.flush_barrier()
+    version = [1]
+
+    def prepare():
+        version[0] += 1
+        wave = apply_bench_changes(n, APPLY_SITE, col_version=version[0])
+
+        def work():
+            db.apply_changes_batched(wave)
+            db.flush_barrier()
+        return work
+    return prepare
+
+
 def main() -> int:
     argparse.ArgumentParser(description=__doc__.splitlines()[0]).parse_args()
     cfg = replace(HEADLINE, n_universes=HEADLINE_SEEDS)
@@ -239,6 +320,13 @@ def main() -> int:
     plan = merge.encode_changes(*resync_batch())
     out["winners_1m"] = profile(winners_call(plan), changes=plan.n,
                                 rows=plan.n_pk, cells=plan.n_cid)
+    with tempfile.TemporaryDirectory(prefix="devcache-",
+                                     dir=kernels.BUILD_DIR) as d:
+        for label, n in (("devcache_steady_wave", 10_000),
+                         ("devcache_full_wave", 4 * APPLY_ROWS)):
+            out[label] = profile(apply_waves(f"{d}/{label}.db", n),
+                                 changes=n, rows=n // 4,
+                                 cached_rows=APPLY_ROWS)
     print(json.dumps(out))
     return 0
 

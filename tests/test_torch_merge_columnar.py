@@ -316,3 +316,19 @@ def test_auto_backend_dispatches_by_size(monkeypatch):
 @pytest.mark.parametrize("n", [1, 255, 256, 257, 70000])
 def test_bucket_pow2_matches_reference(n):
     assert port.bucket_pow2(n) == ref.bucket_pow2(n)
+
+
+def test_auto_with_no_device_answers_by_the_twin_on_a_host_with_no_card():
+    """``select_winners(plan)`` at ``TORCH_AUTO_MIN`` changes with no
+    device argument (storage's call) returns the NumPy twin's decision
+    on a host with no card, as the reference's ``auto`` answers there;
+    it used to ask for the card and raise."""
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA card is present: auto takes the kernels")
+    plan = port.encode_changes(*_batch(11, port.TORCH_AUTO_MIN, True, True))
+    assert plan.n == port.TORCH_AUTO_MIN
+    assert decision_diff(port.select_winners(plan),
+                         port._winners_np(plan)) == []
+    assert decision_diff(port.select_winners(plan, backend="auto",
+                                             device="cuda"),
+                         port._winners_np(plan)) == []

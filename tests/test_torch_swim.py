@@ -345,7 +345,24 @@ def test_launch_order_runs_the_gossip_pass_only_with_targets(targets):
 
 
 def test_kernel_entry_width_matches_the_source():
-    """The wrapper's gossip-entry limit is the kernel's register list."""
+    """The wrapper's selection-pass width is the kernel's register
+    list."""
     src = (Path(ksw.__file__).parent / "csrc" / "swim.cu").read_text()
     (width,) = re.findall(r"constexpr int MAX_M = (\d+);", src)
     assert int(width) == ksw.MAX_ENTRIES
+
+
+@pytest.mark.parametrize("entries", [9, 12, 20])
+def test_prepare_takes_gossip_wider_than_one_pass(entries):
+    """The card takes any gossip width (``MAX_ENTRIES`` a selection
+    pass): ``prepare`` refuses these CPU tensors for their device, not
+    for the width, where it used to stop at ``MAX_ENTRIES``."""
+    n = 32
+    params = ts.SwimParams(n_nodes=n, gossip_entries=entries)
+    i32 = torch.int32
+    mat = torch.zeros((n, n), dtype=i32)
+    vec = torch.zeros(n, dtype=i32)
+    keys = ksw.tick_keys(np.array([0, 7], np.uint32))
+    with pytest.raises(ValueError, match="expected a CUDA tensor"):
+        ksw.prepare(mat, mat, vec, vec, mat, keys, 0, params,
+                    torch.ones(n, dtype=torch.bool))
