@@ -7,10 +7,12 @@ headline epidemic simulation, the exact-sampler column, anti-entropy
 reassembly, SWIM churn, the calibration-scale exact ``sent_to``
 sampler, the columnar CRDT winner selection of a batched apply and the
 device-resident apply path (the storage engine's batched apply over a
-clock cache kept on the card) through hand-written CUDA kernels
-(``kernels/``).  The entry points:
+clock cache kept on the card), and the multi-device layouts of the
+exact sampler and the gossip fabrics over a ``mesh.Mesh``, through
+hand-written CUDA kernels (``kernels/``).  The entry points:
 ``sim.run_epidemic_seeds`` (``track_sent`` included),
-``sim.calibrate.run_exact_headline``,
+``sim.calibrate.run_exact_headline`` (with ``mesh=`` and
+``host_sharded=``), ``models.sharded``'s fabrics,
 ``sim.calibrate.run_msgs_calibration``, ``sim.calibrate.run_exact``,
 ``sim.run_anti_entropy_seeds``, ``sim.run_churn``,
 ``sim.run_churn_cycles``, ``ops.merge.select_winners``,

@@ -14,7 +14,11 @@ so one batch feeds both packages' ``select_winners``, and
 objects become the port's (``changes_from_reference``), so one stream
 feeds both packages' ``CrConn``, and a reference ``DeviceClockCache``
 becomes the port's on a device (``devcache_from_reference``), so a
-warmed cache carries across.  An
+warmed cache carries across.  ``shard_state`` / ``unshard_state`` lay
+a port state out over a ``mesh.Mesh`` by a layout (each leaf row-sharded
+on an axis or replicated) and back, and ``sharded_state_from_reference``
+takes the reference's sharded state (its global arrays) straight to the
+port's shards, so both packages' mesh kernels start from one state.  An
 exact-sampler state may be one seed's (leaves [N, ...], as
 ``packed_exact_tick`` holds it) or a seed batch's (leaves [S, N, ...]
 and ticks [S], as the vmapped runners hold it); the port's always has
@@ -30,6 +34,7 @@ import numpy as np
 import torch
 
 from corrosion_tpu_torch import resolve_device
+from corrosion_tpu_torch.mesh import Sharded
 from corrosion_tpu_torch.models.swim import SwimState
 from corrosion_tpu_torch.ops.devcache import (
     VAL_UNKNOWN,
@@ -269,3 +274,67 @@ def devcache_from_reference(ref_cache, device="cuda") -> DeviceClockCache:
     out.counters = dict(ref_cache.counters)
     out.invalidations = dict(ref_cache.invalidations)
     return out
+
+
+def shard_state(state, layout, mesh) -> Sharded:
+    """Lay ``state`` (a NamedTuple of global tensors; a ``tick`` field
+    holds the host tick) out over ``mesh``: ``layout`` is the same
+    NamedTuple type holding, for each leaf, the axis it row-shards on
+    or None where every shard keeps a replica.  Each local shard gets
+    its own copies on the mesh's device."""
+    tick = getattr(state, "tick", 0)
+    d = mesh.size
+    parts = {}
+    for sh in mesh.local_shards:
+        leaves = {}
+        for f, axis in layout._asdict().items():
+            x = getattr(state, f)
+            if f == "tick":
+                leaves[f] = tick
+            elif axis is None:
+                leaves[f] = x.to(mesh.device, copy=True)
+            else:
+                if x.shape[axis] % d:
+                    raise ValueError(f"{f}: {x.shape[axis]} rows do not "
+                                     f"split over {d} shards")
+                w = x.shape[axis] // d
+                leaves[f] = x.narrow(axis, sh * w, w).to(
+                    mesh.device, copy=True).contiguous()
+        parts[sh] = type(state)(**leaves)
+    return Sharded(mesh, parts, tick)
+
+
+def unshard_state(sharded: Sharded, layout):
+    """The global state of a ``Sharded`` whose shards this process holds
+    all of: sharded leaves concatenated in shard order, replicated ones
+    from shard 0 (raises where the replicas disagree)."""
+    shards = sharded.shards()
+    if len(shards) != sharded.mesh.size:
+        raise ValueError("unshard_state needs every shard in this process "
+                         f"(holds {len(shards)} of {sharded.mesh.size})")
+    parts = [sharded[sh] for sh in range(sharded.mesh.size)]
+    leaves = {}
+    for f, axis in layout._asdict().items():
+        if f == "tick":
+            leaves[f] = sharded.tick
+        elif axis is None:
+            x = getattr(parts[0], f)
+            for sh, part in enumerate(parts[1:], 1):
+                if not torch.equal(getattr(part, f), x):
+                    raise ValueError(f"{f}: shard {sh}'s replica differs "
+                                     "from shard 0's")
+            leaves[f] = x
+        else:
+            leaves[f] = torch.cat([getattr(p, f) for p in parts], dim=axis)
+    return type(parts[0])(**leaves)
+
+
+def sharded_state_from_reference(state, layout, mesh) -> Sharded:
+    """A reference ``PackedExactState`` or ``FrontierExactState`` laid
+    out over a JAX mesh (each leaf's global array, as ``np.asarray``
+    gives it, or a seed batch of them) as the port's shards on
+    ``mesh`` by ``layout``."""
+    f = _fields(state)
+    port = (frontier_state_from_numpy if "ring" in f
+            else packed_state_from_numpy)(f, device=mesh.device)
+    return shard_state(port, layout, mesh)

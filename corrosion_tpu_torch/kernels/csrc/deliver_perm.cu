@@ -16,6 +16,17 @@
 // rows, tx, msgs, hops and next_send once each.  Outputs go to fresh
 // buffers: other threads still read the inputs as senders.
 //
+// The sharded fabrics (corrosion_tpu/models/sharded.py
+// sharded_broadcast_step :121-147, sharded_broadcast_step_ring
+// :253-279) run the same delivery for one shard's receivers, the
+// window [lo, lo + n) of the N nodes: the maps, draws, regions,
+// partition ids and tiers are the global [N] (or [N, K]) arrays; a
+// sender's row comes from a separate source through the slot map:
+// row slot_of[s] of the all_gathered [N, R] rows (the identity where
+// active) or of the received [Q, R] rows (slot -1: the sender shipped
+// nothing, inactive).  The single-device call is the case src = rows,
+// the whole range, no slot map.
+//
 // Bound on the H100: bytes.  Each receiver reads its row, K sender
 // rows at random (32 bytes each at R = 8), the K sender ids, K loss
 // uniforms and a few [N] words, and writes R + 4 words: about 0.4 GB
@@ -63,6 +74,10 @@ struct DeliverArgs {
   int tick;
   int max_tx;
   float backoff;
+  const int* src_rows;  // sender rows: rows, or [Q, R]
+  const int* slot_of;   // [N] sender -> src_rows row (-1 absent), or null
+  int lo;               // first receiver's global id
+  int n_global;         // N: senders' id space
 };
 
 __device__ __forceinline__ bool is_active(const DeliverArgs& a, int i) {
@@ -71,22 +86,29 @@ __device__ __forceinline__ bool is_active(const DeliverArgs& a, int i) {
 
 template <int R>
 __global__ void deliver_perm_kernel(const DeliverArgs a) {
-  const int t = blockIdx.x * blockDim.x + threadIdx.x;
+  const int t = blockIdx.x * blockDim.x + threadIdx.x;  // my receiver
   if (t >= a.n) return;
+  const int tg = a.lo + t;  // its global id
   int own[R], acc[R];
   load_row<R>(a.rows + (size_t)t * R, own);
 #pragma unroll
   for (int c = 0; c < R; ++c) acc[c] = own[c];
-  const int rp = a.part ? a.part[t] : 0;
-  const int rr = a.region ? a.region[t] : 0;
+  const int rp = a.part ? a.part[tg] : 0;
+  const int rr = a.region ? a.region[tg] : 0;
   int cand = HOP_UNSET;
 
   for (int j = 0; j < a.k; ++j) {
-    const int s = a.senders[(size_t)j * a.n + t];
+    const int s = a.senders[(size_t)j * a.n_global + tg];
+    int src = s;
     int sh = HOP_UNSET;  // sender hop + 1, or HOP_UNSET when inactive
-    if (is_active(a, s)) sh = a.hops ? min(a.hops[s], HOP_UNSET - 2) + 1 : 0;
+    if (a.slot_of) {
+      src = a.slot_of[s];
+      if (src >= 0) sh = 0;
+    } else if (is_active(a, s)) {
+      sh = a.hops ? min(a.hops[s], HOP_UNSET - 2) + 1 : 0;
+    }
     bool valid = sh < HOP_UNSET;
-    const size_t uj = (size_t)t * a.k + j;
+    const size_t uj = (size_t)tg * a.k + j;
     if (valid && a.loss_u) valid = !(a.loss_u[uj] < a.loss);
     if (valid && a.wan_u)
       valid = !(a.region[s] != rr && a.wan_u[uj] < a.wan_loss);
@@ -94,7 +116,7 @@ __global__ void deliver_perm_kernel(const DeliverArgs a) {
       valid = !common::blocks_cross(a.part[s], rp, a.sev, a.sev_b, false);
     if (valid) {
       int g[R];
-      load_row<R>(a.rows + (size_t)s * R, g);
+      load_row<R>(a.src_rows + (size_t)src * R, g);
 #pragma unroll
       for (int c = 0; c < R; ++c) acc[c] = max(acc[c], g[c]);
       cand = min(cand, sh);
@@ -119,8 +141,8 @@ __global__ void deliver_perm_kernel(const DeliverArgs a) {
     int gap = max(1, (int)rintf(__fmul_rn(a.backoff, (float)sent)));
     int first = 1;
     if (a.tier) {
-      gap *= a.tier[t];
-      first = a.tier[t];
+      gap *= a.tier[tg];
+      first = a.tier[tg];
     }
     int nxt = act ? a.tick + gap : a.next_send[t];
     if (learned) nxt = a.tick + first;
@@ -141,8 +163,12 @@ extern "C" int deliver_perm_launch(
     int sev_b, const void* tier, void* rows_out, void* tx_out, void* msgs_out,
     void* hops_out, void* next_out, int n, int r, int k, float loss,
     float wan_loss, int part_active, int tick, int max_tx, float backoff,
+    const void* src_rows, const void* slot_of, int lo, int n_global,
     void* stream) {
   if (n <= 0) return 0;
+  if (src_rows == nullptr || lo < 0 || lo + n > n_global ||
+      (hops != nullptr && slot_of != nullptr))
+    return (int)cudaErrorInvalidValue;
   DeliverArgs a;
   a.rows = static_cast<const int*>(rows);
   a.tx = static_cast<const int*>(tx);
@@ -170,6 +196,10 @@ extern "C" int deliver_perm_launch(
   a.tick = tick;
   a.max_tx = max_tx;
   a.backoff = backoff;
+  a.src_rows = static_cast<const int*>(src_rows);
+  a.slot_of = static_cast<const int*>(slot_of);
+  a.lo = lo;
+  a.n_global = n_global;
   const int threads = 256;
   const int blocks = (n + threads - 1) / threads;
   cudaStream_t s = static_cast<cudaStream_t>(stream);

@@ -112,92 +112,118 @@ __device__ __forceinline__ bool sent_hit(const ExactArgs& a, size_t g,
   }
 }
 
-template <bool RING>
-__global__ void __launch_bounds__(THREADS)
-    exact_send_kernel(const ExactArgs a) {
-  const size_t total = (size_t)a.s * a.n;
-  const size_t g = (size_t)blockIdx.x * THREADS + threadIdx.x;
-  unsigned active = 0, rounds = 0, capped = 0;
-  if (g < total && a.infected[g] && a.tx[g] > 0 &&
-      a.next_send[g] <= a.tick) {
-    active = 1;
-    const int s = (int)(g / a.n);
-    const int i = (int)(g - (size_t)s * a.n);
-    const uint32_t* key = a.keys[s];
-    const unsigned long long f0 = (unsigned long long)i * a.k;
-    int cand[MAX_K];
-    for (int r = 0;; ++r) {
-      if (r == MAX_ROUNDS) {
-        capped = 1;  // the caller raises on diag[3]; the row sends nothing
-        break;
-      }
-      uint32_t r0, r1, h0, h1, l0, l1;
-      common::threefry2x32(key[0], key[1], 0u, (uint32_t)r, r0, r1);
-      common::threefry2x32(r0, r1, 0u, 0u, h0, h1);  // randint's split
-      common::threefry2x32(r0, r1, 0u, 1u, l0, l1);
-      bool bad = false;
+// The K candidates of row i at rejection round r: row i of
+// randint(fold_in(k_draw, r), (n, K), 0, n), flat indices i*K + j, the
+// keys derived in-thread (i is the global row id).
+__device__ __forceinline__ void draw_tuple(const ExactArgs& a,
+                                           const uint32_t* key, int r, int i,
+                                           int (&cand)[MAX_K]) {
+  uint32_t r0, r1, h0, h1, l0, l1;
+  common::threefry2x32(key[0], key[1], 0u, (uint32_t)r, r0, r1);
+  common::threefry2x32(r0, r1, 0u, 0u, h0, h1);  // randint's split
+  common::threefry2x32(r0, r1, 0u, 1u, l0, l1);
+  const unsigned long long f0 = (unsigned long long)i * a.k;
 #pragma unroll
-      for (int j = 0; j < MAX_K; ++j) {
-        if (j < a.k) {
-          const unsigned long long f = f0 + j;
-          cand[j] = common::randint_of(common::threefry_xor(h0, h1, f),
-                                       common::threefry_xor(l0, l1, f),
-                                       a.span, a.mult, 0);
-          bad = bad || cand[j] == i || sent_hit<RING>(a, g, i, cand[j]);
-        }
-      }
-#pragma unroll
-      for (int x = 0; x < MAX_K; ++x)
-#pragma unroll
-        for (int y = x + 1; y < MAX_K; ++y)
-          if (y < a.k) bad = bad || cand[x] == cand[y];
-      rounds = r + 1;
-      if (!bad) break;
-    }
-    if (!capped) {
-      const uint32_t* kl = key + 2;
-      const uint32_t* kw = key + 4;
-      const int pi = a.part_blocks ? block_of(i, a.part_blocks, a.n) : 0;
-      const int wi = a.wan_blocks ? block_of(i, a.wan_blocks, a.n) : 0;
-      const int li = a.lat_blocks ? block_of(i, a.lat_blocks, a.n) : 0;
-      const size_t seed0 = (size_t)s * a.n;
-      const int tx0 = a.tx[g];
-#pragma unroll
-      for (int j = 0; j < MAX_K; ++j) {
-        if (j < a.k) {
-          const int c = cand[j];
-          const unsigned long long f = f0 + j;
-          bool del = true;
-          if (a.use_loss)
-            del = common::uniform_of(common::threefry_xor(kl[0], kl[1], f)) >=
-                  a.loss;
-          if (a.part_blocks && a.part_active &&
-              pi != block_of(c, a.part_blocks, a.n))
-            del = false;
-          if (a.wan_blocks && wi != block_of(c, a.wan_blocks, a.n) &&
-              common::uniform_of(common::threefry_xor(kw[0], kw[1], f)) <
-                  a.wan_loss)
-            del = false;
-          if (del && a.lat_blocks && li != block_of(c, a.lat_blocks, a.n))
-            atomicMin(a.pending + seed0 + c, a.tick + a.lat_ticks);
-          else if (del)
-            a.new_infected[seed0 + c] = 1;
-          if constexpr (RING)
-            a.ring[g * a.cap + (size_t)((a.max_tx - tx0) * a.k + j)] = c;
-          else
-            a.sent[g * (size_t)a.nb + (c >> 3)] |=
-                (unsigned char)(1u << (c & 7));
-        }
-      }
-      a.msgs[g] += a.k;
-      const int tx1 = tx0 - 1;
-      a.tx[g] = tx1;
-      int gap = max(1, (int)rintf(__fmul_rn(a.backoff,
-                                            (float)(a.max_tx - tx1))));
-      if (a.tier) gap *= a.tier[i];
-      a.next_send[g] = a.tick + gap;
+  for (int j = 0; j < MAX_K; ++j) {
+    if (j < a.k) {
+      const unsigned long long f = f0 + j;
+      cand[j] = common::randint_of(common::threefry_xor(h0, h1, f),
+                                   common::threefry_xor(l0, l1, f), a.span,
+                                   a.mult, 0);
     }
   }
+}
+
+// A self, sent or duplicate hit in row i's tuple (g: the row's index
+// into sent / ring).
+template <bool RING>
+__device__ __forceinline__ bool tuple_bad(const ExactArgs& a, size_t g,
+                                          int i, const int (&cand)[MAX_K]) {
+  bool bad = false;
+#pragma unroll
+  for (int j = 0; j < MAX_K; ++j)
+    if (j < a.k)
+      bad = bad || cand[j] == i || sent_hit<RING>(a, g, i, cand[j]);
+#pragma unroll
+  for (int x = 0; x < MAX_K; ++x)
+#pragma unroll
+    for (int y = x + 1; y < MAX_K; ++y)
+      if (y < a.k) bad = bad || cand[x] == cand[y];
+  return bad;
+}
+
+// Row i's whole rejection loop: its accepted tuple in cand; returns the
+// rounds drawn (MAX_ROUNDS with capped set when none was accepted).
+template <bool RING>
+__device__ __forceinline__ int reject_loop(const ExactArgs& a,
+                                           const uint32_t* key, size_t g,
+                                           int i, int (&cand)[MAX_K],
+                                           bool& capped) {
+  for (int r = 0;; ++r) {
+    if (r == MAX_ROUNDS) {
+      capped = true;
+      return r;
+    }
+    draw_tuple(a, key, r, i, cand);
+    if (!tuple_bad<RING>(a, g, i, cand)) return r + 1;
+  }
+}
+
+enum Delivery { DROPPED = 0, NOW = 1, QUEUED = 2 };
+
+// The fate of sender i's send j to c: the loss, partition and WAN
+// masks in the reference's order, then the latency queue's split.
+__device__ __forceinline__ Delivery deliver_kind(const ExactArgs& a,
+                                                 const uint32_t* key, int i,
+                                                 int j, int c) {
+  const unsigned long long f = (unsigned long long)i * a.k + j;
+  const uint32_t* kl = key + 2;
+  const uint32_t* kw = key + 4;
+  bool del = true;
+  if (a.use_loss)
+    del = common::uniform_of(common::threefry_xor(kl[0], kl[1], f)) >= a.loss;
+  if (a.part_blocks && a.part_active &&
+      block_of(i, a.part_blocks, a.n) != block_of(c, a.part_blocks, a.n))
+    del = false;
+  if (a.wan_blocks &&
+      block_of(i, a.wan_blocks, a.n) != block_of(c, a.wan_blocks, a.n) &&
+      common::uniform_of(common::threefry_xor(kw[0], kw[1], f)) < a.wan_loss)
+    del = false;
+  if (!del) return DROPPED;
+  if (a.lat_blocks &&
+      block_of(i, a.lat_blocks, a.n) != block_of(c, a.lat_blocks, a.n))
+    return QUEUED;
+  return NOW;
+}
+
+// The sender's mark of send j to c in its own row g (tx0: its budget
+// before this tick's decrement picks the ring slot).
+template <bool RING>
+__device__ __forceinline__ void mark(const ExactArgs& a, size_t g, int tx0,
+                                     int j, int c) {
+  if constexpr (RING)
+    a.ring[g * a.cap + (size_t)((a.max_tx - tx0) * a.k + j)] = c;
+  else
+    a.sent[g * (size_t)a.nb + (c >> 3)] |= (unsigned char)(1u << (c & 7));
+}
+
+// The sender's budget and backoff at its leaf index gb (tier by its
+// global id i): round() half-to-even as rintf on a float32 product.
+__device__ __forceinline__ void spend(const ExactArgs& a, size_t gb, int i) {
+  a.msgs[gb] += a.k;
+  const int tx1 = a.tx[gb] - 1;
+  a.tx[gb] = tx1;
+  int gap = max(1, (int)rintf(__fmul_rn(a.backoff, (float)(a.max_tx - tx1))));
+  if (a.tier) gap *= a.tier[i];
+  a.next_send[gb] = a.tick + gap;
+}
+
+// Adds a block's active rows, rejection rounds, their maximum and its
+// capped rows to the diagnostics vector (every thread of the block
+// calls it).
+__device__ __forceinline__ void add_diag(unsigned long long* diag,
+                                         unsigned active, unsigned rounds,
+                                         unsigned capped) {
   __shared__ unsigned s_sum[3][THREADS / 32], s_max[THREADS / 32];
   const unsigned full = 0xffffffffu;
   const unsigned w_act = __reduce_add_sync(full, active);
@@ -221,12 +247,146 @@ __global__ void __launch_bounds__(THREADS)
       if (s_max[w] > b_max) b_max = s_max[w];
     }
     if (b_act) {
-      atomicAdd(a.diag, b_act);
-      atomicAdd(a.diag + 1, b_rounds);
-      atomicMax(a.diag + 2, b_max);
-      if (b_cap) atomicAdd(a.diag + 3, b_cap);
+      atomicAdd(diag, b_act);
+      atomicAdd(diag + 1, b_rounds);
+      atomicMax(diag + 2, b_max);
+      if (b_cap) atomicAdd(diag + 3, b_cap);
     }
   }
+}
+
+template <bool RING>
+__global__ void __launch_bounds__(THREADS)
+    exact_send_kernel(const ExactArgs a) {
+  const size_t total = (size_t)a.s * a.n;
+  const size_t g = (size_t)blockIdx.x * THREADS + threadIdx.x;
+  unsigned active = 0, rounds = 0, capped = 0;
+  if (g < total && a.infected[g] && a.tx[g] > 0 &&
+      a.next_send[g] <= a.tick) {
+    active = 1;
+    const int s = (int)(g / a.n);
+    const int i = (int)(g - (size_t)s * a.n);
+    const uint32_t* key = a.keys[s];
+    int cand[MAX_K];
+    bool cap_hit = false;
+    rounds = reject_loop<RING>(a, key, g, i, cand, cap_hit);
+    capped = cap_hit;  // the caller raises on diag[3]; the row sends nothing
+    if (!cap_hit) {
+      const size_t seed0 = (size_t)s * a.n;
+      const int tx0 = a.tx[g];
+#pragma unroll
+      for (int j = 0; j < MAX_K; ++j) {
+        if (j < a.k) {
+          const int c = cand[j];
+          const Delivery del = deliver_kind(a, key, i, j, c);
+          if (del == QUEUED)
+            atomicMin(a.pending + seed0 + c, a.tick + a.lat_ticks);
+          else if (del == NOW)
+            a.new_infected[seed0 + c] = 1;
+          mark<RING>(a, g, tx0, j, c);
+        }
+      }
+      spend(a, g, i);
+    }
+  }
+  add_diag(a.diag, active, rounds, capped);
+}
+
+// -- one shard of the multi-device layouts -------------------------------
+//
+// shard_round replaces the rejection round of the three mesh layouts
+// (corrosion_tpu/sim/calibrate.py:817-846, models/sharded.py:403-426,
+// :659-683): a shard tests only its own rows (global ids lo + il)
+// against its own bitmap or ring rows.  Here each of my active rows
+// runs its whole loop in registers, as exact_send does, and writes how
+// many rounds it drew (0: inactive; MAX_ROUNDS + 1: capped).  Row i's
+// round-r tuple depends only on its key, its global id and its own
+// memory, so "rounds > r + 1" is exactly the reference's still-bad
+// mask after round r: the caller exchanges those masks round by round.
+//
+// shard_commit replaces the delivery and commit of the same three
+// (calibrate.py:848-892, sharded.py:428-470, :685-728).  One thread
+// per (seed, row) of all N rows: an active row redraws its accepted
+// tuple at its final round (the count of exchanged masks that held it,
+// so every shard rebuilds every tuple without moving one), applies the
+// masks, and stores the infection and the queue's atomicMin for the
+// targets in the target window [t_lo, t_lo + t_n) (the dense layout:
+// my rows; the frontier layouts: all, replicated).  A row of mine also
+// marks its own bitmap / ring row; a row in the budget window
+// [b_lo, b_lo + b_n) (mine, or all where tx / next_send / msgs are
+// replicated) spends its budget.  Bound on the H100: bytes — the N
+// activity bytes and round counts, and per active row what exact_send
+// moves.
+
+struct ShardArgs {
+  ExactArgs e;  // n = N; sent / ring: my rows; new_infected, pending: the
+                // target window; tx, next_send, msgs: the budget window
+  const unsigned char* active;  // round: [S, n_local]; commit: [S, N]
+  int* rounds;                  // round: out [S, n_local]; commit: [S, N]
+  int lo;
+  int n_local;
+  int t_lo;
+  int t_n;
+  int b_lo;
+  int b_n;
+};
+
+template <bool RING>
+__global__ void __launch_bounds__(THREADS)
+    shard_round_kernel(const ShardArgs sa) {
+  const ExactArgs& a = sa.e;
+  const size_t total = (size_t)a.s * sa.n_local;
+  const size_t g = (size_t)blockIdx.x * THREADS + threadIdx.x;
+  unsigned active = 0, rounds = 0, capped = 0;
+  if (g < total) {
+    if (sa.active[g]) {
+      active = 1;
+      const int s = (int)(g / sa.n_local);
+      const int i = sa.lo + (int)(g - (size_t)s * sa.n_local);
+      int cand[MAX_K];
+      bool cap_hit = false;
+      rounds = reject_loop<RING>(a, a.keys[s], g, i, cand, cap_hit);
+      capped = cap_hit;
+    }
+    sa.rounds[g] = capped ? MAX_ROUNDS + 1 : (int)rounds;
+  }
+  add_diag(a.diag, active, rounds, capped);
+}
+
+template <bool RING>
+__global__ void __launch_bounds__(THREADS)
+    shard_commit_kernel(const ShardArgs sa) {
+  const ExactArgs& a = sa.e;
+  const size_t total = (size_t)a.s * a.n;
+  const size_t gg = (size_t)blockIdx.x * THREADS + threadIdx.x;
+  if (gg >= total || !sa.active[gg]) return;
+  const int s = (int)(gg / a.n);
+  const int i = (int)(gg - (size_t)s * a.n);
+  const uint32_t* key = a.keys[s];
+  int cand[MAX_K];
+  draw_tuple(a, key, sa.rounds[gg], i, cand);
+  const bool mine = i >= sa.lo && i < sa.lo + sa.n_local;
+  const bool budget = i >= sa.b_lo && i < sa.b_lo + sa.b_n;
+  const size_t g = (size_t)s * sa.n_local + (i - sa.lo);
+  const size_t gb = (size_t)s * sa.b_n + (i - sa.b_lo);
+  const int tx0 = budget ? a.tx[gb] : 0;
+#pragma unroll
+  for (int j = 0; j < MAX_K; ++j) {
+    if (j < a.k) {
+      const int c = cand[j];
+      const int ct = c - sa.t_lo;
+      if (ct >= 0 && ct < sa.t_n) {
+        const Delivery del = deliver_kind(a, key, i, j, c);
+        const size_t tgt = (size_t)s * sa.t_n + ct;
+        if (del == QUEUED)
+          atomicMin(a.pending + tgt, a.tick + a.lat_ticks);
+        else if (del == NOW)
+          a.new_infected[tgt] = 1;
+      }
+      if (mine) mark<RING>(a, g, tx0, j, c);
+    }
+  }
+  if (budget) spend(a, gb, i);
 }
 
 __global__ void exact_commit_kernel(const unsigned char* __restrict__ infected,
@@ -260,6 +420,36 @@ extern "C" int exact_send_launch(const void* args, int ring, void* stream) {
     exact_send_kernel<true><<<blocks, THREADS, 0, st>>>(a);
   else
     exact_send_kernel<false><<<blocks, THREADS, 0, st>>>(a);
+  return (int)cudaGetLastError();
+}
+
+extern "C" int shard_args_size() { return (int)sizeof(ShardArgs); }
+
+extern "C" int shard_launch(const void* args, int ring, int commit,
+                            void* stream) {
+  const ShardArgs& sa = *static_cast<const ShardArgs*>(args);
+  const ExactArgs& a = sa.e;
+  if (a.s < 1 || a.s > MAX_SEEDS || a.n < 1 || a.k < 1 || a.k > MAX_K ||
+      a.span == 0 || sa.active == nullptr || sa.rounds == nullptr ||
+      sa.n_local < 1 || sa.lo < 0 || sa.lo + sa.n_local > a.n ||
+      (ring ? a.ring == nullptr || a.cap < a.k * a.max_tx
+            : a.sent == nullptr || a.nb * 8 < a.n) ||
+      (commit ? a.new_infected == nullptr || a.tx == nullptr ||
+                    sa.t_n < 1 || sa.b_n < 1 || sa.b_lo > sa.lo ||
+                    sa.b_lo + sa.b_n < sa.lo + sa.n_local
+              : a.diag == nullptr))
+    return (int)cudaErrorInvalidValue;
+  const size_t total = (size_t)a.s * (commit ? a.n : sa.n_local);
+  const unsigned blocks = (unsigned)((total + THREADS - 1) / THREADS);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (commit && ring)
+    shard_commit_kernel<true><<<blocks, THREADS, 0, st>>>(sa);
+  else if (commit)
+    shard_commit_kernel<false><<<blocks, THREADS, 0, st>>>(sa);
+  else if (ring)
+    shard_round_kernel<true><<<blocks, THREADS, 0, st>>>(sa);
+  else
+    shard_round_kernel<false><<<blocks, THREADS, 0, st>>>(sa);
   return (int)cudaGetLastError();
 }
 

@@ -2,7 +2,10 @@
 epilogue in one pass (csrc/deliver_perm.cu).
 
 Replaces corrosion_tpu/models/broadcast.py ``_deliver_perm`` (:327)
-and the epilogue of ``broadcast_step`` (:243-280).  Bound on the H100:
+and the epilogue of ``broadcast_step`` (:243-280), and with a separate
+source and a receiver window the local delivery of
+corrosion_tpu/models/sharded.py ``sharded_broadcast_step`` (:121-147)
+and ``sharded_broadcast_step_ring`` (:253-279).  Bound on the H100:
 bytes — the receiver's row, K randomly placed sender rows, the K
 sender ids and loss draws, and the [N] state words, each moved once.
 The kernel fuses the K column gathers, the validity masks, the
@@ -28,7 +31,8 @@ _ARGTYPES = (
     + (ctypes.c_void_p,) * 5
     + (ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_float,
        ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_int,
-       ctypes.c_float, ctypes.c_void_p)
+       ctypes.c_float)
+    + (ctypes.c_void_p,) * 2 + (ctypes.c_int, ctypes.c_int, ctypes.c_void_p)
 )
 
 
@@ -43,32 +47,44 @@ def deliver_perm_plain(rows, tx, msgs, senders, *, hops=None, next_send=None,
                        tick=0, loss_u=None, wan_u=None, region=None,
                        partition_id=None, sev=None, partition_active=False,
                        tier=None, loss=0.0, wan_loss=0.0, max_tx=8,
-                       backoff=0.0):
+                       backoff=0.0, src_rows=None, slot_of=None, lo=0):
     """Plain PyTorch version of the kernel (same arguments and results
     as :func:`deliver_perm`)."""
-    k = senders.shape[0]
+    k, n_global = senders.shape
+    n = rows.shape[0]
+    my = torch.arange(lo, lo + n, device=rows.device)
     active = _active(tx, next_send, tick)
     unset = torch.full_like(tx, HOP_UNSET)
-    if hops is not None:
-        shops = torch.where(active, torch.clamp_max(hops, HOP_UNSET - 2) + 1,
-                            unset)
-    else:
-        shops = torch.where(active, torch.zeros_like(tx), unset)
+    if src_rows is None:
+        src_rows = rows
+        if hops is not None:
+            shops = torch.where(active,
+                                torch.clamp_max(hops, HOP_UNSET - 2) + 1,
+                                unset)
+        else:
+            shops = torch.where(active, torch.zeros_like(tx), unset)
     new_rows = rows
     cand = unset
     for j in range(k):
-        s = senders[j].to(torch.int64)
-        sh = shops[s]
-        valid = sh < HOP_UNSET
+        s = senders[j][my].to(torch.int64)
+        if slot_of is not None:
+            slot = slot_of[s].to(torch.int64)
+            valid = slot >= 0
+            sh = torch.where(valid, 0, HOP_UNSET)
+            s_rows = src_rows[torch.clamp_min(slot, 0)]
+        else:
+            sh = shops[s]
+            valid = sh < HOP_UNSET
+            s_rows = src_rows[s]
         if loss_u is not None:
-            valid &= ~(loss_u[:, j] < loss)
+            valid &= ~(loss_u[my, j] < loss)
         if wan_u is not None:
-            valid &= ~((region[s] != region) & (wan_u[:, j] < wan_loss))
+            valid &= ~((region[s] != region[my]) & (wan_u[my, j] < wan_loss))
         if partition_id is not None and partition_active:
             # flow is sender -> receiver
-            valid &= ~blocks_cross(partition_id[s], partition_id, sev)
+            valid &= ~blocks_cross(partition_id[s], partition_id[my], sev)
         new_rows = merge_keys(
-            new_rows, torch.where(valid[:, None], rows[s], rows)
+            new_rows, torch.where(valid[:, None], s_rows, rows)
         )
         cand = torch.minimum(cand, torch.where(valid, sh, unset))
     learned = torch.any(new_rows != rows, dim=1)
@@ -85,8 +101,8 @@ def deliver_perm_plain(rows, tx, msgs, senders, *, hops=None, next_send=None,
         )
         first = 1
         if tier is not None:
-            gap = gap * tier
-            first = tier
+            gap = gap * tier[my]
+            first = tier[my]
         new_next = torch.where(active, tick + gap, next_send)
         new_next = torch.where(learned, tick + first, new_next).to(torch.int32)
     new_hops = None
@@ -98,43 +114,69 @@ def deliver_perm_plain(rows, tx, msgs, senders, *, hops=None, next_send=None,
 def deliver_perm(rows, tx, msgs, senders, *, hops=None, next_send=None,
                  tick=0, loss_u=None, wan_u=None, region=None,
                  partition_id=None, sev=None, partition_active=False,
-                 tier=None, loss=0.0, wan_loss=0.0, max_tx=8, backoff=0.0):
+                 tier=None, loss=0.0, wan_loss=0.0, max_tx=8, backoff=0.0,
+                 src_rows=None, slot_of=None, lo=0):
     """One gossip delivery for every receiver, then the epilogue.
 
-    rows [N, R] int32 packed keys; tx, msgs [N] int32; senders [K, N]
-    int32 receiver->sender maps; hops / next_send / region /
-    partition_id / tier [N] int32 or None; loss_u / wan_u [N, K] float32
-    draws or None (no loss / not the WAN topology); sev [B, B] bool
-    one-way severance or None (symmetric).  ``wan_u`` needs ``region``.
+    rows [n, R] int32 packed keys; tx, msgs [n] int32; senders [K, N]
+    int32 receiver->sender maps; hops / next_send [n] int32 or None;
+    region / partition_id / tier [N] int32 or None; loss_u / wan_u
+    [N, K] float32 draws or None (no loss / not the WAN topology); sev
+    [B, B] bool one-way severance or None (symmetric).  ``wan_u`` needs
+    ``region``.
+
+    The receivers are the window ``[lo, lo + n)`` of the N nodes (all of
+    them by default, n = N).  A sender's row comes from ``rows`` (then
+    n = N); or, with ``slot_of`` [N] int32, from row ``slot_of[s]`` of
+    ``src_rows`` [Q, R], absent (an inactive sender) where it is -1.  A
+    source takes no ``hops``.
 
     Returns (rows, tx, msgs, hops, next_send) as new tensors; hops and
     next_send are None when not given."""
     if wan_u is not None and region is None:
         raise ValueError("deliver_perm: wan_u needs region")
+    k, n_global = senders.shape
+    n, r = rows.shape
+    if (src_rows is None) != (slot_of is None):
+        raise ValueError("deliver_perm: src_rows and slot_of come together")
+    if src_rows is None and (lo or n != n_global):
+        raise ValueError("deliver_perm: a receiver window needs src_rows")
+    if src_rows is not None and hops is not None:
+        raise ValueError("deliver_perm: a source takes no hops")
+    if not 0 <= lo <= n_global - n:
+        raise ValueError(f"deliver_perm: receivers {lo}..{lo + n} outside "
+                         f"{n_global}")
     args = dict(hops=hops, next_send=next_send, tick=tick, loss_u=loss_u,
                 wan_u=wan_u, region=region, partition_id=partition_id,
                 sev=sev, partition_active=partition_active, tier=tier,
-                loss=loss, wan_loss=wan_loss, max_tx=max_tx, backoff=backoff)
+                loss=loss, wan_loss=wan_loss, max_tx=max_tx, backoff=backoff,
+                src_rows=src_rows, slot_of=slot_of, lo=lo)
     if kernels.on_cpu(rows, tx, msgs, senders, hops, next_send, loss_u,
-                      wan_u, region, partition_id, sev, tier):
+                      wan_u, region, partition_id, sev, tier, src_rows,
+                      slot_of):
         return deliver_perm_plain(rows, tx, msgs, senders, **args)
 
-    n, r = rows.shape
-    k = senders.shape[0]
     if not 1 <= r <= MAX_ROWS:
         raise ValueError(f"deliver_perm: the kernel takes 1..{MAX_ROWS} "
                          f"cells per row, got {r}")
     i32 = torch.int32
     kernels.check("deliver_perm rows", rows, i32, (n, r), align=16)
     for name, t in (("tx", tx), ("msgs", msgs), ("hops", hops),
-                    ("next_send", next_send), ("region", region),
-                    ("partition_id", partition_id), ("tier", tier)):
+                    ("next_send", next_send)):
         if t is not None:
             kernels.check(f"deliver_perm {name}", t, i32, (n,))
-    kernels.check("deliver_perm senders", senders, i32, (k, n))
+    for name, t in (("region", region), ("partition_id", partition_id),
+                    ("tier", tier), ("slot_of", slot_of)):
+        if t is not None:
+            kernels.check(f"deliver_perm {name}", t, i32, (n_global,))
+    kernels.check("deliver_perm senders", senders, i32, (k, n_global))
     for name, t in (("loss_u", loss_u), ("wan_u", wan_u)):
         if t is not None:
-            kernels.check(f"deliver_perm {name}", t, torch.float32, (n, k))
+            kernels.check(f"deliver_perm {name}", t, torch.float32,
+                          (n_global, k))
+    if src_rows is not None:
+        kernels.check("deliver_perm src_rows", src_rows, i32,
+                      (src_rows.shape[0], r), align=16)
     sev_b = 0
     if sev is not None:
         sev_b = sev.shape[0]
@@ -154,7 +196,8 @@ def deliver_perm(rows, tx, msgs, senders, *, hops=None, next_send=None,
         p(tier), p(rows_out), p(tx_out), p(msgs_out), p(hops_out),
         p(next_out), n, r, k, float(loss), float(wan_loss),
         int(bool(partition_active)), int(tick), int(max_tx), float(backoff),
-        kernels.stream(rows),
+        p(rows if src_rows is None else src_rows), p(slot_of), lo,
+        n_global, kernels.stream(rows),
     )
     deliver_perm.launches += 1
     kernels.raise_on_error("deliver_perm", code)

@@ -160,19 +160,14 @@ def _wan_filter(delivered, cand, wan_u, p: SendParams):
     return delivered & ~(cross & (wan_u < _f32(p.wan_loss)))
 
 
-def _latency_split(delivered, cand, pending, tick: int, p: SendParams):
+def _latency_split(delivered, cand, p: SendParams):
     """Split the delivered mask into immediate commits and cross-region
-    arrivals, scatter-minning ``tick + lat_ticks`` into the targets'
-    ``pending`` slots (in place); returns the immediate mask."""
-    s, n, _ = cand.shape
+    arrivals; returns (now, delayed)."""
+    n = cand.shape[1]
     region = block_of(torch.arange(n, dtype=torch.int32,
                                    device=cand.device), p.lat_blocks, n)
     delayed = delivered & (region[:, None] != region[cand.to(torch.int64)])
-    flat = _flat_targets(cand)[delayed]
-    pending.view(-1).scatter_reduce_(
-        0, flat, torch.full(flat.shape, tick + p.lat_ticks,
-                            dtype=torch.int32, device=cand.device), "amin")
-    return delivered & ~delayed
+    return delivered & ~delayed, delayed
 
 
 def _backoff_next_send(active, tx, next_send, tick: int, p: SendParams,
@@ -188,11 +183,12 @@ def _backoff_next_send(active, tx, next_send, tick: int, p: SendParams,
     return torch.where(active, tick + gap, next_send)
 
 
-def _flat_targets(cand: torch.Tensor) -> torch.Tensor:
-    """[S, N, K] int64 flat index ``s * N + cand`` into [S, N] leaves."""
-    s, n, _ = cand.shape
-    seed0 = torch.arange(s, dtype=torch.int64, device=cand.device) * n
-    return seed0[:, None, None] + cand.to(torch.int64)
+def _flat_targets(cand: torch.Tensor, width: int, lo: int = 0):
+    """[S, N, K] int64 flat index ``s * width + cand - lo`` into [S,
+    width] leaves that hold the targets lo .. lo + width - 1."""
+    s = cand.shape[0]
+    seed0 = torch.arange(s, dtype=torch.int64, device=cand.device) * width
+    return seed0[:, None, None] + cand.to(torch.int64) - lo
 
 
 def _randint_plain(key, shape, span: int, mult: int, device):
@@ -207,54 +203,60 @@ def _uniform_plain(key, shape, device):
     return threefry_bits_plain(out, key_words(key))
 
 
-def exact_send_plain(infected, tx, next_send, msgs, pending, sent, keys,
-                     tick: int, p: SendParams, tier, diag):
-    """Plain PyTorch version of the kernel (same arguments and results
-    as :func:`exact_send`): the reference's vectorised rejection loop,
-    redrawing every seed's [N, K] tuple array while a row is bad."""
-    s, n = infected.shape
-    k = p.fanout
-    dev = infected.device
-    idx = torch.arange(n, dtype=torch.int32, device=dev)
+def _draw_plain(keys, r: int, n: int, k: int, device) -> torch.Tensor:
+    """[S, N, K] candidates of rejection round r for every seed."""
     span, mult = randint_span(0, n)
-    active = infected & (tx > 0) & (next_send <= tick)
+    return torch.stack([_randint_plain(fold_in(kd, r), (n, k), span, mult,
+                                       device) for kd, _, _ in keys])
 
-    def draw(r: int) -> torch.Tensor:
-        return torch.stack([_randint_plain(fold_in(kd, r), (n, k), span,
-                                           mult, dev) for kd, _, _ in keys])
 
-    cand = draw(0)
-    bad = _frontier_invalid(p, sent, idx, cand) & active
-    rounds = active.to(torch.int64)
-    r = 1
-    while bool(bad.any()):
-        if r == MAX_ROUNDS:
-            raise RuntimeError(f"exact_send: a row found no valid tuple in "
-                               f"{MAX_ROUNDS} rejection rounds")
-        cand = torch.where(bad[..., None], draw(r), cand)
-        rounds += bad.to(torch.int64)
-        bad = _frontier_invalid(p, sent, idx, cand) & bad
-        r += 1
-
+def _deliver_plain(active, cand, keys, tick: int, p: SendParams):
+    """The masks on the accepted tuples (loss, partition, WAN drop, in
+    the reference's order) and the latency split: (now, delayed) [S, N,
+    K] bool, ``delayed`` None without the latency queue."""
+    s, n, k = cand.shape
+    dev = cand.device
     delivered = active[..., None].expand(s, n, k)
     if p.loss > 0.0:
         loss_u = torch.stack([_uniform_plain(kl, (n, k), dev)
                               for _, kl, _ in keys])
         delivered = delivered & (loss_u >= _f32(p.loss))
     if p.part_blocks and tick < p.heal_tick:
-        part = block_of(idx, p.part_blocks, n)
+        part = block_of(torch.arange(n, dtype=torch.int32, device=dev),
+                        p.part_blocks, n)
         delivered = delivered & (part[:, None] == part[cand.to(torch.int64)])
     if p.wan_blocks:
         wan_u = torch.stack([_uniform_plain(kw, (n, k), dev)
                              for _, _, kw in keys])
         delivered = _wan_filter(delivered, cand, wan_u, p)
     if p.lat_blocks:
-        delivered = _latency_split(delivered, cand, pending, tick, p)
-    new_infected = infected.clone()
-    new_infected.view(-1)[_flat_targets(cand)[delivered]] = True
+        return _latency_split(delivered, cand, p)
+    return delivered, None
 
-    # marks on the sender's own row: ring slot (max_tx - tx) * K + j, or
-    # the bit, one column at a time (two targets may share a byte)
+
+def _commit_targets_plain(new_infected, pending, now, delayed, cand,
+                          tick: int, p: SendParams, lo: int = 0):
+    """Store the infection of the ``now`` targets and scatter-min the
+    queue's arrival tick into ``pending`` for the ``delayed`` ones, both
+    [S, width] leaves holding the targets lo .. lo + width - 1 (targets
+    outside are another shard's)."""
+    width = new_infected.shape[1]
+    inside = (cand >= lo) & (cand < lo + width)
+    flat = _flat_targets(cand, width, lo)
+    new_infected.view(-1)[flat[now & inside]] = True
+    if delayed is not None:
+        ix = flat[delayed & inside]
+        pending.view(-1).scatter_reduce_(
+            0, ix, torch.full(ix.shape, tick + p.lat_ticks,
+                              dtype=torch.int32, device=cand.device), "amin")
+
+
+def _mark_plain(sent, active, cand, tx, p: SendParams):
+    """The senders' marks on their own rows (in place): ring slot
+    (max_tx - tx) * K + j, or the bit, one column at a time (two
+    targets may share a byte)."""
+    s, n, k = cand.shape
+    dev = cand.device
     rows = torch.arange(s * n, dtype=torch.int64, device=dev).reshape(s, n)
     if sent.dtype == torch.int32:
         cap = sent.shape[2]
@@ -271,13 +273,53 @@ def exact_send_plain(infected, tx, next_send, msgs, pending, sent, keys,
             ix = flat[..., j][active]
             sv[ix] = sv[ix] | bits[..., j][active]
 
-    msgs.add_(active.to(torch.int32) * k)
+
+def _spend_plain(active, tx, next_send, msgs, tick: int, p: SendParams,
+                 tier):
+    """The senders' budget and backoff, in place."""
+    msgs.add_(active.to(torch.int32) * p.fanout)
     tx.sub_(active.to(torch.int32))
     next_send.copy_(_backoff_next_send(active, tx, next_send, tick, p, tier))
+
+
+def exact_send_plain(infected, tx, next_send, msgs, pending, sent, keys,
+                     tick: int, p: SendParams, tier, diag):
+    """Plain PyTorch version of the kernel (same arguments and results
+    as :func:`exact_send`): the reference's vectorised rejection loop,
+    redrawing every seed's [N, K] tuple array while a row is bad."""
+    s, n = infected.shape
+    k = p.fanout
+    dev = infected.device
+    idx = torch.arange(n, dtype=torch.int32, device=dev)
+    active = infected & (tx > 0) & (next_send <= tick)
+
+    cand = _draw_plain(keys, 0, n, k, dev)
+    bad = _frontier_invalid(p, sent, idx, cand) & active
+    rounds = active.to(torch.int64)
+    r = 1
+    while bool(bad.any()):
+        if r == MAX_ROUNDS:
+            raise RuntimeError(f"exact_send: a row found no valid tuple in "
+                               f"{MAX_ROUNDS} rejection rounds")
+        cand = torch.where(bad[..., None], _draw_plain(keys, r, n, k, dev),
+                           cand)
+        rounds += bad.to(torch.int64)
+        bad = _frontier_invalid(p, sent, idx, cand) & bad
+        r += 1
+
+    now, delayed = _deliver_plain(active, cand, keys, tick, p)
+    new_infected = infected.clone()
+    _commit_targets_plain(new_infected, pending, now, delayed, cand, tick, p)
+    _mark_plain(sent, active, cand, tx, p)
+    _spend_plain(active, tx, next_send, msgs, tick, p, tier)
+    _add_diag(diag, active, rounds)
+    return new_infected
+
+
+def _add_diag(diag, active, rounds) -> None:
     diag[0] += active.sum()
     diag[1] += rounds.sum()
     diag[2] = torch.maximum(diag[2], rounds.max())
-    return new_infected
 
 
 def _check_send(infected, tx, next_send, msgs, pending, sent, keys,

@@ -1,0 +1,341 @@
+"""The explicit-collective gossip fabrics and the exact sampler's mesh
+layouts (port of ``corrosion_tpu/models/sharded.py``).
+
+Node state lives row-sharded over a :class:`corrosion_tpu_torch.mesh.Mesh`
+and each shard runs a local function (a generator that yields its
+collectives, see ``mesh.py``).  Draws are counter-based, so every shard
+draws the same replicated sender maps and candidates from the shared
+tick key without moving them.
+
+* :func:`sharded_broadcast_step` — one all_gather of the sender rows
+  and activity a tick, then each shard's receivers deliver from the
+  gathered rows (the ``deliver_perm`` kernel with a source and a
+  receiver window);
+* :func:`sharded_broadcast_step_ring` — the destination-sorted fabric:
+  each shard ships each destination only its active sender rows that
+  destination's receivers drew (``route_pack``), over one all_to_all,
+  and the receivers deliver through the slot map (``route_slots``);
+  at the default cap bitwise :func:`sharded_broadcast_step`;
+* :func:`sharded_seq_sync_step` — the seq bitmaps all_gathered, the
+  ``seq_sync`` kernel on the gathered state, each shard keeping its rows;
+* the frontier layout (:func:`sharded_frontier_exact_step`, the ring
+  row-sharded, every [S, N] leaf replicated, only the still-bad masks
+  crossing) and the multi-host layout (:func:`sharded_frontier_host_step`,
+  tx / next_send / msgs sharded too, only the bitpacked active and
+  still-bad masks crossing) of the exact sampler; the dense layout is
+  ``sim/calibrate.py``'s ``sharded_packed_exact_step``.
+
+Each is bitwise its single-device counterpart for the same keys.
+"""
+
+from __future__ import annotations
+
+from typing import NamedTuple
+
+import torch
+
+from corrosion_tpu_torch.kernels.deliver import deliver_perm
+from corrosion_tpu_torch.kernels.exact_send import exact_commit
+from corrosion_tpu_torch.kernels.fabric import (
+    bits_pack,
+    bits_unpack,
+    route_pack,
+    route_slots,
+)
+from corrosion_tpu_torch.mesh import all_gather, all_reduce, all_to_all
+from corrosion_tpu_torch.models.broadcast import BroadcastParams, _perm_senders
+from corrosion_tpu_torch.models.sync import SeqSyncParams, seq_sync_step
+from corrosion_tpu_torch.random import split, uniform
+from corrosion_tpu_torch.sim.calibrate import (
+    FrontierExactState,
+    HeadlineExactConfig,
+    _latency_promote,
+    _layout,
+    _mesh_chunk,
+    _mesh_step,
+    _partition_of,
+    _rtt_tier_of,
+    _send_params,
+    _shard_send,
+    _sync_due,
+    _sync_peers,
+    _sync_pull,
+    _tick_keys,
+    _wan_latency_on,
+)
+
+
+class BroadcastShard(NamedTuple):
+    """One shard's broadcast leaves: rows [n_local, R] int32, tx and
+    msgs [n_local] int32."""
+
+    rows: torch.Tensor
+    tx: torch.Tensor
+    msgs: torch.Tensor
+
+
+class SeqShard(NamedTuple):
+    """One shard's reassembly leaves: bits [n_local, seqs] bool, msgs
+    [n_local] int32."""
+
+    bits: torch.Tensor
+    msgs: torch.Tensor
+
+
+def _n_local(mesh, n: int) -> int:
+    if n % mesh.size != 0:
+        raise ValueError(f"n_nodes {n} must divide over {mesh.size} shards")
+    return n // mesh.size
+
+
+def _senders(key_t, params: BroadcastParams, device) -> torch.Tensor:
+    """[K, N] receiver->sender maps, replicated on every shard."""
+    n = params.n_nodes
+    u = params.universe or n
+    return torch.stack([
+        _perm_senders(key_t, j, n, u, j < params.fanout_ring0,
+                      params.ring0_size, device=device)
+        for j in range(params.fanout)
+    ])
+
+
+def _loss_u(key_l, params: BroadcastParams, device):
+    if params.loss <= 0.0:
+        return None
+    return uniform(key_l, (params.n_nodes, params.fanout), device)
+
+
+def _broadcast_local(sh, st: BroadcastShard, key, params, n_local):
+    key_t, key_l = split(key)
+    dev = st.rows.device
+    rows_all = yield all_gather(st.rows, "rows")
+    active_all = yield all_gather(st.tx > 0, "active")
+    # the gathered rows are their own slots; an inactive sender has none
+    slot_of = torch.where(
+        active_all, torch.arange(params.n_nodes, dtype=torch.int32,
+                                 device=dev), -1).to(torch.int32)
+    rows, tx, msgs, _, _ = deliver_perm(
+        st.rows, st.tx, st.msgs, _senders(key_t, params, dev),
+        loss_u=_loss_u(key_l, params, dev), loss=params.loss,
+        max_tx=params.max_transmissions, src_rows=rows_all,
+        slot_of=slot_of, lo=sh * n_local)
+    return BroadcastShard(rows, tx, msgs)
+
+
+def sharded_broadcast_step(mesh, params: BroadcastParams):
+    """``step(state, key) -> state`` over ``mesh``'s ``nodes`` axis:
+    ``state`` a ``mesh.Sharded`` of :class:`BroadcastShard` leaves (rows
+    row-sharded).  Per shard: one all_gather of every shard's rows and
+    activity (``tx > 0``), then my receivers deliver from their column
+    senders (loss only, as the reference's), decay my senders and
+    refresh my learners.  Bitwise ``broadcast_step``."""
+    n_local = _n_local(mesh, params.n_nodes)
+
+    def step(state, key):
+        out = mesh.run(_broadcast_local, {
+            sh: (state[sh], key, params, n_local)
+            for sh in mesh.local_shards})
+        return state.replace(out, state.tick + 1)
+
+    return step
+
+
+def _ring_local(sh, st: BroadcastShard, key, params, n_local, cap):
+    key_t, key_l = split(key)
+    dev = st.rows.device
+    senders = _senders(key_t, params, dev)
+    send_ids, send_rows, overflow_l = route_pack(senders, st.tx > 0, st.rows,
+                                                 sh, cap)
+    recv_ids = yield all_to_all(send_ids, "ids")
+    recv_rows = yield all_to_all(send_rows, "rows")
+    slot_of = route_slots(recv_ids.reshape(-1), params.n_nodes)
+    rows, tx, msgs, _, _ = deliver_perm(
+        st.rows, st.tx, st.msgs, senders,
+        loss_u=_loss_u(key_l, params, dev), loss=params.loss,
+        max_tx=params.max_transmissions,
+        src_rows=recv_rows.reshape(-1, st.rows.shape[1]), slot_of=slot_of,
+        lo=sh * n_local)
+    overflow = yield all_reduce(overflow_l, "overflow")
+    return BroadcastShard(rows, tx, msgs), int(overflow[0])
+
+
+def sharded_broadcast_step_ring(mesh, params: BroadcastParams,
+                                slot_cap=None):
+    """``step(state, key) -> (state, overflow)``: the destination-sorted
+    fabric.  Each shard sends each destination the first ``slot_cap``
+    (default ``n_local``: lossless, bitwise
+    :func:`sharded_broadcast_step`) of its active rows that
+    destination's receivers drew, ids and rows over one all_to_all; the
+    overflow — needed rows that did not fit, summed over the shards —
+    is exact."""
+    n_local = _n_local(mesh, params.n_nodes)
+    cap = n_local if slot_cap is None else min(slot_cap, n_local)
+
+    def step(state, key):
+        out = mesh.run(_ring_local, {
+            sh: (state[sh], key, params, n_local, cap)
+            for sh in mesh.local_shards})
+        overflow = next(iter(out.values()))[1]
+        return (state.replace({sh: o[0] for sh, o in out.items()},
+                              state.tick + 1), overflow)
+
+    return step
+
+
+def _seq_local(sh, st: SeqShard, key, params, n_local):
+    bits_all = yield all_gather(st.bits, "seq")
+    msgs_all = yield all_gather(st.msgs, "msgs")
+    bits, msgs = seq_sync_step(bits_all, msgs_all, key, params)
+    lo = sh * n_local
+    return SeqShard(bits[lo:lo + n_local].clone(),
+                    msgs[lo:lo + n_local].clone())
+
+
+def sharded_seq_sync_step(mesh, params: SeqSyncParams):
+    """``step(state, key) -> state``: sequence reassembly over the mesh
+    (``state`` a ``mesh.Sharded`` of :class:`SeqShard` leaves).  One
+    all_gather of the seq bitmaps and msgs, the ``seq_sync`` kernel on
+    the gathered state (the same draws on every shard), each shard
+    keeping its receivers' rows.  Bitwise ``seq_sync_step``."""
+    n_local = _n_local(mesh, params.n_nodes)
+
+    def step(state, key):
+        out = mesh.run(_seq_local, {
+            sh: (state[sh], key, params, n_local)
+            for sh in mesh.local_shards})
+        return state.replace(out, state.tick + 1)
+
+    return step
+
+
+# -- the exact sampler's frontier layouts ------------------------------
+
+
+def _sharded_frontier_tick_local(sh: int, st: FrontierExactState, keys,
+                                 cfg: HeadlineExactConfig, diag,
+                                 writer: int = 0):
+    """One frontier tick on shard ``sh`` (generator; the port of the
+    reference's :347): every [S, N] leaf replicated, my [S, n_local,
+    cap] ring rows.  A tick with an empty frontier exchanges nothing."""
+    infected, tx, next_send, ring_l, msgs, tick, pending = st
+    n = cfg.n_nodes
+    n_local = ring_l.shape[1]
+    lo = sh * n_local
+    dev = infected.device
+    tier = _rtt_tier_of(cfg, dev)
+    latency = _wan_latency_on(cfg)
+    if latency:
+        infected, tx, next_send, pending = _latency_promote(
+            infected, tx, next_send, pending, tick, cfg, tier)
+    active = infected & (tx > 0) & (next_send <= tick)
+    triples, k_sync = _tick_keys(keys)
+    if bool(active.any()):
+        new_infected = yield from _shard_send(
+            sh, n, active[:, lo:lo + n_local].contiguous(), active, ring_l,
+            triples, tick, _send_params(cfg, True, writer), diag, False,
+            infected, pending if latency else None, tx, next_send, msgs,
+            tier)
+        exact_commit(infected, new_infected, tx, next_send, tick,
+                     cfg.max_transmissions, tier=tier)
+        infected = new_infected
+    if _sync_due(cfg, tick):
+        infected, msgs = _sync_pull(
+            infected, msgs, _sync_peers(k_sync, cfg, dev), cfg,
+            part=_partition_of(cfg, dev), part_active=tick < cfg.heal_tick)
+    return FrontierExactState(infected, tx, next_send, ring_l, msgs,
+                              tick + 1, pending)
+
+
+def _frontier_stats(sh: int, st: FrontierExactState):
+    return st.infected, st.msgs
+    yield  # a generator: the replicated leaves need no collective
+
+
+def sharded_frontier_exact_step(mesh, cfg: HeadlineExactConfig):
+    """The frontier layout's tick: ``step(state, keys) -> state`` on a
+    ``mesh.Sharded`` laid out by ``FRONTIER_LAYOUT`` over ``nodes``.
+    Bitwise ``frontier_exact_tick`` per seed."""
+    return _mesh_step(mesh, cfg, _layout(mesh, cfg, True, False))
+
+
+def make_sharded_frontier_chunk(mesh, cfg: HeadlineExactConfig):
+    """The frontier layout's chunk (statistics off the replicated
+    leaves, no gather)."""
+    return _mesh_chunk(mesh, cfg, _layout(mesh, cfg, True, False))
+
+
+def _check_host_mesh(mesh, cfg: HeadlineExactConfig) -> int:
+    h = mesh.size
+    if cfg.n_nodes % (8 * h) != 0:
+        raise ValueError(
+            f"n_nodes {cfg.n_nodes} must divide over {h} hosts into "
+            "byte-aligned rows (n_nodes % (8 * n_hosts) == 0) for the "
+            "bitpacked delta exchange"
+        )
+    return h
+
+
+def _sharded_frontier_host_tick_local(sh: int, st: FrontierExactState, keys,
+                                      cfg: HeadlineExactConfig, diag,
+                                      writer: int = 0):
+    """One frontier tick on host ``sh`` of the multi-host layout
+    (generator; the port of the reference's :564): my [S, n_local]
+    tx / next_send / msgs and ring rows, infected and pending [S, N]
+    replicated by construction.  The only exchanges: my active bits,
+    then my still-bad bits each round, bitpacked; nothing on sync
+    ticks (each host keeps its rows of the session pay)."""
+    infected, tx_l, next_send_l, ring_l, msgs_l, tick, pending = st
+    n = cfg.n_nodes
+    s, n_local = tx_l.shape
+    lo = sh * n_local
+    dev = infected.device
+    tier = _rtt_tier_of(cfg, dev)
+    tier_l = None if tier is None else tier[lo:lo + n_local]
+    latency = _wan_latency_on(cfg)
+    if latency:
+        # due / arrived derive from the replicated leaves; each host
+        # applies them to its own rows
+        infected, tx_l, next_send_l, pending = _latency_promote(
+            infected, tx_l, next_send_l, pending, tick, cfg, tier_l, lo=lo)
+    active_l = (infected[:, lo:lo + n_local] & (tx_l > 0)
+                & (next_send_l <= tick))
+    wire = yield all_gather(bits_pack(active_l), "delta", dim=1)
+    active = bits_unpack(wire, n)
+    triples, k_sync = _tick_keys(keys)
+    if bool(active.any()):
+        new_infected = yield from _shard_send(
+            sh, n, active_l, active, ring_l, triples, tick,
+            _send_params(cfg, True, writer), diag, True, infected,
+            pending if latency else None, tx_l, next_send_l, msgs_l, tier)
+        exact_commit(infected[:, lo:lo + n_local].contiguous(),
+                     new_infected[:, lo:lo + n_local].contiguous(), tx_l,
+                     next_send_l, tick, cfg.max_transmissions, tier=tier_l)
+        infected = new_infected
+    if _sync_due(cfg, tick):
+        infected, pay = _sync_pull(
+            infected, torch.zeros((s, n), dtype=torch.int32, device=dev),
+            _sync_peers(k_sync, cfg, dev), cfg,
+            part=_partition_of(cfg, dev), part_active=tick < cfg.heal_tick)
+        msgs_l += pay[:, lo:lo + n_local]
+    return FrontierExactState(infected, tx_l, next_send_l, ring_l, msgs_l,
+                              tick + 1, pending)
+
+
+def _host_stats(sh: int, st: FrontierExactState):
+    # measurement: the sharded msgs leaf gathered for the statistics
+    msgs = yield all_gather(st.msgs, "stats", dim=1)
+    return st.infected, msgs
+
+
+def sharded_frontier_host_step(mesh, cfg: HeadlineExactConfig):
+    """The multi-host layout's tick: ``step(state, keys) -> state`` on a
+    ``mesh.Sharded`` laid out by ``HOST_LAYOUT`` over ``hosts``.
+    Bitwise ``frontier_exact_tick`` per seed."""
+    return _mesh_step(mesh, cfg, _layout(mesh, cfg, True, True))
+
+
+def make_sharded_frontier_host_chunk(mesh, cfg: HeadlineExactConfig):
+    """The multi-host layout's chunk (the msgs leaf gathered for the
+    statistics, measurement traffic charged as ``"stats"``)."""
+    return _mesh_chunk(mesh, cfg, _layout(mesh, cfg, True, True))
+

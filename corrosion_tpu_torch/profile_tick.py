@@ -3,11 +3,15 @@ column, anti-entropy and SWIM churn.
 
     python -m corrosion_tpu_torch.profile_tick
 
-Times ten pieces of work: one chunk (16 ticks; the headline
+Times twelve pieces of work: one chunk (16 ticks; the headline
 converges within it) of the headline epidemic (100k nodes x 32 seeds)
 from its initial state; the two full-width exact-sampler runs
 (``run_exact_headline`` on ``sim.calibrate.EXACT_DENSE`` x 16 seeds and
-``EXACT_SPARSE`` x 4 seeds, set-up and all chunks included); the whole
+``EXACT_SPARSE`` x 4 seeds, set-up and all chunks included); the first
+chunk of two multi-device layouts over a ``LocalFabric`` on the card
+from the initial state (host-sparse, the 10M-node headline config x 2
+seeds on 2 hosts, 8 ticks; sharded-dense, ``EXACT_DENSE`` x 4 seeds
+over 8 node shards, 16 ticks); the whole
 config #4 run (``run_anti_entropy_seeds``, 10k nodes x 32 seeds); the
 first 32-tick chunk of the churn schedule at 64 (config #2) and 4096
 nodes from the initial state; one seed of the calibration-scale exact
@@ -46,9 +50,12 @@ import numpy as np
 import torch
 
 from corrosion_tpu_torch import kernels, resolve_device
+from corrosion_tpu_torch.convert import shard_state
+from corrosion_tpu_torch.mesh import LocalFabric, Mesh
 from corrosion_tpu_torch.ops import merge
+from corrosion_tpu_torch.models import sharded
 from corrosion_tpu_torch.models.swim import swim_init
-from corrosion_tpu_torch.random import PRNGKey
+from corrosion_tpu_torch.random import PRNGKey, fold_in
 from corrosion_tpu_torch.sim import antientropy, calibrate, churn
 from corrosion_tpu_torch.sim.epidemic import (
     HEADLINE,
@@ -131,6 +138,34 @@ def exact_run(cfg, seeds: int, kernel: str):
     def prepare():
         return lambda: calibrate.run_exact_headline(
             cfg, n_seeds=seeds, kernel=kernel, device="cuda")
+    return prepare
+
+
+def mesh_chunk(cfg, seeds: int, axis: str, shards: int, sparse: bool,
+               host: bool):
+    """One chunk of a multi-device layout over a ``LocalFabric`` of
+    ``shards`` on the card, from the initial state (made and laid out
+    untimed)."""
+    def prepare():
+        mesh = Mesh(axis, LocalFabric(shards, "cuda"))
+        base = [PRNGKey(s) for s in range(seeds)]
+        if host:
+            leaves, chunk = (calibrate.HOST_LAYOUT,
+                             sharded.make_sharded_frontier_host_chunk(mesh,
+                                                                      cfg))
+        elif sparse:
+            leaves, chunk = (calibrate.FRONTIER_LAYOUT,
+                             sharded.make_sharded_frontier_chunk(mesh, cfg))
+        else:
+            leaves, chunk = (calibrate.DENSE_LAYOUT,
+                             calibrate.make_sharded_exact_chunk(mesh, cfg))
+        init = (calibrate.frontier_exact_init if sparse
+                else calibrate.packed_exact_init)
+        state = shard_state(init(cfg, [fold_in(k, 2**20) for k in base],
+                                 device="cuda"), leaves, mesh)
+        diags = {sh: calibrate._zero_diag(mesh.device)
+                 for sh in mesh.local_shards}
+        return lambda: chunk(state, base, diags)
     return prepare
 
 
@@ -305,6 +340,17 @@ def main() -> int:
     ):
         out[label] = profile(exact_run(ecfg, seeds, kernel),
                              nodes=ecfg.n_nodes, seeds=seeds, kernel=kernel)
+    for label, ecfg, seeds, axis, shards, sparse, host in (
+        ("host_sparse_10m_chunk",
+         calibrate.headline_exact_cfg(10_000_000, False), 2, "hosts", 2,
+         True, True),
+        ("sharded_dense_100k_chunk", calibrate.EXACT_DENSE, 4, "nodes", 8,
+         False, False),
+    ):
+        out[label] = profile(
+            mesh_chunk(ecfg, seeds, axis, shards, sparse, host),
+            nodes=ecfg.n_nodes, seeds=seeds, shards=shards, axis=axis,
+            ticks=ecfg.chunk_ticks)
     out["anti_entropy_config4"] = profile(
         anti_entropy_run(antientropy.CONFIG4, antientropy.CONFIG4_SEEDS),
         nodes=antientropy.CONFIG4.n_nodes, seeds=antientropy.CONFIG4_SEEDS)

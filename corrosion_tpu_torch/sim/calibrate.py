@@ -35,8 +35,12 @@ from the ``tick_stats`` kernel and reach the host once per chunk.
 
 Tensors are updated in place tick by tick (the dense bitmap is 20 GB
 at the headline's width); a tick returns the next state, whose leaves
-may be the same tensors as its argument's.  The mesh kernels are not
-ported yet.
+may be the same tensors as its argument's.
+
+Over a mesh (``corrosion_tpu_torch.mesh``) the same ticks run in three
+layouts, dense, frontier and multi-host (see "the multi-device
+layouts" below and ``models/sharded.py``), through the ``shard_round``
+/ ``shard_commit`` kernels.
 """
 
 from __future__ import annotations
@@ -52,6 +56,7 @@ import torch
 from corrosion_tpu_torch import resolve_device
 from corrosion_tpu_torch.kernels.exact_send import (
     DIAG,
+    MAX_ROUNDS,
     SendParams,
     block_of,
     exact_commit,
@@ -254,12 +259,6 @@ def ratio_for(calib: Dict, n: int) -> Optional[float]:
 
 
 # -- headline scale ------------------------------------------------------
-
-MESH_TODO = (
-    "run_exact_headline over a mesh (mesh=, host_sharded=) is not ported "
-    "yet: ROADMAP queue 1 slice 4, multi-device"
-)
-
 
 @dataclass(frozen=True)
 class HeadlineExactConfig:
@@ -523,17 +522,21 @@ def frontier_exact_init(cfg: HeadlineExactConfig, keys, writer: int = 0,
 
 
 def _latency_promote(infected, tx, next_send, pending, tick: int,
-                     cfg: HeadlineExactConfig, tier):
+                     cfg: HeadlineExactConfig, tier, lo: int = 0):
     """Commit the queue's due arrivals at the start of a tick, before the
     active set: an arrival is a learner (fresh budget, first forward a
     tier's worth of ticks later); one at an infected node only clears
-    its slot.  Returns (infected, tx, next_send, pending)."""
+    its slot.  ``tx``, ``next_send`` and ``tier`` may cover the window
+    ``[lo, lo + n)`` of the columns of ``infected`` and ``pending`` (the
+    multi-host layout replicates those two and owns its rows of the
+    rest).  Returns (infected, tx, next_send, pending)."""
     due = pending <= tick
     arrived = due & ~infected
+    arrived_w = arrived[..., lo:lo + tx.shape[-1]]
     first = 1 if tier is None else tier
     infected = infected | arrived
-    tx = torch.where(arrived, cfg.max_transmissions, tx)
-    next_send = torch.where(arrived, tick + first, next_send)
+    tx = torch.where(arrived_w, cfg.max_transmissions, tx)
+    next_send = torch.where(arrived_w, tick + first, next_send)
     pending = torch.where(due, LATENCY_NONE, pending)
     return infected, tx, next_send, pending
 
@@ -568,6 +571,23 @@ def _sync_pull(infected, msgs, peers, cfg: HeadlineExactConfig, part=None,
     return rows.reshape(s, n) != 0, msgs.reshape(s, n)
 
 
+def _tick_keys(keys):
+    """(triples, k_sync) of S tick keys: each seed's ``(k_draw, k_loss,
+    fold_in(k_loss, 1))`` (the draws, the loss and the WAN drop) and
+    its sync key, ``split(key, 3)`` as the reference splits it."""
+    triples, k_sync = [], []
+    for key in _key_rows(keys):
+        k_draw, k_loss, k_s = split(key, 3)
+        triples.append((k_draw, k_loss, fold_in(k_loss, 1)))
+        k_sync.append(k_s)
+    return triples, k_sync
+
+
+def _sync_due(cfg: HeadlineExactConfig, tick: int) -> bool:
+    return (cfg.sync_interval > 0
+            and tick % cfg.sync_interval == cfg.sync_interval - 1)
+
+
 def _send_inputs(state, keys, cfg: HeadlineExactConfig, writer: int = 0):
     """This tick's ``exact_send`` arguments (after the latency queue's
     promote pass, which must not overlap the kernel's scatter-min), the
@@ -578,11 +598,7 @@ def _send_inputs(state, keys, cfg: HeadlineExactConfig, writer: int = 0):
     if latency:
         infected, tx, next_send, pending = _latency_promote(
             infected, tx, next_send, pending, tick, cfg, tier)
-    triples, k_sync = [], []
-    for key in _key_rows(keys):
-        k_draw, k_loss, k_s = split(key, 3)
-        triples.append((k_draw, k_loss, fold_in(k_loss, 1)))
-        k_sync.append(k_s)
+    triples, k_sync = _tick_keys(keys)
     args = dict(infected=infected, tx=tx, next_send=next_send, msgs=msgs,
                 pending=pending if latency else None, sent=sent,
                 keys=triples, tick=tick,
@@ -605,8 +621,7 @@ def _exact_tick(state, keys, cfg: HeadlineExactConfig, writer: int, diag):
     exact_commit(args["infected"], new_infected, tx, next_send, tick,
                  cfg.max_transmissions, tier=args["tier"])
     msgs = args["msgs"]
-    if (cfg.sync_interval > 0
-            and tick % cfg.sync_interval == cfg.sync_interval - 1):
+    if _sync_due(cfg, tick):
         device = new_infected.device
         new_infected, msgs = _sync_pull(
             new_infected, msgs, _sync_peers(k_sync, cfg, device), cfg,
@@ -670,6 +685,15 @@ def frontier_sent_bitmap(state: FrontierExactState,
 # -- seed-batched chunks and the runner --------------------------------
 
 
+def _stats_into(infected, msgs, out) -> None:
+    """One tick's per-seed statistics (``STATS`` columns) of [S, N]
+    ``infected`` and ``msgs`` into ``out`` [S, len(STATS)]."""
+    s = infected.shape[0]
+    target = torch.ones((1,), dtype=torch.int32, device=infected.device)
+    tick_stats(infected.to(torch.int32).reshape(-1, 1), target,
+               msgs.reshape(-1), None, s, out=out)
+
+
 def _scan_chunk_batch(state, seed_keys, cfg: HeadlineExactConfig, tick_fn,
                       diag=None):
     """``cfg.chunk_ticks`` ticks of S seeds, tick keys ``fold_in(seed
@@ -681,12 +705,10 @@ def _scan_chunk_batch(state, seed_keys, cfg: HeadlineExactConfig, tick_fn,
     device = state.infected.device
     stats = torch.empty((cfg.chunk_ticks, s, len(STATS)),
                         dtype=torch.float32, device=device)
-    target = torch.ones((1,), dtype=torch.int32, device=device)
     for c in range(cfg.chunk_ticks):
         keys_t = [fold_in(k, state.tick) for k in seeds]
         state = tick_fn(state, keys_t, cfg, diag=diag)
-        tick_stats(state.infected.to(torch.int32).reshape(-1, 1), target,
-                   state.msgs.reshape(-1), None, s, out=stats[c])
+        _stats_into(state.infected, state.msgs, stats[c])
     return state, stats
 
 
@@ -701,17 +723,254 @@ def _frontier_scan_chunk_batch(state: FrontierExactState, seed_keys,
                              diag)
 
 
+# -- the multi-device layouts -------------------------------------------
+#
+# Three layouts of the seed-batched state over a mesh (``mesh.Mesh``),
+# each leaf row-sharded on its node axis (1) or replicated (None), as
+# the reference's ``_exact_state_specs`` (:922), ``_frontier_state_specs``
+# (:1322) and ``_frontier_host_specs`` (:1352) lay them out:
+#
+# * dense (``nodes``): every leaf, the [S, n_local, nb] bitmap
+#   included, sharded; the active mask, the still-bad masks and, on
+#   sync ticks, the infected mask cross as all_gathers of bool bytes;
+# * frontier (``nodes``): only the ring sharded, every [S, N] leaf
+#   replicated; only the still-bad masks cross;
+# * host (``hosts``): tx / next_send / msgs sharded with the ring,
+#   infected and pending replicated by construction; only the active
+#   and still-bad masks cross, bitpacked.
+#
+# Draws are counter-based and replicated.  A shard runs its rows'
+# rejection loops (``shard_round``), the layouts exchange the still-bad
+# masks round by round as the reference's loop does, and every shard
+# rebuilds every accepted tuple from the masks (``shard_commit``).  The
+# layouts also gather for the per-tick statistics: dense the infected
+# and msgs leaves, host the msgs leaf (measurement, charged as
+# ``"stats"``).
+
+DENSE_LAYOUT = PackedExactState(infected=1, tx=1, next_send=1, sent=1,
+                                msgs=1, tick=None, pending=1)
+FRONTIER_LAYOUT = FrontierExactState(infected=None, tx=None, next_send=None,
+                                     ring=1, msgs=None, tick=None,
+                                     pending=None)
+HOST_LAYOUT = FrontierExactState(infected=None, tx=1, next_send=1, ring=1,
+                                 msgs=1, tick=None, pending=None)
+
+
+def _shard_send(sh: int, n: int, active_l, active, sent_l, triples,
+                tick: int, p, diag, packed: bool, infected_t, pending_t,
+                tx_b, next_send_b, msgs_b, tier):
+    """A shard's broadcast phase (generator): its rows' rejection loops,
+    the still-bad masks exchanged round by round (bool bytes, or
+    bitpacked when ``packed``) until none is bad anywhere, each row's
+    accepted round counted from them, then ``shard_commit``.  Returns
+    the new infected window."""
+    from corrosion_tpu_torch.kernels.fabric import bits_pack, bits_unpack
+    from corrosion_tpu_torch.kernels.shard_exact import (
+        shard_commit,
+        shard_round,
+    )
+    from corrosion_tpu_torch.mesh import all_gather
+
+    lo = sh * active_l.shape[1]
+    rounds_l = shard_round(active_l, sent_l, triples, lo, n, p, diag, tick)
+    accepted = torch.zeros(active.shape, dtype=torch.int32,
+                           device=active.device)
+    for r in range(MAX_ROUNDS):
+        bad_l = rounds_l > r + 1
+        if packed:
+            wire = yield all_gather(bits_pack(bad_l), "delta", dim=1)
+            bad = bits_unpack(wire, n)
+        else:
+            bad = yield all_gather(bad_l, "delta", dim=1)
+        if not bool(bad.any()):
+            break
+        accepted += bad
+    else:
+        raise RuntimeError(f"shard_round: a row found no valid tuple in "
+                           f"{MAX_ROUNDS} rejection rounds")
+    return shard_commit(active, accepted, infected_t, pending_t, tx_b,
+                        next_send_b, msgs_b, sent_l, triples, lo, tick, p,
+                        tier)
+
+
+def _dense_tick_local(sh: int, st: PackedExactState, keys, cfg, diag,
+                      writer: int = 0):
+    """One dense tick on shard ``sh``'s rows (generator): the port of
+    ``_sharded_tick_local`` (reference :766)."""
+    from corrosion_tpu_torch.mesh import all_gather
+
+    infected_l, tx_l, next_send_l, sent_l, msgs_l, tick, pending_l = st
+    n = cfg.n_nodes
+    s, n_local = infected_l.shape
+    lo = sh * n_local
+    dev = infected_l.device
+    tier = _rtt_tier_of(cfg, dev)
+    tier_l = None if tier is None else tier[lo:lo + n_local]
+    latency = _wan_latency_on(cfg)
+    if latency:
+        infected_l, tx_l, next_send_l, pending_l = _latency_promote(
+            infected_l, tx_l, next_send_l, pending_l, tick, cfg, tier_l)
+    active_l = infected_l & (tx_l > 0) & (next_send_l <= tick)
+    active = yield all_gather(active_l, "active", dim=1)
+    triples, k_sync = _tick_keys(keys)
+    new_infected_l = infected_l
+    if bool(active.any()):
+        new_infected_l = yield from _shard_send(
+            sh, n, active_l, active, sent_l, triples, tick,
+            _send_params(cfg, False, writer), diag, False, infected_l,
+            pending_l if latency else None, tx_l, next_send_l, msgs_l, tier)
+        exact_commit(infected_l, new_infected_l, tx_l, next_send_l, tick,
+                     cfg.max_transmissions, tier=tier_l)
+    if _sync_due(cfg, tick):
+        infected_all = yield all_gather(new_infected_l, "infected", dim=1)
+        healed, pay = _sync_pull(
+            infected_all, torch.zeros((s, n), dtype=torch.int32, device=dev),
+            _sync_peers(k_sync, cfg, dev), cfg,
+            part=_partition_of(cfg, dev), part_active=tick < cfg.heal_tick)
+        new_infected_l = healed[:, lo:lo + n_local].contiguous()
+        msgs_l += pay[:, lo:lo + n_local]
+    return PackedExactState(new_infected_l, tx_l, next_send_l, sent_l,
+                            msgs_l, tick + 1, pending_l)
+
+
+def _dense_stats(sh: int, st: PackedExactState):
+    from corrosion_tpu_torch.mesh import all_gather
+
+    infected = yield all_gather(st.infected, "stats", dim=1)
+    msgs = yield all_gather(st.msgs, "stats", dim=1)
+    return infected, msgs
+
+
+class _Layout(NamedTuple):
+    kernel: str  # the result's kernel tag
+    axis: str  # the mesh axis the layout shards over
+    leaves: NamedTuple  # each leaf's shard axis, None where replicated
+    tick_local: object  # generator (sh, leaves, keys, cfg, diag)
+    stats: object  # generator (sh, leaves) -> ([S, N] infected, msgs)
+
+
+def _layout(mesh, cfg: HeadlineExactConfig, sparse: bool,
+            host_sharded: bool) -> _Layout:
+    """The layout of a mesh run, after the reference's checks."""
+    from corrosion_tpu_torch.mesh import Mesh
+
+    if not isinstance(mesh, Mesh):
+        raise ValueError(f"mesh must be a corrosion_tpu_torch.mesh.Mesh, "
+                         f"got {type(mesh).__name__}")
+    axis = "hosts" if host_sharded else "nodes"
+    if mesh.axis != axis:
+        raise ValueError(f"this layout shards over a {axis!r} axis; the "
+                         f"mesh has {mesh.axis!r}")
+    if host_sharded:
+        from corrosion_tpu_torch.models import sharded
+
+        sharded._check_host_mesh(mesh, cfg)
+        return _Layout("host-sparse", axis, HOST_LAYOUT,
+                       sharded._sharded_frontier_host_tick_local,
+                       sharded._host_stats)
+    if cfg.n_nodes % mesh.size != 0:
+        raise ValueError(f"n_nodes {cfg.n_nodes} must divide over "
+                         f"{mesh.size} node shards")
+    if sparse:
+        from corrosion_tpu_torch.models import sharded
+
+        return _Layout("sharded-sparse", axis, FRONTIER_LAYOUT,
+                       sharded._sharded_frontier_tick_local,
+                       sharded._frontier_stats)
+    return _Layout("sharded-dense", axis, DENSE_LAYOUT, _dense_tick_local,
+                   _dense_stats)
+
+
+def _zero_diag(device) -> torch.Tensor:
+    return torch.zeros(len(DIAG), dtype=torch.int64, device=device)
+
+
+def _mesh_step(mesh, cfg: HeadlineExactConfig, layout: _Layout):
+    def step(state, keys):
+        """One tick of every shard: ``state`` a ``mesh.Sharded`` of this
+        layout, ``keys`` the seeds' tick keys."""
+        dev = mesh.device
+        out = mesh.run(layout.tick_local, {
+            sh: (state[sh], keys, cfg, _zero_diag(dev))
+            for sh in mesh.local_shards})
+        return state.replace(out, state.tick + 1)
+
+    return step
+
+
+def _mesh_chunk_local(sh: int, st, seed_keys, cfg, diag, layout: _Layout):
+    s = len(seed_keys)
+    stats = torch.empty((cfg.chunk_ticks, s, len(STATS)),
+                        dtype=torch.float32, device=st.infected.device)
+    for c in range(cfg.chunk_ticks):
+        keys_t = [fold_in(k, st.tick) for k in seed_keys]
+        st = yield from layout.tick_local(sh, st, keys_t, cfg, diag)
+        infected, msgs = yield from layout.stats(sh, st)
+        _stats_into(infected, msgs, stats[c])
+    return st, stats
+
+
+def _mesh_chunk(mesh, cfg: HeadlineExactConfig, layout: _Layout):
+    def chunk(state, seed_keys, diags):
+        """``cfg.chunk_ticks`` ticks of every shard; ``diags`` {shard:
+        int64 [4]} accumulate each shard's rejection counters.  Returns
+        (state, [C, S, len(STATS)] statistics, replicated: this
+        process's first shard's)."""
+        seeds = _key_rows(seed_keys)
+        out = mesh.run(_mesh_chunk_local, {
+            sh: (state[sh], seeds, cfg, diags[sh], layout)
+            for sh in mesh.local_shards})
+        first = out[mesh.local_shards[0]][1]
+        return state.replace({sh: o[0] for sh, o in out.items()},
+                             state.tick + cfg.chunk_ticks), first
+
+    return chunk
+
+
+def sharded_packed_exact_step(mesh, cfg: HeadlineExactConfig):
+    """The dense layout's tick: ``step(state, keys) -> state`` on a
+    ``mesh.Sharded`` laid out by ``DENSE_LAYOUT`` (``convert.shard_state``)
+    over ``mesh``'s ``nodes`` axis; ``keys`` the seeds' tick keys.
+    Bitwise ``packed_exact_tick`` per seed."""
+    return _mesh_step(mesh, cfg, _layout(mesh, cfg, False, False))
+
+
+def make_sharded_exact_chunk(mesh, cfg: HeadlineExactConfig):
+    """The dense layout's chunk: ``chunk(state, seed_keys, diags) ->
+    (state, stats)`` (the infected and msgs leaves gathered for the
+    statistics)."""
+    return _mesh_chunk(mesh, cfg, _layout(mesh, cfg, False, False))
+
+
+def _combined_diag(mesh, diags: dict) -> np.ndarray:
+    """The run's rejection counters over every shard (one small gather
+    across processes, charged as ``"stats"``)."""
+    from corrosion_tpu_torch.mesh import all_gather
+
+    def local(sh, diag):
+        got = yield all_gather(diag[None], "stats")
+        return got
+
+    per = next(iter(mesh.run(local, {sh: (diags[sh],)
+                                     for sh in mesh.local_shards}).values()))
+    per = per.cpu().numpy()
+    return np.array([per[:, 0].sum(), per[:, 1].sum(), per[:, 2].max(),
+                     per[:, 3].sum()], np.int64)
+
+
 # the budget the batch policies assume where none is given and the
 # device has nothing to ask (the CPU): the reference's default
 CPU_BUDGET_BYTES = 8 << 30
 
 
 def exact_seed_batch(cfg: HeadlineExactConfig, n_seeds: int,
+                     n_shards: int = 1,
                      hbm_budget_bytes: Optional[int] = None) -> int:
-    """How many seed universes of ``[N, ceil(N/8)]`` bitmaps fit the
-    budget side by side; the 2x covers an out-of-place bitmap update,
-    as in the reference."""
-    per_seed = cfg.n_nodes * -(-cfg.n_nodes // 8)
+    """How many seed universes of ``[N, ceil(N/8)]`` bitmaps, row-sharded
+    over ``n_shards`` devices, fit a device's budget side by side; the
+    2x covers an out-of-place bitmap update, as in the reference."""
+    nb = -(-cfg.n_nodes // 8)
+    per_seed = (cfg.n_nodes // max(1, n_shards)) * nb
     budget = (CPU_BUDGET_BYTES if hbm_budget_bytes is None
               else hbm_budget_bytes)
     fit = max(1, int(budget // max(1, 2 * per_seed)))
@@ -719,10 +978,21 @@ def exact_seed_batch(cfg: HeadlineExactConfig, n_seeds: int,
 
 
 def frontier_seed_batch(cfg: HeadlineExactConfig, n_seeds: int,
-                        hbm_budget_bytes: Optional[int] = None) -> int:
-    """The frontier kernel's policy: the ring at N * cap * 4 bytes plus
-    20 B/node of dense leaves per seed."""
-    per_seed = cfg.n_nodes * (frontier_ring_cap(cfg) * 4 + 20)
+                        n_shards: int = 1,
+                        hbm_budget_bytes: Optional[int] = None,
+                        host_sharded: bool = False) -> int:
+    """The frontier kernel's policy a device: the ring at N * cap * 4
+    bytes over the shards plus 20 B/node of replicated dense leaves a
+    seed; with ``host_sharded`` 12 B/node of them shard with the ring
+    and only infected and pending (5 B/node) replicate.  Without a
+    budget: ``CPU_BUDGET_BYTES`` (the reference reads a host's free
+    memory for the host layout)."""
+    cap = frontier_ring_cap(cfg)
+    shards = max(1, n_shards)
+    if host_sharded:
+        per_seed = (cfg.n_nodes // shards) * (cap * 4 + 12) + cfg.n_nodes * 5
+    else:
+        per_seed = (cfg.n_nodes // shards) * cap * 4 + cfg.n_nodes * 20
     budget = (CPU_BUDGET_BYTES if hbm_budget_bytes is None
               else hbm_budget_bytes)
     fit = max(1, int(budget // max(1, 2 * per_seed)))
@@ -750,7 +1020,7 @@ def run_exact_headline(
     hbm_budget_bytes: Optional[int] = None,
     kernel: str = "dense",
     host_sharded: bool = False,
-    device="cuda",
+    device=None,
 ) -> Dict:
     """Seed-parallel exact-sampler epidemics at headline scale.
 
@@ -761,27 +1031,66 @@ def run_exact_headline(
     ``fold_in(key, 2**20)``.
     ``kernel`` selects the representation, ``"dense"`` (the bitmap) or
     ``"sparse"`` (the rings); per-seed trajectories are bitwise equal
-    either way.  ``mesh`` / ``host_sharded`` (the multi-device layouts)
-    raise ``NotImplementedError``.
+    either way.
+
+    ``mesh`` (a ``corrosion_tpu_torch.mesh.Mesh``) runs the state
+    row-sharded over its ``nodes`` axis (``sharded-dense`` /
+    ``sharded-sparse``), or with ``host_sharded`` (sparse only) over its
+    ``hosts`` axis in the multi-host layout (``host-sparse``; N must
+    split into byte-aligned rows, N % (8 * hosts) == 0).  The mesh's
+    fabric holds the leaves on its own device; a ``device`` given beside
+    a mesh must be that device.  Without a mesh ``device`` defaults to
+    the card.
+    Per-seed trajectories equal the single-device run's.  The budget is
+    a device's: under a ``LocalFabric`` every shard's bytes, replicated
+    leaves included, land on the one card, so the batch policy gets the
+    card's budget divided by the shard count — a replicated leaf counts
+    D times.
 
     Returns the reference's keys (msgs and ticks at each seed's own
-    convergence tick, ``delivery_model: exact``) plus the per-seed
-    values (``seed_ticks``, ``seed_msgs_mean``, ``seed_msgs_p99``),
-    the budget and its source, and the rejection rounds of the run
-    (``rejection``: active rows, mean and max rounds per active row)."""
+    convergence tick, ``delivery_model: exact``, ``kernel``,
+    ``n_shards``, ``n_hosts``) plus the per-seed values
+    (``seed_ticks``, ``seed_msgs_mean``, ``seed_msgs_p99``), the budget
+    and its source, the rejection rounds of the run (``rejection``:
+    active rows, mean and max rounds per active row) and, with a mesh,
+    the bytes and calls the fabric moved in the run (``fabric``)."""
     if kernel not in ("dense", "sparse"):
         raise ValueError(f"unknown kernel {kernel!r}")
-    if mesh is not None or host_sharded:
-        raise NotImplementedError(MESH_TODO)
-    device = resolve_device(device)
     sparse = kernel == "sparse"
+    if host_sharded and (not sparse or mesh is None):
+        raise ValueError(
+            "host_sharded needs kernel='sparse' and a mesh with a "
+            "'hosts' axis"
+        )
+    layout = None
+    if mesh is not None:
+        layout = _layout(mesh, cfg, sparse, host_sharded)
+        if device is not None and torch.device(device) != mesh.device:
+            raise ValueError(
+                f"device {device!r} differs from the mesh's device "
+                f"{mesh.device}")
+        device = mesh.device
+    else:
+        device = resolve_device("cuda" if device is None else device)
+    n_shards = 1 if mesh is None else mesh.size
     t0 = time.perf_counter()
     budget, source = _budget(device, hbm_budget_bytes)
-    policy = frontier_seed_batch if sparse else exact_seed_batch
-    sb = seed_batch or policy(cfg, n_seeds, budget)
+    shard_budget = budget // (1 if mesh is None else mesh.fabric.colocated)
+    if sparse:
+        sb = seed_batch or frontier_seed_batch(
+            cfg, n_seeds, n_shards, shard_budget, host_sharded=host_sharded)
+    else:
+        sb = seed_batch or exact_seed_batch(cfg, n_seeds, n_shards,
+                                            shard_budget)
     init_fn = frontier_exact_init if sparse else packed_exact_init
-    chunk_fn = _frontier_scan_chunk_batch if sparse else (
-        _packed_scan_chunk_batch)
+    if mesh is None:
+        chunk_fn = _frontier_scan_chunk_batch if sparse else (
+            _packed_scan_chunk_batch)
+    else:
+        from corrosion_tpu_torch.convert import shard_state
+
+        chunk_fn = _mesh_chunk(mesh, cfg, layout)
+        moved0 = dict(mesh.fabric.bytes), dict(mesh.fabric.calls)
     firsts: List[float] = []
     means: List[float] = []
     p99s: List[float] = []
@@ -793,19 +1102,29 @@ def run_exact_headline(
         state = None  # the last batch's buffers go before the next's
         state = init_fn(cfg, [fold_in(k, 2**20) for k in base_keys],
                         device=device)
-        diag = torch.zeros(len(DIAG), dtype=torch.int64, device=device)
+        if mesh is not None:
+            state = shard_state(state, layout.leaves, mesh)
+            diag = {sh: _zero_diag(device) for sh in mesh.local_shards}
+        else:
+            diag = _zero_diag(device)
         chunks: List[np.ndarray] = []
         ticks_done = 0
         while ticks_done < cfg.max_ticks:
-            state, stats = chunk_fn(state, base_keys, cfg, diag=diag)
+            if mesh is None:
+                state, stats = chunk_fn(state, base_keys, cfg, diag=diag)
+                d = diag.cpu().numpy()
+            else:
+                state, stats = chunk_fn(state, base_keys, diag)
+                d = sum(v.cpu().numpy() for v in diag.values())
             stats = stats.cpu().numpy().transpose(1, 0, 2)  # [S, C, ...]
             raise_on_overflow(stats)
-            d = diag.cpu().numpy()
             raise_on_capped(d)
             chunks.append(stats)
             ticks_done += cfg.chunk_ticks
             if (stats[:, -1, CONVERGED] == 1.0).all():
                 break
+        if mesh is not None:
+            d = _combined_diag(mesh, diag)
         diag_total[:3] += d[:3]
         diag_total[2] = max(diag_total[2], d[2])
         allstats = np.concatenate(chunks, axis=1)
@@ -816,19 +1135,19 @@ def run_exact_headline(
         firsts.extend(float(x) for x in first)
         means.extend(float(x) for x in m_at)
         p99s.extend(float(x) for x in p_at)
-    return {
+    out = {
         "n_nodes": cfg.n_nodes,
         "n_seeds": n_seeds,
         "delivery_model": "exact",
-        "kernel": kernel,
-        "n_hosts": 1,
+        "kernel": kernel if layout is None else layout.kernel,
+        "n_hosts": n_shards if host_sharded else 1,
         "converged_frac": converged / n_seeds,
         "ticks_p50": float(np.percentile(firsts, 50)),
         "ticks_p99": float(np.percentile(firsts, 99)),
         "msgs_per_node_mean": float(np.mean(means)),
         "msgs_per_node_p99": float(np.mean(p99s)),
         "seed_batch": sb,
-        "n_shards": 1,
+        "n_shards": n_shards,
         "wall_s": time.perf_counter() - t0,
         "seed_ticks": firsts,
         "seed_msgs_mean": means,
@@ -842,3 +1161,9 @@ def run_exact_headline(
             "rounds_max": int(diag_total[2]),
         },
     }
+    if mesh is not None:
+        out["fabric"] = {
+            kind: {"bytes": mesh.fabric.bytes[kind] - moved0[0].get(kind, 0),
+                   "calls": mesh.fabric.calls[kind] - moved0[1].get(kind, 0)}
+            for kind in mesh.fabric.bytes}
+    return out

@@ -204,12 +204,19 @@ def test_chunk_stats_match_reference(kind):
     (1_000_000, 64, 1 << 30), (1000, 3, None), (2000, 40, 1 << 40),
 ])
 def test_seed_batch_policies_match_reference(n, seeds, budget):
-    """One device: the reference's policies at one shard."""
+    """The reference's policies, at one shard and at eight (nodes; and
+    hosts, with a budget)."""
     jcfg, tcfg = _cfgs(n=n)
-    assert tc.exact_seed_batch(tcfg, seeds, budget) == (
-        jc.exact_seed_batch(jcfg, seeds, 1, budget))
-    assert tc.frontier_seed_batch(tcfg, seeds, budget) == (
-        jc.frontier_seed_batch(jcfg, seeds, 1, budget))
+    for shards in (1, 8):
+        assert tc.exact_seed_batch(tcfg, seeds, shards, budget) == (
+            jc.exact_seed_batch(jcfg, seeds, shards, budget))
+        assert tc.frontier_seed_batch(tcfg, seeds, shards, budget) == (
+            jc.frontier_seed_batch(jcfg, seeds, shards, budget))
+        if budget is not None:
+            assert tc.frontier_seed_batch(
+                tcfg, seeds, shards, budget, host_sharded=True) == (
+                jc.frontier_seed_batch(jcfg, seeds, shards, budget,
+                                       host_sharded=True))
 
 
 @pytest.mark.parametrize("capped", [0, 2])
@@ -263,10 +270,15 @@ def test_topology_maps_match_reference(over):
 
 
 def test_mesh_and_host_sharded_raise():
+    """A mesh that is not the port's, and ``host_sharded`` without a
+    mesh, are refused (the layouts themselves:
+    tests/test_torch_sharded_exact.py)."""
     _, tcfg = _cfgs(n=1000)
-    for kw in (dict(mesh=object()), dict(host_sharded=True)):
-        with pytest.raises(NotImplementedError, match="slice 4"):
-            tc.run_exact_headline(tcfg, n_seeds=1, device="cpu", **kw)
+    with pytest.raises(ValueError, match="mesh must be"):
+        tc.run_exact_headline(tcfg, n_seeds=1, device="cpu", mesh=object())
+    with pytest.raises(ValueError, match="host_sharded needs"):
+        tc.run_exact_headline(tcfg, n_seeds=1, device="cpu",
+                              host_sharded=True, kernel="sparse")
     with pytest.raises(ValueError, match="unknown kernel"):
         tc.run_exact_headline(tcfg, kernel="ring", device="cpu")
 
