@@ -8,7 +8,8 @@ package.  Phases, each ending the run with a non-zero exit on failure:
 
 1. print the card's name and power limit, build the twelve kernel sources
    of this checkout (one ``nvcc`` per source, in parallel) and record
-   threefry's opcode counts (``cuobjdump -sass``);
+   the opcode mix by pipe and loop of threefry, ``sent_select`` and
+   ``store_set`` (``kernels/sass.py`` over ``cuobjdump -sass``);
 2. hold the perm-fanout kernels (the threefry draws, ``seg_argsort``,
    ``deliver_perm``, ``sync_pull``, ``tick_stats``) against their plain
    PyTorch versions on the card, on the inputs the headline's tick 7 (a
@@ -62,13 +63,19 @@ package.  Phases, each ending the run with a non-zero exit on failure:
     equal;
 11. hold ``sent_select`` and ``sent_commit`` (the exact ``sent_to``
     sampler) against their plain versions, every output leaf bitwise
-    (``sent`` included): calibration mode at ``ExactConfig(16000)``
-    seed 0 at tick 1 and at its busiest tick, which must hold active
-    rows with tied scores in their k + 1 smallest; broadcast mode at
-    512 nodes x 8 seeds on ``sim_trace``'s config (with int32 keys and
-    with int64 keys) and on two variants (10% loss, a one-way partition
-    in force, hops; WAN drop or RTT tiers); time both kernels behind a
-    GPU-side sleep;
+    (``sent`` included), for every fanout k of 1..8, each in the row
+    layout ``sent_select`` takes at its N (a block a row at 16,000 and
+    beyond, a warp a row at 512): calibration mode at
+    ``ExactConfig(16000)`` seed 0 at tick 1 and at its busiest tick,
+    which must hold active rows with tied scores in their k + 1
+    smallest, and that tick with crafted rows left fewer than k peers
+    the filter can find (the exact fallback); broadcast mode at 512
+    nodes x 8 seeds on ``sim_trace``'s config (with int32 keys and with
+    int64 keys) and on two variants (10% loss, a one-way partition in
+    force, hops; WAN drop or RTT tiers); calibration rows whose
+    counters cross 2**32 (N = 65,537 and 65,600, chunk = N, a few
+    active rows) against the plain selection of each row alone; time
+    both kernels behind a GPU-side sleep;
 12. run ``run_msgs_calibration(ns=(1000, 4000, 16000), seeds=3)``, the
     ``sim_trace`` config at 64, 256 and 512 nodes x 8 seeds and
     ``sim_obs_trace``'s (sync every 8 ticks) at 512 x 8 on the card,
@@ -99,9 +106,13 @@ package.  Phases, each ending the run with a non-zero exit on failure:
     store) against their plain versions and NumPy on the card, bitwise,
     at n in {0, 1, 2500, 10000, 65536, 262144} into arrays of 1024,
     65536 and 524288 entries, unique and repeated indices (the last
-    pair wins); require an out-of-range index to raise; time both
-    beside ``index_select`` / ``index_put_``; then drive the
-    device-resident apply through the port's ``CrConn`` with
+    pair wins), one index repeated, and n over three times the threads
+    the card holds at once into 2**20; the owner buffer all -1 after
+    every call; require an out-of-range index to raise; time both
+    beside ``index_select`` / ``index_put_`` at the apply path's widest
+    calls and a steady wave's; then drive the device-resident apply
+    through the port's
+    ``CrConn`` with
     ``enable_device_cache()`` (the torch store, which must be on the
     card): APPLY_BENCH ``device_arm``'s steady and flood scenarios
     (bench.py:538; 12 waves of 10,000 changes) in four arms
@@ -156,7 +167,6 @@ import json
 import math
 import multiprocessing
 import os
-import re
 import subprocess
 import sys
 import tempfile
@@ -169,17 +179,24 @@ import torch
 
 HERE = os.path.dirname(os.path.abspath(__file__))
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory
-# the INT32 pipe: 64 lanes per SM x 132 SMs x 1.98 GHz (the float32
-# 67 TFLOP/s rate is 128 lanes x 2 flops x the same)
-INT32_OPS_PER_S = 64 * 132 * 1.98e9
-# threefry2x32 operations per uniform word that only the INT32 pipe
-# runs: 20 funnel-shift rotates and 20 xors of the rounds, the output
-# xor and the epilogue's shift.  Its 32 adds (2 input, 20 round, 10 key
-# injections; the key words are uniform, so k + 1 ... k + 5 cost nothing
-# per thread) and the epilogue's OR of disjoint bits can issue as IMAD
-# on the float32 pipe beside them, 33 / 64 lane-clocks per word against
-# these 42 / 64, and the epilogue's float subtract runs there too.
-INT_PIPE_OPS_PER_UNIFORM = 20 + 20 + 1 + 1
+# integer operations: an SM's 4 schedulers dispatch one warp instruction
+# a clock each, 128 lanes x 132 SMs x 1.98 GHz, shared by its two
+# integer pipes (ALU: IADD3, LOP3, SHF, ISETP; FMA: IMAD, IMAD.WIDE),
+# 64 lanes each (the float32 67 TFLOP/s rate is 128 lanes x 2 flops x
+# the same clock)
+INT_OPS_PER_S = 128 * 132 * 1.98e9
+# the integer operations of one threefry2x32 hash that no schedule
+# avoids: 20 rounds of an add, a rotate (a funnel shift on the ALU, or a
+# 32 x 32 -> 64 multiply on the FMA pipe whose halves the next LOP3
+# folds) and an xor; x1's 4 key injections (x0's fold into the next
+# round's three-input add); the output's two adds and xor; the
+# counter's add.  The adds can run as IMAD beside the ALU's work
+# (ptxas puts most of threefry_bits' there, and sent_select's filter
+# puts all of its own; kernels/sass.py shows a built kernel's split), so
+# the two pipes share the 68.
+INT_OPS_PER_HASH = 60 + 4 + 3 + 1
+# and a uniform float: the epilogue's shift-or (one LEA.HI) and subtract
+INT_OPS_PER_UNIFORM = INT_OPS_PER_HASH + 2
 
 
 def fail(msg: str) -> None:
@@ -232,25 +249,6 @@ def card_line() -> str:
         capture_output=True, text=True, check=True, timeout=60,
     )
     return out.stdout.strip().splitlines()[0]
-
-
-def sass_mix(kernels, name: str) -> dict:
-    """Opcode counts in library ``name``'s machine code (``cuobjdump
-    -sass``, written beside the library as ``<name>.sass``): the record
-    of which pipe the compiler gave each operation."""
-    lib = kernels.library_path(name)
-    tool = os.path.join(os.path.dirname(kernels._nvcc()), "cuobjdump")
-    out = subprocess.run([tool, "-sass", str(lib)], capture_output=True,
-                         text=True, timeout=120)
-    if out.returncode:
-        return {"error": out.stderr.strip()[-500:]}
-    (kernels.BUILD_DIR / f"{name}.sass").write_text(out.stdout)
-    ops = re.findall(r"/\*[0-9a-f]{4}\*/\s+(?:@!?U?P\w+\s+)?([A-Z][\w.]*)",
-                     out.stdout)
-    counts: dict = {}
-    for op in ops:
-        counts[op] = counts.get(op, 0) + 1
-    return dict(sorted(counts.items(), key=lambda kv: -kv[1]))
 
 
 def kernel_checks(cfg, mods, dev):
@@ -330,7 +328,7 @@ def kernel_checks(cfg, mods, dev):
         plain_ms=time_ms(
             lambda: threefry.threefry_bits_plain(loss_out, kw), 5),
         bound=(nbytes(loss_out),
-               loss_out.numel() * INT_PIPE_OPS_PER_UNIFORM),
+               loss_out.numel() * INT_OPS_PER_UNIFORM),
         library_ms=None,
         shape=f"uniform float32 [{n}, {k}]",
     ))
@@ -477,11 +475,11 @@ def kernel_checks(cfg, mods, dev):
 
 
 def set_bound(r: dict) -> None:
-    """Replace ``r["bound"]`` (bytes, INT32-pipe operations) by the
+    """Replace ``r["bound"]`` (bytes, integer operations) by the
     least time of the two on the card and which one it is."""
     b, ops = r.pop("bound")
     t_bytes = b / HBM_BYTES_PER_S * 1e3
-    t_ops = ops / INT32_OPS_PER_S * 1e3
+    t_ops = ops / INT_OPS_PER_S * 1e3
     r["bound_ms"] = max(t_bytes, t_ops)
     r["bound_by"] = "bytes" if t_bytes >= t_ops else "operations"
 
@@ -556,10 +554,6 @@ def run_equal(cfg, seeds: int, dev, label: str) -> dict:
 
 # -- the exact sampler ----------------------------------------------------
 
-# threefry2x32 operations per hash that only the INT32 pipe runs: the
-# 20 rotates and 20 xors of the rounds and the output xor (see
-# INT_PIPE_OPS_PER_UNIFORM)
-INT_PIPE_OPS_PER_HASH = 41
 SECTOR = 32  # bytes a random access moves at least
 BUSY_TICK = 6  # most rows of the writer's block are active by then
 # a GPU-side wait queued before a timed call, so the host's enqueue of
@@ -746,7 +740,7 @@ def exact_times(es, cfg, seeds, ring, rep, tick, args, saved, work,
             restore, lambda: es.exact_send(**work, diag=t_diag), 20),
         plain_ms=time_inplace_ms(
             restore, lambda: es.exact_send_plain(**work, diag=t_diag), 1, 1),
-        bound=(send_bytes, hashes * INT_PIPE_OPS_PER_HASH),
+        bound=(send_bytes, hashes * INT_OPS_PER_HASH),
         shape=f"{rep} {seeds} seeds x {cfg.n_nodes}, tick {tick}, "
               f"{d[0]} active rows",
     )}
@@ -1126,7 +1120,7 @@ def swim_times(ksw, state, key, tick, params, alive, revived,
     """Device ms of each kernel's launch (mean over ``reps`` ticks on the
     same inputs and over its launches in a tick), the whole tick's ms
     and the plain version's, with each kernel's bound from this tick's
-    data (bytes, INT32-pipe operations; a launch's mean where a tick
+    data (bytes, integer operations; a launch's mean where a tick
     launches it more than once)."""
     from corrosion_tpu_torch.kernels.threefry import threefry_bits_plain
     from corrosion_tpu_torch.models.common import peers_from_offsets
@@ -1185,7 +1179,7 @@ def swim_times(ksw, state, key, tick, params, alive, revived,
         # the three inputs read, the view written, the selection written;
         # a tie uniform for each cell under the retransmission limit
         "swim_probe_select": (4 * mat + entries * 9,
-                              hashed * INT_PIPE_OPS_PER_UNIFORM),
+                              hashed * INT_OPS_PER_UNIFORM),
         # the selection and payload read (ge, sendable, pay), a sector
         # for each cell scattered into
         "swim_spread": (sum(entries * 9 + scatters[mode] * SECTOR
@@ -1420,15 +1414,28 @@ def tied_rows(select) -> int:
     return ties
 
 
+SENT_FANOUTS = range(1, 9)  # the k the kernel is built for
+# calibration with chunk = N where a row's counters cross 2**32: (N,
+# rows); row 65535 of 65537 splits at column 1, row 65472 of 65600 at
+# column 4096
+SENT_SPLIT_CASES = ((65_537, (0, 40_000, 65_535, 65_536)),
+                    (65_600, (1, 65_472, 65_473)))
+
+
 def sent_kernel_checks(dev):
     """Phase 11: ``sent_select`` and ``sent_commit`` against their plain
     versions on the card at the main path's shapes, every output leaf
-    bitwise (``sent``, the counts and the fresh buffers included):
+    bitwise (``sent``, the counts and the fresh buffers included), for
+    every fanout k of 1..8, each in the row layout the kernel takes at
+    its N (a block a row at 16,000 and beyond, a warp a row at 512):
     calibration at ``ExactConfig(16000)`` seed 0, ticks 1 and the
-    busiest tick (which must hold tied scores); broadcast at 512 nodes x
-    8 seeds on the sim_trace config and two fault variants at a tick
-    where the partition holds.  Times both kernels behind a GPU-side
-    sleep."""
+    busiest tick (which must hold tied scores), and that tick with
+    crafted rows that leave the filter fewer than k peers (the exact
+    fallback); broadcast at
+    512 nodes x 8 seeds on the sim_trace config (int32 and int64 keys)
+    and two fault variants at a tick where the partition holds; rows
+    whose counters cross 2**32 (``split_checks``).  Times both kernels
+    behind a GPU-side sleep."""
     from corrosion_tpu_torch.kernels import sent_sampler as ss
     from corrosion_tpu_torch.models.broadcast import sent_inputs
     from corrosion_tpu_torch.random import PRNGKey, fold_in, split
@@ -1442,7 +1449,7 @@ def sent_kernel_checks(dev):
     errs = {name: 0.0 for name in SENT_KERNELS}
     checks, timed = [], {}
 
-    def compare(label, kernel, got, want, names):
+    def compare(kernel, got, want, names):
         err = max_abs_err(got, want)
         errs[kernel] = max(errs[kernel], err)
         bad = [nm for nm, x, y in zip(names, got, want)
@@ -1451,13 +1458,17 @@ def sent_kernel_checks(dev):
         return err, bad
 
     def run_pair(mode, select, commit):
-        sent_k, sent_p = select["sent"].clone(), select["sent"].clone()
-        got = ss.sent_select(**{**select, "sent": sent_k})
+        """The plain selection and the kernel on the same inputs, and
+        the commit on the kernel's results."""
+        sent_p = select["sent"].clone()
         want = ss.sent_select_plain(**{**select, "sent": sent_p})
         sel_names = (("new_infected", "counts") if mode == "calibration"
                      else ("new_rows", "cand", "counts"))
-        err, bad = compare(mode, "sent_select", [*got, sent_k],
-                           [*want, sent_p], [*sel_names, "sent"])
+        sent_k = select["sent"].clone()
+        got = ss.sent_select(**{**select, "sent": sent_k})
+        err, bad = compare("sent_select", [*got, sent_k], [*want, sent_p],
+                           [*sel_names, "sent"])
+        del sent_k
         if mode == "calibration":
             extra = dict(new_infected=got[0])
         else:
@@ -1466,13 +1477,14 @@ def sent_kernel_checks(dev):
         c_want = ss.sent_commit_plain(got[-1], **extra, **commit)
         c_names = (("tx", "next_send", "msgs") if mode == "calibration"
                    else ("tx", "msgs", "hops", "next_send"))
-        c_err, c_bad = compare(mode, "sent_commit", list(c_got),
-                               list(c_want), c_names)
+        c_err, c_bad = compare("sent_commit", list(c_got), list(c_want),
+                               c_names)
         active = int(ss.active_rows(select["tx"], select["next_send"],
                                     select["tick"],
                                     select.get("infected")).sum())
         return dict(max_abs_err=err, differs=bad, commit_max_abs_err=c_err,
                     commit_differs=c_bad, active_rows=active,
+                    fanout=select["fanout"],
                     sends=int(got[-1].sum())), got
 
     # -- calibration mode: ExactConfig(16000), seed 0
@@ -1483,14 +1495,19 @@ def sent_kernel_checks(dev):
         select, commit = cal.exact_inputs(state, fold_in(key, tick), ccfg)
         ties = tied_rows(select)
         ties_total += ties
-        rec, got = run_pair("calibration", select, commit)
-        rec.update(mode="calibration", n=ccfg.n_nodes, seeds=1, tick=tick,
-                   tied_rows=ties)
-        checks.append(rec)
+        for k in SENT_FANOUTS:
+            rec, got = run_pair("calibration", {**select, "fanout": k},
+                                commit)
+            rec.update(mode="calibration", n=ccfg.n_nodes, seeds=1,
+                       tick=tick, tied_rows=ties)
+            checks.append(rec)
+            if tick > 1 and k == ccfg.fanout:
+                timed.update(sent_times(ss, "calibration", select, commit,
+                                        got, rec, ccfg.n_nodes, 1))
+            del got
         if tick > 1:
-            timed.update(sent_times(ss, "calibration", select, commit, got,
-                                    rec, ccfg.n_nodes, 1))
-        del select, commit, got
+            checks += fallback_checks(select, commit, run_pair)
+        del select, commit
         torch.cuda.empty_cache()
     del states
     if ties_total == 0:
@@ -1515,24 +1532,27 @@ def sent_kernel_checks(dev):
             state.tick, state.next_send, state.sent, pairs,
             cfg.broadcast_params, _partition_ids(cfg, dev),
             state.tick < cfg.heal_tick)
-        rec, got = run_pair("broadcast", select, commit)
-        rec.update(mode="broadcast", variant=label, n=cfg.n_nodes, seeds=8,
-                   tick=state.tick,
-                   partition_in_force=state.tick < cfg.heal_tick)
-        checks.append(rec)
-        if label == "sim_trace":
-            timed.update(sent_times(ss, "broadcast", select, commit, got,
-                                    rec, cfg.n_nodes, 8))
-            # the int64 keys of a wide codec (WIDE_CODEC), on the same
-            # inputs moved into the high word
-            wide = select["rows"].to(torch.int64) * (1 << 32) + 7
-            rec, _ = run_pair("broadcast", {**select, "rows": wide},
-                              {**commit, "rows": wide})
-            rec.update(mode="broadcast", variant="sim_trace_int64",
-                       n=cfg.n_nodes, seeds=8, tick=state.tick)
-            checks.append(rec)
+        # the int64 keys of a wide codec (WIDE_CODEC), on the same
+        # inputs moved into the high word
+        wide = select["rows"].to(torch.int64) * (1 << 32) + 7
+        for k in SENT_FANOUTS:
+            for keys, sel, com in (
+                    ("", select, commit),
+                    ("_int64", {**select, "rows": wide},
+                     {**commit, "rows": wide})):
+                if keys and label != "sim_trace":
+                    continue
+                rec, got = run_pair("broadcast", {**sel, "fanout": k}, com)
+                rec.update(mode="broadcast", variant=label + keys,
+                           n=cfg.n_nodes, seeds=8, tick=state.tick,
+                           partition_in_force=state.tick < cfg.heal_tick)
+                checks.append(rec)
+                if label == "sim_trace" and not keys and k == select["fanout"]:
+                    timed.update(sent_times(ss, "broadcast", select, commit,
+                                            got, rec, cfg.n_nodes, 8))
+    checks += split_checks(ss, dev)
     for c in checks:
-        if c["differs"] or c["commit_differs"]:
+        if c["differs"] or c.get("commit_differs"):
             fail(f"sent kernels differ from their plain versions: {c}")
     results = []
     for name, replaces in (
@@ -1548,13 +1568,104 @@ def sent_kernel_checks(dev):
         set_bound(results[-1])
     for t in timed.values():
         b, ops = t["bound"]
-        t["bound_ms"] = max(b / HBM_BYTES_PER_S, ops / INT32_OPS_PER_S) * 1e3
+        t["bound_ms"] = max(b / HBM_BYTES_PER_S, ops / INT_OPS_PER_S) * 1e3
     return results, checks, timed
+
+
+def fallback_checks(select, commit, run_pair) -> list:
+    """The busiest calibration tick with crafted ``sent`` rows that the
+    filter cannot answer: active rows left with k - 1, k + 2 or no peers
+    (about 1.5 in 1000 of the open columns pass the filter at 16k, so
+    fewer than k come through and the row takes the exact fallback),
+    every k."""
+    from corrosion_tpu_torch.kernels.sent_sampler import active_rows
+
+    active = torch.nonzero(active_rows(
+        select["tx"], select["next_send"], select["tick"],
+        select["infected"])[0]).flatten().tolist()
+    g = np.random.default_rng(11)
+    n = select["sent"].shape[1]
+    out = []
+    for k in SENT_FANOUTS:
+        sent = select["sent"].clone()
+        rows = [active[j] for j in g.choice(len(active), 6, replace=False)]
+        for r, keep in zip(rows, (k - 1, k + 2, 0, k - 1, k + 2, 0)):
+            sent[0, r] = True
+            sent[0, r, torch.from_numpy(g.choice(n, keep,
+                                                 replace=False))] = False
+        rec, _ = run_pair("calibration", {**select, "sent": sent,
+                                          "fanout": k}, commit)
+        rec.update(mode="calibration", variant="fallback_rows", rows=rows,
+                   n=n, seeds=1, tick=select["tick"])
+        out.append(rec)
+        del sent
+    return out
+
+
+def split_checks(ss, dev) -> list:
+    """Calibration rows whose counters cross 2**32 (``SENT_SPLIT_CASES``,
+    chunk = N, one seed, every k): the kernel on the listed rows, the
+    only active ones, against the plain selection of each row alone
+    (its own uniforms at counters row * N + col, ``select_k``), with a
+    peer of each row's own pick marked sent beforehand.  The plain
+    version of the whole [N, N] block would need some 70 GB."""
+    from corrosion_tpu_torch.kernels.threefry import MASK32, threefry2x32
+
+    out = []
+    key = (0x9E3779B9, 0x7F4A7C15)
+    for n, rows in SENT_SPLIT_CASES:
+        sent = torch.zeros((1, n, n), dtype=torch.bool, device=dev)
+        rows_t = torch.tensor(rows, device=dev)
+        cols = torch.arange(n, dtype=torch.int64, device=dev)
+
+        def scores(r):
+            idx = r * n + cols
+            x0, x1 = threefry2x32(key[0], key[1], idx >> 32, idx & MASK32)
+            u = ((x0 ^ x1) >> 9).to(torch.float32) * 2.0**-23
+            return torch.where(sent[0, r] | (cols == r), math.inf, u)
+
+        for r in rows:  # pre-mark each row's best peer
+            sent[0, r, int(torch.argmin(scores(r)))] = True
+        base_marks = int(sent.sum())
+        for k in SENT_FANOUTS:
+            infected = torch.zeros((1, n), dtype=torch.bool, device=dev)
+            infected[0, rows_t] = True
+            tx = torch.where(infected, 8, 0).to(torch.int32)
+            select = dict(keys=torch.tensor([[key]], dtype=torch.uint32,
+                                            device=dev),
+                          fanout=k, chunk=n, tx=tx,
+                          next_send=torch.zeros_like(tx), tick=0,
+                          infected=infected)
+            want_inf = infected.clone()
+            want_rows, want_counts = {}, torch.zeros_like(tx)
+            for r in rows:
+                targets, avail = ss.select_k(scores(r)[None], k)
+                t = targets[0][avail[0]]
+                want_inf[0, t] = True
+                want_counts[0, r] = t.numel()
+                want_rows[r] = sent[0, r].clone()
+                want_rows[r][t] = True
+            work = sent.clone()
+            new_inf, counts = ss.sent_select(work, **select)
+            marks = int(work.sum()) - base_marks
+            bad = [] if (torch.equal(new_inf, want_inf)
+                         and torch.equal(counts, want_counts)
+                         and all(torch.equal(work[0, r], want_rows[r])
+                                 for r in rows)
+                         and marks == int(want_counts.sum())) \
+                else ["new_infected, counts or sent"]
+            del work
+            out.append(dict(mode="calibration", variant="counter_split",
+                            n=n, rows=list(rows), fanout=k, differs=bad,
+                            sends=int(want_counts.sum())))
+        del sent
+        torch.cuda.empty_cache()
+    return out
 
 
 def sent_times(ss, mode, select, commit, got, rec, n, seeds) -> dict:
     """Times of ``sent_select`` and ``sent_commit`` (kernel and plain) on
-    one tick's inputs, with their bounds: (bytes, INT32-pipe
+    one tick's inputs, with their bounds: (bytes, integer
     operations)."""
     work = select["sent"].clone()
 
@@ -1570,7 +1681,7 @@ def sent_times(ss, mode, select, commit, got, rec, n, seeds) -> dict:
         # activity reads, new_infected and counts written, the active
         # rows' sent rows, and a sector each for a mark and an infection
         sel_bytes = total * (9 + 5) + active * n + sends * 2 * SECTOR
-        draws = active * n
+        hashes, uniforms = active * n, 0
         com_bytes = total * (18 + 12)
     else:
         r = select["rows"].shape[2] * select["rows"].element_size()
@@ -1580,15 +1691,18 @@ def sent_times(ss, mode, select, commit, got, rec, n, seeds) -> dict:
         # and one for each merged row
         sel_bytes = (total * (8 + r + 8) + active * (n + r + 4)
                      + sends * 2 * SECTOR)
-        draws = active * n + active * k * ((select["loss"] > 0)
-                                           + (select["region"] is not None))
+        hashes = active * n
+        uniforms = active * k * ((select["loss"] > 0)
+                                 + (select["region"] is not None))
         com_bytes = total * (2 * r + 24 + 16)
     out = {}
+    # the selection compares the scores' words: no uniform epilogue
     out[f"sent_select/{mode}"] = dict(
         ms=time_inplace_ms(restore, lambda: ss.sent_select(**sel), 20),
         plain_ms=time_inplace_ms(restore,
                                  lambda: ss.sent_select_plain(**sel), 1, 1),
-        bound=(sel_bytes, draws * INT_PIPE_OPS_PER_UNIFORM),
+        bound=(sel_bytes, hashes * INT_OPS_PER_HASH
+               + uniforms * INT_OPS_PER_UNIFORM),
         shape=f"{mode} {seeds} x {n}, tick {select['tick']}, "
               f"{active} active rows, {sends} sends")
     out[f"sent_commit/{mode}"] = dict(
@@ -1970,10 +2084,15 @@ def winners_kernel_checks(plan, dev) -> list:
 STORE_SOURCE = "corrosion_tpu_torch/kernels/csrc/store.cu"
 STORE_NS = (0, 1, 2_500, 10_000, 65_536, 262_144)
 STORE_CAPS = (1_024, 65_536, 524_288)
-# the apply path's widest store calls: every cell of a full cache
-# (262,144 of a 524,288-slot cell_ver) and every row (65,536 of row_cl)
-STORE_TIMED = ((262_144, 524_288), (65_536, 65_536))
 APPLY_WAVE, APPLY_WAVES = 10_000, 12  # APPLY_BENCH device_arm's shape
+# the apply path's widest store calls, every cell of a full cache
+# (262,144 of a 524,288-slot cell_ver) and every row (65,536 of row_cl),
+# and a steady wave's cells
+STORE_TIMED = ((262_144, 524_288), (65_536, 65_536), (APPLY_WAVE, 524_288))
+# n of three times the threads an H100 holds at once (132 SMs x 2048),
+# plus 17: the write grid's first blocks are scheduled, and wait, while
+# claim blocks of later waves have yet to run
+STORE_WIDE = 3 * 132 * 2048 + 17
 CACHE_METRICS = ("corro_apply_cache_hits_total",
                  "corro_apply_cache_misses_total",
                  "corro_apply_cache_evictions_total",
@@ -1983,10 +2102,12 @@ CACHE_METRICS = ("corro_apply_cache_hits_total",
 def store_case(g, cap: int, n: int, kind: str):
     """(base [cap], idx [n], vals [n]) int64: ``kind`` "unique" draws
     distinct indices, "repeat" with replacement (the last one repeats
-    the first, with another value)."""
+    the first, with another value), "same" one index n times."""
     base = g.integers(-5, 1 << 40, cap)
     if kind == "unique":
         idx = g.permutation(cap)[:n]
+    elif kind == "same":
+        idx = np.full(n, g.integers(0, cap))
     else:
         idx = g.integers(0, cap, n)
         if n > 1:
@@ -1999,39 +2120,46 @@ def store_checks(dev) -> list:
     """Phase 16a: ``store_set`` and ``store_gather`` against their
     plain versions and NumPy on the card, bitwise, at every (cap, n) of
     the apply path's range, unique and repeated indices (the last pair
-    wins), n = 0; an index out of range must raise ``IndexError`` and
-    leave the array untouched; the owner buffer must come back all -1."""
+    wins), n = 0 and 1; one index repeated n times; ``STORE_WIDE``
+    pairs into 2**20, repeated and unique; an index out of range must
+    raise ``IndexError`` and leave the array untouched; the owner
+    buffer must come back all -1 after every call."""
     from corrosion_tpu_torch.kernels import store as kst
 
     g = np.random.default_rng(16)
     checks = []
-    for cap in STORE_CAPS:
-        owner = kst.new_owner(cap, dev)
-        for n in STORE_NS:
-            for kind in ("unique", "repeat"):
-                if kind == "unique" and n > cap:
-                    continue
-                base, idx, vals = store_case(g, cap, n, kind)
-                want = base.copy()
-                want[idx] = vals
-                arr = torch.from_numpy(base).to(dev)
-                plain = arr.clone()
-                kst.store_set(arr, idx, vals, owner)
-                kst.store_set_plain(plain, torch.from_numpy(idx).to(dev),
-                                    torch.from_numpy(vals).to(dev))
-                got_g = kst.store_gather(arr, idx)
-                plain_g = kst.store_gather_plain(
-                    arr, torch.from_numpy(idx).to(dev)).cpu().numpy()
-                torch.cuda.synchronize()
-                ok = (torch.equal(arr, plain)
-                      and np.array_equal(arr.cpu().numpy(), want)
-                      and np.array_equal(got_g, want[idx])
-                      and np.array_equal(plain_g, want[idx])
-                      and bool((owner == -1).all()))
-                checks.append(dict(cap=cap, n=n, kind=kind, equal=ok,
-                                   max_abs_err=max_abs_err(
-                                       [arr, torch.from_numpy(got_g)],
-                                       [plain, torch.from_numpy(plain_g)])))
+    wide = STORE_WIDE
+    cases = [(cap, n, kind) for cap in STORE_CAPS for n in STORE_NS
+             for kind in ("unique", "repeat") if kind == "repeat" or n <= cap]
+    cases += [(cap, n, "same") for cap in STORE_CAPS for n in (2, 10_000)]
+    cases += [(1 << 20, wide, "repeat"), (1 << 20, wide, "unique")]
+    owners = {}
+    for cap, n, kind in cases:
+        if cap not in owners:
+            owners[cap] = kst.new_owner(cap, dev)
+        owner = owners[cap]
+        base, idx, vals = store_case(g, cap, n, kind)
+        want = base.copy()
+        want[idx] = vals
+        arr = torch.from_numpy(base).to(dev)
+        plain = arr.clone()
+        kst.store_set(arr, idx, vals, owner)
+        kst.store_set_plain(plain, torch.from_numpy(idx).to(dev),
+                            torch.from_numpy(vals).to(dev))
+        got_g = kst.store_gather(arr, idx)
+        plain_g = kst.store_gather_plain(
+            arr, torch.from_numpy(idx).to(dev)).cpu().numpy()
+        torch.cuda.synchronize()
+        ok = (torch.equal(arr, plain)
+              and np.array_equal(arr.cpu().numpy(), want)
+              and np.array_equal(got_g, want[idx])
+              and np.array_equal(plain_g, want[idx])
+              and bool((owner == -1).all()))
+        checks.append(dict(cap=cap, n=n, kind=kind, equal=ok,
+                           max_abs_err=max_abs_err(
+                               [arr, torch.from_numpy(got_g)],
+                               [plain, torch.from_numpy(plain_g)])))
+    for cap, owner in owners.items():
         arr = torch.zeros(cap, dtype=torch.int64, device=dev)
         for bad in ([0, cap], [-cap - 1]):
             for call in (lambda: kst.store_gather(arr, np.array(bad)),
@@ -2051,10 +2179,11 @@ def store_checks(dev) -> list:
 
 
 def store_times(dev, checks: list) -> list:
-    """Both store kernels at the apply path's widest calls, unique
-    indices, on device tensors: an event pair around each of 30
-    launches behind a GPU-side sleep that hides the host's enqueue
-    (``ms``); the plain versions and ``index_select`` / ``index_put_``
+    """Both store kernels at the apply path's widest calls and a steady
+    wave's, unique indices, on device tensors: an event pair around
+    each of 30 launches behind a GPU-side sleep that hides the host's
+    enqueue (``ms``); the plain versions and
+    ``index_select`` / ``index_put_``
     (the library calls that compute the same functions) the same way;
     and the whole wrapper call from host arrays (``call_ms``, events
     over 20 calls: the range check, the host-to-device copies and, for
@@ -2775,7 +2904,7 @@ def shard_times(sx, cfg, seeds, d, x, args, tick, accepted, work, commit,
         plain_ms=time_inplace_ms(lambda: None, rnd(sx.shard_round_plain),
                                  1, 1),
         bound=(seeds * nl * 5 + memory,
-               rounds_sum * (3 + 2 * k) * INT_PIPE_OPS_PER_HASH),
+               rounds_sum * (3 + 2 * k) * INT_OPS_PER_HASH),
         shape=shape)}
     # commit: every row's activity byte and accepted round; an active
     # row's K infection stores; the budget rows' 12 bytes read and
@@ -2791,7 +2920,7 @@ def shard_times(sx, cfg, seeds, d, x, args, tick, accepted, work, commit,
             restore, lambda: commit(sx.shard_commit_plain, work), 1, 1),
         bound=(seeds * n * 5 + active_rows * k * SECTOR + budget_rows * 24
                + marks,
-               active_rows * (3 + 2 * k + draws) * INT_PIPE_OPS_PER_HASH),
+               active_rows * (3 + 2 * k + draws) * INT_OPS_PER_HASH),
         shape=shape)
     return out
 
@@ -3237,6 +3366,7 @@ def main() -> int:
     from corrosion_tpu_torch.kernels import seg_sort, sent_sampler, swim
     from corrosion_tpu_torch.kernels import sync_pull, threefry, tick_stats
     from corrosion_tpu_torch.kernels import fabric, shard_exact, store, winners
+    from corrosion_tpu_torch.kernels import sass
     from corrosion_tpu_torch.sim.epidemic import (
         HEADLINE,
         HEADLINE_SEEDS,
@@ -3271,7 +3401,13 @@ def main() -> int:
         for name, log in logs.items()
     }
     print(f"built {sorted(logs)} in {record['build_s']:.1f} s", flush=True)
-    record["threefry_sass"] = sass_mix(kernels, "threefry")
+    # what ptxas made of the hashing kernels: opcodes by pipe, and each
+    # loop's (kernels/sass.py; the listings land beside the libraries)
+    record["sass"] = {
+        name: sass.mix(kernels.library_path(name), pattern)
+        for name, pattern in (("threefry", ""),
+                              ("sent_sampler", "sent_select"),
+                              ("store", "store_(claim|write)"))}
 
     headline, seeds = HEADLINE, HEADLINE_SEEDS
 

@@ -22,8 +22,11 @@ Every leaf carries a leading seed axis ``[S, ...]`` (one universe of N
 nodes a seed), and ``keys`` is an ``[S, nchunks, 2]`` uint32 tensor on
 the leaves' device.  ``sent`` ([S, N, N] bool) is marked in place; every
 other output is a fresh tensor.  Bound on the H100: threefry operations
-(42 INT32-pipe operations per score), then the sent rows' bytes.  See
-the source for the design.
+(68 integer operations a score over the two integer pipes), then the
+sent rows' bytes.  The kernel hashes every column of an active row,
+keeps the few under a mantissa bound (:func:`hit_bits`) and selects
+among those, with an exact fallback when fewer than k remain; see the
+source for the design.
 """
 
 from __future__ import annotations
@@ -40,7 +43,7 @@ from corrosion_tpu_torch.models.common import blocks_cross
 from corrosion_tpu_torch.ops.merge import scatter_merge
 from corrosion_tpu_torch.random import key_words
 
-MAX_FANOUT = 8  # the kernel's register list of smallest keys
+MAX_FANOUT = 8  # the kernel is built for k = 1 .. 8
 
 
 class _Args(ctypes.Structure):
@@ -56,7 +59,25 @@ class _Args(ctypes.Structure):
             "s", "n", "k", "chunk", "nchunks", "r", "wide", "sev_b", "tick",
             "part_active", "use_loss", "max_tx")),
         *((f, ctypes.c_float) for f in ("loss", "wan_loss", "backoff")),
+        ("one", ctypes.c_uint32), ("hit_bits", ctypes.c_uint32),
     ]
+
+
+# the filter lets through about HIT_SLACK + 2k of a row's columns
+HIT_SLACK = 16
+MANTISSA = 1 << 23  # levels of a uniform: bits >> 9
+
+
+def hit_bits(n: int, k: int) -> int:
+    """The kernel filter's bound on a column's 32-bit word for rows of
+    ``n`` columns and fanout ``k``: a word passes when it is at most
+    the bound.  It is a mantissa bound, ``m * 512 - 1`` (a word passes
+    exactly when its mantissa ``bits >> 9`` is under ``m``), so that a
+    tie never straddles it; ``m`` puts ``2k + HIT_SLACK`` of the other
+    ``n - 1`` columns under it on average.  ``0xFFFFFFFF`` (every word)
+    once that is all of them."""
+    m = -(-(2 * k + HIT_SLACK) * MANTISSA // max(n - 1, 1))
+    return 0xFFFFFFFF if m >= MANTISSA else m * 512 - 1
 
 
 def _f32(x: float) -> torch.Tensor:
@@ -344,7 +365,7 @@ def sent_select(sent, keys, fanout: int, chunk: int, *, tx, next_send=None,
         wide=int(rows is not None and rows.dtype == torch.int64),
         sev_b=0 if sev is None else sev.shape[0], tick=tick,
         part_active=int(bool(partition_active)), use_loss=int(loss > 0.0),
-        loss=loss, wan_loss=wan_loss,
+        loss=loss, wan_loss=wan_loss, one=1, hit_bits=hit_bits(n, fanout),
     )
     _launch("sent_select", "sent_select_launch", a, tx)
     sent_select.launches += 1

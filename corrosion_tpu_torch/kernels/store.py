@@ -14,8 +14,10 @@ owner buffer of at least the array's length that holds -1 between calls
 
 ``gather_launch`` / ``set_launch`` take device tensors: the wrappers
 call them, and each counts its launches on ``store_gather.launches`` /
-``store_set.launches`` (one a call; ``store_set``'s call is two kernel
-launches, the claim and the write).
+``store_set.launches``, one a call: ``store_set``'s call is two kernel
+launches, the claim and the write, the write under programmatic
+dependent launch (it is scheduled while the claim runs and waits on
+the card for it to finish); a launch the card refuses raises.
 """
 
 from __future__ import annotations

@@ -10,6 +10,8 @@ on crafted rows with ties and with fewer than k peers available, and a
 flipped ``sent`` bit or a wrong chunk key must break the equality.
 """
 
+import functools
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -112,7 +114,7 @@ def _crafted_rows():
     return rows
 
 
-@pytest.mark.parametrize("k", [1, 4, 5])
+@pytest.mark.parametrize("k", [1, 4, 5, 8])
 def test_selection_matches_top_k(k):
     scores = _crafted_rows()
     neg, want_t = jax.lax.top_k(-jnp.asarray(scores), k)
@@ -230,3 +232,144 @@ def test_select_refuses_bad_arguments():
                        loss_keys=torch.zeros((s, 2, 2), dtype=torch.uint32))
     with pytest.raises(ValueError, match="new_infected"):
         ss.sent_commit(z, z, z, tick=0, max_tx=8, next_send=z, infected=inf)
+
+
+# -- the ordering the sent_select kernel relies on -------------------------
+#
+# The kernel orders a row's columns by the 64-bit key (bits >> 9, column)
+# of each score's threefry word, and its filter keeps the columns whose
+# word is at most ``hit_bits(n, k)``.  The score of a word is
+# ``(bits >> 9) * 2**-23`` exactly (jax.random.uniform), so that key
+# order is the reference's: ``lax.top_k(-scores)`` and the stable argsort.
+
+MAX_K = ss.MAX_FANOUT
+
+
+def _uniform_of(bits):
+    """jax.random.uniform's float32 of uint32 ``bits``."""
+    return ((bits >> 9) | np.uint32(0x3F800000)).view(np.float32) - 1.0
+
+
+def _crafted_words(k):
+    """[40, 24] uint32 words whose k + 1 smallest mantissas tie within a
+    row while their low 9 bits fall as the column rises, with further
+    ties and distinct words elsewhere."""
+    rng = np.random.default_rng(40 + k)
+    mant = rng.integers(100, 110, (40, 24)).astype(np.uint32)
+    low = rng.integers(0, 512, (40, 24)).astype(np.uint32)
+    for r in range(40):
+        cols = np.sort(rng.choice(24, k + 1, replace=False))
+        mant[r, cols] = 7
+        low[r, cols] = np.sort(rng.choice(512, k + 1, replace=False))[::-1]
+    return (mant << 9) | low
+
+
+@functools.lru_cache(maxsize=1)
+def _drawn_words():
+    """jax.random bits of 4 rows x 2**21 columns: a row's uniforms are
+    4 mantissa levels apart on average, so its 9 smallest tie more
+    often than not."""
+    key = jax.random.PRNGKey(0)
+    shape = (4, 1 << 21)
+    bits = np.asarray(jax.random.bits(key, shape, jnp.uint32))
+    np.testing.assert_array_equal(
+        _uniform_of(bits), np.asarray(jax.random.uniform(key, shape)))
+    return bits
+
+
+def _key_order(words, k):
+    """The first k columns of each row by (bits >> 9, column)."""
+    cols = np.broadcast_to(np.arange(words.shape[1]), words.shape)
+    return np.lexsort((cols, words >> 9), axis=1)[:, :k]
+
+
+@functools.lru_cache(maxsize=2)
+def _orders(source):
+    """(words, scores, the (bits >> 9, column) order, the stable argsort
+    of the scores and the port's select_k of MAX_K), each row's first
+    MAX_K columns: the k-independent parts, once a source."""
+    words = _crafted_words(MAX_K) if source == "crafted" else _drawn_words()
+    scores = _uniform_of(words)
+    order = np.asarray(jnp.argsort(jnp.asarray(scores), axis=1,
+                                   stable=True))[:, :MAX_K]
+    t, avail = ss.select_k(torch.from_numpy(scores), MAX_K)
+    assert bool(avail.all())
+    return words, scores, _key_order(words, MAX_K), order, t.numpy()
+
+
+@pytest.mark.parametrize("k", range(1, 9))
+@pytest.mark.parametrize("source", ["crafted", "drawn"])
+def test_mantissa_key_order_is_the_reference_order(source, k):
+    words, scores, got, order, port = _orders(source)
+    _, top = jax.lax.top_k(-jnp.asarray(scores), k)
+    np.testing.assert_array_equal(got[:, :k], np.asarray(top))
+    np.testing.assert_array_equal(got[:, :k], order[:, :k])
+    np.testing.assert_array_equal(got[:, :k], port[:, :k])
+    # the ties are there to be broken: among the MAX_K + 1 smallest
+    low = np.sort(words >> 9, axis=1)[:, :MAX_K + 1]
+    assert (np.diff(low, axis=1) == 0).any()
+
+
+@pytest.mark.parametrize("k", range(1, 9))
+def test_raw_word_order_breaks_ties_the_wrong_way(k):
+    words = _crafted_words(k)
+    raw = np.argsort(words, axis=1, kind="stable")[:, :k]
+    want = _key_order(words, k)
+    # every crafted row ties its k + 1 smallest: the raw word puts the
+    # highest of those columns first, the reference the lowest
+    assert (raw != want).any(axis=1).all()
+
+
+def _filter_select(words, excluded, k, bound):
+    """The kernel's selection on one row: the non-excluded columns whose
+    word is at most ``bound``, ranked by (bits >> 9, column); the full
+    ranking when fewer than k come through and the bound did not take
+    every column (the fallback).  Returns (columns, took_fallback)."""
+    cols = np.arange(words.shape[0])
+    keep = (words <= bound) & ~excluded
+    full = bound == 0xFFFFFFFF
+    if keep.sum() < k and not full:
+        keep, took = ~excluded, True
+    else:
+        took = False
+    c = cols[keep]
+    return c[np.lexsort((c, words[keep] >> 9))][:k], took
+
+
+@pytest.mark.parametrize("k", [1, 3, 4, 8])
+@pytest.mark.parametrize("n", [9, 33, 512, 16_000])
+def test_filter_and_fallback_select_the_k_smallest(n, k):
+    rng = np.random.default_rng(n + k)
+    bound = ss.hit_bits(n, k)
+    fallbacks = 0
+    for r in range(24):
+        words = rng.integers(0, 2**32, n, dtype=np.uint64).astype(np.uint32)
+        excluded = rng.random(n) < (0.99 if r % 4 == 3 else 0.05)
+        excluded[r % n] = True  # the row itself
+        got, took = _filter_select(words, excluded, k, bound)
+        fallbacks += took
+        scores = np.where(excluded, np.inf, _uniform_of(words))
+        neg, top = jax.lax.top_k(-jnp.asarray(scores), k)
+        avail = np.asarray(neg) > -np.inf
+        np.testing.assert_array_equal(got, np.asarray(top)[avail])
+    if n >= 512:  # rows with 1% of their peers left need the fallback
+        assert fallbacks > 0
+
+
+def test_hit_bits_is_a_mantissa_bound_with_slack():
+    for n in (2, 20, 33, 34, 512, 4_000, 16_000, 65_537, 10**7):
+        for k in range(1, 9):
+            b = ss.hit_bits(n, k)
+            assert b & 511 == 511  # every word of a mantissa or none
+            if n - 1 <= 2 * k + ss.HIT_SLACK:
+                assert b == 0xFFFFFFFF
+                continue
+            expected = (n - 1) * ((b >> 9) + 1) / 2**23
+            assert 2 * k + ss.HIT_SLACK <= expected
+            assert expected < 2 * k + ss.HIT_SLACK + (n - 1) / 2**23 + 1e-9
+    # the words that pass are as many as predicted, here with ties
+    k, n = 4, 16_000
+    bits = np.asarray(jax.random.bits(jax.random.PRNGKey(9), (64, n),
+                                      jnp.uint32))
+    passed = (bits <= ss.hit_bits(n, k)).sum(axis=1)
+    assert 18 <= passed.mean() <= 30 and passed.min() >= k
