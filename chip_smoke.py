@@ -163,6 +163,7 @@ the compiler's register report) to
 
 from __future__ import annotations
 
+import ctypes
 import json
 import math
 import multiprocessing
@@ -171,7 +172,7 @@ import subprocess
 import sys
 import tempfile
 import time
-from concurrent.futures import ProcessPoolExecutor
+from concurrent.futures import ProcessPoolExecutor, ThreadPoolExecutor
 from dataclasses import replace
 
 import numpy as np
@@ -218,6 +219,24 @@ def time_ms(fn, reps: int) -> float:
     return start.elapsed_time(end) / reps
 
 
+def time_device_ms(fn, reps: int) -> float:
+    """Mean device ms per call of ``fn`` over ``reps`` calls enqueued
+    behind a GPU-side sleep (CUDA events, warm): the host's enqueue of
+    a call, longer than a small kernel, stays out of the time."""
+    for _ in range(2):
+        fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(SLEEP_CYCLES * (1 + reps // 4))
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / reps
+
+
 def nbytes(*tensors) -> int:
     return sum(t.numel() * t.element_size() for t in tensors if t is not None)
 
@@ -251,9 +270,122 @@ def card_line() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
-def kernel_checks(cfg, mods, dev):
+def flat_indices(local: torch.Tensor) -> torch.Tensor:
+    """[S, L] per-row indices as ``seg_argsort``'s flat int32 ones."""
+    s, length = local.shape
+    row0 = torch.arange(s, dtype=torch.int64, device=local.device) * length
+    return (local.to(torch.int64) + row0[:, None]).to(torch.int32)
+
+
+def in_turns(change, parent, timer) -> dict:
+    """``change``'s time (``timer(fn)`` ms) and, when ``parent`` is
+    given, the parent design's, in turns: parent, change, change,
+    parent; ``ms`` is the mean of the change's two."""
+    if not parent:
+        return {"ms": timer(change)}
+    p0 = timer(parent)
+    c0, c1 = timer(change), timer(change)
+    return {"ms": (c0 + c1) / 2, "ms_runs": [c0, c1],
+            "parent_ms": [p0, timer(parent)]}
+
+
+def build_library(src: str, lib: str) -> list:
+    """``nvcc`` of one source into ``lib`` with the port's flags;
+    returns the register lines of the compiler's report."""
+    os.makedirs(os.path.dirname(lib), exist_ok=True)
+    from corrosion_tpu_torch import kernels
+
+    res = subprocess.run([kernels._nvcc(), *kernels.NVCC_FLAGS,
+                          "-I", os.path.dirname(src), "-I", str(kernels.CSRC),
+                          "-o", lib, src],
+                         capture_output=True, text=True, timeout=900)
+    if res.returncode:
+        fail(f"nvcc failed for {src}:\n{res.stdout}{res.stderr}")
+    return [ln.strip() for ln in (res.stdout + res.stderr).splitlines()
+            if "registers" in ln or "Compiling entry" in ln]
+
+
+class ParentDesign:
+    """The parent commit's ``seg_sort.cu`` and ``exact_send.cu``, built
+    from a checkout of it (``--parent DIR``) and called as its wrappers
+    called them, for timing beside this tree's kernels in one run.  The
+    argument block of ``exact_send`` is unchanged since, so this tree's
+    ``send_args`` fills it."""
+
+    SMALL = (ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p,
+             ctypes.c_longlong, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+             ctypes.c_int, ctypes.c_int, ctypes.c_void_p)
+    RADIX = (ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p,
+             ctypes.c_longlong, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+             *(ctypes.c_void_p,) * 6)
+
+    def __init__(self, root: str):
+        from corrosion_tpu_torch import kernels
+
+        csrc = os.path.join(root, "corrosion_tpu_torch", "kernels", "csrc")
+        out = str(kernels.BUILD_DIR / "parent")
+        names = ("seg_sort", "exact_send")
+        with ThreadPoolExecutor(len(names)) as pool:
+            logs = pool.map(build_library,
+                            [os.path.join(csrc, f"{m}.cu") for m in names],
+                            [os.path.join(out, f"lib{m}.so") for m in names])
+        self.ptxas = dict(zip(names, logs))
+        self.libs = {m: ctypes.CDLL(os.path.join(out, f"lib{m}.so"))
+                     for m in names}
+
+    def _fn(self, lib: str, symbol: str, argtypes):
+        fn = getattr(self.libs[lib], symbol)
+        fn.argtypes, fn.restype = list(argtypes), ctypes.c_int
+        return fn
+
+    def seg_argsort(self, keys, key_bits: int, shift: int = 0):
+        """The parent's sort: local indices [S, L] int32."""
+        from corrosion_tpu_torch import kernels
+
+        s, length = keys.shape
+        out = torch.empty((s, length), dtype=torch.int32, device=keys.device)
+        wide = int(keys.dtype == torch.int64)
+        lbits = max(0, (length - 1).bit_length())
+        pt, st = kernels.ptr, kernels.stream(keys)
+        if length <= 4096 and key_bits + lbits <= 64:
+            code = self._fn("seg_sort", "seg_sort_small_launch", self.SMALL)(
+                pt(keys), wide, pt(out), s, length, 1 << lbits, lbits, shift,
+                int(key_bits + lbits > 32), st)
+        else:
+            n = s * length
+            kbuf = torch.empty(2 * n, dtype=keys.dtype, device=keys.device)
+            vbuf = torch.empty(2 * n, dtype=torch.int32, device=keys.device)
+            tiles = -(-length // (2048 if wide else 4096))
+            hist = torch.empty(s * 256 * (tiles + 1), dtype=torch.int32,
+                               device=keys.device)
+            code = self._fn("seg_sort", "seg_sort_radix_launch", self.RADIX)(
+                pt(keys), wide, pt(out), s, length, key_bits, shift,
+                pt(kbuf[:n]), pt(kbuf[n:]), pt(vbuf[:n]), pt(vbuf[n:]),
+                pt(hist), st)
+        kernels.raise_on_error("parent seg_argsort", code)
+        return out
+
+    def exact_send(self, infected, tx, next_send, msgs, pending, sent, keys,
+                   tick, p, tier, diag):
+        """The parent's ``exact_send``: one thread a (seed, row)."""
+        from corrosion_tpu_torch import kernels
+        from corrosion_tpu_torch.kernels import exact_send as es
+
+        new_infected = infected.clone()
+        a = es.send_args(infected, new_infected, tx, next_send, msgs,
+                         pending, sent, keys, tick, p, tier, diag)
+        code = self._fn("exact_send", "exact_send_launch",
+                        (ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p))(
+            ctypes.addressof(a), int(sent.dtype == torch.int32),
+            kernels.stream(infected))
+        kernels.raise_on_error("parent exact_send", code)
+        return new_infected
+
+
+def kernel_checks(cfg, mods, dev, parent=None):
     """Phase 2: each kernel against its plain version at tick 7 of the
-    headline (state reached through the port on the card)."""
+    headline (state reached through the port on the card); the sort
+    also against the parent design, when given, in turns."""
     from corrosion_tpu_torch.kernels import seg_sort
     from corrosion_tpu_torch.models.broadcast import (
         _largest_divisor_upto,
@@ -336,7 +468,8 @@ def kernel_checks(cfg, mods, dev):
     # -- seg_argsort: the tick's column keys (raw bits; the 23-bit
     #    scores are bits >> 9) at the global [S, u] and ring0 [N / b0,
     #    b0] shapes; torch.sort of the uniform scores, the library
-    #    call, must give the same indices
+    #    call, must give the same indices (local: plus each row's
+    #    offset), and so must the parent design when given
     b0 = _largest_divisor_upto(u, bp.ring0_size)
     shapes, err = [], 0.0
     for j, block in ((k - 1, u), (0, b0)):
@@ -350,15 +483,21 @@ def kernel_checks(cfg, mods, dev):
         err = max(err, max_abs_err([got], [seg_sort.seg_argsort_plain(
             raw, 23, 9)]))
         lib = torch.sort(scores, dim=1, stable=True).indices
-        if not torch.equal(lib.to(torch.int32), got):
+        if not torch.equal(flat_indices(lib), got):
             fail(f"seg_argsort differs from torch.sort of the uniform "
                  f"scores at {list(raw.shape)}")
+        if parent is not None and not torch.equal(
+                flat_indices(parent.seg_argsort(raw, 23, 9)), got):
+            fail(f"seg_argsort differs from the parent design at "
+                 f"{list(raw.shape)}")
         shapes.append(dict(
             shape=list(raw.shape),
-            ms=time_ms(lambda: seg_sort.seg_argsort(raw, 23, 9), 20),
+            **in_turns(lambda: seg_sort.seg_argsort(raw, 23, 9),
+                       parent and (lambda: parent.seg_argsort(raw, 23, 9)),
+                       lambda fn: time_device_ms(fn, 20)),
             plain_ms=time_ms(lambda: seg_sort.seg_argsort_plain(raw, 23, 9),
                              5),
-            library_ms=time_ms(
+            library_ms=time_device_ms(
                 lambda: torch.sort(scores, dim=1, stable=True), 20),
             bound_ms=raw.numel() * 8 / HBM_BYTES_PER_S * 1e3))
     results.append(dict(
@@ -626,15 +765,40 @@ def exact_state_at(cfg, seeds: int, tick: int, sparse: bool, dev):
 MUTATED = ("tx", "next_send", "msgs", "pending", "sent")
 
 
-def exact_kernel_checks(dev):
+def busiest_tick(cfg, seeds: int, dev) -> dict:
+    """The tick of the sparse run (``run_exact_headline``'s seeds and
+    keys) whose rejection loop ran the most rounds in one row (the
+    ``diag`` maximum; ties to the most rounds in all), with each tick's
+    counters."""
+    from corrosion_tpu_torch.kernels.exact_send import DIAG
+    from corrosion_tpu_torch.random import fold_in
+    from corrosion_tpu_torch.sim import calibrate as cal
+
+    state, base = exact_state_at(cfg, seeds, 0, True, dev)
+    per_tick = []
+    while state.tick < cfg.max_ticks:
+        d = torch.zeros(len(DIAG), dtype=torch.int64, device=dev)
+        tick = state.tick
+        state = cal.frontier_exact_tick(
+            state, [fold_in(k, tick) for k in base], cfg, diag=d)
+        per_tick.append((tick, *d.tolist()))
+        if not bool((state.infected & (state.tx > 0)).any()):
+            break
+    top = max(per_tick, key=lambda t: (t[3], t[2]))
+    return {"tick": top[0], "per_tick": per_tick}
+
+
+def exact_kernel_checks(dev, parent=None):
     """``exact_send`` (both representations) and ``exact_commit``
     against their plain versions on the card, on the inputs of ticks 1
     and ``BUSY_TICK`` of the full-width runs at their own seed counts
     (the shapes the main path launches), and of a WAN latency variant
-    of each (which fills the queue); timed at ``BUSY_TICK``.  The dense
-    check holds three copies of the 20 GB bitmap (the state, the
-    kernel's and the plain version's); the timed calls reuse the
-    kernel's."""
+    of each (which fills the queue); for the ring also the run's
+    busiest tick (``busiest_tick``).  Timed at ``BUSY_TICK`` (the ring
+    at all three), against the parent design in turns when given, which
+    must also give the same results.  The dense check holds three
+    copies of the 20 GB bitmap (the state, the kernel's and the plain
+    version's); the timed calls reuse the kernel's."""
     from corrosion_tpu_torch.kernels import exact_send as es
     from corrosion_tpu_torch.random import fold_in
     from corrosion_tpu_torch.sim import calibrate as cal
@@ -654,9 +818,14 @@ def exact_kernel_checks(dev):
     def diag():
         return torch.zeros(len(es.DIAG), dtype=torch.int64, device=dev)
 
+    busiest = None
     for rep, cfg, seeds, ring in cases:
+        ticks = [1, BUSY_TICK]
+        if ring and cfg.topology == "uniform":
+            busiest = busiest_tick(cfg, seeds, dev)
+            ticks = sorted({*ticks, busiest["tick"]})
         state, base = exact_state_at(cfg, seeds, 0, ring, dev)
-        for tick in (1, BUSY_TICK):
+        for tick in ticks:
             state = exact_advance(state, base, cfg, tick, ring)
             args, _, _ = cal._send_inputs(
                 state, [fold_in(k, tick) for k in base], cfg)
@@ -674,6 +843,15 @@ def exact_kernel_checks(dev):
             bad = [nm for nm, x, y in zip(names, a, b)
                    if not torch.equal(x, y)]
             del a, b, want, want_inf
+            if parent is not None:  # the parent design, on the same inputs
+                old = {**args, **{f: v.clone() for f, v in saved.items()}}
+                old_d = diag()
+                old_inf = parent.exact_send(**old, diag=old_d)
+                bad += [f"parent {nm}" for nm, x, y in zip(
+                    names, [old_inf, *(old[f] for f in saved), old_d],
+                    [got_inf, *(got[f] for f in saved), got_d])
+                    if not torch.equal(x, y)]
+                del old, old_inf
             # the commit on the kernel's send results
             c_got = [got["tx"].clone(), got["next_send"].clone()]
             c_want = [t.clone() for t in c_got]
@@ -691,10 +869,15 @@ def exact_kernel_checks(dev):
                 commit_max_abs_err=c_err, active_rows=d[0],
                 rounds_mean=d[1] / max(1, d[0]), rounds_max=d[2],
                 learned=learned))
-            if cfg.topology == "uniform" and tick == BUSY_TICK:
-                timed.update(exact_times(es, cfg, seeds, ring, rep, tick,
-                                         args, saved, got, got_inf, d,
-                                         learned, diag()))
+            if cfg.topology == "uniform" and (tick != 1 or ring):
+                times = exact_times(es, cfg, seeds, ring, rep, tick, args,
+                                    saved, got, got_inf, d, learned, diag(),
+                                    parent)
+                checks[-1]["times"] = {k: {f: v[f] for f in v if f in (
+                    "ms", "ms_runs", "parent_ms", "bound", "shape")}
+                    for k, v in times.items()}
+                if tick == BUSY_TICK:
+                    timed.update(times)
             del got, got_inf, args, saved, c_got, c_want
             torch.cuda.empty_cache()
         del state
@@ -714,15 +897,15 @@ def exact_kernel_checks(dev):
             name=name, route="cuda", source=source, replaces=replaces,
             max_abs_err=errs[key], library_ms=None, **timed[key]))
         set_bound(results[-1])
-    return results, checks
+    return results, checks, busiest
 
 
 def exact_times(es, cfg, seeds, ring, rep, tick, args, saved, work,
-                new_infected, d, learned, t_diag) -> dict:
+                new_infected, d, learned, t_diag, parent=None) -> dict:
     """Times of ``exact_send`` (and for the bitmap ``exact_commit``) on
-    one tick's inputs, with their bounds.  ``work`` is the kernel's
-    copy of the inputs; ``restore`` puts ``saved`` back into it before
-    every call."""
+    one tick's inputs, with their bounds; the parent design's in turns
+    when given.  ``work`` is the kernel's copy of the inputs;
+    ``restore`` puts ``saved`` back into it before every call."""
     def restore():
         for f, v in saved.items():
             work[f].copy_(v)
@@ -734,10 +917,15 @@ def exact_times(es, cfg, seeds, ring, rep, tick, args, saved, work,
     # read and marked, or its ring row read and its slots written
     memory = 4 * frontier_cap(cfg) + SECTOR if ring else 2 * k * SECTOR
     send_bytes = total * 9 + d[0] * (17 + 12 + k * SECTOR + memory)
-    hashes = d[1] * (3 + 2 * k) + d[0] * k * (cfg.loss > 0)
+    # a drawn candidate's two hashes; the round keys (fold_in and
+    # randint's split, 3 hashes) depend on (seed, round) alone: counted
+    # for the busiest row's rounds only; an active row's loss draws
+    hashes = d[1] * 2 * k + 3 * d[2] + d[0] * k * (cfg.loss > 0)
     out = {rep: dict(
-        ms=time_inplace_ms(
-            restore, lambda: es.exact_send(**work, diag=t_diag), 20),
+        **in_turns(lambda: es.exact_send(**work, diag=t_diag),
+                   parent and (lambda: parent.exact_send(**work,
+                                                         diag=t_diag)),
+                   lambda fn: time_inplace_ms(restore, fn, 20)),
         plain_ms=time_inplace_ms(
             restore, lambda: es.exact_send_plain(**work, diag=t_diag), 1, 1),
         bound=(send_bytes, hashes * INT_OPS_PER_HASH),
@@ -1853,11 +2041,14 @@ WINNERS_COUNTED = ("seg_argsort", "seg_cummax", "winners_a", "winners_b")
 
 
 def sort_checks(dev) -> list:
-    """Phase 14: ``seg_argsort`` against its plain version, bitwise, on
-    23-bit threefry keys at every shape the sweeps sort, on all-equal
-    and two-valued keys, on int64 keys of 2**20 with many ties, and on
-    the regimes' edges (every key and composite width, L = 1, 7, 4097,
-    one-pass 8-bit keys)."""
+    """Phase 14: ``seg_argsort``'s flat indices against its plain
+    version, bitwise, on 23-bit threefry keys at every shape the sweeps
+    sort, on all-equal and two-valued keys, on int64 keys of 2**20
+    (the winners' 21 bits, and many ties), and on the regimes' edges:
+    the warp regime's register counts (L = 1, 7, 32, 33, 64, 65, 128,
+    129, 256), the shared regime (257, 4096), the radix regime (4097),
+    every key and composite width, one-pass 8-bit and eight-pass int64
+    keys."""
     from corrosion_tpu_torch.kernels import seg_sort
     from corrosion_tpu_torch.random import PRNGKey, bits, fold_in
 
@@ -1889,7 +2080,25 @@ def sort_checks(dev) -> list:
         ("L = 7", host(rng.integers(0, 3, (3, 7)).astype(np.uint32)), 2, 0),
         ("L = 4097, 8-bit", host(rng.integers(0, 256, (2, 4097))
                                  .astype(np.uint32)), 8, 0),
+        ("int64 2^20, 21 bits (the winners' width)", host(
+            rng.integers(0, 1 << 21, (1, 1 << 20))), 21, 0),
+        ("uint32 [100, 200] 32-bit keys, 64-bit composite", host(
+            rng.integers(0, 1 << 32, (100, 200), dtype=np.uint64)
+            .astype(np.uint32)), 32, 0),
+        ("int64 [64, 200] 40 bits, 64-bit composite", host(
+            rng.integers(0, 1 << 40, (64, 200))), 40, 0),
+        ("int64 [3, 5000] 62 bits, eight passes", host(
+            rng.integers(0, 1 << 62, (3, 5000))), 62, 0),
+        ("all equal [16, 250]", host(np.full((16, 250), 5 << 9, np.uint32)),
+         23, 9),
+        ("two-valued [64, 4096]", host((rng.integers(0, 2, (64, 4096)) << 9)
+                                       .astype(np.uint32)), 23, 9),
     ]
+    # the regimes' edges on 23-bit threefry keys with ties
+    for length in (1, 32, 33, 64, 65, 128, 129, 256, 257, 4096, 4097):
+        raw = (rng.integers(0, max(2, length // 3), (37, length)) << 9
+               | rng.integers(0, 512, (37, length))).astype(np.uint32)
+        cases.append((f"L = {length}, ties", host(raw), 23, 9))
     checks = []
     for label, keys, key_bits, shift in cases:
         got = seg_sort.seg_argsort(keys, key_bits, shift)
@@ -1975,10 +2184,11 @@ def winners_full_width(counted) -> dict:
     return runs, plans["interleaved_warm"]
 
 
-def winners_kernel_checks(plan, dev) -> list:
+def winners_kernel_checks(plan, dev, parent=None) -> list:
     """Each winner-selection kernel against its plain version on the
     card, on the intermediates of ``plan`` (every output bitwise), timed
-    with CUDA events, with its bytes bound."""
+    with CUDA events, with its bytes bound; the (pk, cid) sort also
+    against the parent design, when given, in turns."""
     from corrosion_tpu_torch.kernels import seg_sort, winners
     from corrosion_tpu_torch.kernels.winners import BIG
 
@@ -1997,11 +2207,16 @@ def winners_kernel_checks(plan, dev) -> list:
     err = max(max_abs_err([o_b], [seg_sort.seg_argsort_plain(
         *sort_args)[0]]), max_abs_err([o_a], [seg_sort.seg_argsort_plain(
             pk[None], (n_pk - 1).bit_length())[0]]))
+    if parent is not None and not torch.equal(
+            parent.seg_argsort(*sort_args)[0], o_b):
+        fail("the winners' sort differs from the parent design")
     res = [dict(
         name="seg_argsort (int64, one segment)", max_abs_err=err,
-        ms=time_ms(lambda: seg_sort.seg_argsort(*sort_args), 20),
+        **in_turns(lambda: seg_sort.seg_argsort(*sort_args),
+                   parent and (lambda: parent.seg_argsort(*sort_args)),
+                   lambda fn: time_device_ms(fn, 20)),
         plain_ms=time_ms(lambda: seg_sort.seg_argsort_plain(*sort_args), 5),
-        library_ms=time_ms(lambda: torch.sort(comp, stable=True), 20),
+        library_ms=time_device_ms(lambda: torch.sort(comp, stable=True), 20),
         bound=(n * (8 + 4), 0),
         shape=f"int64 [1, {n}], {bits_b} key bits (the (pk, cid) sort)")]
 
@@ -2876,7 +3091,7 @@ def shard_times(sx, cfg, seeds, d, x, args, tick, accepted, work, commit,
     diag = cal._zero_diag(dev)
     sx.shard_round(x["active_l"], x["sent_l"], args["keys"], x["lo"], n,
                    args["p"], diag, tick)
-    rounds_sum = int(diag[1])
+    rounds_sum, rounds_max = int(diag[1]), int(diag[2])
     saved = {"pending": None if work["pending"] is None
              else work["pending"].clone(),
              "budget": [b.clone() for b in work["budget"]],
@@ -2896,7 +3111,9 @@ def shard_times(sx, cfg, seeds, d, x, args, tick, accepted, work, commit,
     shape = (f"{kind} {seeds} seeds x {n} over {d}, shard {x['lo'] // nl}, "
              f"tick {tick}, {my_active} of {active_rows} active rows mine")
     # round: my activity bytes read and round counts written; a ring row
-    # read once, or K bitmap sectors a round
+    # read once, or K bitmap sectors a round; a drawn candidate's two
+    # hashes and the round keys' 3 for the busiest row's rounds (as
+    # exact_send's)
     memory = (my_active * 4 * frontier_cap(cfg) if ring
               else rounds_sum * k * SECTOR)
     out = {"round": dict(
@@ -2904,7 +3121,7 @@ def shard_times(sx, cfg, seeds, d, x, args, tick, accepted, work, commit,
         plain_ms=time_inplace_ms(lambda: None, rnd(sx.shard_round_plain),
                                  1, 1),
         bound=(seeds * nl * 5 + memory,
-               rounds_sum * (3 + 2 * k) * INT_OPS_PER_HASH),
+               (rounds_sum * 2 * k + 3 * rounds_max) * INT_OPS_PER_HASH),
         shape=shape)}
     # commit: every row's activity byte and accepted round; an active
     # row's K infection stores; the budget rows' 12 bytes read and
@@ -3357,6 +3574,12 @@ def mesh_phases(record: dict, counted: dict, single_runs: dict,
 
 
 def main() -> int:
+    import argparse
+
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--parent", help="a checkout of the parent commit: time "
+                    "its seg_argsort and exact_send beside this tree's")
+    opts = ap.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
         return 1
@@ -3401,6 +3624,9 @@ def main() -> int:
         for name, log in logs.items()
     }
     print(f"built {sorted(logs)} in {record['build_s']:.1f} s", flush=True)
+    parent = ParentDesign(opts.parent) if opts.parent else None
+    if parent is not None:
+        record["parent_ptxas"] = parent.ptxas
     # what ptxas made of the hashing kernels: opcodes by pipe, and each
     # loop's (kernels/sass.py; the listings land beside the libraries)
     record["sass"] = {
@@ -3413,7 +3639,7 @@ def main() -> int:
 
     # phase 2: the perm-fanout kernels against their plain versions
     results = kernel_checks(replace(headline, n_universes=seeds), mods,
-                            cuda)
+                            cuda, parent)
     print("kernels match their plain versions: "
           + ", ".join(f"{r['name']} {r['max_abs_err']}" for r in results),
           flush=True)
@@ -3457,7 +3683,8 @@ def main() -> int:
           f"{len(VARIANTS)} variants", flush=True)
 
     # phase 5: the exact sampler's kernels against their plain versions
-    exact_results, record["exact_checks"] = exact_kernel_checks(cuda)
+    exact_results, record["exact_checks"], record["exact_busiest"] = (
+        exact_kernel_checks(cuda, parent))
     print("exact kernels match their plain versions: "
           + ", ".join(f"{r['name']} {r['max_abs_err']}"
                       for r in exact_results), flush=True)
@@ -3542,7 +3769,8 @@ def main() -> int:
           "entries included)", flush=True)
 
     sent_results = sent_phases(record, counted, cuda)
-    winners_results = sort_winners_phases(record, counted, results, cuda)
+    winners_results = sort_winners_phases(record, counted, results, cuda,
+                                          parent)
     with tempfile.TemporaryDirectory(prefix="apply-",
                                      dir=kernels.BUILD_DIR) as tmp:
         store_results = apply_phases(record, counted, tmp,
@@ -3629,7 +3857,7 @@ def sent_phases(record: dict, counted: dict, cuda) -> list:
 
 
 def sort_winners_phases(record: dict, counted: dict, results: list,
-                        cuda) -> list:
+                        cuda, parent=None) -> list:
     """Phases 14-15, the segmented sort and the winner selection;
     returns the three winner kernels' results and adds the winners
     runs' launches to ``seg_argsort``'s (in ``results``, phase 2)."""
@@ -3646,7 +3874,7 @@ def sort_winners_phases(record: dict, counted: dict, results: list,
     # phase 15: the winner selection at full width
     runs, plan = winners_full_width(counted)
     record["winners_runs"] = runs
-    checks = winners_kernel_checks(plan, cuda)
+    checks = winners_kernel_checks(plan, cuda, parent)
     record["winners_sort"] = checks[0]
     replaces = {"seg_cummax": "corrosion_tpu/ops/merge.py:599",
                 "winners_a": "corrosion_tpu/ops/merge.py:619",

@@ -10,26 +10,41 @@
 // queue, scatter-sets the infection, scatter-adds the sender's marks
 // and runs the budget / backoff epilogue as separate passes.
 //
-// exact_send: one thread per (seed, sender row).  An active row runs
-// its own rejection loop: round r draws the row's K candidates of
+// exact_send<Ring>: two launches.  exact_rows writes the worklist of
+// the active (seed, sender row) pairs (infected, budget left, due):
+// eight rows a thread, warp ballots and one atomicAdd a block, in any
+// order.  exact_send_ring_kernel is a persistent grid that walks the
+// worklist, one thread a listed row, so warps run active rows only,
+// however few a tick has.  exact_send<Bitmap> is one launch
+// (exact_send_bitmap_kernel), one thread a row of all rows, each
+// deriving its own round keys (the worklist made it slower:
+// chip_smoke.py phase 5 in PERF.md).  A row
+// runs its own rejection loop: round r draws the row's K candidates of
 // randint(fold_in(k_draw, r), (n, K), 0, n) at flat indices i*K ..
-// i*K+K-1, keys derived in-thread, and redraws the whole tuple until
-// it holds no self hit, no duplicate and no sent hit.  A row's draws
-// depend on its own index only, so this equals the reference's loop,
-// which freezes rows once they are valid.  The sent test is the
-// template parameter: bit c & 7 of byte sent[s, i, c >> 3], or a
-// compare across the row's ring slots plus the ring0 tier.  Each
-// candidate then meets the loss, partition and WAN masks in the
-// reference's order; a delayed (cross-region) delivery goes to the
-// target's queue slot with an atomicMin (exact in any order), any
-// other delivery stores 1 into new_infected, a copy of infected
-// (stores of 1 are idempotent).  The thread marks its own row in place
-// (only thread i reads or writes row i of sent / ring), then updates
-// its own msgs, tx and next_send (round() half-to-even as rintf on a
-// float32 product).  A per-block reduction adds the active rows, their
-// rejection rounds and their maximum to a small diagnostics vector.
-// The latency queue's promote pass clears slots and must run before
-// this kernel, never inside it, or a concurrent atomicMin is lost.
+// i*K+K-1 and redraws the whole tuple until it holds no self hit, no
+// duplicate and no sent hit.  The round's randint keys (fold_in and
+// randint's split: 3 of a round's 3 + 2K hashes) depend on (seed, r)
+// alone, so each ring block (and each shard_round block) derives them
+// once for the first KEY_ROUNDS rounds of every seed into shared
+// memory; a later round derives its own.  A row's draws depend on its own index only, so
+// this equals the reference's loop, which freezes rows once they are
+// valid.  The sent test is the template parameter: bit c & 7 of byte
+// sent[s, i, c >> 3], or a compare across the row's ring slots plus
+// the ring0 tier.  The ring row (cap = max_tx * K int32 slots, 32 at
+// the headline) is loaded once into registers, 16 bytes a load, and
+// every candidate of every round is tested there; slots past
+// RING_REGS are read from memory.  Each candidate then meets the loss,
+// partition and WAN masks in the reference's order; a delayed
+// (cross-region) delivery goes to the target's queue slot with an
+// atomicMin (exact in any order), any other delivery stores 1 into
+// new_infected, a copy of infected (stores of 1 are idempotent).  The
+// thread marks its own row in place (only thread i reads or writes row
+// i of sent / ring), then updates its own msgs, tx and next_send
+// (round() half-to-even as rintf on a float32 product).  A per-block
+// reduction adds the active rows, their rejection rounds and their
+// maximum to a small diagnostics vector.  The latency queue's promote
+// pass clears slots and must run before this kernel, never inside it,
+// or a concurrent atomicMin is lost.
 //
 // exact_commit: one thread per (seed, node): a node that learned this
 // tick (new_infected & ~infected) gets a fresh budget and forwards
@@ -41,9 +56,10 @@
 // 128-byte ring row), and K random 32-byte sectors each for the
 // infection stores and the marks.  The design draws in registers, so
 // no [N, K] draw array and no candidate array reaches memory, and
-// inactive rows (most rows late in a run) cost their 9 bytes only.
-// Offsets into the bitmap are size_t: 16 seeds x 100k x 12.5k bytes
-// is 2.0e10, past 2**31.
+// inactive rows cost their 9 bytes (and 4 a worklist entry for an
+// active one).  The ring's indices are 32-bit (the wrapper keeps S * N
+// below 2**31); the bitmap's send indexes in size_t, and its row offset
+// must: 16 seeds x 100k x 12.5k bytes is 2.0e10, past 2**31.
 
 #include <cstddef>
 #include <cstdint>
@@ -57,6 +73,10 @@ constexpr int MAX_K = 8;
 constexpr int MAX_SEEDS = 32;
 constexpr int MAX_ROUNDS = 4096;
 constexpr int THREADS = 256;
+constexpr int RING_REGS = 32;  // ring slots a thread holds in registers
+constexpr int KEY_ROUNDS = 8;  // rounds whose keys a block derives once
+constexpr int ROWS_PER_THREAD = 8;  // rows a worklist thread tests
+constexpr unsigned FULL = 0xffffffffu;
 
 // Mirrored field for field by the ctypes structure in exact_send.py
 // (which checks sizeof through exact_args_size).
@@ -98,52 +118,118 @@ __device__ __forceinline__ int block_of(int x, int blocks, int n) {
   return (int)((long long)x * blocks / n);
 }
 
-template <bool RING>
-__device__ __forceinline__ bool sent_hit(const ExactArgs& a, size_t g,
-                                         int i, int c) {
-  if constexpr (RING) {
-    const int* row = a.ring + g * a.cap;
-    for (int q = 0; q < a.cap; ++q)
-      if (row[q] == c) return true;
-    return a.ring0_block > 0 && i == a.writer && c != a.writer &&
-           c / a.ring0_block == a.writer / a.ring0_block;
-  } else {
-    return (a.sent[g * (size_t)a.nb + (c >> 3)] >> (c & 7)) & 1;
-  }
+// randint's two keys at rejection round r: split(fold_in(k_draw, r))
+struct RoundKeys {
+  uint32_t h0, h1, l0, l1;
+};
+
+__device__ __forceinline__ RoundKeys round_keys(const uint32_t* key, int r) {
+  RoundKeys rk;
+  uint32_t r0, r1;
+  common::threefry2x32(key[0], key[1], 0u, (uint32_t)r, r0, r1);
+  common::threefry2x32(r0, r1, 0u, 0u, rk.h0, rk.h1);  // randint's split
+  common::threefry2x32(r0, r1, 0u, 1u, rk.l0, rk.l1);
+  return rk;
 }
 
-// The K candidates of row i at rejection round r: row i of
-// randint(fold_in(k_draw, r), (n, K), 0, n), flat indices i*K + j, the
-// keys derived in-thread (i is the global row id).
-__device__ __forceinline__ void draw_tuple(const ExactArgs& a,
-                                           const uint32_t* key, int r, int i,
-                                           int (&cand)[MAX_K]) {
-  uint32_t r0, r1, h0, h1, l0, l1;
-  common::threefry2x32(key[0], key[1], 0u, (uint32_t)r, r0, r1);
-  common::threefry2x32(r0, r1, 0u, 0u, h0, h1);  // randint's split
-  common::threefry2x32(r0, r1, 0u, 1u, l0, l1);
+// The first KEY_ROUNDS rounds' keys of every seed, derived once a block
+// (every thread calls it; it ends in a barrier).
+struct KeyTable {
+  RoundKeys rk[MAX_SEEDS][KEY_ROUNDS];
+};
+
+__device__ __forceinline__ void fill_keys(const ExactArgs& a, KeyTable& t) {
+  for (int x = threadIdx.x; x < a.s * KEY_ROUNDS; x += blockDim.x) {
+    const int s = x / KEY_ROUNDS, r = x - s * KEY_ROUNDS;
+    t.rk[s][r] = round_keys(a.keys[s], r);
+  }
+  __syncthreads();
+}
+
+// The K candidates of row i under round keys rk: row i of
+// randint(fold_in(k_draw, r), (n, K), 0, n), flat indices i*K + j (i is
+// the global row id).
+__device__ __forceinline__ void draw_with(const ExactArgs& a,
+                                          const RoundKeys& rk, int i,
+                                          int (&cand)[MAX_K]) {
   const unsigned long long f0 = (unsigned long long)i * a.k;
 #pragma unroll
   for (int j = 0; j < MAX_K; ++j) {
     if (j < a.k) {
       const unsigned long long f = f0 + j;
-      cand[j] = common::randint_of(common::threefry_xor(h0, h1, f),
-                                   common::threefry_xor(l0, l1, f), a.span,
-                                   a.mult, 0);
+      cand[j] = common::randint_of(common::threefry_xor(rk.h0, rk.h1, f),
+                                   common::threefry_xor(rk.l0, rk.l1, f),
+                                   a.span, a.mult, 0);
     }
   }
 }
 
-// A self, sent or duplicate hit in row i's tuple (g: the row's index
-// into sent / ring).
+__device__ __forceinline__ void draw_tuple(const ExactArgs& a,
+                                           const uint32_t* key, int r, int i,
+                                           int (&cand)[MAX_K]) {
+  draw_with(a, round_keys(key, r), i, cand);
+}
+
+// What a row's sent test reads, loaded once a row: its bitmap row, or
+// its ring slots (the first RING_REGS in registers, -1 past cap, which
+// no candidate equals) and whether the writer's ring0 tier applies.
 template <bool RING>
-__device__ __forceinline__ bool tuple_bad(const ExactArgs& a, size_t g,
-                                          int i, const int (&cand)[MAX_K]) {
+struct SentRow;
+
+template <>
+struct SentRow<false> {
+  const unsigned char* row;
+  __device__ __forceinline__ void load(const ExactArgs& a, unsigned g, int) {
+    row = a.sent + (size_t)g * (size_t)a.nb;
+  }
+  __device__ __forceinline__ bool hit(const ExactArgs&, int c) const {
+    return (row[c >> 3] >> (c & 7)) & 1;
+  }
+};
+
+template <>
+struct SentRow<true> {
+  int slot[RING_REGS];
+  const int* row;
+  bool tier;
+  __device__ __forceinline__ void load(const ExactArgs& a, unsigned g, int i) {
+    row = a.ring + (size_t)g * (unsigned)a.cap;
+    tier = a.ring0_block > 0 && i == a.writer;
+    if ((a.cap & 3) == 0 && (reinterpret_cast<uintptr_t>(row) & 15) == 0) {
+      const int4* q = reinterpret_cast<const int4*>(row);
+#pragma unroll
+      for (int c = 0; c < RING_REGS / 4; ++c) {
+        int4 w = make_int4(-1, -1, -1, -1);
+        if (4 * c < a.cap) w = q[c];
+        slot[4 * c] = w.x;
+        slot[4 * c + 1] = w.y;
+        slot[4 * c + 2] = w.z;
+        slot[4 * c + 3] = w.w;
+      }
+    } else {
+#pragma unroll
+      for (int c = 0; c < RING_REGS; ++c) slot[c] = c < a.cap ? row[c] : -1;
+    }
+  }
+  __device__ __forceinline__ bool hit(const ExactArgs& a, int c) const {
+    bool h = false;
+#pragma unroll
+    for (int q = 0; q < RING_REGS; ++q) h |= slot[q] == c;
+    for (int q = RING_REGS; q < a.cap; ++q) h |= row[q] == c;
+    return h || (tier && c != a.writer &&
+                 c / a.ring0_block == a.writer / a.ring0_block);
+  }
+};
+
+// A self, sent or duplicate hit in row i's tuple.
+template <bool RING>
+__device__ __forceinline__ bool tuple_bad(const ExactArgs& a,
+                                          const SentRow<RING>& mem, int i,
+                                          const int (&cand)[MAX_K]) {
   bool bad = false;
 #pragma unroll
   for (int j = 0; j < MAX_K; ++j)
-    if (j < a.k)
-      bad = bad || cand[j] == i || sent_hit<RING>(a, g, i, cand[j]);
+    if (j < a.k) bad = bad || cand[j] == i || mem.hit(a, cand[j]);
 #pragma unroll
   for (int x = 0; x < MAX_K; ++x)
 #pragma unroll
@@ -152,20 +238,27 @@ __device__ __forceinline__ bool tuple_bad(const ExactArgs& a, size_t g,
   return bad;
 }
 
-// Row i's whole rejection loop: its accepted tuple in cand; returns the
-// rounds drawn (MAX_ROUNDS with capped set when none was accepted).
+// Row i's whole rejection loop (seed s, memory row g): its accepted
+// tuple in cand; returns the rounds drawn (MAX_ROUNDS with capped set
+// when none was accepted).  keys: the block's table, or null to derive
+// every round's keys in the thread.
 template <bool RING>
 __device__ __forceinline__ int reject_loop(const ExactArgs& a,
-                                           const uint32_t* key, size_t g,
-                                           int i, int (&cand)[MAX_K],
-                                           bool& capped) {
+                                           const KeyTable* keys, int s,
+                                           unsigned g, int i,
+                                           int (&cand)[MAX_K], bool& capped) {
+  SentRow<RING> mem;
+  mem.load(a, g, i);
   for (int r = 0;; ++r) {
     if (r == MAX_ROUNDS) {
       capped = true;
       return r;
     }
-    draw_tuple(a, key, r, i, cand);
-    if (!tuple_bad<RING>(a, g, i, cand)) return r + 1;
+    if (keys != nullptr && r < KEY_ROUNDS)
+      draw_with(a, keys->rk[s][r], i, cand);
+    else
+      draw_tuple(a, a.keys[s], r, i, cand);
+    if (!tuple_bad<RING>(a, mem, i, cand)) return r + 1;
   }
 }
 
@@ -199,17 +292,18 @@ __device__ __forceinline__ Delivery deliver_kind(const ExactArgs& a,
 // The sender's mark of send j to c in its own row g (tx0: its budget
 // before this tick's decrement picks the ring slot).
 template <bool RING>
-__device__ __forceinline__ void mark(const ExactArgs& a, size_t g, int tx0,
+__device__ __forceinline__ void mark(const ExactArgs& a, unsigned g, int tx0,
                                      int j, int c) {
   if constexpr (RING)
-    a.ring[g * a.cap + (size_t)((a.max_tx - tx0) * a.k + j)] = c;
+    a.ring[(size_t)g * (unsigned)a.cap + ((a.max_tx - tx0) * a.k + j)] = c;
   else
-    a.sent[g * (size_t)a.nb + (c >> 3)] |= (unsigned char)(1u << (c & 7));
+    a.sent[(size_t)g * (size_t)a.nb + (c >> 3)] |=
+        (unsigned char)(1u << (c & 7));
 }
 
 // The sender's budget and backoff at its leaf index gb (tier by its
 // global id i): round() half-to-even as rintf on a float32 product.
-__device__ __forceinline__ void spend(const ExactArgs& a, size_t gb, int i) {
+__device__ __forceinline__ void spend(const ExactArgs& a, unsigned gb, int i) {
   a.msgs[gb] += a.k;
   const int tx1 = a.tx[gb] - 1;
   a.tx[gb] = tx1;
@@ -220,16 +314,15 @@ __device__ __forceinline__ void spend(const ExactArgs& a, size_t gb, int i) {
 
 // Adds a block's active rows, rejection rounds, their maximum and its
 // capped rows to the diagnostics vector (every thread of the block
-// calls it).
+// calls it, with its own rows' sums).
 __device__ __forceinline__ void add_diag(unsigned long long* diag,
                                          unsigned active, unsigned rounds,
-                                         unsigned capped) {
+                                         unsigned most, unsigned capped) {
   __shared__ unsigned s_sum[3][THREADS / 32], s_max[THREADS / 32];
-  const unsigned full = 0xffffffffu;
-  const unsigned w_act = __reduce_add_sync(full, active);
-  const unsigned w_rounds = __reduce_add_sync(full, rounds);
-  const unsigned w_max = __reduce_max_sync(full, rounds);
-  const unsigned w_cap = __reduce_add_sync(full, capped);
+  const unsigned w_act = __reduce_add_sync(FULL, active);
+  const unsigned w_rounds = __reduce_add_sync(FULL, rounds);
+  const unsigned w_max = __reduce_max_sync(FULL, most);
+  const unsigned w_cap = __reduce_add_sync(FULL, capped);
   const int warp = threadIdx.x / 32;
   if (threadIdx.x % 32 == 0) {
     s_sum[0][warp] = w_act;
@@ -255,24 +348,129 @@ __device__ __forceinline__ void add_diag(unsigned long long* diag,
   }
 }
 
-template <bool RING>
+// The worklist: every active (seed, row) index, in any order; count
+// arrives zeroed.  A thread tests ROWS_PER_THREAD rows (their loads in
+// flight together), a block claims its rows' places with one atomicAdd.
 __global__ void __launch_bounds__(THREADS)
-    exact_send_kernel(const ExactArgs a) {
+    exact_rows_kernel(const ExactArgs a, unsigned* __restrict__ list,
+                      unsigned* __restrict__ count) {
+  __shared__ unsigned s_warp[THREADS / 32];
+  __shared__ unsigned s_base;
+  const unsigned total = (unsigned)a.s * (unsigned)a.n;
+  const unsigned first = blockIdx.x * (THREADS * ROWS_PER_THREAD) +
+                         threadIdx.x;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  bool act[ROWS_PER_THREAD];
+  // infected first, the budget and the due tick only where infected:
+  // early and late in a run few rows are, and their 8 bytes stay unread
+#pragma unroll
+  for (int r = 0; r < ROWS_PER_THREAD; ++r) {
+    const unsigned g = first + r * THREADS;
+    act[r] = g < total && a.infected[g] && a.tx[g] > 0 &&
+             a.next_send[g] <= a.tick;
+  }
+  unsigned ball[ROWS_PER_THREAD], mine = 0;
+#pragma unroll
+  for (int r = 0; r < ROWS_PER_THREAD; ++r) {
+    ball[r] = __ballot_sync(FULL, act[r]);
+    mine += __popc(ball[r]);
+  }
+  if (lane == 0) s_warp[warp] = mine;
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    unsigned run = 0;
+    for (int w = 0; w < THREADS / 32; ++w) {
+      const unsigned c = s_warp[w];
+      s_warp[w] = run;
+      run += c;
+    }
+    s_base = run ? atomicAdd(count, run) : 0u;
+  }
+  __syncthreads();
+  unsigned pos = s_base + s_warp[warp];
+  const unsigned below = (1u << lane) - 1u;
+#pragma unroll
+  for (int r = 0; r < ROWS_PER_THREAD; ++r) {
+    if (act[r]) list[pos + __popc(ball[r] & below)] = first + r * THREADS;
+    pos += __popc(ball[r]);
+  }
+}
+
+// A block's diagnostics sums (add_diag's arguments).
+struct Diag {
+  unsigned active = 0, rounds = 0, most = 0, capped = 0;
+};
+
+// Active row g (seed s, global id i) of the ring sends: its rejection
+// loop, then its K deliveries, marks and budget.
+__device__ __forceinline__ void send_row(const ExactArgs& a,
+                                         const KeyTable* keys, unsigned g,
+                                         Diag& dg) {
+  const int s = (int)(g / (unsigned)a.n);
+  const int i = (int)(g - (unsigned)s * (unsigned)a.n);
+  int cand[MAX_K];
+  bool cap_hit = false;
+  const int r = reject_loop<true>(a, keys, s, g, i, cand, cap_hit);
+  dg.active += 1;
+  dg.rounds += r;
+  dg.most = max(dg.most, (unsigned)r);
+  dg.capped += cap_hit;  // the caller raises on diag[3]; the row sends nothing
+  if (cap_hit) return;
+  const uint32_t* key = a.keys[s];
+  const unsigned seed0 = (unsigned)s * (unsigned)a.n;
+  const int tx0 = a.tx[g];
+#pragma unroll
+  for (int j = 0; j < MAX_K; ++j) {
+    if (j < a.k) {
+      const int c = cand[j];
+      const Delivery del = deliver_kind(a, key, i, j, c);
+      if (del == QUEUED)
+        atomicMin(a.pending + seed0 + c, a.tick + a.lat_ticks);
+      else if (del == NOW)
+        a.new_infected[seed0 + c] = 1;
+      mark<true>(a, g, tx0, j, c);
+    }
+  }
+  spend(a, g, i);
+}
+
+// The ring's send: a persistent grid over the worklist of the active
+// rows, the block's key table.
+__global__ void __launch_bounds__(THREADS)
+    exact_send_ring_kernel(const ExactArgs a, const unsigned* __restrict__ list,
+                           const unsigned* __restrict__ count) {
+  __shared__ KeyTable table;
+  fill_keys(a, table);
+  const unsigned rows = *count;
+  Diag dg;
+  for (unsigned w = blockIdx.x * THREADS + threadIdx.x; w < rows;
+       w += gridDim.x * THREADS)
+    send_row(a, &table, list[w], dg);
+  add_diag(a.diag, dg.active, dg.rounds, dg.most, dg.capped);
+}
+
+// The bitmap's send: one thread a row of all S * N, each active row
+// deriving its own round keys; its own body, in size_t (the same body
+// through the ring's send_row ran 4% slower: PERF.md).
+__global__ void __launch_bounds__(THREADS)
+    exact_send_bitmap_kernel(const ExactArgs a) {
   const size_t total = (size_t)a.s * a.n;
   const size_t g = (size_t)blockIdx.x * THREADS + threadIdx.x;
-  unsigned active = 0, rounds = 0, capped = 0;
-  if (g < total && a.infected[g] && a.tx[g] > 0 &&
-      a.next_send[g] <= a.tick) {
-    active = 1;
-    const int s = (int)(g / a.n);
-    const int i = (int)(g - (size_t)s * a.n);
-    const uint32_t* key = a.keys[s];
+  unsigned active = 0, rounds = 0, most = 0, capped = 0;
+  if (g < total && a.infected[g] && a.tx[g] > 0 && a.next_send[g] <= a.tick) {
+    const int s = (int)(g / (size_t)a.n);
+    const int i = (int)(g - (size_t)s * (size_t)a.n);
     int cand[MAX_K];
     bool cap_hit = false;
-    rounds = reject_loop<RING>(a, key, g, i, cand, cap_hit);
+    const int r =
+        reject_loop<false>(a, nullptr, s, (unsigned)g, i, cand, cap_hit);
+    active = 1;
+    rounds = r;
+    most = r;
     capped = cap_hit;  // the caller raises on diag[3]; the row sends nothing
     if (!cap_hit) {
-      const size_t seed0 = (size_t)s * a.n;
+      const uint32_t* key = a.keys[s];
+      const size_t seed0 = (size_t)s * (size_t)a.n;
       const int tx0 = a.tx[g];
 #pragma unroll
       for (int j = 0; j < MAX_K; ++j) {
@@ -283,13 +481,13 @@ __global__ void __launch_bounds__(THREADS)
             atomicMin(a.pending + seed0 + c, a.tick + a.lat_ticks);
           else if (del == NOW)
             a.new_infected[seed0 + c] = 1;
-          mark<RING>(a, g, tx0, j, c);
+          mark<false>(a, (unsigned)g, tx0, j, c);
         }
       }
-      spend(a, g, i);
+      spend(a, (unsigned)g, i);
     }
   }
-  add_diag(a.diag, active, rounds, capped);
+  add_diag(a.diag, active, rounds, most, capped);
 }
 
 // -- one shard of the multi-device layouts -------------------------------
@@ -298,11 +496,13 @@ __global__ void __launch_bounds__(THREADS)
 // (corrosion_tpu/sim/calibrate.py:817-846, models/sharded.py:403-426,
 // :659-683): a shard tests only its own rows (global ids lo + il)
 // against its own bitmap or ring rows.  Here each of my active rows
-// runs its whole loop in registers, as exact_send does, and writes how
-// many rounds it drew (0: inactive; MAX_ROUNDS + 1: capped).  Row i's
-// round-r tuple depends only on its key, its global id and its own
-// memory, so "rounds > r + 1" is exactly the reference's still-bad
-// mask after round r: the caller exchanges those masks round by round.
+// runs its whole loop in registers, as exact_send does (a persistent
+// grid over my rows, the block's round keys and the ring row loaded
+// once), and writes how many rounds it drew (0: inactive; MAX_ROUNDS +
+// 1: capped).  Row i's round-r tuple depends only on its key, its
+// global id and its own memory, so "rounds > r + 1" is exactly the
+// reference's still-bad mask after round r: the caller exchanges those
+// masks round by round.
 //
 // shard_commit replaces the delivery and commit of the same three
 // (calibrate.py:848-892, sharded.py:428-470, :685-728).  One thread
@@ -335,22 +535,28 @@ template <bool RING>
 __global__ void __launch_bounds__(THREADS)
     shard_round_kernel(const ShardArgs sa) {
   const ExactArgs& a = sa.e;
-  const size_t total = (size_t)a.s * sa.n_local;
-  const size_t g = (size_t)blockIdx.x * THREADS + threadIdx.x;
-  unsigned active = 0, rounds = 0, capped = 0;
-  if (g < total) {
+  __shared__ KeyTable keys;
+  fill_keys(a, keys);
+  const unsigned total = (unsigned)a.s * (unsigned)sa.n_local;
+  unsigned active = 0, rounds = 0, most = 0, capped = 0;
+  for (unsigned g = blockIdx.x * THREADS + threadIdx.x; g < total;
+       g += gridDim.x * THREADS) {
+    int r = 0;
     if (sa.active[g]) {
-      active = 1;
-      const int s = (int)(g / sa.n_local);
-      const int i = sa.lo + (int)(g - (size_t)s * sa.n_local);
+      const int s = (int)(g / (unsigned)sa.n_local);
+      const int i = sa.lo + (int)(g - (unsigned)s * (unsigned)sa.n_local);
       int cand[MAX_K];
       bool cap_hit = false;
-      rounds = reject_loop<RING>(a, a.keys[s], g, i, cand, cap_hit);
-      capped = cap_hit;
+      r = reject_loop<RING>(a, &keys, s, g, i, cand, cap_hit);
+      active += 1;
+      rounds += r;
+      most = max(most, (unsigned)r);
+      capped += cap_hit;
+      if (cap_hit) r = MAX_ROUNDS + 1;
     }
-    sa.rounds[g] = capped ? MAX_ROUNDS + 1 : (int)rounds;
+    sa.rounds[g] = r;
   }
-  add_diag(a.diag, active, rounds, capped);
+  add_diag(a.diag, active, rounds, most, capped);
 }
 
 template <bool RING>
@@ -367,8 +573,8 @@ __global__ void __launch_bounds__(THREADS)
   draw_tuple(a, key, sa.rounds[gg], i, cand);
   const bool mine = i >= sa.lo && i < sa.lo + sa.n_local;
   const bool budget = i >= sa.b_lo && i < sa.b_lo + sa.b_n;
-  const size_t g = (size_t)s * sa.n_local + (i - sa.lo);
-  const size_t gb = (size_t)s * sa.b_n + (i - sa.b_lo);
+  const unsigned g = (unsigned)s * sa.n_local + (i - sa.lo);
+  const unsigned gb = (unsigned)s * sa.b_n + (i - sa.b_lo);
   const int tx0 = budget ? a.tx[gb] : 0;
 #pragma unroll
   for (int j = 0; j < MAX_K; ++j) {
@@ -402,24 +608,69 @@ __global__ void exact_commit_kernel(const unsigned char* __restrict__ infected,
   next_send[g] = tick + (tier ? tier[g % n] : 1);
 }
 
+// A persistent grid of `kernel` for `rows` rows: as many blocks as the
+// card holds at once, fewer when the rows need fewer.
+template <typename Kernel>
+unsigned persistent_blocks(Kernel kernel, size_t rows) {
+  int dev = 0, sms = 0, per_sm = 0;
+  cudaGetDevice(&dev);
+  cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, THREADS, 0);
+  const size_t need = (rows + THREADS - 1) / THREADS;
+  const size_t most = (size_t)(sms > 0 ? sms : 1) * (per_sm > 0 ? per_sm : 1);
+  return (unsigned)(need < most ? (need > 0 ? need : 1) : most);
+}
+
+bool args_ok(const ExactArgs& a, int ring) {
+  return a.s >= 1 && a.s <= MAX_SEEDS && a.n >= 1 && a.k >= 1 &&
+         a.k <= MAX_K && a.span != 0 &&
+         (long long)a.s * a.n <= 0x7fffffffLL &&
+         (ring ? a.ring != nullptr && a.cap >= a.k * a.max_tx
+               : a.sent != nullptr && a.nb * 8 >= a.n);
+}
+
 }  // namespace
 
 extern "C" int exact_args_size() { return (int)sizeof(ExactArgs); }
 
-extern "C" int exact_send_launch(const void* args, int ring, void* stream) {
+// The worklist of active rows: list [S * N] uint32, count one uint32
+// (zeroed here).
+extern "C" int exact_rows_launch(const void* args, void* list, void* count,
+                                 void* stream) {
   const ExactArgs& a = *static_cast<const ExactArgs*>(args);
-  if (a.s < 1 || a.s > MAX_SEEDS || a.n < 1 || a.k < 1 || a.k > MAX_K ||
-      a.span == 0 || a.diag == nullptr ||
-      (ring ? a.ring == nullptr || a.cap < a.k * a.max_tx
-            : a.sent == nullptr || a.nb * 8 < a.n))
+  if (!(a.s >= 1 && a.n >= 1 && (long long)a.s * a.n <= 0x7fffffffLL) ||
+      list == nullptr || count == nullptr)
+    return (int)cudaErrorInvalidValue;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  cudaError_t e = cudaMemsetAsync(count, 0, sizeof(unsigned), st);
+  if (e != cudaSuccess) return (int)e;
+  const size_t total = (size_t)a.s * a.n;
+  const size_t per_block = (size_t)THREADS * ROWS_PER_THREAD;
+  exact_rows_kernel<<<(unsigned)((total + per_block - 1) / per_block),
+                      THREADS, 0, st>>>(a, static_cast<unsigned*>(list),
+                                        static_cast<unsigned*>(count));
+  return (int)cudaGetLastError();
+}
+
+// The send: for the ring over a worklist of `count` rows (exactly the
+// active rows of [S, N], as exact_rows writes it); the bitmap's over
+// every row (list and count unused).
+extern "C" int exact_send_launch(const void* args, int ring, const void* list,
+                                 const void* count, void* stream) {
+  const ExactArgs& a = *static_cast<const ExactArgs*>(args);
+  if (!args_ok(a, ring) || a.diag == nullptr ||
+      (ring && (list == nullptr || count == nullptr)))
     return (int)cudaErrorInvalidValue;
   const size_t total = (size_t)a.s * a.n;
-  const unsigned blocks = (unsigned)((total + THREADS - 1) / THREADS);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const unsigned* l = static_cast<const unsigned*>(list);
+  const unsigned* c = static_cast<const unsigned*>(count);
   if (ring)
-    exact_send_kernel<true><<<blocks, THREADS, 0, st>>>(a);
+    exact_send_ring_kernel<<<persistent_blocks(exact_send_ring_kernel, total),
+                             THREADS, 0, st>>>(a, l, c);
   else
-    exact_send_kernel<false><<<blocks, THREADS, 0, st>>>(a);
+    exact_send_bitmap_kernel<<<(unsigned)((total + THREADS - 1) / THREADS),
+                               THREADS, 0, st>>>(a);
   return (int)cudaGetLastError();
 }
 
@@ -429,27 +680,32 @@ extern "C" int shard_launch(const void* args, int ring, int commit,
                             void* stream) {
   const ShardArgs& sa = *static_cast<const ShardArgs*>(args);
   const ExactArgs& a = sa.e;
-  if (a.s < 1 || a.s > MAX_SEEDS || a.n < 1 || a.k < 1 || a.k > MAX_K ||
-      a.span == 0 || sa.active == nullptr || sa.rounds == nullptr ||
+  if (!args_ok(a, ring) || sa.active == nullptr || sa.rounds == nullptr ||
       sa.n_local < 1 || sa.lo < 0 || sa.lo + sa.n_local > a.n ||
-      (ring ? a.ring == nullptr || a.cap < a.k * a.max_tx
-            : a.sent == nullptr || a.nb * 8 < a.n) ||
       (commit ? a.new_infected == nullptr || a.tx == nullptr ||
                     sa.t_n < 1 || sa.b_n < 1 || sa.b_lo > sa.lo ||
                     sa.b_lo + sa.b_n < sa.lo + sa.n_local
               : a.diag == nullptr))
     return (int)cudaErrorInvalidValue;
-  const size_t total = (size_t)a.s * (commit ? a.n : sa.n_local);
-  const unsigned blocks = (unsigned)((total + THREADS - 1) / THREADS);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (commit && ring)
-    shard_commit_kernel<true><<<blocks, THREADS, 0, st>>>(sa);
-  else if (commit)
-    shard_commit_kernel<false><<<blocks, THREADS, 0, st>>>(sa);
-  else if (ring)
-    shard_round_kernel<true><<<blocks, THREADS, 0, st>>>(sa);
-  else
-    shard_round_kernel<false><<<blocks, THREADS, 0, st>>>(sa);
+  if (commit) {
+    const size_t total = (size_t)a.s * a.n;
+    const unsigned blocks = (unsigned)((total + THREADS - 1) / THREADS);
+    if (ring)
+      shard_commit_kernel<true><<<blocks, THREADS, 0, st>>>(sa);
+    else
+      shard_commit_kernel<false><<<blocks, THREADS, 0, st>>>(sa);
+  } else {
+    const size_t total = (size_t)a.s * sa.n_local;
+    if (ring)
+      shard_round_kernel<true>
+          <<<persistent_blocks(shard_round_kernel<true>, total), THREADS, 0,
+             st>>>(sa);
+    else
+      shard_round_kernel<false>
+          <<<persistent_blocks(shard_round_kernel<false>, total), THREADS, 0,
+             st>>>(sa);
+  }
   return (int)cudaGetLastError();
 }
 

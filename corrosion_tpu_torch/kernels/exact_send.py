@@ -13,8 +13,11 @@ plus the writer's arithmetic ring0 tier (the frontier kernel).
 
 Bound on the H100: bytes — the activity test of every row, and for an
 active row its own leaves, K random bitmap sectors (or its ring row)
-and K random sectors each for the infection stores and the marks.  The
-kernel runs each row's rejection loop and its draws in registers.
+and K random sectors each for the infection stores and the marks.  One
+launch writes the ring's worklist of active rows; a persistent grid
+walks it, each row's rejection loop and draws in registers, its ring
+row loaded once into registers and the rounds' randint keys derived
+once a block.  The bitmap's send is one launch, one thread a row.
 
 Both functions update their state arguments in place (``tx``,
 ``next_send``, ``msgs``, ``pending``, ``sent``; the commit ``tx`` and
@@ -379,6 +382,9 @@ def exact_send(infected, tx, next_send, msgs, pending, sent, keys,
     if s > MAX_SEEDS:
         raise ValueError(f"exact_send: the kernel takes at most {MAX_SEEDS} "
                          f"seeds a launch, got {s}")
+    if s * n >= 2**31:
+        raise ValueError(f"exact_send: {s} seeds x {n} rows is past the "
+                         "kernel's 32-bit row index")
     for name, t in (("infected", infected), ("tx", tx),
                     ("next_send", next_send), ("msgs", msgs),
                     ("pending", pending), ("sent", sent), ("tier", tier),
@@ -387,6 +393,36 @@ def exact_send(infected, tx, next_send, msgs, pending, sent, keys,
             kernels.check(f"exact_send {name}", t, t.dtype, align=1)
     ring = sent.dtype == torch.int32
     new_infected = infected.clone()
+    a = send_args(infected, new_infected, tx, next_send, msgs, pending, sent,
+                  keys, tick, p, tier, diag)
+    _check_layout()
+    st = kernels.stream(infected)
+    send = kernels.function("exact_send", "exact_send_launch",
+                            (ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p,
+                             ctypes.c_void_p, ctypes.c_void_p))
+    if ring:  # the worklist of active rows, then the send over it
+        work = torch.empty(s * n + 1, dtype=torch.int32,
+                           device=infected.device)
+        rows, count = kernels.ptr(work), kernels.ptr(work[s * n:])
+        code = kernels.function("exact_send", "exact_rows_launch",
+                                (ctypes.c_void_p,) * 4)(
+            ctypes.addressof(a), rows, count, st)
+        if code == 0:
+            code = send(ctypes.addressof(a), 1, rows, count, st)
+    else:  # one thread a row of all rows
+        code = send(ctypes.addressof(a), 0, kernels.ptr(None),
+                    kernels.ptr(None), st)
+    exact_send.launches += 1
+    kernels.raise_on_error("exact_send", code)
+    return new_infected
+
+
+def send_args(infected, new_infected, tx, next_send, msgs, pending, sent,
+              keys, tick: int, p: SendParams, tier, diag) -> _Args:
+    """The kernel's argument block for :func:`exact_send`'s tensors
+    (``new_infected`` the copy of ``infected`` it writes)."""
+    s, n = infected.shape
+    ring = sent.dtype == torch.int32
     span, mult = randint_span(0, n)
     words = [w for triple in keys for key in triple for w in key_words(key)]
     a = _Args(
@@ -407,13 +443,7 @@ def exact_send(infected, tx, next_send, msgs, pending, sent, keys,
         ring0_block=p.ring0_block, writer=p.writer, span=span, mult=mult,
     )
     a.keys[:len(words)] = words
-    _check_layout()
-    fn = kernels.function("exact_send", "exact_send_launch",
-                          (ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p))
-    code = fn(ctypes.addressof(a), int(ring), kernels.stream(infected))
-    exact_send.launches += 1
-    kernels.raise_on_error("exact_send", code)
-    return new_infected
+    return a
 
 
 def _check_layout() -> None:

@@ -156,20 +156,20 @@ def _perm_senders(key_t, j: int, n: int, u: int, ring0: bool,
     receiver-side sliding-window draw ``sender = t - off``, off in
     [1, min(ring0_size, u-1)]."""
     kj = fold_in(key_t, j)
-    idx = torch.arange(n, dtype=torch.int32, device=device)
     if ring0:
         b0 = _largest_divisor_upto(u, ring0_size)
         if b0 < 2 or b0 < min(ring0_size, u - 1) // 4:
             hi = min(ring0_size, u - 1) if u > 1 else 1
             offs = randint(kj, (n,), 1, hi + 1, device=device)
+            idx = torch.arange(n, dtype=torch.int32, device=device)
             local = idx % u
             return idx - local + (local - offs) % u
         block = b0
     else:
         block = u
+    # the sort's flat indices are the senders: segment * block + local
     raw = bits(kj, (n // block, block), device=device)
-    inv = seg_argsort(raw, key_bits=23, shift=9).reshape(-1)
-    return idx - idx % block + inv
+    return seg_argsort(raw, key_bits=23, shift=9).reshape(-1)
 
 
 def _deliver_perm(rows, tx_remaining, msgs_sent, hops, tick, next_send,

@@ -113,21 +113,29 @@ def test_broadcast_step_matches_jax_bitwise(case):
     assert not np.array_equal(got.rows.numpy(), st["rows"])
 
 
-@pytest.mark.parametrize("n,u,ring0,ring0_size", [
-    (1000, 1000, True, 256),   # headline shape per universe: b0 = 250
-    (600, 200, True, 16),      # b0 = 10
-    (600, 200, False, 16),     # global column: one sort per universe
-    (597, 199, True, 16),      # prime universe: sliding-window fallback
-    (64, 64, True, 64),        # ring0 as wide as the universe
+@pytest.mark.parametrize("kw", [
+    dict(n_nodes=2000, universe=1000, fanout_ring0=1, fanout_global=3,
+         ring0_size=256),  # the headline's columns over two universes
+    dict(n_nodes=600, universe=200, fanout_ring0=2, fanout_global=2,
+         ring0_size=16),
+    dict(n_nodes=597, universe=199, fanout_ring0=1, fanout_global=1,
+         ring0_size=16),  # the sliding-window fallback
+    dict(n_nodes=512, fanout_ring0=0, fanout_global=3, ring0_size=1),
 ])
-def test_perm_senders_match_jax(n, u, ring0, ring0_size):
-    key = jax.random.PRNGKey(5)
-    for j in range(3):
-        want = jb._perm_senders(key, j, n, u, ring0, ring0_size)
-        got = tb._perm_senders(key_from_numpy(key), j, n, u, ring0,
-                               ring0_size, device="cpu")
-        assert got.dtype == torch.int32
-        np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+def test_sharded_senders_equal_single_device(kw):
+    """The sharded fabric's replicated sender maps (``models.sharded``
+    ``_senders``) equal the reference's single-device columns."""
+    from corrosion_tpu_torch.models import sharded as ts
+
+    params = tb.BroadcastParams(**kw)
+    n, u = params.n_nodes, params.universe or params.n_nodes
+    key = jax.random.PRNGKey(21)
+    got = ts._senders(key_from_numpy(key), params, "cpu")
+    want = np.stack([np.asarray(jb._perm_senders(
+        key, j, n, u, j < params.fanout_ring0, params.ring0_size))
+        for j in range(params.fanout)])
+    assert got.dtype == torch.int32
+    np.testing.assert_array_equal(got.numpy(), want)
 
 
 @pytest.mark.parametrize("kw", [
