@@ -12,10 +12,15 @@ package.  Phases, each ending the run with a non-zero exit on failure:
    ``store_set`` (``kernels/sass.py`` over ``cuobjdump -sass``);
 2. hold the perm-fanout kernels (the threefry draws, ``seg_argsort``,
    ``deliver_perm``, ``sync_pull``, ``tick_stats``) against their plain
-   PyTorch versions on the card, on the inputs the headline's tick 7 (a
-   sync tick, partition in force) gives them, and time both with CUDA
-   events; ``seg_argsort`` at both column shapes, beside ``torch.sort``
-   of the uniform scores, which must give the same indices;
+   PyTorch versions on the card, bitwise, on the inputs the headline's
+   tick 7 (a sync tick, partition in force) gives them, and time both
+   with CUDA events; ``seg_argsort`` at both column shapes, beside
+   ``torch.sort`` of the uniform scores, which must give the same
+   indices; ``tick_stats`` in both of its designs also on byte rows at
+   the exact column's shapes (16 x 100k, 4 x 1M, 2 x 10M), at n a
+   multiple of no tile, S = 1, series spanning 4095 values (accepted)
+   and 4096 (+inf in that universe alone) and a universe without a
+   measured depth, its scratch all zero after every call;
 3. run the headline — 100k nodes x 32 seeds, R = 8, 5% loss, two
    partition blocks healing at tick 12 — on the card, require its
    numbers (converged 1.0, ticks 15, msgs/node 16.03, p99 34.97), and
@@ -28,8 +33,11 @@ package.  Phases, each ending the run with a non-zero exit on failure:
 5. hold ``exact_send`` (bitmap and ring) and ``exact_commit`` against
    their plain versions (max |diff| 0 on every output leaf and the
    rejection counters) at ticks 1 and 6 of the exact column's
-   full-width configs at their own seed counts (16 x 100k, 4 x 1M) and
-   of a WAN-latency variant of each, and time them at tick 6;
+   full-width configs at their own seed counts (16 x 100k, 4 x 1M; the
+   dense run also at tick 8, the sparse at its busiest) and of a
+   WAN-latency variant of each, the bitmap also at N = 64, K = 4 with
+   an empty bitmap and with one that makes rows redraw past the
+   block's round keys, and time them at those ticks;
 6. run the exact column at full width through ``run_exact_headline``:
    dense 100k nodes x 16 seeds (a 20 GB bitmap, partitioned) and
    sparse 1M nodes x 4 seeds, each with the launch counters zeroed just
@@ -306,25 +314,22 @@ def build_library(src: str, lib: str) -> list:
 
 
 class ParentDesign:
-    """The parent commit's ``seg_sort.cu`` and ``exact_send.cu``, built
+    """The parent commit's ``tick_stats.cu`` and ``exact_send.cu``, built
     from a checkout of it (``--parent DIR``) and called as its wrappers
     called them, for timing beside this tree's kernels in one run.  The
     argument block of ``exact_send`` is unchanged since, so this tree's
     ``send_args`` fills it."""
 
-    SMALL = (ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p,
-             ctypes.c_longlong, ctypes.c_int, ctypes.c_int, ctypes.c_int,
-             ctypes.c_int, ctypes.c_int, ctypes.c_void_p)
-    RADIX = (ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p,
-             ctypes.c_longlong, ctypes.c_int, ctypes.c_int, ctypes.c_int,
-             *(ctypes.c_void_p,) * 6)
+    # the parent's tick_stats_launch: one block a universe, int32 rows
+    STATS = (*(ctypes.c_void_p,) * 5, *(ctypes.c_int,) * 3, ctypes.c_float,
+             ctypes.c_float, ctypes.c_void_p)
 
     def __init__(self, root: str):
         from corrosion_tpu_torch import kernels
 
         csrc = os.path.join(root, "corrosion_tpu_torch", "kernels", "csrc")
         out = str(kernels.BUILD_DIR / "parent")
-        names = ("seg_sort", "exact_send")
+        names = ("tick_stats", "exact_send")
         with ThreadPoolExecutor(len(names)) as pool:
             logs = pool.map(build_library,
                             [os.path.join(csrc, f"{m}.cu") for m in names],
@@ -338,54 +343,44 @@ class ParentDesign:
         fn.argtypes, fn.restype = list(argtypes), ctypes.c_int
         return fn
 
-    def seg_argsort(self, keys, key_bits: int, shift: int = 0):
-        """The parent's sort: local indices [S, L] int32."""
+    def tick_stats(self, rows, target, msgs, hops, s: int, out):
+        """The parent's ``tick_stats`` on int32 rows [S*n, R] (its
+        callers cast the exact runners' flags to them first)."""
         from corrosion_tpu_torch import kernels
+        from corrosion_tpu_torch.kernels.tick_stats import Q50, Q99
 
-        s, length = keys.shape
-        out = torch.empty((s, length), dtype=torch.int32, device=keys.device)
-        wide = int(keys.dtype == torch.int64)
-        lbits = max(0, (length - 1).bit_length())
-        pt, st = kernels.ptr, kernels.stream(keys)
-        if length <= 4096 and key_bits + lbits <= 64:
-            code = self._fn("seg_sort", "seg_sort_small_launch", self.SMALL)(
-                pt(keys), wide, pt(out), s, length, 1 << lbits, lbits, shift,
-                int(key_bits + lbits > 32), st)
-        else:
-            n = s * length
-            kbuf = torch.empty(2 * n, dtype=keys.dtype, device=keys.device)
-            vbuf = torch.empty(2 * n, dtype=torch.int32, device=keys.device)
-            tiles = -(-length // (2048 if wide else 4096))
-            hist = torch.empty(s * 256 * (tiles + 1), dtype=torch.int32,
-                               device=keys.device)
-            code = self._fn("seg_sort", "seg_sort_radix_launch", self.RADIX)(
-                pt(keys), wide, pt(out), s, length, key_bits, shift,
-                pt(kbuf[:n]), pt(kbuf[n:]), pt(vbuf[:n]), pt(vbuf[n:]),
-                pt(hist), st)
-        kernels.raise_on_error("parent seg_argsort", code)
+        pt = kernels.ptr
+        code = self._fn("tick_stats", "tick_stats_launch", self.STATS)(
+            pt(rows), pt(target), pt(msgs), pt(hops), pt(out), s,
+            msgs.numel() // s, rows.shape[1], Q99, Q50, kernels.stream(rows))
+        kernels.raise_on_error("parent tick_stats", code)
         return out
 
     def exact_send(self, infected, tx, next_send, msgs, pending, sent, keys,
                    tick, p, tier, diag):
-        """The parent's ``exact_send``: one thread a (seed, row)."""
+        """The parent's ``exact_send<Bitmap>``: one thread a (seed,
+        row) of all rows."""
         from corrosion_tpu_torch import kernels
         from corrosion_tpu_torch.kernels import exact_send as es
 
+        if sent.dtype != torch.uint8:
+            raise ValueError("the parent design is timed on the bitmap only")
         new_infected = infected.clone()
         a = es.send_args(infected, new_infected, tx, next_send, msgs,
                          pending, sent, keys, tick, p, tier, diag)
         code = self._fn("exact_send", "exact_send_launch",
-                        (ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p))(
-            ctypes.addressof(a), int(sent.dtype == torch.int32),
-            kernels.stream(infected))
+                        (ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p,
+                         ctypes.c_void_p, ctypes.c_void_p))(
+            ctypes.addressof(a), 0, None, None, kernels.stream(infected))
         kernels.raise_on_error("parent exact_send", code)
         return new_infected
 
 
 def kernel_checks(cfg, mods, dev, parent=None):
     """Phase 2: each kernel against its plain version at tick 7 of the
-    headline (state reached through the port on the card); the sort
-    also against the parent design, when given, in turns."""
+    headline (state reached through the port on the card);
+    ``tick_stats`` also against the parent design, when given, in
+    turns."""
     from corrosion_tpu_torch.kernels import seg_sort
     from corrosion_tpu_torch.models.broadcast import (
         _largest_divisor_upto,
@@ -469,7 +464,7 @@ def kernel_checks(cfg, mods, dev, parent=None):
     #    scores are bits >> 9) at the global [S, u] and ring0 [N / b0,
     #    b0] shapes; torch.sort of the uniform scores, the library
     #    call, must give the same indices (local: plus each row's
-    #    offset), and so must the parent design when given
+    #    offset)
     b0 = _largest_divisor_upto(u, bp.ring0_size)
     shapes, err = [], 0.0
     for j, block in ((k - 1, u), (0, b0)):
@@ -486,15 +481,9 @@ def kernel_checks(cfg, mods, dev, parent=None):
         if not torch.equal(flat_indices(lib), got):
             fail(f"seg_argsort differs from torch.sort of the uniform "
                  f"scores at {list(raw.shape)}")
-        if parent is not None and not torch.equal(
-                flat_indices(parent.seg_argsort(raw, 23, 9)), got):
-            fail(f"seg_argsort differs from the parent design at "
-                 f"{list(raw.shape)}")
         shapes.append(dict(
             shape=list(raw.shape),
-            **in_turns(lambda: seg_sort.seg_argsort(raw, 23, 9),
-                       parent and (lambda: parent.seg_argsort(raw, 23, 9)),
-                       lambda fn: time_device_ms(fn, 20)),
+            ms=time_device_ms(lambda: seg_sort.seg_argsort(raw, 23, 9), 20),
             plain_ms=time_ms(lambda: seg_sort.seg_argsort_plain(raw, 23, 9),
                              5),
             library_ms=time_device_ms(
@@ -568,49 +557,190 @@ def kernel_checks(cfg, mods, dev, parent=None):
         shape=f"rows int32 [{n}, {cfg.n_rows}], P={sp.peers_per_round}",
     ))
 
-    # -- tick_stats: the state after the tick; a series too wide for the
-    #    kernel's histogram must be flagged, never clipped
-    rows_t, msgs_t, hops_t = got_s[0], got_s[1], got[3]
-    target = state.rows[0].clone()
-    s = cfg.n_universes
-    got_t = tick_stats.tick_stats(rows_t, target, msgs_t, hops_t, s)
-    want_t = tick_stats.tick_stats_plain(
-        rows_t, target, msgs_t, hops_t, s, torch.empty_like(got_t))
-    if not torch.allclose(got_t, want_t, rtol=1e-6, atol=0.0, equal_nan=True):
-        fail(f"tick_stats disagrees with its plain version:\n{got_t}\n"
-             f"{want_t}")
-    wide = msgs_t.clone()
-    wide[0] += tick_stats.NBINS
-    flagged = tick_stats.tick_stats(rows_t, target, wide, hops_t, s)
-    if not torch.equal(flagged[1:], got_t[1:]):
-        fail("tick_stats: one wide universe changed the others' stats")
-    try:
-        tick_stats.raise_on_overflow(flagged.cpu().numpy())
-    except ValueError:
-        pass
-    else:
-        fail("tick_stats did not flag a series wider than its bins")
-    out_t = torch.empty_like(got_t)
-    results.append(dict(
-        name="tick_stats", route="cuda",
-        source="corrosion_tpu_torch/kernels/csrc/tick_stats.cu",
-        replaces="corrosion_tpu/sim/epidemic.py:272",
-        max_abs_err=max_abs_err([got_t], [want_t]),
-        ms=time_ms(lambda: tick_stats.tick_stats(
-            rows_t, target, msgs_t, hops_t, s, out=out_t), 20),
-        plain_ms=time_ms(lambda: tick_stats.tick_stats_plain(
-            rows_t, target, msgs_t, hops_t, s, out_t), 3),
-        bound=(nbytes(rows_t, target, msgs_t, hops_t, out_t), 0),
-        library_ms=None,
-        shape=f"{s} universes x {n // s}, R={cfg.n_rows}",
-    ))
+    # -- tick_stats: the state after the tick, then the exact column's
+    #    byte rows at their shapes, and the edge cases
+    results.append(stats_checks(
+        tick_stats, dev, parent,
+        (got_s[0], state.rows[0].clone(), got_s[1], got[3]),
+        cfg.n_universes, cfg.n_rows))
 
     for r in results:
         set_bound(r)
-        if r["name"] != "tick_stats" and r["max_abs_err"] != 0.0:
+        if r["max_abs_err"] != 0.0:
             fail(f"{r['name']} differs from its plain version "
                  f"(max |diff| {r['max_abs_err']})")
     return results
+
+
+# the exact column's statistics shapes: dense 100k x 16, sparse 1M x 4
+# and the mesh's host-sparse 10M x 2 (a copy a host), byte rows
+STATS_BYTE_SHAPES = ((16, 100_000), (4, 1_000_000), (2, 10_000_000))
+
+
+def stats_inputs(s: int, n: int, r: int, hops: bool, dev, seed: int):
+    """Seeded [S*n] statistics inputs: byte rows (r = 0) or int32 rows
+    [S*n, r] against a target of ones, msgs as a mid-run holds them
+    (K = 4 sends and sync messages), hop depths with a third unset."""
+    from corrosion_tpu_torch.kernels.deliver import HOP_UNSET
+
+    g = torch.Generator(device=dev)
+    g.manual_seed(seed)
+    total = s * n
+
+    def ints(hi, shape=(total,)):
+        return torch.randint(0, hi, shape, generator=g, device=dev,
+                             dtype=torch.int32)
+
+    if r:
+        rows = (ints(16, (total, r)) != 0).to(torch.int32)
+        target = torch.ones(r, dtype=torch.int32, device=dev)
+    else:
+        rows, target = ints(4) != 0, None
+    msgs = ints(9) * 4 + ints(3)
+    h = None
+    if hops:
+        h = ints(24)
+        h[ints(3) == 0] = HOP_UNSET
+    return rows, target, msgs, h
+
+
+def equal_nan(a, b) -> bool:
+    """Bitwise-equal values, NaN where the other has NaN."""
+    nan = torch.isnan(a)
+    return torch.equal(nan, torch.isnan(b)) and torch.equal(
+        torch.where(nan, 0.0, a), torch.where(nan, 0.0, b))
+
+
+def stats_equal(ts, inputs, s: int, label: str, out=None) -> torch.Tensor:
+    """Every design of ``tick_stats`` bitwise its plain version (NaN
+    equal to NaN) on ``inputs``; returns the kernel's statistics."""
+    rows, target, msgs, hops = inputs
+    want = ts.tick_stats_plain(rows, target, msgs, hops, s, torch.empty(
+        (s, len(ts.STATS)), dtype=torch.float32, device=msgs.device))
+    got = ts.tick_stats(rows, target, msgs, hops, s)
+    for d, name in enumerate(ts.DESIGNS):
+        if not equal_nan(design_stats(ts, inputs, s, d), want):
+            fail(f"tick_stats ({name}) differs from its plain version at "
+                 f"{label}:\n{got}\n{want}")
+    if not equal_nan(got, want):
+        fail(f"tick_stats differs from its plain version at {label}")
+    return got
+
+
+def design_stats(ts, inputs, s: int, design: int, out=None):
+    """``tick_stats`` on ``inputs`` through design ``design`` of the
+    kernel (``ts.DESIGNS``), whatever the wrapper would choose."""
+    if out is None:
+        out = torch.empty((s, len(ts.STATS)), dtype=torch.float32,
+                          device=inputs[2].device)
+    return ts._launch(*inputs, s, out, design)
+
+
+def stats_edge_checks(ts, dev) -> list:
+    """``tick_stats`` at the edges, every design against the plain
+    version: n a multiple of no tile, S = 1, series spanning NBINS - 1
+    values above a minimum far from 0 (accepted), a universe without a
+    measured hop depth (NaN), and one more value in the span (+inf in
+    that universe's percentiles alone)."""
+    cases = []
+    for s, n, r in ((3, 100_003, 8), (3, 100_003, 0), (1, 100_000, 8),
+                    (1, 100_000, 0), (2, 4_099, 5)):
+        inputs = stats_inputs(s, n, r, r > 0, dev, 7 + s + r)
+        stats_equal(ts, inputs, s, f"[{s} x {n}], R={r}")
+        cases.append(f"[{s} x {n}] R={r}")
+    s, n, top = 4, 50_000, ts.NBINS - 1
+    rows, target, msgs, hops = stats_inputs(s, n, 8, True, dev, 11)
+    m, h = msgs.view(s, n), hops.view(s, n)
+    m[1] += 12_345
+    m[1, 0], m[1, 1] = 12_345, 12_345 + top  # spans NBINS - 1
+    h[3] = torch.where(h[3] < ts.HOP_UNSET, h[3] + 3, h[3])
+    h[3, 0], h[3, 1] = 3, 3 + top
+    h[2] = ts.HOP_UNSET  # no measured depth
+    h[2, :10] = ts.HOP_UNSET - 1
+    base = stats_equal(ts, (rows, target, msgs, hops), s, "spans NBINS - 1")
+    if not bool(torch.isnan(base[2, ts.HOPS_P50:ts.HOPS_P99 + 1]).all()):
+        fail("tick_stats: a universe without a measured depth is not NaN")
+    cases.append("spans of NBINS - 1, no measured depth")
+    for label, series, u, cols in (
+            ("msgs", msgs, 1, (ts.MSGS_P99,)),
+            ("hops", hops, 3, (ts.HOPS_P50, ts.HOPS_P99))):
+        wide = series.clone()
+        wide.view(s, n)[u, 1] += 1  # spans NBINS
+        args = (wide, hops) if label == "msgs" else (msgs, wide)
+        expect = ts.tick_stats_plain(rows, target, *args, s,
+                                     torch.empty_like(base))
+        expect[u, list(cols)] = math.inf
+        for d, name in enumerate(ts.DESIGNS):
+            flagged = design_stats(ts, (rows, target, *args), s, d)
+            if not equal_nan(flagged, expect):
+                fail(f"tick_stats ({name}): a {label} series spanning "
+                     f"NBINS values was not flagged in its universe "
+                     f"alone:\n{flagged}")
+            try:
+                ts.raise_on_overflow(flagged.cpu().numpy())
+            except ValueError:
+                pass
+            else:
+                fail("tick_stats: raise_on_overflow missed a flag")
+        cases.append(f"{label} spanning NBINS flagged")
+    return cases
+
+
+def stats_checks(ts, dev, parent, headline, s: int, r: int) -> dict:
+    """Phase 2's ``tick_stats``: bitwise its plain version at the
+    headline's shape (``headline``: tick 7's rows, target, msgs, hops)
+    and at the exact column's byte-row shapes, every design timed there
+    (and the parent design in turns when given: on int32 [S*n, 1] rows
+    cast beforehand, as its callers cast them), with the edge cases;
+    the scratch must be all zero after every call."""
+    shapes = []
+    for label, s_, inputs in (
+            (f"{s} x {headline[2].numel() // s}, R={r}, hops", s, headline),
+            *((f"{u} x {n}, byte rows", u,
+               stats_inputs(u, n, 0, False, dev, u))
+              for u, n in STATS_BYTE_SHAPES)):
+        rows, target, msgs, hops = inputs
+        stats_equal(ts, inputs, s_, label)
+        out = torch.empty((s_, len(ts.STATS)), dtype=torch.float32,
+                          device=dev)
+        old = None
+        if parent is not None:
+            old_rows, old_target = rows, target
+            if target is None:
+                old_rows = rows.to(torch.int32).reshape(-1, 1)
+                old_target = torch.ones(1, dtype=torch.int32, device=dev)
+            old_out = parent.tick_stats(old_rows, old_target, msgs, hops,
+                                        s_, torch.empty_like(out))
+            if not equal_nan(old_out, ts.tick_stats(*inputs, s_)):
+                fail(f"tick_stats differs from the parent design at "
+                     f"{label}")
+
+            def old():
+                return parent.tick_stats(old_rows, old_target, msgs, hops,
+                                         s_, out)
+        moved = nbytes(rows, target, msgs, hops, out)
+        entry = dict(shape=label, bytes=moved,
+                     bound_ms=moved / HBM_BYTES_PER_S * 1e3)
+        for d, name in enumerate(ts.DESIGNS):
+            entry[name] = in_turns(
+                lambda d=d: design_stats(ts, inputs, s_, d, out),
+                old, lambda fn: time_device_ms(fn, 20))
+        entry["ms"] = time_device_ms(
+            lambda: ts.tick_stats(*inputs, s_, out=out), 20)
+        entry["plain_ms"] = time_ms(lambda: ts.tick_stats_plain(
+            *inputs, s_, out), 3)
+        shapes.append(entry)
+    edges = stats_edge_checks(ts, dev)
+    if any(int(torch.count_nonzero(b)) for b in ts._SCRATCH.values()):
+        fail("tick_stats left its scratch nonzero")
+    head = shapes[0]
+    return dict(
+        name="tick_stats", route="cuda",
+        source="corrosion_tpu_torch/kernels/csrc/tick_stats.cu",
+        replaces="corrosion_tpu/sim/epidemic.py:272", max_abs_err=0.0,
+        ms=head["ms"], plain_ms=head["plain_ms"],
+        bound=(head["bytes"], 0),
+        library_ms=None, shape=head["shape"], shapes=shapes, edges=edges)
 
 
 def set_bound(r: dict) -> None:
@@ -695,6 +825,7 @@ def run_equal(cfg, seeds: int, dev, label: str) -> dict:
 
 SECTOR = 32  # bytes a random access moves at least
 BUSY_TICK = 6  # most rows of the writer's block are active by then
+LATE_TICK = 8  # the dense run's third checked tick
 # a GPU-side wait queued before a timed call, so the host's enqueue of
 # the call hides behind it (about 1 ms at 1.98 GHz)
 SLEEP_CYCLES = 2_000_000
@@ -794,9 +925,10 @@ def exact_kernel_checks(dev, parent=None):
     and ``BUSY_TICK`` of the full-width runs at their own seed counts
     (the shapes the main path launches), and of a WAN latency variant
     of each (which fills the queue); for the ring also the run's
-    busiest tick (``busiest_tick``).  Timed at ``BUSY_TICK`` (the ring
-    at all three), against the parent design in turns when given, which
-    must also give the same results.  The dense check holds three
+    busiest tick (``busiest_tick``), for the bitmap ``LATE_TICK`` and
+    ``bitmap_edge_checks``.  Timed at each tick of the uniform runs, the
+    bitmap against the parent design in turns when given, which must
+    also give the same results.  The dense check holds three
     copies of the 20 GB bitmap (the state, the kernel's and the plain
     version's); the timed calls reuse the kernel's."""
     from corrosion_tpu_torch.kernels import exact_send as es
@@ -824,6 +956,8 @@ def exact_kernel_checks(dev, parent=None):
         if ring and cfg.topology == "uniform":
             busiest = busiest_tick(cfg, seeds, dev)
             ticks = sorted({*ticks, busiest["tick"]})
+        elif cfg.topology == "uniform":
+            ticks.append(LATE_TICK)
         state, base = exact_state_at(cfg, seeds, 0, ring, dev)
         for tick in ticks:
             state = exact_advance(state, base, cfg, tick, ring)
@@ -843,7 +977,7 @@ def exact_kernel_checks(dev, parent=None):
             bad = [nm for nm, x, y in zip(names, a, b)
                    if not torch.equal(x, y)]
             del a, b, want, want_inf
-            if parent is not None:  # the parent design, on the same inputs
+            if parent is not None and not ring:  # the parent, same inputs
                 old = {**args, **{f: v.clone() for f, v in saved.items()}}
                 old_d = diag()
                 old_inf = parent.exact_send(**old, diag=old_d)
@@ -869,10 +1003,10 @@ def exact_kernel_checks(dev, parent=None):
                 commit_max_abs_err=c_err, active_rows=d[0],
                 rounds_mean=d[1] / max(1, d[0]), rounds_max=d[2],
                 learned=learned))
-            if cfg.topology == "uniform" and (tick != 1 or ring):
+            if cfg.topology == "uniform":
                 times = exact_times(es, cfg, seeds, ring, rep, tick, args,
                                     saved, got, got_inf, d, learned, diag(),
-                                    parent)
+                                    None if ring else parent)
                 checks[-1]["times"] = {k: {f: v[f] for f in v if f in (
                     "ms", "ms_runs", "parent_ms", "bound", "shape")}
                     for k, v in times.items()}
@@ -882,8 +1016,9 @@ def exact_kernel_checks(dev, parent=None):
             torch.cuda.empty_cache()
         del state
         torch.cuda.empty_cache()
+    checks += bitmap_edge_checks(es, dev, parent)
     for c in checks:
-        if c["differs"] or c["commit_max_abs_err"] != 0.0:
+        if c["differs"] or c.get("commit_max_abs_err", 0.0) != 0.0:
             fail(f"exact kernels differ from their plain versions: {c}")
     source = "corrosion_tpu_torch/kernels/csrc/exact_send.cu"
     results = []
@@ -898,6 +1033,66 @@ def exact_kernel_checks(dev, parent=None):
             max_abs_err=errs[key], library_ms=None, **timed[key]))
         set_bound(results[-1])
     return results, checks, busiest
+
+
+def bitmap_edge_checks(es, dev, parent=None) -> list:
+    """``exact_send<Bitmap>`` against its plain version (and the parent
+    design, when given), every output bitwise, on crafted states at
+    N = 64, 2 seeds, where a row's candidates often share one of its 8
+    bitmap bytes: K = 4 (the exact column's fanout, its own kernel) with
+    an empty bitmap and with about 60% of each row's bits set, so rows
+    redraw past the block's KEY_ROUNDS round keys (its maximum must
+    exceed them), and K = 3 and 8 (the kernel for any K); loss and a
+    partition in force."""
+    from corrosion_tpu_torch.random import PRNGKey, fold_in
+    from corrosion_tpu_torch.sim.calibrate import _tick_keys
+
+    s, n, max_tx, tick = 2, 64, 8, 3
+    keys, _ = _tick_keys([fold_in(PRNGKey(40 + x), tick) for x in range(s)])
+    g = torch.Generator(device=dev)
+    g.manual_seed(64)
+    out = []
+    for label, fill, k in (("n64_k4", 0.0, 4), ("n64_k4_redraws", 0.6, 4),
+                           ("n64_k3", 0.3, 3), ("n64_k8", 0.1, 8)):
+        p = es.SendParams(fanout=k, max_tx=max_tx, backoff=0.5, loss=0.05,
+                          part_blocks=2, heal_tick=5)
+        base = dict(
+            infected=torch.rand((s, n), generator=g, device=dev) < 0.7,
+            tx=torch.randint(0, max_tx + 1, (s, n), generator=g,
+                             device=dev, dtype=torch.int32),
+            next_send=torch.randint(0, tick + 2, (s, n), generator=g,
+                                    device=dev, dtype=torch.int32),
+            msgs=torch.zeros((s, n), dtype=torch.int32, device=dev),
+            pending=None,
+            sent=(torch.rand((s, n, n), generator=g, device=dev) < fill),
+            keys=keys, tick=tick, p=p, tier=None)
+        bits = base["sent"].reshape(s, n, n // 8, 8).to(torch.int32)
+        base["sent"] = (bits << torch.arange(8, device=dev)).sum(-1).to(
+            torch.uint8)
+        runs = {}
+        for who, fn in (("kernel", es.exact_send),
+                        ("plain", es.exact_send_plain),
+                        *((("parent", parent.exact_send),)
+                          if parent is not None else ())):
+            a = {f: v.clone() if isinstance(v, torch.Tensor) else v
+                 for f, v in base.items()}
+            d = torch.zeros(len(es.DIAG), dtype=torch.int64, device=dev)
+            new_inf = fn(**a, diag=d)
+            runs[who] = [new_inf, *(a[f] for f in MUTATED if a[f] is not None),
+                         d]
+        names = ["new_infected", *(f for f in MUTATED if base[f] is not None),
+                 "diag"]
+        bad = [f"{who} {nm}" for who in runs if who != "kernel"
+               for nm, x, y in zip(names, runs["kernel"], runs[who])
+               if not torch.equal(x, y)]
+        d = runs["kernel"][-1].tolist()
+        out.append(dict(rep="bitmap", n=n, seeds=s, tick=tick, case=label,
+                        differs=bad, active_rows=d[0],
+                        rounds_mean=d[1] / max(1, d[0]), rounds_max=d[2]))
+        if label.endswith("redraws") and d[2] <= es.KEY_ROUNDS:
+            fail(f"{label}: no row redrew past the {es.KEY_ROUNDS} rounds "
+                 f"of the block's key table ({d})")
+    return out
 
 
 def exact_times(es, cfg, seeds, ring, rep, tick, args, saved, work,
@@ -1033,7 +1228,6 @@ def exact_equal(cfg, seeds: int, sparse: bool, dev, label: str) -> dict:
     gpu, base = exact_state_at(cfg, seeds, 0, sparse, dev)
     cpu, _ = exact_state_at(cfg, seeds, 0, sparse, "cpu")
     tick_fn = cal.frontier_exact_tick if sparse else cal.packed_exact_tick
-    one = torch.ones(1, dtype=torch.int32)
     while gpu.tick < cfg.max_ticks:
         keys = [fold_in(k, gpu.tick) for k in base]
         gpu, cpu = tick_fn(gpu, keys, cfg), tick_fn(cpu, keys, cfg)
@@ -1042,9 +1236,8 @@ def exact_equal(cfg, seeds: int, sparse: bool, dev, label: str) -> dict:
             if not np.array_equal(a[f], b[f]):
                 fail(f"{label}: card and CPU differ in {f} at tick "
                      f"{gpu.tick}")
-        st = [tick_stats(s.infected.to(torch.int32).reshape(-1, 1),
-                         one.to(s.infected.device), s.msgs.reshape(-1),
-                         None, seeds).cpu() for s in (gpu, cpu)]
+        st = [tick_stats(s.infected, None, s.msgs.reshape(-1), None,
+                         seeds).cpu() for s in (gpu, cpu)]
         if not torch.equal(torch.nan_to_num(st[0]), torch.nan_to_num(st[1])):
             fail(f"{label}: tick stats differ at tick {gpu.tick}")
         if bool((st[1][:, CONVERGED] == 1.0).all()):
@@ -2184,11 +2377,10 @@ def winners_full_width(counted) -> dict:
     return runs, plans["interleaved_warm"]
 
 
-def winners_kernel_checks(plan, dev, parent=None) -> list:
+def winners_kernel_checks(plan, dev) -> list:
     """Each winner-selection kernel against its plain version on the
     card, on the intermediates of ``plan`` (every output bitwise), timed
-    with CUDA events, with its bytes bound; the (pk, cid) sort also
-    against the parent design, when given, in turns."""
+    with CUDA events, with its bytes bound."""
     from corrosion_tpu_torch.kernels import seg_sort, winners
     from corrosion_tpu_torch.kernels.winners import BIG
 
@@ -2207,14 +2399,9 @@ def winners_kernel_checks(plan, dev, parent=None) -> list:
     err = max(max_abs_err([o_b], [seg_sort.seg_argsort_plain(
         *sort_args)[0]]), max_abs_err([o_a], [seg_sort.seg_argsort_plain(
             pk[None], (n_pk - 1).bit_length())[0]]))
-    if parent is not None and not torch.equal(
-            parent.seg_argsort(*sort_args)[0], o_b):
-        fail("the winners' sort differs from the parent design")
     res = [dict(
         name="seg_argsort (int64, one segment)", max_abs_err=err,
-        **in_turns(lambda: seg_sort.seg_argsort(*sort_args),
-                   parent and (lambda: parent.seg_argsort(*sort_args)),
-                   lambda fn: time_device_ms(fn, 20)),
+        ms=time_device_ms(lambda: seg_sort.seg_argsort(*sort_args), 20),
         plain_ms=time_ms(lambda: seg_sort.seg_argsort_plain(*sort_args), 5),
         library_ms=time_device_ms(lambda: torch.sort(comp, stable=True), 20),
         bound=(n * (8 + 4), 0),
@@ -3578,7 +3765,7 @@ def main() -> int:
 
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--parent", help="a checkout of the parent commit: time "
-                    "its seg_argsort and exact_send beside this tree's")
+                    "its tick_stats and exact_send beside this tree's")
     opts = ap.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
@@ -3769,8 +3956,7 @@ def main() -> int:
           "entries included)", flush=True)
 
     sent_results = sent_phases(record, counted, cuda)
-    winners_results = sort_winners_phases(record, counted, results, cuda,
-                                          parent)
+    winners_results = sort_winners_phases(record, counted, results, cuda)
     with tempfile.TemporaryDirectory(prefix="apply-",
                                      dir=kernels.BUILD_DIR) as tmp:
         store_results = apply_phases(record, counted, tmp,
@@ -3857,7 +4043,7 @@ def sent_phases(record: dict, counted: dict, cuda) -> list:
 
 
 def sort_winners_phases(record: dict, counted: dict, results: list,
-                        cuda, parent=None) -> list:
+                        cuda) -> list:
     """Phases 14-15, the segmented sort and the winner selection;
     returns the three winner kernels' results and adds the winners
     runs' launches to ``seg_argsort``'s (in ``results``, phase 2)."""
@@ -3874,7 +4060,7 @@ def sort_winners_phases(record: dict, counted: dict, results: list,
     # phase 15: the winner selection at full width
     runs, plan = winners_full_width(counted)
     record["winners_runs"] = runs
-    checks = winners_kernel_checks(plan, cuda, parent)
+    checks = winners_kernel_checks(plan, cuda)
     record["winners_sort"] = checks[0]
     replaces = {"seg_cummax": "corrosion_tpu/ops/merge.py:599",
                 "winners_a": "corrosion_tpu/ops/merge.py:619",

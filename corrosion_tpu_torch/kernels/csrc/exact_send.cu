@@ -10,41 +10,42 @@
 // queue, scatter-sets the infection, scatter-adds the sender's marks
 // and runs the budget / backoff epilogue as separate passes.
 //
-// exact_send<Ring>: two launches.  exact_rows writes the worklist of
-// the active (seed, sender row) pairs (infected, budget left, due):
-// eight rows a thread, warp ballots and one atomicAdd a block, in any
-// order.  exact_send_ring_kernel is a persistent grid that walks the
-// worklist, one thread a listed row, so warps run active rows only,
-// however few a tick has.  exact_send<Bitmap> is one launch
-// (exact_send_bitmap_kernel), one thread a row of all rows, each
-// deriving its own round keys (the worklist made it slower:
-// chip_smoke.py phase 5 in PERF.md).  A row
-// runs its own rejection loop: round r draws the row's K candidates of
-// randint(fold_in(k_draw, r), (n, K), 0, n) at flat indices i*K ..
-// i*K+K-1 and redraws the whole tuple until it holds no self hit, no
-// duplicate and no sent hit.  The round's randint keys (fold_in and
-// randint's split: 3 of a round's 3 + 2K hashes) depend on (seed, r)
-// alone, so each ring block (and each shard_round block) derives them
-// once for the first KEY_ROUNDS rounds of every seed into shared
-// memory; a later round derives its own.  A row's draws depend on its own index only, so
-// this equals the reference's loop, which freezes rows once they are
-// valid.  The sent test is the template parameter: bit c & 7 of byte
-// sent[s, i, c >> 3], or a compare across the row's ring slots plus
-// the ring0 tier.  The ring row (cap = max_tx * K int32 slots, 32 at
-// the headline) is loaded once into registers, 16 bytes a load, and
-// every candidate of every round is tested there; slots past
-// RING_REGS are read from memory.  Each candidate then meets the loss,
-// partition and WAN masks in the reference's order; a delayed
-// (cross-region) delivery goes to the target's queue slot with an
-// atomicMin (exact in any order), any other delivery stores 1 into
-// new_infected, a copy of infected (stores of 1 are idempotent).  The
-// thread marks its own row in place (only thread i reads or writes row
-// i of sent / ring), then updates its own msgs, tx and next_send
-// (round() half-to-even as rintf on a float32 product).  A per-block
-// reduction adds the active rows, their rejection rounds and their
-// maximum to a small diagnostics vector.  The latency queue's promote
-// pass clears slots and must run before this kernel, never inside it,
-// or a concurrent atomicMin is lost.
+// exact_send<Ring>: two launches.  exact_rows writes the worklist of the
+// active (seed, sender row) pairs (infected, budget left, due): eight rows
+// a thread, warp ballots and one atomicAdd a block, in any order.
+// exact_send_ring_kernel is a persistent grid that walks the worklist, one
+// thread a listed row, so warps run active rows only, however few a tick
+// has.  exact_send<Bitmap> is one launch (exact_send_bitmap_kernel), a
+// persistent grid with no list: each warp ballots the activity of its tiles
+// of 32 rows and deals the active rows to its lanes, carrying a short batch
+// into the next tile, so warps run active rows only here too.  A row runs
+// its own rejection loop: round r draws the row's K candidates of
+// randint(fold_in(k_draw, r), (n, K), 0, n) at flat indices i*K .. i*K+K-1
+// and redraws the whole tuple until it holds no self hit, no duplicate and
+// no sent hit.  The round's randint keys (fold_in and randint's split: 3 of
+// a round's 3 + 2K hashes) depend on (seed, r) alone, so each block of the
+// three persistent grids derives them once for the first KEY_ROUNDS rounds
+// of every seed into shared memory; a later round derives its own.  A row's
+// draws depend on its own index only, so this equals the reference's loop,
+// which freezes rows once they are valid.  The sent test is the template
+// parameter: bit c & 7 of byte sent[s, i, c >> 3], or a compare across the
+// row's ring slots plus the ring0 tier.  The ring row (cap = max_tx * K
+// int32 slots, 32 at the headline) is loaded once into registers, 16 bytes
+// a load, and every candidate of every round is tested there; slots past
+// RING_REGS are read from memory.  The bitmap's K bytes of a round are
+// loaded together, and the accepted round's stay in registers: the marks OR
+// their bits in and write each byte once, with the bits of every candidate
+// that shares it, so no byte is read twice.  Each candidate then meets the
+// loss, partition and WAN masks in the reference's order; a delayed
+// (cross-region) delivery goes to the target's queue slot with an atomicMin
+// (exact in any order), any other delivery stores 1 into new_infected, a
+// copy of infected (stores of 1 are idempotent).  The thread marks its own
+// row in place (only thread i reads or writes row i of sent / ring), then
+// updates its own msgs, tx and next_send (round() half-to-even as rintf on
+// a float32 product).  A persistent block's reduction adds the active rows,
+// their rejection rounds and their maximum to a small diagnostics vector.
+// The latency queue's promote pass clears slots and must run before this
+// kernel, never inside it, or a concurrent atomicMin is lost.
 //
 // exact_commit: one thread per (seed, node): a node that learned this
 // tick (new_infected & ~infected) gets a fresh budget and forwards
@@ -57,9 +58,9 @@
 // infection stores and the marks.  The design draws in registers, so
 // no [N, K] draw array and no candidate array reaches memory, and
 // inactive rows cost their 9 bytes (and 4 a worklist entry for an
-// active one).  The ring's indices are 32-bit (the wrapper keeps S * N
-// below 2**31); the bitmap's send indexes in size_t, and its row offset
-// must: 16 seeds x 100k x 12.5k bytes is 2.0e10, past 2**31.
+// active one).  Row indices are 32-bit (the wrapper keeps S * N below
+// 2**31); the bitmap's row offset is size_t, as it must be: 16 seeds x
+// 100k x 12.5k bytes is 2.0e10, past 2**31.
 
 #include <cstddef>
 #include <cstdint>
@@ -70,6 +71,7 @@
 namespace {
 
 constexpr int MAX_K = 8;
+constexpr int BITMAP_FANOUT = 4;  // sim/calibrate.py headline_exact_cfg
 constexpr int MAX_SEEDS = 32;
 constexpr int MAX_ROUNDS = 4096;
 constexpr int THREADS = 256;
@@ -148,13 +150,14 @@ __device__ __forceinline__ void fill_keys(const ExactArgs& a, KeyTable& t) {
 
 // The K candidates of row i under round keys rk: row i of
 // randint(fold_in(k_draw, r), (n, K), 0, n), flat indices i*K + j (i is
-// the global row id).
+// the global row id); KN >= a.k the tuple's registers.
+template <int KN>
 __device__ __forceinline__ void draw_with(const ExactArgs& a,
                                           const RoundKeys& rk, int i,
-                                          int (&cand)[MAX_K]) {
+                                          int (&cand)[KN]) {
   const unsigned long long f0 = (unsigned long long)i * a.k;
 #pragma unroll
-  for (int j = 0; j < MAX_K; ++j) {
+  for (int j = 0; j < KN; ++j) {
     if (j < a.k) {
       const unsigned long long f = f0 + j;
       cand[j] = common::randint_of(common::threefry_xor(rk.h0, rk.h1, f),
@@ -164,9 +167,10 @@ __device__ __forceinline__ void draw_with(const ExactArgs& a,
   }
 }
 
+template <int KN>
 __device__ __forceinline__ void draw_tuple(const ExactArgs& a,
                                            const uint32_t* key, int r, int i,
-                                           int (&cand)[MAX_K]) {
+                                           int (&cand)[KN]) {
   draw_with(a, round_keys(key, r), i, cand);
 }
 
@@ -449,45 +453,207 @@ __global__ void __launch_bounds__(THREADS)
   add_diag(a.diag, dg.active, dg.rounds, dg.most, dg.capped);
 }
 
-// The bitmap's send: one thread a row of all S * N, each active row
-// deriving its own round keys; its own body, in size_t (the same body
-// through the ring's send_row ran 4% slower: PERF.md).
-__global__ void __launch_bounds__(THREADS)
-    exact_send_bitmap_kernel(const ExactArgs a) {
-  const size_t total = (size_t)a.s * a.n;
-  const size_t g = (size_t)blockIdx.x * THREADS + threadIdx.x;
-  unsigned active = 0, rounds = 0, most = 0, capped = 0;
-  if (g < total && a.infected[g] && a.tx[g] > 0 && a.next_send[g] <= a.tick) {
-    const int s = (int)(g / (size_t)a.n);
-    const int i = (int)(g - (size_t)s * (size_t)a.n);
-    int cand[MAX_K];
-    bool cap_hit = false;
-    const int r =
-        reject_loop<false>(a, nullptr, s, (unsigned)g, i, cand, cap_hit);
-    active = 1;
-    rounds = r;
-    most = r;
-    capped = cap_hit;  // the caller raises on diag[3]; the row sends nothing
-    if (!cap_hit) {
-      const uint32_t* key = a.keys[s];
-      const size_t seed0 = (size_t)s * (size_t)a.n;
-      const int tx0 = a.tx[g];
+// The k-th (0-based) set bit of b, for k < popc(b).
+__device__ __forceinline__ int nth_set(unsigned b, int k) {
+  int pos = 0;
 #pragma unroll
-      for (int j = 0; j < MAX_K; ++j) {
-        if (j < a.k) {
-          const int c = cand[j];
-          const Delivery del = deliver_kind(a, key, i, j, c);
-          if (del == QUEUED)
-            atomicMin(a.pending + seed0 + c, a.tick + a.lat_ticks);
-          else if (del == NOW)
-            a.new_infected[seed0 + c] = 1;
-          mark<false>(a, (unsigned)g, tx0, j, c);
-        }
-      }
-      spend(a, (unsigned)g, i);
+  for (int w = 16; w > 0; w >>= 1) {
+    const unsigned low = b & ((1u << w) - 1u);
+    const int c = __popc(low);
+    if (k >= c) {
+      k -= c;
+      b >>= w;
+      pos += w;
+    } else {
+      b = low;
     }
   }
-  add_diag(a.diag, active, rounds, most, capped);
+  return pos;
+}
+
+// Bitmap row i's rejection loop (seed s, its bitmap row `row`): the
+// accepted tuple in cand and the bitmap bytes its sent test loaded for
+// it in byte (byte j holds cand[j]'s bit); returns the rounds drawn
+// (MAX_ROUNDS with capped set when none was accepted).  The first
+// KEY_ROUNDS rounds take their keys from the block's table.  A round's
+// K bytes are loaded together, once its tuple holds no self and no
+// duplicate hit.  KN >= a.k is the tuple's registers.
+template <int KN>
+__device__ __forceinline__ int bitmap_loop(const ExactArgs& a,
+                                           const KeyTable& keys, int s,
+                                           const unsigned char* row, int i,
+                                           int (&cand)[KN],
+                                           unsigned (&byte)[KN],
+                                           bool& capped) {
+  for (int r = 0;; ++r) {
+    if (r == MAX_ROUNDS) {
+      capped = true;
+      return r;
+    }
+    if (r < KEY_ROUNDS)
+      draw_with(a, keys.rk[s][r], i, cand);
+    else
+      draw_tuple(a, a.keys[s], r, i, cand);
+    bool bad = false;
+#pragma unroll
+    for (int j = 0; j < KN; ++j)
+      if (j < a.k) bad |= cand[j] == i;
+#pragma unroll
+    for (int x = 0; x < KN; ++x)
+#pragma unroll
+      for (int y = x + 1; y < KN; ++y)
+        if (y < a.k) bad |= cand[x] == cand[y];
+    if (bad) continue;
+#pragma unroll
+    for (int j = 0; j < KN; ++j)
+      if (j < a.k) byte[j] = row[cand[j] >> 3];
+#pragma unroll
+    for (int j = 0; j < KN; ++j)
+      if (j < a.k) bad |= (byte[j] >> (cand[j] & 7)) & 1u;
+    if (!bad) return r + 1;
+  }
+}
+
+// Active bitmap row g: its rejection loop, K deliveries, its marks
+// written from the loaded bytes (candidates that share a byte write it
+// once, with all their bits) and its budget.
+template <int KN>
+__device__ __forceinline__ void bitmap_row(const ExactArgs& a,
+                                           const KeyTable& keys, unsigned g,
+                                           Diag& dg) {
+  const int s = (int)(g / (unsigned)a.n);
+  const int i = (int)(g - (unsigned)s * (unsigned)a.n);
+  unsigned char* row = a.sent + (size_t)g * (size_t)a.nb;
+  int cand[KN];
+  unsigned byte[KN];
+  bool cap_hit = false;
+  const int r = bitmap_loop(a, keys, s, row, i, cand, byte, cap_hit);
+  dg.active += 1;
+  dg.rounds += r;
+  dg.most = max(dg.most, (unsigned)r);
+  dg.capped += cap_hit;  // the caller raises on diag[3]; the row sends nothing
+  if (cap_hit) return;
+  const uint32_t* key = a.keys[s];
+  const size_t seed0 = (size_t)s * (size_t)a.n;
+#pragma unroll
+  for (int j = 0; j < KN; ++j) {
+    if (j < a.k) {
+      const int c = cand[j];
+      const Delivery del = deliver_kind(a, key, i, j, c);
+      if (del == QUEUED)
+        atomicMin(a.pending + seed0 + c, a.tick + a.lat_ticks);
+      else if (del == NOW)
+        a.new_infected[seed0 + c] = 1;
+    }
+  }
+#pragma unroll
+  for (int j = 0; j < KN; ++j) {
+    if (j < a.k) {
+      bool first = true;
+      unsigned v = byte[j] | 1u << (cand[j] & 7);
+#pragma unroll
+      for (int y = 0; y < KN; ++y) {
+        if (y != j && y < a.k && cand[y] >> 3 == cand[j] >> 3) {
+          first &= y > j;
+          v |= 1u << (cand[y] & 7);
+        }
+      }
+      if (first) row[cand[j] >> 3] = (unsigned char)v;
+    }
+  }
+  spend(a, g, i);
+}
+
+// 32-row tiles a warp tests together: their activity loads a lane in
+// flight at once.  A warp's tiles are interleaved with every other
+// warp's, so their counts differ by one and the depth adds no tail; a
+// deeper batch only keeps more loads live across the loops.
+constexpr int TILE_DEPTH = 4;
+
+// The activity ballots of tiles t0 + d * warps, d < TILE_DEPTH:
+// infected, then tx and next_send only where infected.
+__device__ __forceinline__ void tile_activity(const ExactArgs& a,
+                                              unsigned t0, unsigned warps,
+                                              unsigned tiles, unsigned total,
+                                              int lane,
+                                              unsigned (&ball)[TILE_DEPTH]) {
+  bool act[TILE_DEPTH];
+#pragma unroll
+  for (int d = 0; d < TILE_DEPTH; ++d) {
+    const unsigned t = t0 + d * warps;
+    const unsigned g = t * 32u + lane;
+    act[d] = t < tiles && g < total && a.infected[g];
+  }
+#pragma unroll
+  for (int d = 0; d < TILE_DEPTH; ++d) {
+    const unsigned g = (t0 + d * warps) * 32u + lane;
+    act[d] = act[d] && a.tx[g] > 0 && a.next_send[g] <= a.tick;
+  }
+#pragma unroll
+  for (int d = 0; d < TILE_DEPTH; ++d) ball[d] = __ballot_sync(FULL, act[d]);
+}
+
+// The bitmap's send: a persistent grid, the block's key table.  Warp w
+// of W takes the 32-row tiles w, w + W, w + 2W, ..., TILE_DEPTH at a
+// time: it ballots their activity and deals the active rows to its
+// lanes in order, carrying the ones that do not fill a batch of 32 into
+// the next tile, so every lane runs a row while the warp has 32 left.
+// One call site runs the rows (the row's code, inlined, is most of the
+// kernel's instructions).  Each row is one thread's, which makes its
+// unsynchronised byte writes to its own bitmap row safe.  Diagnostics
+// once a block.  KN >= a.k is the tuple's registers: BITMAP_FANOUT, the
+// exact column's, has its own instantiation (54 registers against
+// MAX_K's 64, so more warps an SM).
+template <int KN>
+__global__ void __launch_bounds__(THREADS)
+    exact_send_bitmap_kernel(const ExactArgs a) {
+  __shared__ KeyTable table;
+  fill_keys(a, table);
+  const unsigned total = (unsigned)a.s * (unsigned)a.n;
+  const unsigned tiles = (total + 31u) / 32u;
+  const unsigned warps = gridDim.x * (THREADS / 32);
+  const int lane = threadIdx.x & 31;
+  Diag dg;
+  unsigned ball[TILE_DEPTH];
+  unsigned next_t0 = blockIdx.x * (THREADS / 32) + threadIdx.x / 32;
+  unsigned t0 = 0;
+  int dealt = TILE_DEPTH;  // tiles of the loaded ballots dealt so far
+  unsigned mine = 0;       // this lane's row of the batch being dealt
+  int held = 0;            // rows dealt to lanes 0 .. held - 1, not yet run
+  for (;;) {
+    // deal tiles (warp-uniform) until 32 rows wait or the tiles run out
+    unsigned b = 0, row0 = 0;
+    int c = 0;
+    bool full = false;
+    for (;;) {
+      if (dealt == TILE_DEPTH) {
+        if (next_t0 >= tiles) break;
+        t0 = next_t0;
+        next_t0 += TILE_DEPTH * warps;
+        tile_activity(a, t0, warps, tiles, total, lane, ball);
+        dealt = 0;
+      }
+      b = ball[0];
+#pragma unroll
+      for (int d = 0; d + 1 < TILE_DEPTH; ++d) ball[d] = ball[d + 1];
+      row0 = (t0 + dealt * warps) * 32u;
+      ++dealt;
+      c = __popc(b);
+      const int k = lane - held;  // this lane's place among the new rows
+      if (k >= 0 && k < c) mine = row0 + nth_set(b, k);
+      if (held + c >= 32) {
+        full = true;
+        break;
+      }
+      held += c;
+    }
+    if (!full && held == 0) break;
+    if (full || lane < held) bitmap_row<KN>(a, table, mine, dg);
+    if (!full) break;
+    held += c - 32;  // the rest of this tile waits in lanes 0 ..
+    if (lane < held) mine = row0 + nth_set(b, c - held + lane);
+  }
+  add_diag(a.diag, dg.active, dg.rounds, dg.most, dg.capped);
 }
 
 // -- one shard of the multi-device layouts -------------------------------
@@ -668,9 +834,14 @@ extern "C" int exact_send_launch(const void* args, int ring, const void* list,
   if (ring)
     exact_send_ring_kernel<<<persistent_blocks(exact_send_ring_kernel, total),
                              THREADS, 0, st>>>(a, l, c);
+  else if (a.k == BITMAP_FANOUT)
+    exact_send_bitmap_kernel<BITMAP_FANOUT>
+        <<<persistent_blocks(exact_send_bitmap_kernel<BITMAP_FANOUT>, total),
+           THREADS, 0, st>>>(a);
   else
-    exact_send_bitmap_kernel<<<(unsigned)((total + THREADS - 1) / THREADS),
-                               THREADS, 0, st>>>(a);
+    exact_send_bitmap_kernel<MAX_K>
+        <<<persistent_blocks(exact_send_bitmap_kernel<MAX_K>, total),
+           THREADS, 0, st>>>(a);
   return (int)cudaGetLastError();
 }
 

@@ -17,7 +17,10 @@ and K random sectors each for the infection stores and the marks.  One
 launch writes the ring's worklist of active rows; a persistent grid
 walks it, each row's rejection loop and draws in registers, its ring
 row loaded once into registers and the rounds' randint keys derived
-once a block.  The bitmap's send is one launch, one thread a row.
+once a block.  The bitmap's send is one launch of a persistent grid:
+each warp ballots its tiles' activity and deals the active rows to its
+lanes, with the block's round keys; a row's accepted bitmap bytes stay
+in registers for its marks.
 
 Both functions update their state arguments in place (``tx``,
 ``next_send``, ``msgs``, ``pending``, ``sent``; the commit ``tx`` and
@@ -43,6 +46,7 @@ from corrosion_tpu_torch.random import fold_in, key_words, randint_span, split
 MAX_FANOUT = 8  # the kernel keeps a tuple in registers
 MAX_SEEDS = 32  # per-seed keys travel in the launch's argument block
 MAX_ROUNDS = 4096  # rejection rounds before a row counts as capped
+KEY_ROUNDS = 8  # rounds whose keys a kernel block derives once
 # the diagnostics vector both versions accumulate (int64 [4])
 DIAG = ("active_rows", "rounds", "max_rounds", "capped_rows")
 
@@ -409,7 +413,7 @@ def exact_send(infected, tx, next_send, msgs, pending, sent, keys,
             ctypes.addressof(a), rows, count, st)
         if code == 0:
             code = send(ctypes.addressof(a), 1, rows, count, st)
-    else:  # one thread a row of all rows
+    else:  # the active rows dealt to lanes inside each warp
         code = send(ctypes.addressof(a), 0, kernels.ptr(None),
                     kernels.ptr(None), st)
     exact_send.launches += 1

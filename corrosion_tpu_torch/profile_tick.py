@@ -33,8 +33,11 @@ Prints one JSON object with an entry per piece: the unprofiled walls;
 for each profiled run its wall, the device time summed over every
 kernel the profiler saw in it, and its device idle share (1 - device
 time / that same wall); and, from the profiled run of median idle
-share, the device time per kernel name with its launches.  Takes no
-arguments; needs a CUDA card and raises without one.
+share, the device time per kernel name with its launches.
+``--pieces a,b`` runs the named pieces only; ``--parent DIR`` (DIR an
+unpacked checkout of the parent commit) runs them on DIR's package and
+on this one in turns, parent, change, change, parent, each in its own
+process.  Needs a CUDA card and raises without one.
 """
 
 from __future__ import annotations
@@ -42,9 +45,12 @@ from __future__ import annotations
 import argparse
 import contextlib
 import json
+import subprocess
+import sys
 import tempfile
 import time
 from dataclasses import replace
+from pathlib import Path
 
 import numpy as np
 import torch
@@ -326,10 +332,18 @@ def apply_waves(path: str, n: int):
     return prepare
 
 
-def main() -> int:
-    argparse.ArgumentParser(description=__doc__.splitlines()[0]).parse_args()
+def _devcache(label: str, n: int) -> dict:
+    with tempfile.TemporaryDirectory(prefix="devcache-",
+                                     dir=kernels.BUILD_DIR) as d:
+        return profile(apply_waves(f"{d}/{label}.db", n), changes=n,
+                       rows=n // 4, cached_rows=APPLY_ROWS)
+
+
+def pieces() -> dict:
+    """{name: () -> the piece's ``profile`` entry}, in the order a run
+    without ``--pieces`` takes them."""
     cfg = replace(HEADLINE, n_universes=HEADLINE_SEEDS)
-    out = {"headline_chunk": profile(
+    table = {"headline_chunk": lambda: profile(
         headline_chunk(cfg), nodes=cfg.n_nodes, seeds=cfg.n_universes,
         ticks=cfg.chunk_ticks)}
     for label, ecfg, seeds, kernel in (
@@ -338,8 +352,8 @@ def main() -> int:
         ("exact_sparse_1m", calibrate.EXACT_SPARSE,
          calibrate.EXACT_SPARSE_SEEDS, "sparse"),
     ):
-        out[label] = profile(exact_run(ecfg, seeds, kernel),
-                             nodes=ecfg.n_nodes, seeds=seeds, kernel=kernel)
+        table[label] = (lambda e=ecfg, s=seeds, k=kernel: profile(
+            exact_run(e, s, k), nodes=e.n_nodes, seeds=s, kernel=k))
     for label, ecfg, seeds, axis, shards, sparse, host in (
         ("host_sparse_10m_chunk",
          calibrate.headline_exact_cfg(10_000_000, False), 2, "hosts", 2,
@@ -347,33 +361,73 @@ def main() -> int:
         ("sharded_dense_100k_chunk", calibrate.EXACT_DENSE, 4, "nodes", 8,
          False, False),
     ):
-        out[label] = profile(
-            mesh_chunk(ecfg, seeds, axis, shards, sparse, host),
-            nodes=ecfg.n_nodes, seeds=seeds, shards=shards, axis=axis,
-            ticks=ecfg.chunk_ticks)
-    out["anti_entropy_config4"] = profile(
+        table[label] = (
+            lambda e=ecfg, s=seeds, a=axis, d=shards, sp=sparse, h=host:
+            profile(mesh_chunk(e, s, a, d, sp, h), nodes=e.n_nodes,
+                    seeds=s, shards=d, axis=a, ticks=e.chunk_ticks))
+    table["anti_entropy_config4"] = lambda: profile(
         anti_entropy_run(antientropy.CONFIG4, antientropy.CONFIG4_SEEDS),
         nodes=antientropy.CONFIG4.n_nodes, seeds=antientropy.CONFIG4_SEEDS)
     for n in (64, 4096):
-        ccfg = churn.ChurnConfig(n_nodes=n)
-        out[f"churn_{n}_chunk"] = profile(churn_chunk(ccfg), nodes=n,
-                                          ticks=ccfg.chunk_ticks)
+        table[f"churn_{n}_chunk"] = (lambda c=churn.ChurnConfig(n_nodes=n):
+                                     profile(churn_chunk(c), nodes=c.n_nodes,
+                                             ticks=c.chunk_ticks))
     ecfg = calibrate.ExactConfig(16_000)
-    out["calib_exact_16k"] = profile(calib_seed(ecfg), nodes=ecfg.n_nodes,
-                                     seeds=1)
-    out["track_sent_512"] = profile(track_sent_run(sent_trace_cfg(512), 8),
-                                    nodes=512, seeds=8)
-    plan = merge.encode_changes(*resync_batch())
-    out["winners_1m"] = profile(winners_call(plan), changes=plan.n,
-                                rows=plan.n_pk, cells=plan.n_cid)
-    with tempfile.TemporaryDirectory(prefix="devcache-",
-                                     dir=kernels.BUILD_DIR) as d:
-        for label, n in (("devcache_steady_wave", 10_000),
-                         ("devcache_full_wave", 4 * APPLY_ROWS)):
-            out[label] = profile(apply_waves(f"{d}/{label}.db", n),
-                                 changes=n, rows=n // 4,
-                                 cached_rows=APPLY_ROWS)
-    print(json.dumps(out))
+    table["calib_exact_16k"] = lambda: profile(
+        calib_seed(ecfg), nodes=ecfg.n_nodes, seeds=1)
+    table["track_sent_512"] = lambda: profile(
+        track_sent_run(sent_trace_cfg(512), 8), nodes=512, seeds=8)
+
+    def winners():
+        plan = merge.encode_changes(*resync_batch())
+        return profile(winners_call(plan), changes=plan.n, rows=plan.n_pk,
+                       cells=plan.n_cid)
+
+    table["winners_1m"] = winners
+    for label, n in (("devcache_steady_wave", 10_000),
+                     ("devcache_full_wave", 4 * APPLY_ROWS)):
+        table[label] = lambda label=label, n=n: _devcache(label, n)
+    return table
+
+
+def in_turns(parent: str, names: list) -> list:
+    """The named pieces on the package of the checkout ``parent`` and
+    on this one in turns (parent, change, change, parent), each run in
+    its own process from its checkout's root by this file."""
+    here = str(Path(__file__).resolve().parent.parent)
+    code = ("import runpy, sys; from corrosion_tpu_torch import kernels; "
+            "kernels.build(); sys.argv = ['profile_tick', '--pieces', "
+            f"{','.join(names)!r}]; runpy.run_path({__file__!r}, "
+            "run_name='__main__')")
+    runs = []
+    for tree, root in (("parent", parent), ("change", here),
+                       ("change", here), ("parent", parent)):
+        res = subprocess.run([sys.executable, "-c", code], cwd=root,
+                             capture_output=True, text=True)
+        if res.returncode:
+            raise RuntimeError(f"profile_tick on the {tree} tree failed:\n"
+                               f"{res.stderr[-4000:]}")
+        runs.append({"tree": tree, **json.loads(
+            res.stdout.strip().splitlines()[-1])})
+    return runs
+
+
+def main() -> int:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--pieces", help="comma-separated piece names "
+                    "(default: every piece)")
+    ap.add_argument("--parent", help="a checkout of the parent commit: "
+                    "profile the pieces on it and on this tree in turns")
+    opts = ap.parse_args()
+    table = pieces()
+    names = opts.pieces.split(",") if opts.pieces else list(table)
+    unknown = sorted(set(names) - set(table))
+    if unknown:
+        ap.error(f"unknown pieces {unknown}; known: {list(table)}")
+    if opts.parent:
+        print(json.dumps({"in_turns": in_turns(opts.parent, names)}))
+        return 0
+    print(json.dumps({name: table[name]() for name in names}))
     return 0
 
 

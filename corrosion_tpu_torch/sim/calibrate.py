@@ -687,11 +687,10 @@ def frontier_sent_bitmap(state: FrontierExactState,
 
 def _stats_into(infected, msgs, out) -> None:
     """One tick's per-seed statistics (``STATS`` columns) of [S, N]
-    ``infected`` and ``msgs`` into ``out`` [S, len(STATS)]."""
-    s = infected.shape[0]
-    target = torch.ones((1,), dtype=torch.int32, device=infected.device)
-    tick_stats(infected.to(torch.int32).reshape(-1, 1), target,
-               msgs.reshape(-1), None, s, out=out)
+    ``infected`` (read as it is: one byte a node, held where set) and
+    ``msgs`` into ``out`` [S, len(STATS)]."""
+    tick_stats(infected, None, msgs.reshape(-1), None, infected.shape[0],
+               out=out)
 
 
 def _scan_chunk_batch(state, seed_keys, cfg: HeadlineExactConfig, tick_fn,
