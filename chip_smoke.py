@@ -8,8 +8,9 @@ package.  Phases, each ending the run with a non-zero exit on failure:
 
 1. print the card's name and power limit, build the twelve kernel sources
    of this checkout (one ``nvcc`` per source, in parallel) and record
-   the opcode mix by pipe and loop of threefry, ``sent_select`` and
-   ``store_set`` (``kernels/sass.py`` over ``cuobjdump -sass``);
+   the opcode mix by pipe and loop of threefry, ``sent_select``,
+   ``store_set`` and ``swim_probe_select`` (``kernels/sass.py`` over
+   ``cuobjdump -sass``);
 2. hold the perm-fanout kernels (the threefry draws, ``seg_argsort``,
    ``deliver_perm``, ``sync_pull``, ``tick_stats``) against their plain
    PyTorch versions on the card, bitwise, on the inputs the headline's
@@ -52,11 +53,15 @@ package.  Phases, each ending the run with a non-zero exit on failure:
 8. hold ``seq_sync`` and ``seq_stats`` against their plain versions at
    config #4's full width (10k nodes x 32 seeds, 64 seqs) at ticks 1
    and 20, and the SWIM kernels (``swim_tick``: probe/select, spread,
-   gather, settle) at N = 64 and 4096 at a tick during suspicion, the
-   revive tick, a 15%-loss tick, a tick without gossip targets and a
-   crafted-tie state at 8, 12 and 20 gossip entries (one, two and three
-   selection passes), every leaf bitwise; time each kernel with CUDA
-   events;
+   gather, settle) at N = 64, 1000, 1003 and 4096 at a tick during
+   suspicion, that tick with whole rows at the retransmission limit,
+   the revive tick, the revive tick with the victim probed by the node
+   it announces to, a 15%-loss tick, a tick without gossip targets and
+   a crafted-tie state at 8, 12 and 20 gossip entries (one, two and
+   three selection passes), and at N = 5 with 9 gossip entries, every
+   leaf bitwise; time each kernel with CUDA events, ``torch.gather``
+   beside ``swim_gather``, and ``swim_probe_select`` alone at N = 64
+   and 4096;
 9. run config #4 (``run_anti_entropy_seeds``, 10k x 32 seeds), config
    #2 (``run_churn``, 64 nodes) and the 4096-node churn cycle on the
    card, each with the launch counters zeroed just before, and hold
@@ -163,6 +168,12 @@ package.  Phases, each ending the run with a non-zero exit on failure:
     leaf per tick equal between them (and the layouts to the
     single-device tick).
 
+``python3 chip_smoke.py --parent DIR`` (DIR an unpacked ``git
+archive`` of the parent commit) also builds the parent's ``swim.cu``,
+requires its ``swim_probe_select`` to write what this tree's writes,
+and times the two in turns (parent, change, change, parent) at
+N = 64 and 4096.
+
 Prints the card line, the ``kernels`` JSON line and, last, the
 ``{"ok": true, "device": ...}`` line; writes the full record (with
 the compiler's register report) to
@@ -180,7 +191,7 @@ import subprocess
 import sys
 import tempfile
 import time
-from concurrent.futures import ProcessPoolExecutor, ThreadPoolExecutor
+from concurrent.futures import ProcessPoolExecutor
 from dataclasses import replace
 
 import numpy as np
@@ -314,73 +325,36 @@ def build_library(src: str, lib: str) -> list:
 
 
 class ParentDesign:
-    """The parent commit's ``tick_stats.cu`` and ``exact_send.cu``, built
-    from a checkout of it (``--parent DIR``) and called as its wrappers
-    called them, for timing beside this tree's kernels in one run.  The
-    argument block of ``exact_send`` is unchanged since, so this tree's
-    ``send_args`` fills it."""
-
-    # the parent's tick_stats_launch: one block a universe, int32 rows
-    STATS = (*(ctypes.c_void_p,) * 5, *(ctypes.c_int,) * 3, ctypes.c_float,
-             ctypes.c_float, ctypes.c_void_p)
+    """The parent commit's ``swim.cu``, built from a checkout of it
+    (``--parent DIR``) and launched as its wrapper launched it, for
+    timing beside this tree's ``swim_probe_select`` in one run.  The
+    C interface of ``swim_launch`` is unchanged since, so this tree's
+    ``kernels.swim.prepare`` fills its arguments."""
 
     def __init__(self, root: str):
         from corrosion_tpu_torch import kernels
 
         csrc = os.path.join(root, "corrosion_tpu_torch", "kernels", "csrc")
-        out = str(kernels.BUILD_DIR / "parent")
-        names = ("tick_stats", "exact_send")
-        with ThreadPoolExecutor(len(names)) as pool:
-            logs = pool.map(build_library,
-                            [os.path.join(csrc, f"{m}.cu") for m in names],
-                            [os.path.join(out, f"lib{m}.so") for m in names])
-        self.ptxas = dict(zip(names, logs))
-        self.libs = {m: ctypes.CDLL(os.path.join(out, f"lib{m}.so"))
-                     for m in names}
+        lib = os.path.join(str(kernels.BUILD_DIR / "parent"), "libswim.so")
+        self.ptxas = {"swim": build_library(os.path.join(csrc, "swim.cu"),
+                                            lib)}
+        self.lib = ctypes.CDLL(lib)
 
-    def _fn(self, lib: str, symbol: str, argtypes):
-        fn = getattr(self.libs[lib], symbol)
-        fn.argtypes, fn.restype = list(argtypes), ctypes.c_int
-        return fn
-
-    def tick_stats(self, rows, target, msgs, hops, s: int, out):
-        """The parent's ``tick_stats`` on int32 rows [S*n, R] (its
-        callers cast the exact runners' flags to them first)."""
+    def swim_probe_select(self, launch) -> None:
+        """The parent's ``swim_probe_select`` on a tick's ``Launch``
+        (one 256-thread block a row)."""
         from corrosion_tpu_torch import kernels
-        from corrosion_tpu_torch.kernels.tick_stats import Q50, Q99
+        from corrosion_tpu_torch.kernels import swim as ksw
 
-        pt = kernels.ptr
-        code = self._fn("tick_stats", "tick_stats_launch", self.STATS)(
-            pt(rows), pt(target), pt(msgs), pt(hops), pt(out), s,
-            msgs.numel() // s, rows.shape[1], Q99, Q50, kernels.stream(rows))
-        kernels.raise_on_error("parent tick_stats", code)
-        return out
-
-    def exact_send(self, infected, tx, next_send, msgs, pending, sent, keys,
-                   tick, p, tier, diag):
-        """The parent's ``exact_send<Bitmap>``: one thread a (seed,
-        row) of all rows."""
-        from corrosion_tpu_torch import kernels
-        from corrosion_tpu_torch.kernels import exact_send as es
-
-        if sent.dtype != torch.uint8:
-            raise ValueError("the parent design is timed on the bitmap only")
-        new_infected = infected.clone()
-        a = es.send_args(infected, new_infected, tx, next_send, msgs,
-                         pending, sent, keys, tick, p, tier, diag)
-        code = self._fn("exact_send", "exact_send_launch",
-                        (ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p,
-                         ctypes.c_void_p, ctypes.c_void_p))(
-            ctypes.addressof(a), 0, None, None, kernels.stream(infected))
-        kernels.raise_on_error("parent exact_send", code)
-        return new_infected
+        fn = self.lib.swim_launch
+        fn.argtypes, fn.restype = list(ksw._ARGTYPES), ctypes.c_int
+        kernels.raise_on_error("parent swim_probe_select",
+                               fn(*launch.args, 0, launch.stream))
 
 
-def kernel_checks(cfg, mods, dev, parent=None):
+def kernel_checks(cfg, mods, dev):
     """Phase 2: each kernel against its plain version at tick 7 of the
-    headline (state reached through the port on the card);
-    ``tick_stats`` also against the parent design, when given, in
-    turns."""
+    headline (state reached through the port on the card)."""
     from corrosion_tpu_torch.kernels import seg_sort
     from corrosion_tpu_torch.models.broadcast import (
         _largest_divisor_upto,
@@ -560,7 +534,7 @@ def kernel_checks(cfg, mods, dev, parent=None):
     # -- tick_stats: the state after the tick, then the exact column's
     #    byte rows at their shapes, and the edge cases
     results.append(stats_checks(
-        tick_stats, dev, parent,
+        tick_stats, dev,
         (got_s[0], state.rows[0].clone(), got_s[1], got[3]),
         cfg.n_universes, cfg.n_rows))
 
@@ -686,13 +660,12 @@ def stats_edge_checks(ts, dev) -> list:
     return cases
 
 
-def stats_checks(ts, dev, parent, headline, s: int, r: int) -> dict:
+def stats_checks(ts, dev, headline, s: int, r: int) -> dict:
     """Phase 2's ``tick_stats``: bitwise its plain version at the
     headline's shape (``headline``: tick 7's rows, target, msgs, hops)
-    and at the exact column's byte-row shapes, every design timed there
-    (and the parent design in turns when given: on int32 [S*n, 1] rows
-    cast beforehand, as its callers cast them), with the edge cases;
-    the scratch must be all zero after every call."""
+    and at the exact column's byte-row shapes, every design timed
+    there, with the edge cases; the scratch must be all zero after
+    every call."""
     shapes = []
     for label, s_, inputs in (
             (f"{s} x {headline[2].numel() // s}, R={r}, hops", s, headline),
@@ -703,28 +676,12 @@ def stats_checks(ts, dev, parent, headline, s: int, r: int) -> dict:
         stats_equal(ts, inputs, s_, label)
         out = torch.empty((s_, len(ts.STATS)), dtype=torch.float32,
                           device=dev)
-        old = None
-        if parent is not None:
-            old_rows, old_target = rows, target
-            if target is None:
-                old_rows = rows.to(torch.int32).reshape(-1, 1)
-                old_target = torch.ones(1, dtype=torch.int32, device=dev)
-            old_out = parent.tick_stats(old_rows, old_target, msgs, hops,
-                                        s_, torch.empty_like(out))
-            if not equal_nan(old_out, ts.tick_stats(*inputs, s_)):
-                fail(f"tick_stats differs from the parent design at "
-                     f"{label}")
-
-            def old():
-                return parent.tick_stats(old_rows, old_target, msgs, hops,
-                                         s_, out)
         moved = nbytes(rows, target, msgs, hops, out)
         entry = dict(shape=label, bytes=moved,
                      bound_ms=moved / HBM_BYTES_PER_S * 1e3)
         for d, name in enumerate(ts.DESIGNS):
-            entry[name] = in_turns(
-                lambda d=d: design_stats(ts, inputs, s_, d, out),
-                old, lambda fn: time_device_ms(fn, 20))
+            entry[name] = time_device_ms(
+                lambda d=d: design_stats(ts, inputs, s_, d, out), 20)
         entry["ms"] = time_device_ms(
             lambda: ts.tick_stats(*inputs, s_, out=out), 20)
         entry["plain_ms"] = time_ms(lambda: ts.tick_stats_plain(
@@ -919,18 +876,17 @@ def busiest_tick(cfg, seeds: int, dev) -> dict:
     return {"tick": top[0], "per_tick": per_tick}
 
 
-def exact_kernel_checks(dev, parent=None):
+def exact_kernel_checks(dev):
     """``exact_send`` (both representations) and ``exact_commit``
     against their plain versions on the card, on the inputs of ticks 1
     and ``BUSY_TICK`` of the full-width runs at their own seed counts
     (the shapes the main path launches), and of a WAN latency variant
     of each (which fills the queue); for the ring also the run's
     busiest tick (``busiest_tick``), for the bitmap ``LATE_TICK`` and
-    ``bitmap_edge_checks``.  Timed at each tick of the uniform runs, the
-    bitmap against the parent design in turns when given, which must
-    also give the same results.  The dense check holds three
-    copies of the 20 GB bitmap (the state, the kernel's and the plain
-    version's); the timed calls reuse the kernel's."""
+    ``bitmap_edge_checks``.  Timed at each tick of the uniform runs.
+    The dense check holds three copies of the 20 GB bitmap (the state,
+    the kernel's and the plain version's); the timed calls reuse the
+    kernel's."""
     from corrosion_tpu_torch.kernels import exact_send as es
     from corrosion_tpu_torch.random import fold_in
     from corrosion_tpu_torch.sim import calibrate as cal
@@ -977,15 +933,6 @@ def exact_kernel_checks(dev, parent=None):
             bad = [nm for nm, x, y in zip(names, a, b)
                    if not torch.equal(x, y)]
             del a, b, want, want_inf
-            if parent is not None and not ring:  # the parent, same inputs
-                old = {**args, **{f: v.clone() for f, v in saved.items()}}
-                old_d = diag()
-                old_inf = parent.exact_send(**old, diag=old_d)
-                bad += [f"parent {nm}" for nm, x, y in zip(
-                    names, [old_inf, *(old[f] for f in saved), old_d],
-                    [got_inf, *(got[f] for f in saved), got_d])
-                    if not torch.equal(x, y)]
-                del old, old_inf
             # the commit on the kernel's send results
             c_got = [got["tx"].clone(), got["next_send"].clone()]
             c_want = [t.clone() for t in c_got]
@@ -1005,10 +952,9 @@ def exact_kernel_checks(dev, parent=None):
                 learned=learned))
             if cfg.topology == "uniform":
                 times = exact_times(es, cfg, seeds, ring, rep, tick, args,
-                                    saved, got, got_inf, d, learned, diag(),
-                                    None if ring else parent)
+                                    saved, got, got_inf, d, learned, diag())
                 checks[-1]["times"] = {k: {f: v[f] for f in v if f in (
-                    "ms", "ms_runs", "parent_ms", "bound", "shape")}
+                    "ms", "bound", "shape")}
                     for k, v in times.items()}
                 if tick == BUSY_TICK:
                     timed.update(times)
@@ -1016,7 +962,7 @@ def exact_kernel_checks(dev, parent=None):
             torch.cuda.empty_cache()
         del state
         torch.cuda.empty_cache()
-    checks += bitmap_edge_checks(es, dev, parent)
+    checks += bitmap_edge_checks(es, dev)
     for c in checks:
         if c["differs"] or c.get("commit_max_abs_err", 0.0) != 0.0:
             fail(f"exact kernels differ from their plain versions: {c}")
@@ -1035,15 +981,14 @@ def exact_kernel_checks(dev, parent=None):
     return results, checks, busiest
 
 
-def bitmap_edge_checks(es, dev, parent=None) -> list:
-    """``exact_send<Bitmap>`` against its plain version (and the parent
-    design, when given), every output bitwise, on crafted states at
-    N = 64, 2 seeds, where a row's candidates often share one of its 8
-    bitmap bytes: K = 4 (the exact column's fanout, its own kernel) with
-    an empty bitmap and with about 60% of each row's bits set, so rows
-    redraw past the block's KEY_ROUNDS round keys (its maximum must
-    exceed them), and K = 3 and 8 (the kernel for any K); loss and a
-    partition in force."""
+def bitmap_edge_checks(es, dev) -> list:
+    """``exact_send<Bitmap>`` against its plain version, every output
+    bitwise, on crafted states at N = 64, 2 seeds, where a row's
+    candidates often share one of its 8 bitmap bytes: K = 4 (the exact
+    column's fanout, its own kernel) with an empty bitmap and with about
+    60% of each row's bits set, so rows redraw past the block's
+    KEY_ROUNDS round keys (its maximum must exceed them), and K = 3 and
+    8 (the kernel for any K); loss and a partition in force."""
     from corrosion_tpu_torch.random import PRNGKey, fold_in
     from corrosion_tpu_torch.sim.calibrate import _tick_keys
 
@@ -1071,9 +1016,7 @@ def bitmap_edge_checks(es, dev, parent=None) -> list:
             torch.uint8)
         runs = {}
         for who, fn in (("kernel", es.exact_send),
-                        ("plain", es.exact_send_plain),
-                        *((("parent", parent.exact_send),)
-                          if parent is not None else ())):
+                        ("plain", es.exact_send_plain)):
             a = {f: v.clone() if isinstance(v, torch.Tensor) else v
                  for f, v in base.items()}
             d = torch.zeros(len(es.DIAG), dtype=torch.int64, device=dev)
@@ -1096,11 +1039,11 @@ def bitmap_edge_checks(es, dev, parent=None) -> list:
 
 
 def exact_times(es, cfg, seeds, ring, rep, tick, args, saved, work,
-                new_infected, d, learned, t_diag, parent=None) -> dict:
+                new_infected, d, learned, t_diag) -> dict:
     """Times of ``exact_send`` (and for the bitmap ``exact_commit``) on
-    one tick's inputs, with their bounds; the parent design's in turns
-    when given.  ``work`` is the kernel's copy of the inputs;
-    ``restore`` puts ``saved`` back into it before every call."""
+    one tick's inputs, with their bounds.  ``work`` is the kernel's
+    copy of the inputs; ``restore`` puts ``saved`` back into it before
+    every call."""
     def restore():
         for f, v in saved.items():
             work[f].copy_(v)
@@ -1117,10 +1060,8 @@ def exact_times(es, cfg, seeds, ring, rep, tick, args, saved, work,
     # for the busiest row's rounds only; an active row's loss draws
     hashes = d[1] * 2 * k + 3 * d[2] + d[0] * k * (cfg.loss > 0)
     out = {rep: dict(
-        **in_turns(lambda: es.exact_send(**work, diag=t_diag),
-                   parent and (lambda: parent.exact_send(**work,
-                                                         diag=t_diag)),
-                   lambda fn: time_inplace_ms(restore, fn, 20)),
+        ms=time_inplace_ms(
+            restore, lambda: es.exact_send(**work, diag=t_diag), 20),
         plain_ms=time_inplace_ms(
             restore, lambda: es.exact_send_plain(**work, diag=t_diag), 1, 1),
         bound=(send_bytes, hashes * INT_OPS_PER_HASH),
@@ -1266,7 +1207,9 @@ CHURN4096_WANT = dict(detect_latency=None, rejoin_latency=None,
                       msgs_per_node_per_tick=4.999860763549805,
                       ticks_run=128)
 AE_TICKS = (1, 20)  # phase 8's anti-entropy ticks
-SWIM_SIZES = (64, 4096)  # phase 8's SWIM clusters; the last is timed
+# phase 8's SWIM clusters; the last is timed
+SWIM_SIZES = (64, 1000, 1003, 4096)
+SWIM_TURNS = (64, 4096)  # swim_probe_select timed alone (and the parent's)
 # gossip widths of the crafted-tie checks: one selection pass of the
 # kernel, and two and three passes
 SWIM_TIE_ENTRIES = (8, 12, 20)
@@ -1423,20 +1366,119 @@ def crafted_tie_state(n: int):
     )
 
 
-def swim_kernel_checks(dev):
+def rows_at_limit(state, limit: int):
+    """``state`` with every third row's update_tx at the retransmission
+    limit and every seventh (from row 1) past it: those rows score all
+    +inf, so their lowest indices are taken, none sendable."""
+    tx = state.update_tx.clone()
+    tx[::3] = limit
+    tx[1::7] = limit + 5
+    return state._replace(update_tx=tx)
+
+
+def revive_probed(ksw, n: int, tick: int):
+    """A tick key and a victim under which the node the reviving victim
+    announces to also probes it (its announce lands in the probed
+    cell): the first of fold_in(PRNGKey(100 + s), tick), s = 0, 1, ...,
+    with such a victim, and its lowest."""
+    from corrosion_tpu_torch.kernels.threefry import threefry_bits_plain
+    from corrosion_tpu_torch.models.common import peers_from_offsets
+    from corrosion_tpu_torch.random import PRNGKey, fold_in, randint_span
+
+    span, mult = randint_span(1, max(n, 2))
+    rows = torch.arange(n)
+
+    def peers(keys, name):
+        offs = torch.empty(n, dtype=torch.int32)
+        threefry_bits_plain(offs, *keys[name], span=span, mult=mult,
+                            minval=1)
+        return peers_from_offsets(offs, n).long()
+
+    for s in range(64):
+        key = fold_in(PRNGKey(100 + s), tick)
+        keys = ksw.tick_keys(key)
+        hit = (peers(keys, "probe")[peers(keys, "ann")] == rows).nonzero()
+        if len(hit):
+            return key, int(hit[0])
+    fail(f"no key of 64 has a revived node probed by its seed at N = {n}")
+
+
+def swim_case(ksw, state, key, tick, params, alive, revived=None,
+              victim=None) -> dict:
+    """One tick through the kernels and through the plain version on
+    the same inputs: every leaf (and the victim counters when a victim
+    is given) bitwise."""
+    from corrosion_tpu_torch.models.swim import SwimState
+
+    names, got, want = list(SwimState._fields), [], []
+    fa = fb = None
+    if victim is not None:
+        fa = torch.zeros(2, dtype=torch.int32, device=state.view.device)
+        fb = torch.zeros_like(fa)
+        names.append("flags")
+    got = [*ksw.swim_tick(*state, key, tick, params, alive, revived,
+                          victim=victim, flags=fa)]
+    want = [*ksw.swim_tick_plain(*state, ksw.tick_keys(key), tick, params,
+                                 alive, revived, victim, fb)]
+    if victim is not None:
+        got.append(fa)
+        want.append(fb)
+    return dict(max_abs_err=max_abs_err(got, want),
+                differs=[f for f, x, y in zip(names, got, want)
+                         if not torch.equal(x, y)],
+                **({} if fa is None else {"flags": fa.tolist()}))
+
+
+def probe_select_turns(ksw, parent, state, key, tick, params, alive,
+                       revived) -> dict:
+    """``swim_probe_select`` alone on one tick's inputs (device ms a
+    launch, 20 behind a GPU-side sleep) and, when ``parent`` is given,
+    the parent's in turns; the two must write the same view row, msgs,
+    probe work and selection."""
+    keys = ksw.tick_keys(key)
+    mine = ksw.prepare(*state, keys, tick, params, alive, revived)
+    ksw.swim_probe_select(mine)
+    old = None
+    if parent is not None:
+        prev = ksw.prepare(*state, keys, tick, params, alive, revived)
+        parent.swim_probe_select(prev)
+        names = ["view", "msgs", *mine.work]
+        bad = [f for f, x, y in zip(
+            names, [mine.out[0], mine.out[3], *mine.work.values()],
+            [prev.out[0], prev.out[3], *prev.work.values()])
+            if not torch.equal(x, y)]
+        if bad:
+            fail(f"swim_probe_select differs from the parent's at N = "
+                 f"{state.view.shape[0]}, tick {tick}: {bad}")
+
+        def old():
+            parent.swim_probe_select(prev)
+    return in_turns(lambda: ksw.swim_probe_select(mine), old,
+                    lambda fn: time_device_ms(fn, 20))
+
+
+def swim_kernel_checks(dev, parent=None):
     """Phase 8b: the SWIM kernels against their plain version on the
-    card, every leaf and the victim counters bitwise, at N = 64 and
-    4096: a tick during suspicion, the revive tick, a loss = 0.15 run,
-    a run without gossip targets (no gossip pass) and a crafted-tie
-    state at one selection pass of gossip entries (``MAX_ENTRIES``) and
-    at two and three passes (12, 20); each
-    kernel timed at N = 4096's suspicion tick (CUDA events around each
-    launch, the host's enqueue hidden behind a GPU-side sleep)."""
+    card, every leaf and the victim counters bitwise, at N = 64, 1000,
+    1003 (no multiple of 4: rows of both 16-byte alignments, a scalar
+    head and tail) and 4096: a tick during suspicion, that tick with
+    whole rows at and past the retransmission limit (all +inf, the
+    lowest indices taken), the revive tick, the revive tick under a key
+    whose victim is probed by the node it announces to, a loss = 0.15
+    run, a run without gossip targets (no gossip pass) and a
+    crafted-tie state at one selection pass of gossip entries
+    (``MAX_ENTRIES``) and at two and three passes (12, 20); at N = 5
+    with 9 gossip entries (m = n) the suspicion and revive ticks.
+    Each kernel timed at N = 4096's suspicion tick (CUDA events around
+    each launch, the host's enqueue hidden behind a GPU-side sleep),
+    ``torch.gather`` beside ``swim_gather`` the same way, and
+    ``swim_probe_select`` alone at N = 64's and 4096's, against the
+    parent's in turns when given."""
     from corrosion_tpu_torch.kernels import swim as ksw
     from corrosion_tpu_torch.models.swim import SwimState
     from corrosion_tpu_torch.sim.churn import ChurnConfig
 
-    checks, timed = [], None
+    checks, timed, turns = [], None, {}
     for n in SWIM_SIZES:
         cfg = ChurnConfig(n_nodes=n)
         cases = [("suspicion", cfg.kill_tick + 3, {}),
@@ -1447,37 +1489,55 @@ def swim_kernel_checks(dev):
         for label, tick, overrides in cases:
             state, params, (key, alive, revived, victim) = churn_state_at(
                 cfg, tick, dev, **overrides)
-            fa = torch.zeros(2, dtype=torch.int32, device=dev)
-            fb = torch.zeros_like(fa)
-            got = ksw.swim_tick(*state, key, tick, params, alive, revived,
-                                victim=victim, flags=fa)
-            want = ksw.swim_tick_plain(*state, ksw.tick_keys(key), tick,
-                                       params, alive, revived, victim, fb)
-            err = max_abs_err([*got, fa], [*want, fb])
-            checks.append(dict(n=n, case=label, tick=tick, max_abs_err=err,
-                               differs=[f for f, x, y in zip(
-                                   SwimState._fields, got, want)
-                                   if not torch.equal(x, y)],
-                               flags=fa.tolist()))
-            if n == SWIM_SIZES[-1] and label == "suspicion":
+            checks.append(dict(n=n, case=label, tick=tick, **swim_case(
+                ksw, state, key, tick, params, alive, revived, victim)))
+            if label != "suspicion":
+                continue
+            if n in SWIM_TURNS:
+                turns[n] = probe_select_turns(ksw, parent, state, key, tick,
+                                              params, alive, revived)
+            if n == SWIM_SIZES[-1]:
                 timed = swim_times(ksw, state, key, tick, params, alive,
                                    revived)
+            limited = rows_at_limit(state, params.update_tx_limit)
+            checks.append(dict(n=n, case="rows_at_limit", tick=tick,
+                               **swim_case(ksw, limited, key, tick, params,
+                                           alive, revived, victim)))
+            launch = ksw.prepare(*limited, ksw.tick_keys(key), tick, params,
+                                 alive, revived)
+            ksw.swim_probe_select(launch)
+            ge, sendable = launch.work["ge"], launch.work["sendable"]
+            lowest = torch.arange(ge.shape[1], dtype=torch.int32,
+                                  device=dev).expand(ge[::3].shape)
+            if not torch.equal(ge[::3], lowest) or bool(sendable[::3].any()):
+                fail(f"rows at the limit at N = {n} did not take their "
+                     "lowest indices unsendable")
+        key, victim = revive_probed(ksw, n, cfg.revive_tick)
+        state, params, (_, alive, revived, victim) = churn_state_at(
+            replace(cfg, victim=victim), cfg.revive_tick, dev)
+        checks.append(dict(n=n, case="revive_probed", tick=cfg.revive_tick,
+                           victim=victim, **swim_case(
+                               ksw, state, key, cfg.revive_tick, params,
+                               alive, revived, victim)))
         tie = SwimState(*(t.to(dev) for t in crafted_tie_state(n)))
         alive = torch.ones(n, dtype=torch.bool, device=dev)
         for entries in SWIM_TIE_ENTRIES:
             params = replace(cfg.params, update_tx_limit=2**30, loss=0.15,
                              gossip_entries=entries)
-            got = ksw.swim_tick(*tie, key, 3, params, alive)
-            want = ksw.swim_tick_plain(*tie, ksw.tick_keys(key), 3, params,
-                                       alive)
             checks.append(dict(n=n, case=f"crafted_ties_{entries}", tick=3,
-                               max_abs_err=max_abs_err(got, want),
-                               differs=[f for f, x, y in zip(
-                                   SwimState._fields, got, want)
-                                   if not torch.equal(x, y)]))
+                               **swim_case(ksw, tie, key, 3, params,
+                                           alive)))
+    small = ChurnConfig(n_nodes=5)
+    for label, tick in (("m_eq_n_suspicion", small.kill_tick + 3),
+                        ("m_eq_n_revive", small.revive_tick)):
+        state, params, (key, alive, revived, victim) = churn_state_at(
+            small, tick, dev, gossip_entries=9)
+        checks.append(dict(n=5, case=label, tick=tick, **swim_case(
+            ksw, state, key, tick, params, alive, revived, victim)))
     for c in checks:
         if c["max_abs_err"] != 0.0 or c["differs"]:
             fail(f"swim kernels differ from their plain version: {c}")
+    timed["probe_select_turns"] = turns
     err = max(c["max_abs_err"] for c in checks)
     res = []
     for name, line in (("swim_probe_select", 108), ("swim_spread", 233),
@@ -1488,7 +1548,7 @@ def swim_kernel_checks(dev):
             source="corrosion_tpu_torch/kernels/csrc/swim.cu",
             replaces=f"corrosion_tpu/models/swim.py:{line}",
             max_abs_err=err, ms=t["ms"], plain_ms=timed["plain_ms"],
-            bound=t["bound"], library_ms=None,
+            bound=t["bound"], library_ms=t.get("library_ms"),
             shape=f"N = {SWIM_SIZES[-1]}, tick {cfg.kill_tick + 3}, "
                   f"{t['launches']} launch(es) a tick; plain_ms is the "
                   "whole tick's"))
@@ -1502,7 +1562,9 @@ def swim_times(ksw, state, key, tick, params, alive, revived,
     same inputs and over its launches in a tick), the whole tick's ms
     and the plain version's, with each kernel's bound from this tick's
     data (bytes, integer operations; a launch's mean where a tick
-    launches it more than once)."""
+    launches it more than once); ``torch.gather`` of the tick's view at
+    the selection, which ``swim_gather`` computes, timed after the
+    tick's launches the same way (it must give the kernel's payload)."""
     from corrosion_tpu_torch.kernels.threefry import threefry_bits_plain
     from corrosion_tpu_torch.models.common import peers_from_offsets
     from corrosion_tpu_torch.random import randint_span
@@ -1512,23 +1574,33 @@ def swim_times(ksw, state, key, tick, params, alive, revived,
     order = ksw.launch_order(params.gossip_targets)
     names = [fn.__name__ for fn, _ in order]
     per = dict.fromkeys(SWIM_KERNELS, 0.0)
-    tick_ms = 0.0
+    tick_ms = library_ms = 0.0
+    launch = ksw.prepare(*state, keys, tick, params, alive, revived)
+    ksw.swim_probe_select(launch)
+    ge = launch.work["ge"].long()  # every rep selects the same entries
     for r in range(reps + 1):
         launch = ksw.prepare(*state, keys, tick, params, alive, revived)
         events = [torch.cuda.Event(enable_timing=True)
-                  for _ in range(len(order) + 1)]
+                  for _ in range(len(order) + 2)]
         torch.cuda.synchronize()
-        torch.cuda._sleep(SLEEP_CYCLES)  # covers the seven enqueues
+        torch.cuda._sleep(SLEEP_CYCLES)  # covers the eight enqueues
         events[0].record()
         for (fn, extra), ev in zip(order, events[1:]):
             fn(launch, *extra)
             ev.record()
+        gathered = torch.gather(launch.out[0], 1, ge)
+        events[-1].record()
         torch.cuda.synchronize()
         if r == 0:
             continue  # warm
-        for name, a, b in zip(names, events, events[1:]):
+        for name, a, b in zip(names, events, events[1:-1]):
             per[name] += a.elapsed_time(b) / reps
-        tick_ms += events[0].elapsed_time(events[-1]) / reps
+        tick_ms += events[0].elapsed_time(events[-2]) / reps
+        library_ms += events[-2].elapsed_time(events[-1]) / reps
+    ksw.swim_gather(launch)  # the tick's final view at the selection
+    if (not torch.equal(launch.work["ge"].long(), ge)
+            or not torch.equal(launch.work["pay"], gathered)):
+        fail("torch.gather of the view differs from swim_gather's payload")
     plain_ms = time_ms(lambda: ksw.swim_tick_plain(
         *state, keys, tick, params, alive, revived), 3)
 
@@ -1556,10 +1628,12 @@ def swim_times(ksw, state, key, tick, params, alive, revived,
     }
     spreads = [extra[0] for fn, extra in order if fn is ksw.swim_spread]
     hashed = int((state.update_tx < params.update_tx_limit).sum())
+    suspect = int((state.view % 4 == ksw.SUSPECT).sum())
     bounds = {
-        # the three inputs read, the view written, the selection written;
-        # a tie uniform for each cell under the retransmission limit
-        "swim_probe_select": (4 * mat + entries * 9,
+        # view and update_tx read, the view written, a sector of
+        # suspect_since for each suspect cell, the selection written; a
+        # tie uniform for each cell under the retransmission limit
+        "swim_probe_select": (3 * mat + suspect * SECTOR + entries * 9,
                               hashed * INT_OPS_PER_UNIFORM),
         # the selection and payload read (ge, sendable, pay), a sector
         # for each cell scattered into
@@ -1572,11 +1646,14 @@ def swim_times(ksw, state, key, tick, params, alive, revived,
         "swim_settle": (6 * mat + entries * 5, 0),
     }
     launches = {name: names.count(name) for name in SWIM_KERNELS}
-    return {
+    out = {
         **{name: dict(ms=per[name] / launches[name], bound=bounds[name],
                       launches=launches[name]) for name in SWIM_KERNELS},
         "tick_ms": tick_ms, "plain_ms": plain_ms, "scatters": scatters,
+        "suspect_cells": suspect, "hashed_cells": hashed,
     }
+    out["swim_gather"]["library_ms"] = library_ms
+    return out
 
 
 def full_width_paths(counted) -> dict:
@@ -3765,7 +3842,7 @@ def main() -> int:
 
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--parent", help="a checkout of the parent commit: time "
-                    "its tick_stats and exact_send beside this tree's")
+                    "its swim_probe_select beside this tree's")
     opts = ap.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
@@ -3820,13 +3897,14 @@ def main() -> int:
         name: sass.mix(kernels.library_path(name), pattern)
         for name, pattern in (("threefry", ""),
                               ("sent_sampler", "sent_select"),
-                              ("store", "store_(claim|write)"))}
+                              ("store", "store_(claim|write)"),
+                              ("swim", "swim_probe_select"))}
 
     headline, seeds = HEADLINE, HEADLINE_SEEDS
 
     # phase 2: the perm-fanout kernels against their plain versions
     results = kernel_checks(replace(headline, n_universes=seeds), mods,
-                            cuda, parent)
+                            cuda)
     print("kernels match their plain versions: "
           + ", ".join(f"{r['name']} {r['max_abs_err']}" for r in results),
           flush=True)
@@ -3871,7 +3949,7 @@ def main() -> int:
 
     # phase 5: the exact sampler's kernels against their plain versions
     exact_results, record["exact_checks"], record["exact_busiest"] = (
-        exact_kernel_checks(cuda, parent))
+        exact_kernel_checks(cuda))
     print("exact kernels match their plain versions: "
           + ", ".join(f"{r['name']} {r['max_abs_err']}"
                       for r in exact_results), flush=True)
@@ -3907,10 +3985,16 @@ def main() -> int:
     # versions
     ae_results = seq_sync_checks(cuda)
     swim_results, record["swim_checks"], record["swim_times"] = (
-        swim_kernel_checks(cuda))
+        swim_kernel_checks(cuda, parent))
     print("seq_sync / swim kernels match their plain versions: "
           + ", ".join(f"{r['name']} {r['max_abs_err']}"
-                      for r in ae_results + swim_results), flush=True)
+                      for r in ae_results + swim_results)
+          + f" ({len(record['swim_checks'])} SWIM cases)", flush=True)
+    print(json.dumps({"swim": {
+        "probe_select_turns": record["swim_times"]["probe_select_turns"],
+        **{r["name"]: {f: r[f] for f in ("ms", "bound_ms", "bound_by",
+                                         "library_ms")}
+           for r in swim_results}}}), flush=True)
 
     # phase 9: config #4, config #2 and the 4096-node churn cycle
     paths = full_width_paths(counted)

@@ -8,26 +8,20 @@
 // suspect_since, update_tx); each phase reads what the previous one
 // wrote to other rows, so the phases are separate launches:
 //
-//   swim_probe_select  one block per row i.  Thread 0 runs node i's
-//       rejoin announce, draws its probe target t and replays t's
-//       announce (every announce is a pure function of the tick's
-//       inputs, so no launch has to publish it first), runs the direct
-//       ping and the H indirect legs, charges every message of the row
-//       (announce, ping, acks, ping-reqs, gossip) with integer
-//       atomicAdds, and counts i's delivered ping at t.  The block then
-//       writes row i of the view: the input row with the announce
-//       records landing in it, the probe outcome at t and the
-//       suspect -> down timeout applied.  Each thread scores its
-//       columns (update_tx + the tie uniform drawn in-register at
-//       counter i * N + j, one round-to-nearest add; +inf at or past the
-//       retransmission limit) into a sorted register list of
-//       (score, index) keys, MAX_M deep, a key past the list's last
-//       skipping the insert; MAX_M block-wide minimum rounds pick the
-//       freshest entries in the reference's top_k order (score, then
-//       lower index), and a gossip width M above MAX_M takes
-//       ceil(M / MAX_M) such passes, each keeping only keys after the
-//       last one taken.  It stores them with their sendable flags and
-//       their gossip payload, read back from the row it just wrote.
+//   swim_probe_select  one warp per row i (design at the kernel).  It
+//       runs node i's rejoin announce, draws its probe target t and
+//       replays t's announce (every announce is a pure function of the
+//       tick's inputs, so no launch has to publish it first), runs the
+//       direct ping and the H indirect legs, charges every message of
+//       the row (announce, ping, acks, ping-reqs, gossip) with integer
+//       atomicAdds, and counts i's delivered ping at t.  It writes row
+//       i of the view: the input row with the announce records landing
+//       in it, the probe outcome at t and the suspect -> down timeout
+//       applied.  It scores every column (update_tx + the tie uniform
+//       drawn in-register at counter i * N + j; +inf at or past the
+//       retransmission limit) and stores the row's M freshest entries
+//       in the reference's top_k order (score, then lower index) with
+//       their sendable flags and their gossip payload.
 //   swim_spread  one thread per (node, target, entry): the gossip pass
 //       (mode 0) scatters with atomicMax into the gossip targets' rows;
 //       the ping piggyback (mode 1) into the probe target's row; the
@@ -58,9 +52,12 @@
 //
 // Bound on the H100: bytes — the three [N, N] inputs read once and the
 // three outputs written once (0.40 GB a tick at N = 4096); the N^2 tie
-// uniforms (42 INT32-pipe operations each) come second.  The design
-// reads each input matrix in two passes (select, settle) and writes
-// each output once; the spread passes touch O(N * G * M) cells.
+// uniforms (70 integer operations each) come second.  swim_probe_select
+// alone moves view and update_tx in, view out and a sector of
+// suspect_since for each suspect cell; its hashes overlap that stream.
+// The design reads each input matrix in two passes (select, settle)
+// and writes each output once; the spread passes touch O(N * G * M)
+// cells.
 
 #include <cstdint>
 #include <cuda_runtime.h>
@@ -72,8 +69,10 @@ namespace {
 constexpr int ALIVE = 0, SUSPECT = 1, DOWN = 2;
 constexpr int NEVER = 0x7fffffff;
 constexpr int MAX_M = 8;  // entries one selection pass takes
-constexpr int THREADS = 256;
+constexpr int THREADS = 256;  // swim_settle's block
+constexpr int SEL_WARPS = 4;  // rows a block of swim_probe_select
 constexpr unsigned FULL = 0xffffffffu;
+constexpr unsigned INF_BITS = 0x7f800000u;  // +inf as float bits
 constexpr unsigned char PING_OK = 1, ACK_OK = 2;
 
 // the tick's keys: randint's two split keys of each peer draw, then
@@ -154,153 +153,350 @@ __device__ Announce announce(const SwimArgs& a, int j) {
   return r;
 }
 
-__device__ __forceinline__ unsigned long long umin64(unsigned long long x,
-                                                     unsigned long long y) {
-  return x < y ? x : y;
+// the suspicion timeout (:199-202) on cell c's value v
+__device__ __forceinline__ int expire(const SwimArgs& a, size_t c, int v) {
+  if (v % 4 == SUSPECT && a.tick - __ldg(a.ss_in + c) >= a.timeout)
+    v = (v / 4) * 4 + DOWN;
+  return v;
 }
 
-__global__ void __launch_bounds__(THREADS)
-swim_probe_select(const SwimArgs a) {
-  __shared__ int s_diag, s_target, s_probe;
-  __shared__ unsigned long long s_warp[THREADS / 32];
-  __shared__ unsigned long long s_sel[MAX_M];
-  const int i = blockIdx.x;
-  const int n = a.n;
-
-  if (threadIdx.x == 0) {
-    const Announce own = announce(a, i);
-    const bool al = a.alive[i];
-    int charge = 0;  // messages node i sends this tick
-    if (a.revived != nullptr && a.revived[i]) {
-      charge += 1;  // the announce
-      if (own.seed >= 0) atomicAdd(a.msgs + own.seed, 1);  // its ack
-    }
-    // direct probe (:157-164)
-    const int t = rand_peer(a, K_PROBE, i, i);
-    const bool ping_ok = al && leg_ok(a, K_LOSS1, i) && a.alive[t];
-    const bool ack_ok = ping_ok && leg_ok(a, K_LOSS2, i);
-    charge += al;
-    if (ping_ok) {
-      atomicAdd(a.msgs + t, 1);
-      atomicAdd(a.pinged + t, 1);
-    }
-    // indirect probes (:166-185)
-    bool probe_ok = ack_ok;
-    if (!ack_ok && al) {
-      // the reference charges the client one message for its
-      // ping-reqs (its [N, 1] `tried`, summed over one column) and each
-      // live helper one for its ping
-      charge += 1;
-      int indirect = 0;
-      for (int q = 0; q < a.h; ++q) {
-        const unsigned long long idx = (unsigned long long)i * a.h + q;
-        const int helper = rand_peer(a, K_HELP, idx, i);
-        if (!a.alive[helper]) continue;
-        atomicAdd(a.msgs + helper, 1);
-        bool legs = a.alive[t];
-        for (int l = 0; l < 4 && legs; ++l) legs = leg_ok(a, K_HLOSS, 4 * idx + l);
-        indirect += legs;
-      }
-      if (indirect) atomicAdd(a.msgs + t, indirect);
-      probe_ok = indirect > 0;
-    }
-    charge += al * a.g;  // gossip messages (:235)
-    if (charge) atomicAdd(a.msgs + i, charge);
-    // the probe outcome on view[i, t] (:187-197), over the input cell
-    // with t's announce landing in it
-    const Announce at = announce(a, t);
-    int cur = a.view_in[cell(n, i, t)];
-    if (at.seed == i) cur = max(cur, at.diag);
-    int upd = cur;
-    if (probe_ok && al) upd = max(cur, at.inc1 * 4 + ALIVE);
-    if (!probe_ok && al && cur % 4 == ALIVE)
-      upd = max(cur, (cur / 4) * 4 + SUSPECT);
-    a.target[i] = t;
-    a.inc1[i] = own.inc1;
-    a.probe[i] = (ping_ok ? PING_OK : 0) | (ack_ok ? ACK_OK : 0);
-    s_diag = own.diag;
-    s_target = t;
-    s_probe = upd;
+// cell (i, j) with node j's announce landing in it, for j != i, t
+__device__ __forceinline__ int announced(const SwimArgs& a, int i, int j,
+                                         int v) {
+  if (a.revived != nullptr && __ldg(a.revived + j)) {
+    const Announce aj = announce(a, j);
+    if (aj.seed == i) v = max(v, aj.diag);
   }
-  __syncthreads();
-  const int t = s_target;
+  return v;
+}
 
-  // row i of the view (written on the first pass), then the M freshest
-  // entries in passes of at most MAX_M: each thread keeps its MAX_M
-  // smallest (score, index) keys strictly after the last key the
-  // previous pass took, and MAX_M block-wide minimum rounds pop them in
-  // the reference's top_k order (score, then lower index).  The keys
-  // are unique and totally ordered, so ceil(M / MAX_M) passes give the
-  // exact top M.
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  unsigned long long after = 0;  // keys <= after were taken
-  for (int base = 0; base < a.m; base += MAX_M) {
-    const int take = min(MAX_M, a.m - base);
-    unsigned long long best[MAX_M];
+// the tie uniform of flat index c (the reference's uniform(k_ge, (n, n)))
+__device__ __forceinline__ float tie_uniform(const SwimArgs& a, size_t c) {
+  return common::uniform_of(
+      common::threefry_xor(a.k[K_GE], a.k[K_GE + 1], c));
+}
+
+// column j's selection key: the score's bits (update_tx + the tie
+// uniform u, one round-to-nearest add; +inf at or past the
+// retransmission limit) over the column, so keys order as top_k does
+__device__ __forceinline__ unsigned long long score_key(const SwimArgs& a,
+                                                        int tx, float u,
+                                                        int j) {
+  const float s = tx < a.limit ? __fadd_rn(__int2float_rn(tx), u)
+                               : __uint_as_float(INF_BITS);
+  return ((unsigned long long)__float_as_uint(s) << 32) | (unsigned)j;
+}
+
+// The `take` smallest keys a warp was offered, held across its lanes:
+// lane r < take keeps the r-th (~0 while empty) with its view value.
+struct Taken {
+  unsigned long long key = ~0ull;
+  int pay = 0;
+  unsigned long long bar = ~0ull;  // the take-th key: a key must be below
+  int take;
+  bool empty = true;  // nothing offered yet
+
+  __device__ explicit Taken(int take_) : take(take_) {}
+
+  // Every lane offers one key (~0 for none); returns whether any was
+  // under the bar.  The first offer ranks the 32 keys by counting
+  // (ties, only ~0, by lane) and hands rank r to lane r; a later one
+  // shifts each key under the bar into the list, lowest lane first, at
+  // the rank a ballot of the held keys gives it (a key the bar fell
+  // below meanwhile ranks past the list and changes nothing).
+  __device__ __forceinline__ bool offer(unsigned long long k, int v,
+                                        int lane) {
+    if (empty) {
+      empty = false;
+      int rank = 0;
 #pragma unroll
-    for (int q = 0; q < MAX_M; ++q) best[q] = ~0ull;
-    for (int j = threadIdx.x; j < n; j += THREADS) {
-      const size_t c = cell(n, i, j);
-      if (base == 0) {
-        int v = a.view_in[c];
-        if (j == i) {
-          v = s_diag;
-        } else if (j == t) {
-          v = s_probe;
-        } else if (a.revived != nullptr && a.revived[j]) {
-          const Announce aj = announce(a, j);
-          if (aj.seed == i) v = max(v, aj.diag);
+      for (int o = 1; o < 32; ++o) {
+        const int src = (lane + o) & 31;
+        const unsigned long long y = __shfl_sync(FULL, k, src);
+        rank += y < k || (y == k && src < lane);
+      }
+      for (int r = 0; r < take; ++r) {
+        const int src = __ffs(__ballot_sync(FULL, rank == r)) - 1;
+        const unsigned long long y = __shfl_sync(FULL, k, src);
+        const int p = __shfl_sync(FULL, v, src);
+        if (lane == r) {
+          key = y;
+          pay = p;
         }
-        if (v % 4 == SUSPECT && a.tick - a.ss_in[c] >= a.timeout)
-          v = (v / 4) * 4 + DOWN;
-        a.view[c] = v;
       }
-      const int tx = a.tx_in[c];
-      float score = __int_as_float(0x7f800000);  // +inf
-      if (tx < a.limit)
-        score = __fadd_rn(__int2float_rn(tx),
-                          common::uniform_of(common::threefry_xor(
-                              a.k[K_GE], a.k[K_GE + 1], c)));
-      unsigned long long key =
-          ((unsigned long long)__float_as_uint(score) << 32) | (unsigned)j;
-      if (base > 0 && key <= after) continue;
-      if (key < best[MAX_M - 1]) {
+      bar = __shfl_sync(FULL, key, take - 1);
+      return true;
+    }
+    unsigned cand = __ballot_sync(FULL, k < bar);
+    if (!cand) return false;
+    const unsigned low = (1u << take) - 1u;  // lanes 0 .. take - 1
+    do {
+      const int src = __ffs(cand) - 1;
+      cand &= cand - 1;
+      const unsigned long long x = __shfl_sync(FULL, k, src);
+      const int p = __shfl_sync(FULL, v, src);
+      const unsigned long long up = __shfl_up_sync(FULL, key, 1);
+      const int up_pay = __shfl_up_sync(FULL, pay, 1);
+      const int rank = __popc(__ballot_sync(FULL, key < x) & low);
+      if (lane == rank) {
+        key = x;
+        pay = p;
+      } else if (lane > rank) {
+        key = up;
+        pay = up_pay;
+      }
+    } while (cand);
+    bar = __shfl_sync(FULL, key, take - 1);
+    return true;
+  }
+
+  // Every lane offers four keys: none when no lane's least score is
+  // at or under the bar's (the common case once the list fills), else
+  // each lane's in ascending order until an offer finds no key under
+  // the bar.
+  __device__ __forceinline__ void offer4(unsigned long long (&k)[4],
+                                         int (&v)[4], int lane) {
+    const unsigned least =
+        min(min((unsigned)(k[0] >> 32), (unsigned)(k[1] >> 32)),
+            min((unsigned)(k[2] >> 32), (unsigned)(k[3] >> 32)));
+    if (!__any_sync(FULL, least <= (unsigned)(bar >> 32))) return;
+    sort2(k, v, 0, 1);  // a four-key sorting network
+    sort2(k, v, 2, 3);
+    sort2(k, v, 0, 2);
+    sort2(k, v, 1, 3);
+    sort2(k, v, 1, 2);
 #pragma unroll
-        for (int q = 0; q < MAX_M; ++q) {  // sorted insert
-          const unsigned long long lo = umin64(key, best[q]);
-          key = key ^ best[q] ^ lo;
-          best[q] = lo;
+    for (int q = 0; q < 4; ++q)
+      if (!offer(k[q], v[q], lane)) return;
+  }
+
+  static __device__ __forceinline__ void sort2(unsigned long long (&k)[4],
+                                               int (&v)[4], int x, int y) {
+    if (k[y] < k[x]) {
+      const unsigned long long kt = k[x];
+      const int vt = v[x];
+      k[x] = k[y];
+      v[x] = v[y];
+      k[y] = kt;
+      v[y] = vt;
+    }
+  }
+};
+
+template <bool B>
+struct Pass {
+  static constexpr bool first = B;
+};
+
+// One warp a row i.  Every lane draws i's probe target t (two hashes),
+// then the warp streams the row at once: 16-byte loads of view_in and
+// update_tx, a lane's next group in flight while it hashes one (a
+// scalar head and tail where the row is not 16-byte aligned or N is no
+// multiple of 4), each column's view value (the announces landing in
+// it, the suspicion timeout) written with a 16-byte store, and its key
+// offered with the value to the warp's taken list (`Taken`): once the
+// list fills almost no key is under its bar, so four columns cost a
+// vote.  Cells i and t are left to the prelude, which runs after the
+// stream with its draws spread over the lanes (lane 0 the direct legs,
+// lanes 1 and 2 the announces of i and t, every lane its share of the
+// helpers once the ack is known lost), charges the messages and
+// writes the two cells.  Lane r then holds the row's r-th freshest
+// entry in top_k's order with its value and stores it, its sendable
+// flag (its score below +inf) and its payload from registers.  A
+// gossip width M above MAX_M takes ceil(M / MAX_M) passes, each later
+// one offering only keys after the last one taken and reading its
+// payloads back from the row written; the first pass is its own
+// instantiation.  At most 64 registers, so 8 blocks (32 warps) fit an
+// SM and N = 4096's rows run in one wave.
+__global__ void __launch_bounds__(SEL_WARPS * 32, 8)
+swim_probe_select(const SwimArgs a) {
+  const int lane = threadIdx.x & 31;
+  const int i = blockIdx.x * SEL_WARPS + (threadIdx.x >> 5);
+  const int n = a.n;
+  if (i >= n) return;  // the whole warp
+  const size_t r0 = (size_t)i * n;
+  const int t = rand_peer(a, K_PROBE, i, i);
+
+  // the row as a scalar head up to the first 16-byte boundary, int4
+  // groups and a scalar tail; all scalar unless the three row buffers
+  // share 16-byte alignment
+  const bool vec = ((reinterpret_cast<uintptr_t>(a.view_in) |
+                     reinterpret_cast<uintptr_t>(a.tx_in) |
+                     reinterpret_cast<uintptr_t>(a.view)) & 15) == 0;
+  const int head = vec ? min(n, (int)((4 - (r0 & 3)) & 3)) : n;
+  const int groups = (n - head) >> 2;
+  const int tail0 = head + 4 * groups;
+  const int4* tx4 = reinterpret_cast<const int4*>(a.tx_in + r0 + head);
+  const int4* vin4 = reinterpret_cast<const int4*>(a.view_in + r0 + head);
+  int4* vout4 = reinterpret_cast<int4*>(a.view + r0 + head);
+
+  int diag_w = 0, probe_w = 0;  // cells i and t as written
+  // one pass from entry `base` on, keys <= after taken before; returns
+  // the last key it takes
+  auto pass = [&](auto kind, int base, unsigned long long after) {
+    constexpr bool first = decltype(kind)::first;
+    Taken sel(min(MAX_M, a.m - base));
+    // one column: its value on the first pass (in v), its key, or ~0
+    // where an earlier pass took it
+    auto column = [&](int j, int& v, int tx, float u) {
+      if (first) v = expire(a, r0 + j, announced(a, i, j, v));
+      const unsigned long long key = score_key(a, tx, u, j);
+      return first || key > after ? key : ~0ull;
+    };
+    // columns lo .. hi - 1, a lane each
+    auto scalars = [&](int lo, int hi) {
+      for (int j0 = lo; j0 < hi; j0 += 32) {
+        const int j = j0 + lane;
+        unsigned long long key = ~0ull;
+        int v = 0;
+        if (j < hi) {
+          const size_t c = r0 + j;
+          if (first) v = __ldg(a.view_in + c);
+          key = column(j, v, __ldg(a.tx_in + c), tie_uniform(a, c));
+          if (first && j != i && j != t) a.view[c] = v;
+        }
+        sel.offer(key, v, lane);  // the warp converged
+      }
+    };
+
+    scalars(0, head);
+    const int4 none = make_int4(0, 0, 0, 0);
+    int4 ntx = none, nv = none;
+    if (lane < groups) {
+      ntx = __ldg(tx4 + lane);
+      if (first) nv = __ldg(vin4 + lane);
+    }
+    for (int g = lane; g - lane < groups; g += 32) {
+      const int4 tx = ntx, v = nv;
+      if (g + 32 < groups) {
+        ntx = __ldg(tx4 + g + 32);
+        if (first) nv = __ldg(vin4 + g + 32);
+      }
+      const int j0 = head + 4 * g;
+      int w[4] = {v.x, v.y, v.z, v.w};
+      unsigned long long k[4] = {~0ull, ~0ull, ~0ull, ~0ull};
+      if (g < groups) {  // idle lanes of the last sweep offer nothing
+        const size_t c = r0 + j0;
+        // the four hashes first, side by side, then the columns
+        const float u0 = tie_uniform(a, c), u1 = tie_uniform(a, c + 1);
+        const float u2 = tie_uniform(a, c + 2), u3 = tie_uniform(a, c + 3);
+        k[0] = column(j0, w[0], tx.x, u0);
+        k[1] = column(j0 + 1, w[1], tx.y, u1);
+        k[2] = column(j0 + 2, w[2], tx.z, u2);
+        k[3] = column(j0 + 3, w[3], tx.w, u3);
+        if (first) {
+          if ((unsigned)(i - j0) < 4u || (unsigned)(t - j0) < 4u) {
+#pragma unroll
+            for (int q = 0; q < 4; ++q)
+              if (j0 + q != i && j0 + q != t) a.view[r0 + j0 + q] = w[q];
+          } else {
+            vout4[g] = make_int4(w[0], w[1], w[2], w[3]);
+          }
         }
       }
+      sel.offer4(k, w, lane);
     }
-    // `take` rounds of a block-wide minimum over the threads' heads
-    for (int r = 0; r < take; ++r) {
-      unsigned long long x = best[0];
-#pragma unroll
-      for (int o = 16; o > 0; o >>= 1)
-        x = umin64(x, __shfl_xor_sync(FULL, x, o));
-      if (lane == 0) s_warp[warp] = x;
-      __syncthreads();
-      unsigned long long win = s_warp[0];
-      for (int w = 1; w < THREADS / 32; ++w) win = umin64(win, s_warp[w]);
-      if (best[0] == win) {  // keys are unique: one thread pops
-#pragma unroll
-        for (int q = 0; q + 1 < MAX_M; ++q) best[q] = best[q + 1];
-        best[MAX_M - 1] = ~0ull;
+    scalars(tail0, n);
+
+    if constexpr (first) {
+      // the prelude (:128-197): every draw a pure function of the
+      // tick's inputs, spread over the lanes
+      const bool al = __ldg(a.alive + i);
+      const bool alive_t = __ldg(a.alive + t);
+      bool leg1 = true, leg2 = true;
+      Announce own{0, 0, -1}, at{0, 0, -1};
+      if (lane == 0) {
+        leg1 = leg_ok(a, K_LOSS1, i);
+        leg2 = leg_ok(a, K_LOSS2, i);
+      } else if (lane == 1) {
+        own = announce(a, i);
+      } else if (lane == 2) {
+        at = announce(a, t);
       }
-      if (threadIdx.x == 0) s_sel[r] = win;
-      __syncthreads();
+      leg1 = __shfl_sync(FULL, (int)leg1, 0);
+      leg2 = __shfl_sync(FULL, (int)leg2, 0);
+      // direct probe (:157-164)
+      const bool ping_ok = al && leg1 && alive_t;
+      const bool ack_ok = ping_ok && leg2;
+      // indirect probes (:166-185): each live helper charged one
+      // message for its ping, the legs of each drawn at once
+      int indirect = 0;
+      if (!ack_ok && al) {
+        for (int q = lane; q < a.h; q += 32) {
+          const unsigned long long idx = (unsigned long long)i * a.h + q;
+          const int helper = rand_peer(a, K_HELP, idx, i);
+          if (!__ldg(a.alive + helper)) continue;
+          atomicAdd(a.msgs + helper, 1);
+          indirect += alive_t & leg_ok(a, K_HLOSS, 4 * idx) &
+                      leg_ok(a, K_HLOSS, 4 * idx + 1) &
+                      leg_ok(a, K_HLOSS, 4 * idx + 2) &
+                      leg_ok(a, K_HLOSS, 4 * idx + 3);
+        }
+        indirect = __reduce_add_sync(FULL, indirect);
+      }
+      own.inc1 = __shfl_sync(FULL, own.inc1, 1);
+      own.diag = __shfl_sync(FULL, own.diag, 1);
+      own.seed = __shfl_sync(FULL, own.seed, 1);
+      at.inc1 = __shfl_sync(FULL, at.inc1, 2);
+      at.diag = __shfl_sync(FULL, at.diag, 2);
+      at.seed = __shfl_sync(FULL, at.seed, 2);
+      if (lane == 0) {
+        int charge = 0;  // messages node i sends this tick
+        if (a.revived != nullptr && __ldg(a.revived + i)) {
+          charge += 1;  // the announce
+          if (own.seed >= 0) atomicAdd(a.msgs + own.seed, 1);  // its ack
+        }
+        charge += al;
+        if (ping_ok) atomicAdd(a.pinged + t, 1);
+        // t's acks: the direct one and the relayed ones
+        if (ping_ok + indirect) atomicAdd(a.msgs + t, ping_ok + indirect);
+        bool probe_ok = ack_ok;
+        if (!ack_ok && al) {
+          // the reference charges the client one message for its
+          // ping-reqs (its [N, 1] `tried`, summed over one column)
+          charge += 1;
+          probe_ok = indirect > 0;
+        }
+        charge += al * a.g;  // gossip messages (:235)
+        if (charge) atomicAdd(a.msgs + i, charge);
+        // the probe outcome on view[i, t] (:187-197), over the input
+        // cell with t's announce landing in it
+        int cur = __ldg(a.view_in + r0 + t);
+        if (at.seed == i) cur = max(cur, at.diag);
+        int upd = cur;
+        if (probe_ok && al) upd = max(cur, at.inc1 * 4 + ALIVE);
+        if (!probe_ok && al && cur % 4 == ALIVE)
+          upd = max(cur, (cur / 4) * 4 + SUSPECT);
+        a.target[i] = t;
+        a.inc1[i] = own.inc1;
+        a.probe[i] = (ping_ok ? PING_OK : 0) | (ack_ok ? ACK_OK : 0);
+        diag_w = expire(a, r0 + i, own.diag);
+        probe_w = expire(a, r0 + t, upd);
+        a.view[r0 + i] = diag_w;
+        a.view[r0 + t] = probe_w;
+      }
+      diag_w = __shfl_sync(FULL, diag_w, 0);
+      probe_w = __shfl_sync(FULL, probe_w, 0);
     }
-    after = s_sel[take - 1];
-    if (threadIdx.x < take) {
-      const int j = (int)(s_sel[threadIdx.x] & 0xffffffffu);
-      const size_t c = cell(n, i, j);
-      const size_t o = (size_t)i * a.m + base + threadIdx.x;
+
+    if (lane < sel.take) {
+      const int j = (int)(sel.key & 0xffffffffu);
+      int p = sel.pay;
+      if (!first) p = a.view[r0 + j];
+      else if (j == i) p = diag_w;
+      else if (j == t) p = probe_w;
+      const size_t o = (size_t)i * a.m + base + lane;
       a.ge[o] = j;
-      a.sendable[o] = a.tx_in[c] < a.limit;
-      a.pay[o] = a.view[c];  // written by this block before the barrier
+      a.sendable[o] = (unsigned)(sel.key >> 32) != INF_BITS;
+      a.pay[o] = p;
     }
-    __syncthreads();  // s_sel is read above before the next pass writes it
+    return __shfl_sync(FULL, sel.key, sel.take - 1);
+  };
+
+  unsigned long long after = pass(Pass<true>{}, 0, 0);
+  for (int base = MAX_M; base < a.m; base += MAX_M) {
+    __syncwarp();  // the row this warp wrote is read back
+    after = pass(Pass<false>{}, base, after);
   }
 }
 
@@ -449,7 +645,8 @@ extern "C" int swim_launch(
   const unsigned entries = blocks_for((long long)n * m, tpb);
   switch (phase) {
     case 0:
-      swim_probe_select<<<n, THREADS, 0, st>>>(a);
+      swim_probe_select<<<(n + SEL_WARPS - 1) / SEL_WARPS, SEL_WARPS * 32,
+                          0, st>>>(a);
       break;
     case 1:  // the caller skips the gossip pass without gossip targets
       if (g < 1) return (int)cudaErrorInvalidValue;

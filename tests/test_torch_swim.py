@@ -32,8 +32,10 @@ FIELDS = js.SwimState._fields
 
 # (SwimParams overrides, nodes, ticks, churn schedule): loss 0 and 0.15,
 # a revive, no revived argument, tiny clusters, other probe / gossip
-# widths
+# widths, and 1000 nodes, one of the sizes chip_smoke.py holds the
+# kernels to this plain version at
 CASES = {
+    "n-1000-churn": (dict(scaled=True), 1000, 6, True),
     "scaled-64-churn": (dict(scaled=True), 64, 40, True),
     "loss-0.15-churn": (dict(loss=0.15, suspect_timeout=8), 32, 40, True),
     "loss-0.15-no-revived": (dict(loss=0.15), 24, 30, False),
@@ -115,6 +117,28 @@ def test_crafted_ties_take_the_lower_index_first():
     _lockstep(n, 3, kw, churn=False, seed=2,
               ref=js.SwimState(**{k: jnp.asarray(v) for k, v in st.items()}),
               port=swim_state_from_numpy(st, device="cpu"))
+
+
+def test_rows_at_the_limit_take_the_lowest_indices():
+    """Whole rows with every update_tx at or past the retransmission
+    limit score +inf throughout: top_k takes their lowest indices, none
+    sendable, so those rows gossip nothing and charge nothing.  The
+    port holds the reference bitwise per tick from such a state
+    (every third row at the limit, every seventh from row 1 past it)."""
+    _, lowest = jax.lax.top_k(jnp.full((1, 7), -jnp.inf), 3)
+    assert np.asarray(lowest).tolist() == [[0, 1, 2]]
+    n, kw = 48, dict(loss=0.15, suspect_timeout=8)
+    ref, port = _lockstep(n, 6, kw, churn=True, seed=3)
+    limit = js.SwimParams(n_nodes=n, **kw).update_tx_limit
+    leaves = swim_state_to_numpy(port)
+    tx = leaves["update_tx"].copy()
+    tx[::3] = limit
+    tx[1::7] = limit + 5
+    leaves["update_tx"] = tx
+    ref = ref._replace(update_tx=jnp.asarray(tx))
+    port = swim_state_from_numpy(leaves, device="cpu")
+    ref, port = _lockstep(n, 3, kw, churn=True, seed=4, ref=ref, port=port)
+    assert not _leaves_equal(port, ref)
 
 
 def test_selection_order_matches_top_k():
