@@ -146,7 +146,9 @@ package.  Phases, each ending the run with a non-zero exit on failure:
     ``shard_commit`` (ticks 1 and 6 of phase 18's three runs and of a
     WAN-latency variant of the dense and host layouts: every shard's
     rounds, shard 0's and a later shard's commit) against their plain
-    versions, bitwise, and time them behind a GPU-side sleep;
+    versions, bitwise, and time them behind a GPU-side sleep at tick 6
+    of the host, frontier and dense layouts, also with the active rows
+    gathered into contiguous blocks (``narrowed_rows``);
 18. run ``run_exact_headline`` over a ``LocalFabric`` on the card, the
     launch counters zeroed just before each run: ``host-sparse`` on the
     10M-node headline config x 2 seeds on 2 hosts, held to
@@ -169,10 +171,12 @@ package.  Phases, each ending the run with a non-zero exit on failure:
     single-device tick).
 
 ``python3 chip_smoke.py --parent DIR`` (DIR an unpacked ``git
-archive`` of the parent commit) also builds the parent's ``swim.cu``,
-requires its ``swim_probe_select`` to write what this tree's writes,
-and times the two in turns (parent, change, change, parent) at
-N = 64 and 4096.
+archive`` of the parent commit) also builds the parent's ``swim.cu``
+and ``exact_send.cu`` and requires their kernels to write what this
+tree's write: ``swim_probe_select`` at N = 64 and 4096 (phase 8),
+``exact_send<Bitmap>`` at phase 5's timed ticks, ``shard_round`` and
+``shard_commit`` in phase 17b's timed cases (both commits from restored
+copies); each pair is timed in turns (parent, change, change, parent).
 
 Prints the card line, the ``kernels`` JSON line and, last, the
 ``{"ok": true, "device": ...}`` line; writes the full record (with
@@ -191,7 +195,7 @@ import subprocess
 import sys
 import tempfile
 import time
-from concurrent.futures import ProcessPoolExecutor
+from concurrent.futures import ProcessPoolExecutor, ThreadPoolExecutor
 from dataclasses import replace
 
 import numpy as np
@@ -325,31 +329,97 @@ def build_library(src: str, lib: str) -> list:
 
 
 class ParentDesign:
-    """The parent commit's ``swim.cu``, built from a checkout of it
-    (``--parent DIR``) and launched as its wrapper launched it, for
-    timing beside this tree's ``swim_probe_select`` in one run.  The
-    C interface of ``swim_launch`` is unchanged since, so this tree's
-    ``kernels.swim.prepare`` fills its arguments."""
+    """The parent commit's ``swim.cu`` and ``exact_send.cu``, built from a
+    checkout of it (``--parent DIR``, one ``nvcc`` each, both at once)
+    and launched as its wrappers launched them, for timing beside this
+    tree's kernels in one run.  The C interfaces of ``swim_launch``,
+    ``exact_send_launch`` and ``shard_launch`` are unchanged since, so
+    this tree's wrappers fill their arguments (``kernels.swim.prepare``,
+    ``exact_send.send_args``, ``shard_exact.round_args`` /
+    ``commit_args``)."""
+
+    SOURCES = ("swim", "exact_send")
 
     def __init__(self, root: str):
         from corrosion_tpu_torch import kernels
+        from corrosion_tpu_torch.kernels import shard_exact as sx
 
         csrc = os.path.join(root, "corrosion_tpu_torch", "kernels", "csrc")
-        lib = os.path.join(str(kernels.BUILD_DIR / "parent"), "libswim.so")
-        self.ptxas = {"swim": build_library(os.path.join(csrc, "swim.cu"),
-                                            lib)}
-        self.lib = ctypes.CDLL(lib)
+        out = str(kernels.BUILD_DIR / "parent")
+        libs = {name: os.path.join(out, f"lib{name}.so")
+                for name in self.SOURCES}
+        with ThreadPoolExecutor(len(libs)) as pool:
+            logs = pool.map(lambda name: build_library(
+                os.path.join(csrc, f"{name}.cu"), libs[name]), libs)
+            self.ptxas = dict(zip(libs, logs))
+        self.libs = {name: ctypes.CDLL(lib) for name, lib in libs.items()}
+        size = self.libs["exact_send"].shard_args_size()
+        if size != ctypes.sizeof(sx._ShardArgs):
+            fail(f"the parent's ShardArgs is {size} bytes, this tree's "
+                 f"{ctypes.sizeof(sx._ShardArgs)}")
+
+    def _launch(self, lib: str, symbol: str, argtypes, *args) -> None:
+        from corrosion_tpu_torch import kernels
+
+        fn = getattr(self.libs[lib], symbol)
+        fn.argtypes, fn.restype = list(argtypes), ctypes.c_int
+        kernels.raise_on_error(f"parent {symbol}", fn(*args))
 
     def swim_probe_select(self, launch) -> None:
         """The parent's ``swim_probe_select`` on a tick's ``Launch``
         (one 256-thread block a row)."""
-        from corrosion_tpu_torch import kernels
         from corrosion_tpu_torch.kernels import swim as ksw
 
-        fn = self.lib.swim_launch
-        fn.argtypes, fn.restype = list(ksw._ARGTYPES), ctypes.c_int
-        kernels.raise_on_error("parent swim_probe_select",
-                               fn(*launch.args, 0, launch.stream))
+        self._launch("swim", "swim_launch", ksw._ARGTYPES, *launch.args, 0,
+                     launch.stream)
+
+    def exact_send(self, infected, tx, next_send, msgs, pending, sent, keys,
+                   tick, p, tier, diag):
+        """The parent's ``exact_send<Bitmap>`` (``exact_send``'s
+        arguments, a bitmap ``sent``); returns new_infected."""
+        from corrosion_tpu_torch import kernels
+        from corrosion_tpu_torch.kernels import exact_send as es
+
+        if sent.dtype != torch.uint8:
+            fail("the parent's exact_send is launched on a bitmap only")
+        new_infected = infected.clone()
+        a = es.send_args(infected, new_infected, tx, next_send, msgs,
+                         pending, sent, keys, tick, p, tier, diag)
+        self._launch("exact_send", "exact_send_launch",
+                     (ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p,
+                      ctypes.c_void_p, ctypes.c_void_p),
+                     ctypes.addressof(a), 0, None, None,
+                     kernels.stream(infected))
+        return new_infected
+
+    def _shard(self, sa, sent_l, commit: bool, t) -> None:
+        from corrosion_tpu_torch import kernels
+
+        self._launch("exact_send", "shard_launch",
+                     (ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
+                      ctypes.c_void_p),
+                     ctypes.addressof(sa), int(sent_l.dtype == torch.int32),
+                     int(commit), kernels.stream(t))
+
+    def shard_round(self, active_l, sent_l, keys, lo, n, p, diag, tick=0):
+        """The parent's ``shard_round`` (``shard_round``'s arguments)."""
+        from corrosion_tpu_torch.kernels import shard_exact as sx
+
+        sa, rounds = sx.round_args(active_l, sent_l, keys, lo, n, p, diag,
+                                   tick)
+        self._shard(sa, sent_l, False, active_l)
+        return rounds
+
+    def shard_commit(self, active, rounds, infected_t, pending_t, tx_b,
+                     next_send_b, msgs_b, sent_l, keys, lo, tick, p, tier):
+        """The parent's ``shard_commit`` (``shard_commit``'s arguments)."""
+        from corrosion_tpu_torch.kernels import shard_exact as sx
+
+        sa, new_infected = sx.commit_args(
+            active, rounds, infected_t, pending_t, tx_b, next_send_b,
+            msgs_b, sent_l, keys, lo, tick, p, tier)
+        self._shard(sa, sent_l, True, active)
+        return new_infected
 
 
 def kernel_checks(cfg, mods, dev):
@@ -876,7 +946,7 @@ def busiest_tick(cfg, seeds: int, dev) -> dict:
     return {"tick": top[0], "per_tick": per_tick}
 
 
-def exact_kernel_checks(dev):
+def exact_kernel_checks(dev, parent=None):
     """``exact_send`` (both representations) and ``exact_commit``
     against their plain versions on the card, on the inputs of ticks 1
     and ``BUSY_TICK`` of the full-width runs at their own seed counts
@@ -886,7 +956,8 @@ def exact_kernel_checks(dev):
     ``bitmap_edge_checks``.  Timed at each tick of the uniform runs.
     The dense check holds three copies of the 20 GB bitmap (the state,
     the kernel's and the plain version's); the timed calls reuse the
-    kernel's."""
+    kernel's.  With ``parent``, ``exact_send<Bitmap>`` is held to the
+    parent's and timed beside it in turns at each timed tick."""
     from corrosion_tpu_torch.kernels import exact_send as es
     from corrosion_tpu_torch.random import fold_in
     from corrosion_tpu_torch.sim import calibrate as cal
@@ -952,9 +1023,10 @@ def exact_kernel_checks(dev):
                 learned=learned))
             if cfg.topology == "uniform":
                 times = exact_times(es, cfg, seeds, ring, rep, tick, args,
-                                    saved, got, got_inf, d, learned, diag())
+                                    saved, got, got_inf, d, learned, diag(),
+                                    parent)
                 checks[-1]["times"] = {k: {f: v[f] for f in v if f in (
-                    "ms", "bound", "shape")}
+                    "ms", "ms_runs", "parent_ms", "bound", "shape")}
                     for k, v in times.items()}
                 if tick == BUSY_TICK:
                     timed.update(times)
@@ -1038,12 +1110,37 @@ def bitmap_edge_checks(es, dev) -> list:
     return out
 
 
+def parent_send_check(es, parent, work, restore, saved, tick: int):
+    """The parent's ``exact_send<Bitmap>`` on ``work`` restored from
+    ``saved`` must write what this tree's writes, every leaf and the
+    counters; returns it as a function of its ``diag``."""
+    outs = []
+    for fn in (es.exact_send, parent.exact_send):
+        restore()
+        d = torch.zeros(len(es.DIAG), dtype=torch.int64, device=work[
+            "infected"].device)
+        new_inf = fn(**work, diag=d)
+        # this tree's leaves copied (one more bitmap), the parent's read
+        # in place
+        outs.append([new_inf, *(work[f] if outs else work[f].clone()
+                                for f in saved), d])
+    bad = [f for f, x, y in zip(["new_infected", *saved, "diag"], *outs)
+           if not torch.equal(x, y)]
+    if bad:
+        fail(f"exact_send<Bitmap> differs from the parent's at tick "
+             f"{tick}: {bad}")
+    del outs
+    torch.cuda.empty_cache()
+    return lambda diag: parent.exact_send(**work, diag=diag)
+
+
 def exact_times(es, cfg, seeds, ring, rep, tick, args, saved, work,
-                new_infected, d, learned, t_diag) -> dict:
+                new_infected, d, learned, t_diag, parent=None) -> dict:
     """Times of ``exact_send`` (and for the bitmap ``exact_commit``) on
     one tick's inputs, with their bounds.  ``work`` is the kernel's
     copy of the inputs; ``restore`` puts ``saved`` back into it before
-    every call."""
+    every call.  With ``parent``, the bitmap's is held to the parent's
+    and timed beside it in turns."""
     def restore():
         for f, v in saved.items():
             work[f].copy_(v)
@@ -1059,9 +1156,13 @@ def exact_times(es, cfg, seeds, ring, rep, tick, args, saved, work,
     # randint's split, 3 hashes) depend on (seed, round) alone: counted
     # for the busiest row's rounds only; an active row's loss draws
     hashes = d[1] * 2 * k + 3 * d[2] + d[0] * k * (cfg.loss > 0)
+    old = None
+    if parent is not None and not ring:
+        old = parent_send_check(es, parent, work, restore, saved, tick)
     out = {rep: dict(
-        ms=time_inplace_ms(
-            restore, lambda: es.exact_send(**work, diag=t_diag), 20),
+        **in_turns(lambda: es.exact_send(**work, diag=t_diag),
+                   old and (lambda: old(t_diag)),
+                   lambda fn: time_inplace_ms(restore, fn, 20)),
         plain_ms=time_inplace_ms(
             restore, lambda: es.exact_send_plain(**work, diag=t_diag), 1, 1),
         bound=(send_bytes, hashes * INT_OPS_PER_HASH),
@@ -3227,15 +3328,17 @@ def shard_inputs(args, kind: str, sh: int, d: int, tick: int):
                 target=target, budget=budget, lo=sh * nl)
 
 
-def shard_kernel_checks(dev):
+def shard_kernel_checks(dev, parent=None):
     """Phase 17b: ``shard_round`` and ``shard_commit`` against their plain
     versions, every output bitwise, at ticks 1 and ``BUSY_TICK`` of the
     three mesh runs' configs and seed counts and of a WAN-latency
     variant of the dense and host layouts: the round on every shard's
     rows, the commit of shard 0 and of a shard away from it in the
-    writer's partition block; timed there at ``BUSY_TICK``, the ring
-    kernels on the host layout (10M nodes), the bitmap kernels on the
-    dense layout."""
+    writer's partition block; timed there at ``BUSY_TICK`` on the
+    uniform configs (``shard_times``), the ring kernels on the host
+    layout (10M nodes, the headline shape) and the frontier layout (1M),
+    the bitmap kernels on the dense layout; with ``parent``, held to the
+    parent's kernels there and timed beside them in turns."""
     from corrosion_tpu_torch.kernels import shard_exact as sx
     from corrosion_tpu_torch.random import fold_in
     from corrosion_tpu_torch.sim import calibrate as cal
@@ -3283,21 +3386,14 @@ def shard_kernel_checks(dev):
                         pending=None if t_pend is None else t_pend.clone(),
                         budget=[b.clone() for b in x["budget"]],
                         sent=x["sent_l"].clone()))
-
-                def commit(fn, c, x=x):
-                    return fn(x["active"], accepted, x["target"][0],
-                              c["pending"], *c["budget"], c["sent"],
-                              args["keys"], x["lo"], tick, args["p"],
-                              args["tier"])
-
-                got = commit(sx.shard_commit, copies[0])
-                want = commit(sx.shard_commit_plain, copies[1])
-
-                def leaves(inf, c):
-                    return [inf, c["pending"], *c["budget"], c["sent"]]
-
-                c_err = max_abs_err(leaves(got, copies[0]),
-                                    leaves(want, copies[1]))
+                got = shard_commit_call(sx.shard_commit, x, args, tick,
+                                        x["active"], accepted, copies[0])()
+                want = shard_commit_call(sx.shard_commit_plain, x, args,
+                                         tick, x["active"], accepted,
+                                         copies[1])()
+                c_err = max_abs_err(commit_leaves(got, copies[0]),
+                                    commit_leaves(want, copies.pop()))
+                del got, want
                 errs["commit"][rep] = max(errs["commit"].get(rep, 0.0),
                                           c_err)
                 active_rows = int(x["active"].sum())
@@ -3308,12 +3404,12 @@ def shard_kernel_checks(dev):
                     active_rows=active_rows,
                     my_active_rows=int(x["active_l"].sum()),
                     rounds_max=int(accepted.max()) + 1))
-                if (time_it and tick == BUSY_TICK and sh == mid
-                        and rep not in timed):
-                    timed[rep] = shard_times(sx, cfg, seeds, d, x, args,
-                                             tick, accepted, copies[0],
-                                             commit, active_rows, kind)
-                del got, want, copies, x
+                if time_it and tick == BUSY_TICK and sh == mid:
+                    timed[kind] = shard_times(sx, cfg, seeds, d, x, args,
+                                              tick, accepted, copies[0],
+                                              active_rows, kind, parent)
+                    checks[-1]["times"] = timed[kind]
+                del x, copies
             del accepted, args
             torch.cuda.empty_cache()
         del state
@@ -3322,57 +3418,152 @@ def shard_kernel_checks(dev):
         if c["rounds_max_abs_err"] != 0.0 or c["commit_max_abs_err"] != 0.0:
             fail(f"shard kernels differ from their plain versions: {c}")
     results = []
-    for name, part, rep, replaces in (
-        ("shard_round<Bitmap>", "round", "bitmap",
+    for name, part, kinds, replaces in (
+        ("shard_round<Bitmap>", "round", ("dense",),
          "corrosion_tpu/sim/calibrate.py:817"),
-        ("shard_round<Ring>", "round", "ring",
+        ("shard_round<Ring>", "round", ("host", "frontier"),
          "corrosion_tpu/models/sharded.py:403"),
-        ("shard_commit<Bitmap>", "commit", "bitmap",
+        ("shard_commit<Bitmap>", "commit", ("dense",),
          "corrosion_tpu/sim/calibrate.py:848"),
-        ("shard_commit<Ring>", "commit", "ring",
+        ("shard_commit<Ring>", "commit", ("host", "frontier"),
          "corrosion_tpu/models/sharded.py:428"),
     ):
+        shapes = [dict(timed[k][part]) for k in kinds]
+        for sh in shapes:
+            set_bound(sh)
+        rep = "ring" if "Ring" in name else "bitmap"
         results.append(dict(
             name=name, route="cuda", source=SHARD_SOURCE, replaces=replaces,
-            max_abs_err=errs[part][rep], library_ms=None,
-            **timed[rep][part]))
-        set_bound(results[-1])
+            max_abs_err=errs[part][rep], library_ms=None, **shapes[0],
+            shapes=shapes))
     return results, checks
 
 
-def shard_times(sx, cfg, seeds, d, x, args, tick, accepted, work, commit,
-                active_rows, kind) -> dict:
+def shard_turns(results) -> dict:
+    """Phase 17b's times for its printed line: each shard kernel at each
+    timed shape, its rows scattered and gathered (``narrowed``), the
+    parent's beside it when it was timed."""
+    keys = ("ms", "ms_runs", "parent_ms")
+    return {r["name"]: [
+        dict(shape=sh["shape"], bound_ms=sh["bound_ms"],
+             **{f: sh[f] for f in keys if f in sh},
+             narrowed={f: sh["narrowed"][f] for f in keys
+                       if f in sh["narrowed"]})
+        for sh in r["shapes"]] for r in results}
+
+
+def shard_commit_call(fn, x, args, tick: int, active, accepted, c):
+    """A call of ``fn`` (``shard_commit``, its plain version or the
+    parent's) on shard inputs ``x`` with the mutated leaves of ``c``."""
+    return lambda: fn(active, accepted, x["target"][0], c["pending"],
+                      *c["budget"], c["sent"], args["keys"], x["lo"], tick,
+                      args["p"], args["tier"])
+
+
+def commit_leaves(new_infected, c) -> list:
+    return [new_infected, c["pending"], *c["budget"], c["sent"]]
+
+
+def clone_leaves(c) -> dict:
+    """A copy of a commit's mutated leaves (``shard_commit_call``'s
+    ``c``)."""
+    return {"pending": None if c["pending"] is None else c["pending"].clone(),
+            "budget": [b.clone() for b in c["budget"]],
+            "sent": c["sent"].clone()}
+
+
+def narrowed_rows(active, lo: int, nl: int):
+    """``active`` [S, N] with its rows gathered into contiguous blocks:
+    as many of my rows (lo .. lo + nl - 1 of each seed) as it holds
+    active, the first in flat order, and as many of the other rows, the
+    first in flat order.  The same count and split, with no lane of a
+    row's warp idle but at a block's ends."""
+    mine = torch.zeros_like(active)
+    mine[:, lo:lo + nl] = True
+    flat, m = active.reshape(-1), mine.reshape(-1)
+    take_mine = m.cumsum(0) <= int((flat & m).sum())
+    take_other = (~m).cumsum(0) <= int((flat & ~m).sum())
+    return torch.where(m, take_mine, take_other).reshape(active.shape)
+
+
+def shard_times(sx, cfg, seeds, d, x, args, tick, accepted, work,
+                active_rows, kind, parent) -> dict:
     """Times of ``shard_round`` and ``shard_commit`` on one shard's
     operands with their bounds (``work``: the kernel's copies of the
-    commit's mutated leaves, restored before every call)."""
+    commit's mutated leaves, restored before every call).  Each is also
+    timed with its active rows gathered into contiguous blocks
+    (``narrowed_rows``, rounds drawn for them and every budget left at 1
+    or more, so their marks stay in their rows): a design that runs a
+    warp for each 32 rows takes the same time there only if idle lanes
+    cost it nothing.  With ``parent``, the parent's kernels must write
+    what this tree's write (both commits from restored copies) and are
+    timed beside them in turns."""
     from corrosion_tpu_torch.sim import calibrate as cal
 
     k, n = cfg.fanout, cfg.n_nodes
     nl = n // d
+    lo = x["lo"]
     dev = x["active"].device
     ring = x["sent_l"].dtype == torch.int32
     my_active = int(x["active_l"].sum())
     diag = cal._zero_diag(dev)
-    sx.shard_round(x["active_l"], x["sent_l"], args["keys"], x["lo"], n,
+    sx.shard_round(x["active_l"], x["sent_l"], args["keys"], lo, n,
                    args["p"], diag, tick)
     rounds_sum, rounds_max = int(diag[1]), int(diag[2])
-    saved = {"pending": None if work["pending"] is None
-             else work["pending"].clone(),
-             "budget": [b.clone() for b in work["budget"]],
-             "sent": work["sent"].clone()}
+    saved = clone_leaves(work)
+    narrow = narrowed_rows(x["active"], lo, nl)
+    narrow_l = narrow[:, lo:lo + nl].contiguous()
+    accepted_n = (torch.cat([sx.shard_round(
+        narrow[:, w:w + nl].contiguous(),
+        args["sent"][:, w:w + nl].contiguous(), args["keys"], w, n,
+        args["p"], cal._zero_diag(dev), tick) for w in range(0, n, nl)],
+        dim=1) - 1).clamp_min(0)
+    saved_n = {**saved, "budget": [saved["budget"][0].clamp_min(1),
+                                   *saved["budget"][1:]]}
 
-    def restore():
-        for a, b in zip(work["budget"], saved["budget"]):
-            a.copy_(b)
-        work["sent"].copy_(saved["sent"])
-        if saved["pending"] is not None:
-            work["pending"].copy_(saved["pending"])
+    def restorer(src):
+        def restore():
+            for a, b in zip(work["budget"], src["budget"]):
+                a.copy_(b)
+            work["sent"].copy_(src["sent"])
+            if src["pending"] is not None:
+                work["pending"].copy_(src["pending"])
+        return restore
 
-    def rnd(fn):
-        return lambda: fn(x["active_l"], x["sent_l"], args["keys"], x["lo"],
-                          n, args["p"], cal._zero_diag(dev))
+    t_diag = cal._zero_diag(dev)
+    p_round = getattr(parent, "shard_round", None)
+    p_commit = getattr(parent, "shard_commit", None)
 
-    shape = (f"{kind} {seeds} seeds x {n} over {d}, shard {x['lo'] // nl}, "
+    def rnd(fn, active_l):
+        return fn and (lambda: fn(active_l, x["sent_l"], args["keys"], lo,
+                                  n, args["p"], t_diag))
+
+    def cmt(fn, active, acc):
+        return fn and shard_commit_call(fn, x, args, tick, active, acc,
+                                        work)
+
+    if parent is not None:
+        rounds, commits = [], []
+        for fn in (sx.shard_round, p_round):
+            dg = cal._zero_diag(dev)
+            rounds.append([fn(x["active_l"], x["sent_l"], args["keys"], lo,
+                              n, args["p"], dg, tick), dg])
+        for fn in (sx.shard_commit, p_commit):
+            restorer(saved)()
+            inf = cmt(fn, x["active"], accepted)()
+            commits.append(commit_leaves(inf, clone_leaves(work)))
+        bad = [f for f, pair in (("round", rounds), ("commit", commits))
+               if max_abs_err(*pair) != 0.0]
+        del rounds, commits
+        if bad:
+            fail(f"shard kernels differ from the parent's ({kind}, tick "
+                 f"{tick}): {bad}")
+
+    def turns(restore, mine, old):
+        return in_turns(mine, old,
+                        lambda fn: time_inplace_ms(restore, fn, 20))
+
+    shape = (f"{kind} {seeds} seeds x {n} over {d}, shard {lo // nl}, "
              f"tick {tick}, {my_active} of {active_rows} active rows mine")
     # round: my activity bytes read and round counts written; a ring row
     # read once, or K bitmap sectors a round; a drawn candidate's two
@@ -3381,9 +3572,12 @@ def shard_times(sx, cfg, seeds, d, x, args, tick, accepted, work, commit,
     memory = (my_active * 4 * frontier_cap(cfg) if ring
               else rounds_sum * k * SECTOR)
     out = {"round": dict(
-        ms=time_inplace_ms(lambda: None, rnd(sx.shard_round), 20),
-        plain_ms=time_inplace_ms(lambda: None, rnd(sx.shard_round_plain),
-                                 1, 1),
+        **turns(lambda: None, rnd(sx.shard_round, x["active_l"]),
+                rnd(p_round, x["active_l"])),
+        narrowed=turns(lambda: None, rnd(sx.shard_round, narrow_l),
+                       rnd(p_round, narrow_l)),
+        plain_ms=time_inplace_ms(
+            lambda: None, rnd(sx.shard_round_plain, x["active_l"]), 1, 1),
         bound=(seeds * nl * 5 + memory,
                (rounds_sum * 2 * k + 3 * rounds_max) * INT_OPS_PER_HASH),
         shape=shape)}
@@ -3395,10 +3589,14 @@ def shard_times(sx, cfg, seeds, d, x, args, tick, accepted, work, commit,
     marks = my_active * (SECTOR if ring else 2 * k * SECTOR)
     draws = k * ((cfg.loss > 0) + (cfg.topology == "wan_two_region"))
     out["commit"] = dict(
-        ms=time_inplace_ms(restore, lambda: commit(sx.shard_commit, work),
-                           20),
+        **turns(restorer(saved), cmt(sx.shard_commit, x["active"], accepted),
+                cmt(p_commit, x["active"], accepted)),
+        narrowed=turns(restorer(saved_n),
+                       cmt(sx.shard_commit, narrow, accepted_n),
+                       cmt(p_commit, narrow, accepted_n)),
         plain_ms=time_inplace_ms(
-            restore, lambda: commit(sx.shard_commit_plain, work), 1, 1),
+            restorer(saved), cmt(sx.shard_commit_plain, x["active"],
+                                 accepted), 1, 1),
         bound=(seeds * n * 5 + active_rows * k * SECTOR + budget_rows * 24
                + marks,
                active_rows * (3 + 2 * k + draws) * INT_OPS_PER_HASH),
@@ -3793,14 +3991,16 @@ def gloo_phase(tmp: str) -> dict:
 
 
 def mesh_phases(record: dict, counted: dict, single_runs: dict,
-                cuda) -> list:
+                cuda, parent=None) -> list:
     """Phases 17-20; returns the new kernels' results with the main
     path's launches."""
     fabric_results, record["fabric_cases"] = fabric_kernel_checks(cuda)
-    shard_results, record["shard_checks"] = shard_kernel_checks(cuda)
+    shard_results, record["shard_checks"] = shard_kernel_checks(cuda,
+                                                                parent)
     print("fabric and shard kernels match their plain versions: "
           + ", ".join(f"{r['name']} {r['max_abs_err']}"
                       for r in fabric_results + shard_results), flush=True)
+    print(json.dumps({"shard": shard_turns(shard_results)}), flush=True)
     runs = mesh_full_width(counted, single_runs, cuda)
     record["mesh_runs"] = runs
     fabric_runs = fabric_full_width(counted, cuda)
@@ -3841,8 +4041,10 @@ def main() -> int:
     import argparse
 
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--parent", help="a checkout of the parent commit: time "
-                    "its swim_probe_select beside this tree's")
+    ap.add_argument("--parent", help="a checkout of the parent commit: "
+                    "hold its swim_probe_select, exact_send<Bitmap> and "
+                    "shard kernels to this tree's and time them beside "
+                    "them")
     opts = ap.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
@@ -3949,7 +4151,7 @@ def main() -> int:
 
     # phase 5: the exact sampler's kernels against their plain versions
     exact_results, record["exact_checks"], record["exact_busiest"] = (
-        exact_kernel_checks(cuda))
+        exact_kernel_checks(cuda, parent))
     print("exact kernels match their plain versions: "
           + ", ".join(f"{r['name']} {r['max_abs_err']}"
                       for r in exact_results), flush=True)
@@ -4045,7 +4247,7 @@ def main() -> int:
                                      dir=kernels.BUILD_DIR) as tmp:
         store_results = apply_phases(record, counted, tmp,
                                      results + winners_results)
-    mesh_results = mesh_phases(record, counted, runs, cuda)
+    mesh_results = mesh_phases(record, counted, runs, cuda, parent)
     results += (exact_results + ae_results + swim_results + sent_results
                 + winners_results + store_results + mesh_results)
     record["kernels"] = results

@@ -18,18 +18,19 @@
 // has.  exact_send<Bitmap> is one launch (exact_send_bitmap_kernel), a
 // persistent grid with no list: each warp ballots the activity of its tiles
 // of 32 rows and deals the active rows to its lanes, carrying a short batch
-// into the next tile, so warps run active rows only here too.  A row runs
+// into the next tile, so warps run active rows only here too (deal_rows,
+// which the shard kernels below share).  A row runs
 // its own rejection loop: round r draws the row's K candidates of
 // randint(fold_in(k_draw, r), (n, K), 0, n) at flat indices i*K .. i*K+K-1
 // and redraws the whole tuple until it holds no self hit, no duplicate and
 // no sent hit.  The round's randint keys (fold_in and randint's split: 3 of
 // a round's 3 + 2K hashes) depend on (seed, r) alone, so each block of the
-// three persistent grids derives them once for the first KEY_ROUNDS rounds
+// persistent grids derives them once for the first KEY_ROUNDS rounds
 // of every seed into shared memory; a later round derives its own.  A row's
 // draws depend on its own index only, so this equals the reference's loop,
-// which freezes rows once they are valid.  The sent test is the template
-// parameter: bit c & 7 of byte sent[s, i, c >> 3], or a compare across the
-// row's ring slots plus the ring0 tier.  The ring row (cap = max_tx * K
+// which freezes rows once they are valid.  The sent test is bit c & 7 of
+// byte sent[s, i, c >> 3] (bitmap_loop), or a compare across the row's
+// ring slots plus the ring0 tier (ring_loop).  The ring row (cap = max_tx * K
 // int32 slots, 32 at the headline) is loaded once into registers, 16 bytes
 // a load, and every candidate of every round is tested there; slots past
 // RING_REGS are read from memory.  The bitmap's K bytes of a round are
@@ -71,7 +72,7 @@
 namespace {
 
 constexpr int MAX_K = 8;
-constexpr int BITMAP_FANOUT = 4;  // sim/calibrate.py headline_exact_cfg
+constexpr int EXACT_FANOUT = 4;  // sim/calibrate.py headline_exact_cfg
 constexpr int MAX_SEEDS = 32;
 constexpr int MAX_ROUNDS = 4096;
 constexpr int THREADS = 256;
@@ -174,25 +175,10 @@ __device__ __forceinline__ void draw_tuple(const ExactArgs& a,
   draw_with(a, round_keys(key, r), i, cand);
 }
 
-// What a row's sent test reads, loaded once a row: its bitmap row, or
-// its ring slots (the first RING_REGS in registers, -1 past cap, which
-// no candidate equals) and whether the writer's ring0 tier applies.
-template <bool RING>
-struct SentRow;
-
-template <>
-struct SentRow<false> {
-  const unsigned char* row;
-  __device__ __forceinline__ void load(const ExactArgs& a, unsigned g, int) {
-    row = a.sent + (size_t)g * (size_t)a.nb;
-  }
-  __device__ __forceinline__ bool hit(const ExactArgs&, int c) const {
-    return (row[c >> 3] >> (c & 7)) & 1;
-  }
-};
-
-template <>
-struct SentRow<true> {
+// What a ring row's sent test reads, loaded once a row: its ring slots
+// (the first RING_REGS in registers, -1 past cap, which no candidate
+// equals) and whether the writer's ring0 tier applies.
+struct RingRow {
   int slot[RING_REGS];
   const int* row;
   bool tier;
@@ -225,44 +211,45 @@ struct SentRow<true> {
   }
 };
 
-// A self, sent or duplicate hit in row i's tuple.
-template <bool RING>
+// A self, sent or duplicate hit in ring row i's tuple.
+template <int KN>
 __device__ __forceinline__ bool tuple_bad(const ExactArgs& a,
-                                          const SentRow<RING>& mem, int i,
-                                          const int (&cand)[MAX_K]) {
+                                          const RingRow& mem, int i,
+                                          const int (&cand)[KN]) {
   bool bad = false;
 #pragma unroll
-  for (int j = 0; j < MAX_K; ++j)
+  for (int j = 0; j < KN; ++j)
     if (j < a.k) bad = bad || cand[j] == i || mem.hit(a, cand[j]);
 #pragma unroll
-  for (int x = 0; x < MAX_K; ++x)
+  for (int x = 0; x < KN; ++x)
 #pragma unroll
-    for (int y = x + 1; y < MAX_K; ++y)
+    for (int y = x + 1; y < KN; ++y)
       if (y < a.k) bad = bad || cand[x] == cand[y];
   return bad;
 }
 
-// Row i's whole rejection loop (seed s, memory row g): its accepted
-// tuple in cand; returns the rounds drawn (MAX_ROUNDS with capped set
-// when none was accepted).  keys: the block's table, or null to derive
-// every round's keys in the thread.
-template <bool RING>
-__device__ __forceinline__ int reject_loop(const ExactArgs& a,
-                                           const KeyTable* keys, int s,
-                                           unsigned g, int i,
-                                           int (&cand)[MAX_K], bool& capped) {
-  SentRow<RING> mem;
+// Ring row i's whole rejection loop (seed s, memory row g): its
+// accepted tuple in cand; returns the rounds drawn (MAX_ROUNDS with
+// capped set when none was accepted).  The first KEY_ROUNDS rounds take
+// their keys from the block's table.  KN >= a.k is the tuple's
+// registers.
+template <int KN>
+__device__ __forceinline__ int ring_loop(const ExactArgs& a,
+                                         const KeyTable& keys, int s,
+                                         unsigned g, int i,
+                                         int (&cand)[KN], bool& capped) {
+  RingRow mem;
   mem.load(a, g, i);
   for (int r = 0;; ++r) {
     if (r == MAX_ROUNDS) {
       capped = true;
       return r;
     }
-    if (keys != nullptr && r < KEY_ROUNDS)
-      draw_with(a, keys->rk[s][r], i, cand);
+    if (r < KEY_ROUNDS)
+      draw_with(a, keys.rk[s][r], i, cand);
     else
       draw_tuple(a, a.keys[s], r, i, cand);
-    if (!tuple_bad<RING>(a, mem, i, cand)) return r + 1;
+    if (!tuple_bad(a, mem, i, cand)) return r + 1;
   }
 }
 
@@ -293,16 +280,36 @@ __device__ __forceinline__ Delivery deliver_kind(const ExactArgs& a,
   return NOW;
 }
 
-// The sender's mark of send j to c in its own row g (tx0: its budget
-// before this tick's decrement picks the ring slot).
-template <bool RING>
-__device__ __forceinline__ void mark(const ExactArgs& a, unsigned g, int tx0,
-                                     int j, int c) {
-  if constexpr (RING)
-    a.ring[(size_t)g * (unsigned)a.cap + ((a.max_tx - tx0) * a.k + j)] = c;
-  else
-    a.sent[(size_t)g * (size_t)a.nb + (c >> 3)] |=
-        (unsigned char)(1u << (c & 7));
+// The sender's mark of send j to c in its own ring row g (tx0: its
+// budget before this tick's decrement picks the slot).
+__device__ __forceinline__ void mark_slot(const ExactArgs& a, unsigned g,
+                                          int tx0, int j, int c) {
+  a.ring[(size_t)g * (unsigned)a.cap + ((a.max_tx - tx0) * a.k + j)] = c;
+}
+
+// The marks of cand in bitmap row `row`, from the bytes its sent test
+// loaded (byte j holds cand[j]'s bit): candidates that share a byte
+// write it once, with all their bits, so no byte is read twice.
+template <int KN>
+__device__ __forceinline__ void mark_bytes(const ExactArgs& a,
+                                           unsigned char* row,
+                                           const int (&cand)[KN],
+                                           const unsigned (&byte)[KN]) {
+#pragma unroll
+  for (int j = 0; j < KN; ++j) {
+    if (j < a.k) {
+      bool first = true;
+      unsigned v = byte[j] | 1u << (cand[j] & 7);
+#pragma unroll
+      for (int y = 0; y < KN; ++y) {
+        if (y != j && y < a.k && cand[y] >> 3 == cand[j] >> 3) {
+          first &= y > j;
+          v |= 1u << (cand[y] & 7);
+        }
+      }
+      if (first) row[cand[j] >> 3] = (unsigned char)v;
+    }
+  }
 }
 
 // The sender's budget and backoff at its leaf index gb (tier by its
@@ -403,23 +410,26 @@ __global__ void __launch_bounds__(THREADS)
 // A block's diagnostics sums (add_diag's arguments).
 struct Diag {
   unsigned active = 0, rounds = 0, most = 0, capped = 0;
+  // one active row that drew r rounds (capped: none accepted)
+  __device__ __forceinline__ void count(int r, bool cap) {
+    active += 1;
+    rounds += r;
+    most = max(most, (unsigned)r);
+    capped += cap;
+  }
 };
 
 // Active row g (seed s, global id i) of the ring sends: its rejection
 // loop, then its K deliveries, marks and budget.
 __device__ __forceinline__ void send_row(const ExactArgs& a,
-                                         const KeyTable* keys, unsigned g,
+                                         const KeyTable& keys, unsigned g,
                                          Diag& dg) {
   const int s = (int)(g / (unsigned)a.n);
   const int i = (int)(g - (unsigned)s * (unsigned)a.n);
   int cand[MAX_K];
   bool cap_hit = false;
-  const int r = reject_loop<true>(a, keys, s, g, i, cand, cap_hit);
-  dg.active += 1;
-  dg.rounds += r;
-  dg.most = max(dg.most, (unsigned)r);
-  dg.capped += cap_hit;  // the caller raises on diag[3]; the row sends nothing
-  if (cap_hit) return;
+  dg.count(ring_loop(a, keys, s, g, i, cand, cap_hit), cap_hit);
+  if (cap_hit) return;  // the caller raises on diag[3]; the row sends nothing
   const uint32_t* key = a.keys[s];
   const unsigned seed0 = (unsigned)s * (unsigned)a.n;
   const int tx0 = a.tx[g];
@@ -432,7 +442,7 @@ __device__ __forceinline__ void send_row(const ExactArgs& a,
         atomicMin(a.pending + seed0 + c, a.tick + a.lat_ticks);
       else if (del == NOW)
         a.new_infected[seed0 + c] = 1;
-      mark<true>(a, g, tx0, j, c);
+      mark_slot(a, g, tx0, j, c);
     }
   }
   spend(a, g, i);
@@ -449,7 +459,7 @@ __global__ void __launch_bounds__(THREADS)
   Diag dg;
   for (unsigned w = blockIdx.x * THREADS + threadIdx.x; w < rows;
        w += gridDim.x * THREADS)
-    send_row(a, &table, list[w], dg);
+    send_row(a, table, list[w], dg);
   add_diag(a.diag, dg.active, dg.rounds, dg.most, dg.capped);
 }
 
@@ -527,12 +537,8 @@ __device__ __forceinline__ void bitmap_row(const ExactArgs& a,
   int cand[KN];
   unsigned byte[KN];
   bool cap_hit = false;
-  const int r = bitmap_loop(a, keys, s, row, i, cand, byte, cap_hit);
-  dg.active += 1;
-  dg.rounds += r;
-  dg.most = max(dg.most, (unsigned)r);
-  dg.capped += cap_hit;  // the caller raises on diag[3]; the row sends nothing
-  if (cap_hit) return;
+  dg.count(bitmap_loop(a, keys, s, row, i, cand, byte, cap_hit), cap_hit);
+  if (cap_hit) return;  // the caller raises on diag[3]; the row sends nothing
   const uint32_t* key = a.keys[s];
   const size_t seed0 = (size_t)s * (size_t)a.n;
 #pragma unroll
@@ -546,21 +552,7 @@ __device__ __forceinline__ void bitmap_row(const ExactArgs& a,
         a.new_infected[seed0 + c] = 1;
     }
   }
-#pragma unroll
-  for (int j = 0; j < KN; ++j) {
-    if (j < a.k) {
-      bool first = true;
-      unsigned v = byte[j] | 1u << (cand[j] & 7);
-#pragma unroll
-      for (int y = 0; y < KN; ++y) {
-        if (y != j && y < a.k && cand[y] >> 3 == cand[j] >> 3) {
-          first &= y > j;
-          v |= 1u << (cand[y] & 7);
-        }
-      }
-      if (first) row[cand[j] >> 3] = (unsigned char)v;
-    }
-  }
+  mark_bytes(a, row, cand, byte);
   spend(a, g, i);
 }
 
@@ -570,50 +562,68 @@ __device__ __forceinline__ void bitmap_row(const ExactArgs& a,
 // deeper batch only keeps more loads live across the loops.
 constexpr int TILE_DEPTH = 4;
 
-// The activity ballots of tiles t0 + d * warps, d < TILE_DEPTH:
-// infected, then tx and next_send only where infected.
-__device__ __forceinline__ void tile_activity(const ExactArgs& a,
-                                              unsigned t0, unsigned warps,
-                                              unsigned tiles, unsigned total,
+// Where deal_rows reads activity.  SendActive: exact_send's test,
+// infected, then tx and next_send only where infected.  ByteActive: a
+// byte a row (the shard kernels' `active`); where `zero` is given, every
+// inactive row's entry of it is stored 0 in the same pass, coalesced.
+struct SendActive {
+  const ExactArgs& a;
+  __device__ __forceinline__ bool load(unsigned g) const {
+    return a.infected[g];
+  }
+  __device__ __forceinline__ bool test(unsigned g, bool act) const {
+    return act && a.tx[g] > 0 && a.next_send[g] <= a.tick;
+  }
+};
+
+struct ByteActive {
+  const unsigned char* active;
+  int* zero;
+  __device__ __forceinline__ bool load(unsigned g) const {
+    return active[g];
+  }
+  __device__ __forceinline__ bool test(unsigned g, bool act) const {
+    if (zero != nullptr && !act) zero[g] = 0;
+    return act;
+  }
+};
+
+// The activity ballots of tiles t0 + d * warps, d < TILE_DEPTH: every
+// first load in flight, then each tile's test.
+template <typename Src>
+__device__ __forceinline__ void tile_activity(const Src& src, unsigned t0,
+                                              unsigned warps, unsigned total,
                                               int lane,
                                               unsigned (&ball)[TILE_DEPTH]) {
   bool act[TILE_DEPTH];
 #pragma unroll
   for (int d = 0; d < TILE_DEPTH; ++d) {
-    const unsigned t = t0 + d * warps;
-    const unsigned g = t * 32u + lane;
-    act[d] = t < tiles && g < total && a.infected[g];
+    const unsigned g = (t0 + d * warps) * 32u + lane;
+    act[d] = g < total && src.load(g);
   }
 #pragma unroll
   for (int d = 0; d < TILE_DEPTH; ++d) {
     const unsigned g = (t0 + d * warps) * 32u + lane;
-    act[d] = act[d] && a.tx[g] > 0 && a.next_send[g] <= a.tick;
+    act[d] = g < total && src.test(g, act[d]);
   }
 #pragma unroll
   for (int d = 0; d < TILE_DEPTH; ++d) ball[d] = __ballot_sync(FULL, act[d]);
 }
 
-// The bitmap's send: a persistent grid, the block's key table.  Warp w
-// of W takes the 32-row tiles w, w + W, w + 2W, ..., TILE_DEPTH at a
-// time: it ballots their activity and deals the active rows to its
-// lanes in order, carrying the ones that do not fill a batch of 32 into
-// the next tile, so every lane runs a row while the warp has 32 left.
-// One call site runs the rows (the row's code, inlined, is most of the
-// kernel's instructions).  Each row is one thread's, which makes its
-// unsynchronised byte writes to its own bitmap row safe.  Diagnostics
-// once a block.  KN >= a.k is the tuple's registers: BITMAP_FANOUT, the
-// exact column's, has its own instantiation (54 registers against
-// MAX_K's 64, so more warps an SM).
-template <int KN>
-__global__ void __launch_bounds__(THREADS)
-    exact_send_bitmap_kernel(const ExactArgs a) {
-  __shared__ KeyTable table;
-  fill_keys(a, table);
-  const unsigned total = (unsigned)a.s * (unsigned)a.n;
+// Runs row(g) for every active row g of [0, total) in a persistent grid
+// (every thread calls it; warp-uniform).  Warp w of W takes the 32-row
+// tiles w, w + W, w + 2W, ..., TILE_DEPTH at a time: it ballots their
+// activity and deals the active rows to its lanes in order, carrying
+// the ones that do not fill a batch of 32 into the next tile, so every
+// lane runs a row while the warp has 32 left, however few rows are
+// active.  One call site runs the rows (a row's code, inlined, is most
+// of a kernel's instructions).  Each row is one lane's.
+template <typename Src, typename Row>
+__device__ __forceinline__ void deal_rows(const Src& src, unsigned total,
+                                          Row&& row) {
   const unsigned tiles = (total + 31u) / 32u;
   const unsigned warps = gridDim.x * (THREADS / 32);
   const int lane = threadIdx.x & 31;
-  Diag dg;
   unsigned ball[TILE_DEPTH];
   unsigned next_t0 = blockIdx.x * (THREADS / 32) + threadIdx.x / 32;
   unsigned t0 = 0;
@@ -630,7 +640,7 @@ __global__ void __launch_bounds__(THREADS)
         if (next_t0 >= tiles) break;
         t0 = next_t0;
         next_t0 += TILE_DEPTH * warps;
-        tile_activity(a, t0, warps, tiles, total, lane, ball);
+        tile_activity(src, t0, warps, total, lane, ball);
         dealt = 0;
       }
       b = ball[0];
@@ -648,11 +658,27 @@ __global__ void __launch_bounds__(THREADS)
       held += c;
     }
     if (!full && held == 0) break;
-    if (full || lane < held) bitmap_row<KN>(a, table, mine, dg);
+    if (full || lane < held) row(mine);
     if (!full) break;
     held += c - 32;  // the rest of this tile waits in lanes 0 ..
     if (lane < held) mine = row0 + nth_set(b, c - held + lane);
   }
+}
+
+// The bitmap's send: the active rows dealt to lanes (deal_rows), the
+// block's key table.  Each row is one thread's, which makes its
+// unsynchronised byte writes to its own bitmap row safe.  Diagnostics
+// once a block.  KN >= a.k is the tuple's registers: EXACT_FANOUT, the
+// exact column's, has its own instantiation (54 registers against
+// MAX_K's 64, so more warps an SM).
+template <int KN>
+__global__ void __launch_bounds__(THREADS)
+    exact_send_bitmap_kernel(const ExactArgs a) {
+  __shared__ KeyTable table;
+  fill_keys(a, table);
+  Diag dg;
+  deal_rows(SendActive{a}, (unsigned)a.s * (unsigned)a.n,
+            [&](unsigned g) { bitmap_row<KN>(a, table, g, dg); });
   add_diag(a.diag, dg.active, dg.rounds, dg.most, dg.capped);
 }
 
@@ -661,28 +687,43 @@ __global__ void __launch_bounds__(THREADS)
 // shard_round replaces the rejection round of the three mesh layouts
 // (corrosion_tpu/sim/calibrate.py:817-846, models/sharded.py:403-426,
 // :659-683): a shard tests only its own rows (global ids lo + il)
-// against its own bitmap or ring rows.  Here each of my active rows
-// runs its whole loop in registers, as exact_send does (a persistent
-// grid over my rows, the block's round keys and the ring row loaded
-// once), and writes how many rounds it drew (0: inactive; MAX_ROUNDS +
-// 1: capped).  Row i's round-r tuple depends only on its key, its
-// global id and its own memory, so "rounds > r + 1" is exactly the
-// reference's still-bad mask after round r: the caller exchanges those
-// masks round by round.
+// against its own bitmap or ring rows.  Each of my active rows runs its
+// whole loop in registers, as exact_send does (the block's round keys,
+// the ring row loaded once), and writes how many rounds it drew
+// (MAX_ROUNDS + 1: capped); the tile pass stores 0 for every inactive
+// row.  Row i's round-r tuple depends only on its key, its global id
+// and its own memory, so "rounds > r + 1" is exactly the reference's
+// still-bad mask after round r: the caller exchanges those masks round
+// by round.
 //
 // shard_commit replaces the delivery and commit of the same three
-// (calibrate.py:848-892, sharded.py:428-470, :685-728).  One thread
-// per (seed, row) of all N rows: an active row redraws its accepted
-// tuple at its final round (the count of exchanged masks that held it,
-// so every shard rebuilds every tuple without moving one), applies the
+// (calibrate.py:848-892, sharded.py:428-470, :685-728), over every
+// (seed, row) of all N rows: an active row redraws its accepted tuple
+// at its final round (the count of exchanged masks that held it, so
+// every shard rebuilds every tuple without moving one), applies the
 // masks, and stores the infection and the queue's atomicMin for the
 // targets in the target window [t_lo, t_lo + t_n) (the dense layout:
 // my rows; the frontier layouts: all, replicated).  A row of mine also
 // marks its own bitmap / ring row; a row in the budget window
 // [b_lo, b_lo + b_n) (mine, or all where tx / next_send / msgs are
-// replicated) spends its budget.  Bound on the H100: bytes — the N
-// activity bytes and round counts, and per active row what exact_send
-// moves.
+// replicated) spends its budget.  The result is the same in any row
+// order: the infection stores are idempotent, atomicMin commutes, and
+// the marks and the budget touch only the row's own entries.
+//
+// Bound on the H100: bytes — the activity bytes of every row, and per
+// active row its round count, K random 32-byte sectors of infection
+// stores, its budget and its marks (its 16-byte ring slots, or K bitmap
+// sectors).  Few rows are active (6.1% of the host layout's 2 x 10M at
+// tick 6), so a thread a row would leave most lanes of most warps idle
+// through a whole row body: shard_round and the ring's shard_commit are
+// persistent grids that deal the active rows to lanes (deal_rows).  The
+// bitmap's commit (the dense layout: a few hundred thousand rows, a
+// third of them active) runs a thread a row over a block for every 256
+// rows, which measured faster there than dealing.  Every block derives
+// the first KEY_ROUNDS rounds' keys once; the bitmap's round loads a
+// round's K bytes together (bitmap_loop) and its commit the K bytes it
+// marks; the exact column's fanout has its own instantiations (KN = 4:
+// fewer registers, so more warps an SM).
 
 struct ShardArgs {
   ExactArgs e;  // n = N; sent / ring: my rows; new_infected, pending: the
@@ -697,68 +738,117 @@ struct ShardArgs {
   int b_n;
 };
 
-template <bool RING>
+template <bool RING, int KN>
 __global__ void __launch_bounds__(THREADS)
     shard_round_kernel(const ShardArgs sa) {
   const ExactArgs& a = sa.e;
   __shared__ KeyTable keys;
   fill_keys(a, keys);
-  const unsigned total = (unsigned)a.s * (unsigned)sa.n_local;
-  unsigned active = 0, rounds = 0, most = 0, capped = 0;
-  for (unsigned g = blockIdx.x * THREADS + threadIdx.x; g < total;
-       g += gridDim.x * THREADS) {
-    int r = 0;
-    if (sa.active[g]) {
-      const int s = (int)(g / (unsigned)sa.n_local);
-      const int i = sa.lo + (int)(g - (unsigned)s * (unsigned)sa.n_local);
-      int cand[MAX_K];
-      bool cap_hit = false;
-      r = reject_loop<RING>(a, &keys, s, g, i, cand, cap_hit);
-      active += 1;
-      rounds += r;
-      most = max(most, (unsigned)r);
-      capped += cap_hit;
-      if (cap_hit) r = MAX_ROUNDS + 1;
-    }
-    sa.rounds[g] = r;
-  }
-  add_diag(a.diag, active, rounds, most, capped);
+  Diag dg;
+  deal_rows(ByteActive{sa.active, sa.rounds},
+            (unsigned)a.s * (unsigned)sa.n_local, [&](unsigned g) {
+              const int s = (int)(g / (unsigned)sa.n_local);
+              const int i =
+                  sa.lo + (int)(g - (unsigned)s * (unsigned)sa.n_local);
+              int cand[KN];
+              bool cap_hit = false;
+              int r;
+              if constexpr (RING) {
+                r = ring_loop(a, keys, s, g, i, cand, cap_hit);
+              } else {
+                unsigned byte[KN];
+                r = bitmap_loop(a, keys, s, a.sent + (size_t)g * a.nb, i,
+                                cand, byte, cap_hit);
+              }
+              dg.count(r, cap_hit);
+              sa.rounds[g] = cap_hit ? MAX_ROUNDS + 1 : r;
+            });
+  add_diag(a.diag, dg.active, dg.rounds, dg.most, dg.capped);
 }
 
-template <bool RING>
-__global__ void __launch_bounds__(THREADS)
-    shard_commit_kernel(const ShardArgs sa) {
+// Row i's K marks at budget tx0 in its own row g.  The ring's K slots
+// from (max_tx - tx0) * K on are contiguous: one 16-byte store at K = 4
+// where they are aligned.  The bitmap's K bytes are loaded together,
+// then each written once (mark_bytes).
+template <bool RING, int KN>
+__device__ __forceinline__ void mark_row(const ExactArgs& a, unsigned g,
+                                         int tx0, const int (&cand)[KN]) {
+  if constexpr (RING) {
+    int* slot = a.ring + (size_t)g * (unsigned)a.cap + (a.max_tx - tx0) * a.k;
+    if (a.k == 4 && (reinterpret_cast<uintptr_t>(slot) & 15) == 0) {
+      *reinterpret_cast<int4*>(slot) =
+          make_int4(cand[0], cand[1], cand[2], cand[3]);
+      return;
+    }
+#pragma unroll
+    for (int j = 0; j < KN; ++j)
+      if (j < a.k) mark_slot(a, g, tx0, j, cand[j]);
+  } else {
+    unsigned char* row = a.sent + (size_t)g * (size_t)a.nb;
+    unsigned byte[KN];
+#pragma unroll
+    for (int j = 0; j < KN; ++j)
+      if (j < a.k) byte[j] = row[cand[j] >> 3];
+    mark_bytes(a, row, cand, byte);
+  }
+}
+
+// Active row gg = s * N + i of the commit: its tuple at its accepted
+// round, its deliveries into the target window, its marks where the row
+// is mine, its budget where it is in the budget window.
+template <bool RING, int KN>
+__device__ __forceinline__ void commit_row(const ShardArgs& sa,
+                                           const KeyTable& keys,
+                                           unsigned gg) {
   const ExactArgs& a = sa.e;
-  const size_t total = (size_t)a.s * a.n;
-  const size_t gg = (size_t)blockIdx.x * THREADS + threadIdx.x;
-  if (gg >= total || !sa.active[gg]) return;
-  const int s = (int)(gg / a.n);
-  const int i = (int)(gg - (size_t)s * a.n);
+  const int s = (int)(gg / (unsigned)a.n);
+  const int i = (int)(gg - (unsigned)s * (unsigned)a.n);
+  const int r = sa.rounds[gg];
   const uint32_t* key = a.keys[s];
-  int cand[MAX_K];
-  draw_tuple(a, key, sa.rounds[gg], i, cand);
+  int cand[KN];
+  if ((unsigned)r < KEY_ROUNDS)
+    draw_with(a, keys.rk[s][r], i, cand);
+  else
+    draw_tuple(a, key, r, i, cand);
   const bool mine = i >= sa.lo && i < sa.lo + sa.n_local;
   const bool budget = i >= sa.b_lo && i < sa.b_lo + sa.b_n;
-  const unsigned g = (unsigned)s * sa.n_local + (i - sa.lo);
   const unsigned gb = (unsigned)s * sa.b_n + (i - sa.b_lo);
   const int tx0 = budget ? a.tx[gb] : 0;
 #pragma unroll
-  for (int j = 0; j < MAX_K; ++j) {
+  for (int j = 0; j < KN; ++j) {
     if (j < a.k) {
-      const int c = cand[j];
-      const int ct = c - sa.t_lo;
+      const int ct = cand[j] - sa.t_lo;
       if (ct >= 0 && ct < sa.t_n) {
-        const Delivery del = deliver_kind(a, key, i, j, c);
+        const Delivery del = deliver_kind(a, key, i, j, cand[j]);
         const size_t tgt = (size_t)s * sa.t_n + ct;
         if (del == QUEUED)
           atomicMin(a.pending + tgt, a.tick + a.lat_ticks);
         else if (del == NOW)
           a.new_infected[tgt] = 1;
       }
-      if (mine) mark<RING>(a, g, tx0, j, c);
     }
   }
+  if (mine)
+    mark_row<RING, KN>(a, (unsigned)s * sa.n_local + (i - sa.lo), tx0,
+                       cand);
   if (budget) spend(a, gb, i);
+}
+
+// The ring's commit deals its active rows to lanes in a persistent grid;
+// the bitmap's runs a thread a row over a block for every 256 rows.
+template <bool RING, int KN>
+__global__ void __launch_bounds__(THREADS)
+    shard_commit_kernel(const ShardArgs sa) {
+  __shared__ KeyTable keys;
+  fill_keys(sa.e, keys);
+  const unsigned total = (unsigned)sa.e.s * (unsigned)sa.e.n;
+  const auto row = [&](unsigned gg) { commit_row<RING, KN>(sa, keys, gg); };
+  if constexpr (RING) {
+    deal_rows(ByteActive{sa.active, nullptr}, total, row);
+  } else {
+    const unsigned gg = blockIdx.x * THREADS + threadIdx.x;
+    if (gg < total && sa.active[gg]) row(gg);
+  }
 }
 
 __global__ void exact_commit_kernel(const unsigned char* __restrict__ infected,
@@ -785,6 +875,24 @@ unsigned persistent_blocks(Kernel kernel, size_t rows) {
   const size_t need = (rows + THREADS - 1) / THREADS;
   const size_t most = (size_t)(sms > 0 ? sms : 1) * (per_sm > 0 ? per_sm : 1);
   return (unsigned)(need < most ? (need > 0 ? need : 1) : most);
+}
+
+// One launch of shard_commit (over all S x N rows) or shard_round (over
+// my S x n_local).
+template <bool RING, int KN>
+void shard_go(const ShardArgs& sa, int commit, cudaStream_t st) {
+  const ExactArgs& a = sa.e;
+  const size_t total = (size_t)a.s * a.n;
+  if (commit)
+    shard_commit_kernel<RING, KN>
+        <<<RING ? persistent_blocks(shard_commit_kernel<RING, KN>, total)
+                : (unsigned)((total + THREADS - 1) / THREADS),
+           THREADS, 0, st>>>(sa);
+  else
+    shard_round_kernel<RING, KN>
+        <<<persistent_blocks(shard_round_kernel<RING, KN>,
+                             (size_t)a.s * sa.n_local),
+           THREADS, 0, st>>>(sa);
 }
 
 bool args_ok(const ExactArgs& a, int ring) {
@@ -834,9 +942,9 @@ extern "C" int exact_send_launch(const void* args, int ring, const void* list,
   if (ring)
     exact_send_ring_kernel<<<persistent_blocks(exact_send_ring_kernel, total),
                              THREADS, 0, st>>>(a, l, c);
-  else if (a.k == BITMAP_FANOUT)
-    exact_send_bitmap_kernel<BITMAP_FANOUT>
-        <<<persistent_blocks(exact_send_bitmap_kernel<BITMAP_FANOUT>, total),
+  else if (a.k == EXACT_FANOUT)
+    exact_send_bitmap_kernel<EXACT_FANOUT>
+        <<<persistent_blocks(exact_send_bitmap_kernel<EXACT_FANOUT>, total),
            THREADS, 0, st>>>(a);
   else
     exact_send_bitmap_kernel<MAX_K>
@@ -858,25 +966,18 @@ extern "C" int shard_launch(const void* args, int ring, int commit,
                     sa.b_lo + sa.b_n < sa.lo + sa.n_local
               : a.diag == nullptr))
     return (int)cudaErrorInvalidValue;
+  // the exact column's fanout has its own instantiations (fewer
+  // registers, so more warps an SM)
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (commit) {
-    const size_t total = (size_t)a.s * a.n;
-    const unsigned blocks = (unsigned)((total + THREADS - 1) / THREADS);
-    if (ring)
-      shard_commit_kernel<true><<<blocks, THREADS, 0, st>>>(sa);
-    else
-      shard_commit_kernel<false><<<blocks, THREADS, 0, st>>>(sa);
-  } else {
-    const size_t total = (size_t)a.s * sa.n_local;
-    if (ring)
-      shard_round_kernel<true>
-          <<<persistent_blocks(shard_round_kernel<true>, total), THREADS, 0,
-             st>>>(sa);
-    else
-      shard_round_kernel<false>
-          <<<persistent_blocks(shard_round_kernel<false>, total), THREADS, 0,
-             st>>>(sa);
-  }
+  const bool fanout = a.k == EXACT_FANOUT;
+  if (ring && fanout)
+    shard_go<true, EXACT_FANOUT>(sa, commit, st);
+  else if (ring)
+    shard_go<true, MAX_K>(sa, commit, st);
+  else if (fanout)
+    shard_go<false, EXACT_FANOUT>(sa, commit, st);
+  else
+    shard_go<false, MAX_K>(sa, commit, st);
   return (int)cudaGetLastError();
 }
 

@@ -19,7 +19,10 @@ as the reference does.  Every shard counts, per row, the exchanged
 masks that held it: that is the row's accepted round, and
 ``shard_commit`` redraws every active row's tuple at it — no tuple
 crosses the fabric and none is stored.  Bound on the H100: bytes, as
-``exact_send`` (module docstring there).
+``exact_send`` (module docstring there).  Few rows are active in a
+tick, so both kernels deal the active rows to a warp's lanes in a
+persistent grid; the bitmap's commit, whose dense layout has few rows,
+runs a thread a row (csrc/exact_send.cu says why).
 """
 
 from __future__ import annotations
@@ -167,6 +170,17 @@ def shard_round(active_l, sent_l, keys, lo: int, n: int, p: SendParams,
         raise ValueError(f"shard_round: diag must be int64 [{len(DIAG)}]")
     if kernels.on_cpu(active_l, sent_l, diag):
         return shard_round_plain(active_l, sent_l, keys, lo, n, p, diag)
+    sa, rounds = round_args(active_l, sent_l, keys, lo, n, p, diag, tick)
+    _launch("shard_round", sa, sent_l.dtype == torch.int32, False, active_l)
+    shard_round.launches += 1
+    return rounds
+
+
+def round_args(active_l, sent_l, keys, lo: int, n: int, p: SendParams,
+               diag, tick: int):
+    """:func:`shard_round`'s argument block on CUDA tensors that passed
+    its checks, and the rounds tensor the kernel writes."""
+    s, n_local = active_l.shape
     if s > MAX_SEEDS:
         raise ValueError(f"shard_round: the kernel takes at most "
                          f"{MAX_SEEDS} seeds a launch, got {s}")
@@ -178,9 +192,7 @@ def shard_round(active_l, sent_l, keys, lo: int, n: int, p: SendParams,
     sa = _ShardArgs(e=_args(sent_l, keys, n, tick, p, diag=diag),
                     active=active_l.data_ptr(), rounds=rounds.data_ptr(),
                     lo=lo, n_local=n_local, t_lo=0, t_n=0, b_lo=0, b_n=0)
-    _launch("shard_round", sa, sent_l.dtype == torch.int32, False, active_l)
-    shard_round.launches += 1
-    return rounds
+    return sa, rounds
 
 
 def shard_commit_plain(active, rounds, infected_t, pending_t, tx_b,
@@ -232,8 +244,8 @@ def shard_commit(active, rounds, infected_t, pending_t, tx_b, next_send_b,
         raise ValueError(f"shard_commit: active bool and rounds int32, both "
                          f"[{s}, {n}]")
     _check_common(keys, sent_l, s, n_local, p)
-    t_lo = _window(infected_t.shape[1], n, lo, n_local, "infected")
-    b_lo = _window(tx_b.shape[1], n, lo, n_local, "tx")
+    _window(infected_t.shape[1], n, lo, n_local, "infected")
+    _window(tx_b.shape[1], n, lo, n_local, "tx")
     t_n, b_n = infected_t.shape[1], tx_b.shape[1]
     for name, t, width in (("next_send", next_send_b, b_n),
                            ("msgs", msgs_b, b_n), ("pending", pending_t, t_n)):
@@ -250,6 +262,24 @@ def shard_commit(active, rounds, infected_t, pending_t, tx_b, next_send_b,
         return shard_commit_plain(active, rounds, infected_t, pending_t,
                                   tx_b, next_send_b, msgs_b, sent_l, keys,
                                   lo, tick, p, tier)
+    sa, new_infected = commit_args(active, rounds, infected_t, pending_t,
+                                   tx_b, next_send_b, msgs_b, sent_l, keys,
+                                   lo, tick, p, tier)
+    _launch("shard_commit", sa, sent_l.dtype == torch.int32, True, active)
+    shard_commit.launches += 1
+    return new_infected
+
+
+def commit_args(active, rounds, infected_t, pending_t, tx_b, next_send_b,
+                msgs_b, sent_l, keys, lo: int, tick: int, p: SendParams,
+                tier):
+    """:func:`shard_commit`'s argument block on CUDA tensors that passed
+    its checks, and the new infected window the kernel writes."""
+    s, n = active.shape
+    n_local = sent_l.shape[1]
+    t_lo = _window(infected_t.shape[1], n, lo, n_local, "infected")
+    b_lo = _window(tx_b.shape[1], n, lo, n_local, "tx")
+    t_n, b_n = infected_t.shape[1], tx_b.shape[1]
     if s > MAX_SEEDS:
         raise ValueError(f"shard_commit: the kernel takes at most "
                          f"{MAX_SEEDS} seeds a launch, got {s}")
@@ -266,9 +296,7 @@ def shard_commit(active, rounds, infected_t, pending_t, tx_b, next_send_b,
                 pending=pending_t, tier=tier),
         active=active.data_ptr(), rounds=rounds.data_ptr(), lo=lo,
         n_local=n_local, t_lo=t_lo, t_n=t_n, b_lo=b_lo, b_n=b_n)
-    _launch("shard_commit", sa, sent_l.dtype == torch.int32, True, active)
-    shard_commit.launches += 1
-    return new_infected
+    return sa, new_infected
 
 
 shard_round.launches = 0

@@ -395,6 +395,103 @@ def test_shard_kernels_plain_rounds_and_window_checks():
                         0, 0, args["p"], None)
 
 
+def _shard_commit_inputs(name, family, tick=4, sh=3):
+    """Shard ``sh``'s ``shard_commit`` operands under layout ``name`` at
+    ``tick`` of the port's single-device run of ``family`` (n = 256, 8
+    shards): the activity of all rows, every row's accepted round from
+    the shards' ``shard_round``, the target window, the budget window
+    and my memory rows."""
+    from corrosion_tpu_torch.kernels import shard_exact as sx
+    from corrosion_tpu_torch.random import PRNGKey, fold_in
+
+    _, cfg = _cfgs(n=256, **FAMILIES[family])
+    sparse = name != "dense"
+    init = tc.frontier_exact_init if sparse else tc.packed_exact_init
+    tick_fn = tc.frontier_exact_tick if sparse else tc.packed_exact_tick
+    base = [PRNGKey(s) for s in SEEDS]
+    state = init(cfg, [fold_in(k, 2**20) for k in base], device="cpu")
+    while state.tick < tick:
+        state = tick_fn(state, [fold_in(k, state.tick) for k in base], cfg)
+    args, _, _ = tc._send_inputs(state, [fold_in(k, tick) for k in base],
+                                 cfg)
+    n = cfg.n_nodes
+    nl = n // D
+    active = args["infected"] & (args["tx"] > 0) & (args["next_send"]
+                                                     <= tick)
+    rounds = [sx.shard_round(active[:, w:w + nl].contiguous(),
+                             args["sent"][:, w:w + nl].contiguous(),
+                             args["keys"], w, n, args["p"],
+                             torch.zeros(4, dtype=torch.int64))
+              for w in range(0, n, nl)]
+    w = slice(sh * nl, (sh + 1) * nl)
+
+    def win(x):
+        return None if x is None else x[:, w].contiguous()
+
+    infected, pending = ((win(args["infected"]), win(args["pending"]))
+                         if name == "dense"
+                         else (args["infected"], args["pending"]))
+    budget = [args[f] if name == "frontier" else win(args[f])
+              for f in ("tx", "next_send", "msgs")]
+    return dict(active=active,
+                accepted=(torch.cat(rounds, dim=1) - 1).clamp_min(0),
+                infected=infected, pending=pending, budget=budget,
+                sent=win(args["sent"]), keys=args["keys"], lo=sh * nl,
+                tick=tick, p=args["p"], tier=args["tier"])
+
+
+@pytest.mark.parametrize("family", ["headline", "wan_latency"])
+@pytest.mark.parametrize("name", sorted(LAYOUTS))
+def test_shard_commit_of_a_split_equals_the_commit_of_the_union(name,
+                                                                family):
+    """The invariant a kernel that runs the active rows in any order and
+    any grouping relies on: the active rows split by a seeded random
+    partition and committed in sequence (``shard_commit_plain``, the
+    second call on the first's new infected window, pending, budget and
+    marks carried over in place), in both orders, leave every leaf equal
+    to the commit of the union.  Each part alone must not (the split is
+    not vacuous), and the WAN-latency variant must queue deliveries."""
+    from corrosion_tpu_torch.kernels import shard_exact as sx
+
+    x = _shard_commit_inputs(name, family)
+    pick = torch.from_numpy(np.random.default_rng(13).random(
+        tuple(x["active"].shape)) < 0.5)
+    parts = (x["active"] & pick, x["active"] & ~pick)
+    nl = x["sent"].shape[1]
+    for part in parts:
+        assert part[:, x["lo"]:x["lo"] + nl].any() and part.sum() > 32
+
+    def commit(active, infected, leaves):
+        return sx.shard_commit_plain(
+            active, x["accepted"], infected, leaves["pending"],
+            *leaves["budget"], leaves["sent"], x["keys"], x["lo"],
+            x["tick"], x["p"], x["tier"])
+
+    def fresh():
+        return dict(pending=None if x["pending"] is None
+                    else x["pending"].clone(),
+                    budget=[b.clone() for b in x["budget"]],
+                    sent=x["sent"].clone())
+
+    def leaves(infected, c):
+        return [infected, c["pending"], *c["budget"], c["sent"]]
+
+    union = fresh()
+    want = leaves(commit(x["active"], x["infected"], union), union)
+    if family == "wan_latency":
+        assert not torch.equal(union["pending"], x["pending"])
+    for first, second in (parts, parts[::-1]):
+        c = fresh()
+        got = leaves(commit(second, commit(first, x["infected"], c), c), c)
+        for f, a, b in zip(("infected", "pending", "tx", "next_send",
+                            "msgs", "sent"), got, want):
+            assert (a is None and b is None) or torch.equal(a, b), f
+    half = fresh()
+    got = leaves(commit(parts[0], x["infected"], half), half)
+    assert not all((a is None and b is None) or torch.equal(a, b)
+                   for a, b in zip(got, want))
+
+
 def main(argv=None) -> int:
     import argparse
     import json
