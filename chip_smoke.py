@@ -10,12 +10,24 @@ package.  Phases, each ending the run with a non-zero exit on failure:
    of this checkout (one ``nvcc`` per source, in parallel) and record
    the opcode mix by pipe and loop of threefry, ``sent_select``,
    ``store_set`` and ``swim_probe_select`` (``kernels/sass.py`` over
-   ``cuobjdump -sass``);
+   ``cuobjdump -sass``); print each threefry instantiation's loop (a
+   mode, a group index width) with its ALU and FMA counts, a trip and a
+   word (the ``threefry_pipes`` line);
 2. hold the perm-fanout kernels (the threefry draws, ``seg_argsort``,
    ``deliver_perm``, ``sync_pull``, ``tick_stats``) against their plain
    PyTorch versions on the card, bitwise, on the inputs the headline's
    tick 7 (a sync tick, partition in force) gives them, and time both
-   with CUDA events; ``seg_argsort`` at both column shapes, beside
+   with CUDA events; ``threefry_bits`` at the tick's five draws, four
+   of them timed behind a GPU-side sleep at the headline's shapes
+   (uniform [3.2M, 4], bits [32, 100000] and [12800, 250], randint
+   [3.2M, 1]) and at n = 1, each beside its own bound, then in each
+   mode at n in {1, 3, 4, 5, 1023, 4097}, into a fresh tensor and into
+   a view 4 bytes past a 16-byte boundary, through the 32-bit and the
+   64-bit group index (the words around the output untouched), randint
+   at spans 1, 2**16, 2**16 + 1 and 2**32 - 1, and a uint32 draw of
+   2**32 + 4099 words (17 GB, freed after) whose first 2048 words and
+   those from 2**32 - 2048 on must equal ``threefry2x32`` on int64
+   index tensors; ``seg_argsort`` at both column shapes, beside
    ``torch.sort`` of the uniform scores, which must give the same
    indices; ``tick_stats`` in both of its designs also on byte rows at
    the exact column's shapes (16 x 100k, 4 x 1M, 2 x 10M), at n a
@@ -171,12 +183,16 @@ package.  Phases, each ending the run with a non-zero exit on failure:
     single-device tick).
 
 ``python3 chip_smoke.py --parent DIR`` (DIR an unpacked ``git
-archive`` of the parent commit) also builds the parent's ``swim.cu``
-and ``exact_send.cu`` and requires their kernels to write what this
-tree's write: ``swim_probe_select`` at N = 64 and 4096 (phase 8),
+archive`` of the parent commit) also builds the parent's ``swim.cu``,
+``exact_send.cu``, ``threefry.cu`` and ``sent_sampler.cu`` and requires
+their kernels to write what this tree's write: ``threefry_bits`` in
+every case of phase 2, the 2**32 window included,
+``swim_probe_select`` at N = 64 and 4096 (phase 8),
 ``exact_send<Bitmap>`` at phase 5's timed ticks, ``shard_round`` and
 ``shard_commit`` in phase 17b's timed cases (both commits from restored
 copies); each pair is timed in turns (parent, change, change, parent).
+Phase 1 then also prints whether each ``sent_select`` instantiation's
+opcode counts equal the parent's.
 
 Prints the card line, the ``kernels`` JSON line and, last, the
 ``{"ok": true, "device": ...}`` line; writes the full record (with
@@ -191,6 +207,7 @@ import json
 import math
 import multiprocessing
 import os
+import re
 import subprocess
 import sys
 import tempfile
@@ -215,12 +232,24 @@ INT_OPS_PER_S = 128 * 132 * 1.98e9
 # folds) and an xor; x1's 4 key injections (x0's fold into the next
 # round's three-input add); the output's two adds and xor; the
 # counter's add.  The adds can run as IMAD beside the ALU's work
-# (ptxas puts most of threefry_bits' there, and sent_select's filter
-# puts all of its own; kernels/sass.py shows a built kernel's split), so
+# (threefry_bits and sent_select's filter put all of theirs there,
+# common.cuh hash_run; kernels/sass.py shows a built kernel's split), so
 # the two pipes share the 68.
 INT_OPS_PER_HASH = 60 + 4 + 3 + 1
 # and a uniform float: the epilogue's shift-or (one LEA.HI) and subtract
 INT_OPS_PER_UNIFORM = INT_OPS_PER_HASH + 2
+# and a randint: two hashes, three remainders by a span known only at
+# run time (four multiplies each, threefry.cu fastmod), the
+# multiply-add that folds them and minval's add
+INT_OPS_PER_RANDINT = 2 * INT_OPS_PER_HASH + 3 * 4 + 2
+# the parent's threefry_launch(out, n, ka0, ka1, kb0, kb1, mode, span,
+# mult, minval, stream); this tree's adds the fastmod constant and the
+# index64 flag before the stream
+PARENT_THREEFRY_ARGTYPES = (
+    ctypes.c_void_p, ctypes.c_longlong, ctypes.c_uint, ctypes.c_uint,
+    ctypes.c_uint, ctypes.c_uint, ctypes.c_int, ctypes.c_uint, ctypes.c_uint,
+    ctypes.c_int, ctypes.c_void_p,
+)
 
 
 def fail(msg: str) -> None:
@@ -329,16 +358,18 @@ def build_library(src: str, lib: str) -> list:
 
 
 class ParentDesign:
-    """The parent commit's ``swim.cu`` and ``exact_send.cu``, built from a
-    checkout of it (``--parent DIR``, one ``nvcc`` each, both at once)
-    and launched as its wrappers launched them, for timing beside this
-    tree's kernels in one run.  The C interfaces of ``swim_launch``,
-    ``exact_send_launch`` and ``shard_launch`` are unchanged since, so
-    this tree's wrappers fill their arguments (``kernels.swim.prepare``,
-    ``exact_send.send_args``, ``shard_exact.round_args`` /
-    ``commit_args``)."""
+    """The parent commit's ``swim.cu``, ``exact_send.cu``, ``threefry.cu``
+    and ``sent_sampler.cu``, built from a checkout of it (``--parent
+    DIR``, one ``nvcc`` each, all at once) and launched as its wrappers
+    launched them, for timing beside this tree's kernels in one run
+    (``sent_sampler`` only for its SASS).  The C interfaces of
+    ``swim_launch``, ``exact_send_launch`` and ``shard_launch`` are
+    unchanged since, so this tree's wrappers fill their arguments
+    (``kernels.swim.prepare``, ``exact_send.send_args``,
+    ``shard_exact.round_args`` / ``commit_args``); ``threefry_launch``
+    takes ``PARENT_THREEFRY_ARGTYPES``."""
 
-    SOURCES = ("swim", "exact_send")
+    SOURCES = ("swim", "exact_send", "threefry", "sent_sampler")
 
     def __init__(self, root: str):
         from corrosion_tpu_torch import kernels
@@ -352,6 +383,7 @@ class ParentDesign:
             logs = pool.map(lambda name: build_library(
                 os.path.join(csrc, f"{name}.cu"), libs[name]), libs)
             self.ptxas = dict(zip(libs, logs))
+        self.paths = libs
         self.libs = {name: ctypes.CDLL(lib) for name, lib in libs.items()}
         size = self.libs["exact_send"].shard_args_size()
         if size != ctypes.sizeof(sx._ShardArgs):
@@ -364,6 +396,20 @@ class ParentDesign:
         fn = getattr(self.libs[lib], symbol)
         fn.argtypes, fn.restype = list(argtypes), ctypes.c_int
         kernels.raise_on_error(f"parent {symbol}", fn(*args))
+
+    def threefry_bits(self, out, key, key2=None, span=0, mult=0,
+                      minval=0):
+        """The parent's ``threefry_bits`` into the CUDA tensor ``out``
+        (the epilogue follows its dtype); returns ``out``."""
+        from corrosion_tpu_torch import kernels
+        from corrosion_tpu_torch.kernels import threefry as tf
+
+        kb = key2 if key2 is not None else (0, 0)
+        self._launch("threefry", "threefry_launch", PARENT_THREEFRY_ARGTYPES,
+                     kernels.ptr(out), out.numel(), key[0], key[1], kb[0],
+                     kb[1], tf._MODES[out.dtype], span, mult, minval,
+                     kernels.stream(out))
+        return out
 
     def swim_probe_select(self, launch) -> None:
         """The parent's ``swim_probe_select`` on a tick's ``Launch``
@@ -422,9 +468,123 @@ class ParentDesign:
         return new_infected
 
 
-def kernel_checks(cfg, mods, dev):
+# threefry_bits' small sizes (every tail of a 4-word group, more than one
+# block), randint's edge spans (1, the multiplier's wrap at 2**16, the
+# widest) and the 2**32 window's draw (past the counter's high word)
+THREEFRY_SIZES = (1, 3, 4, 5, 1023, 4097)
+THREEFRY_SPANS = ((5, 6), (0, 2**16), (0, 2**16 + 1), (-2**31, 2**31 - 1))
+THREEFRY_WINDOW = 2**32 + 4099
+SENTINEL = 0x7F7F7F7F
+
+
+def threefry_edge_checks(tf, dev, parent=None) -> list:
+    """``threefry_bits`` (``tf.launch``, uncounted) through the 32-bit
+    and the 64-bit group index, and the parent's kernel when given,
+    bitwise the plain version in each mode at every size of
+    ``THREEFRY_SIZES``, into a fresh tensor and into a view 4 bytes past
+    a 16-byte boundary, and randint at every span of
+    ``THREEFRY_SPANS``; the words around each output must stay
+    untouched."""
+    from corrosion_tpu_torch.random import randint_span
+
+    key, key2 = (0x243F6A88, 0x85A308D3), (0x13198A2E, 0x03707344)
+    span, mult = randint_span(1, 100_000)
+    cases = [(dtype, n, {}) for dtype in (torch.uint32, torch.float32)
+             for n in THREEFRY_SIZES]
+    cases += [(torch.int32, n, dict(key2=key2, span=span, mult=mult,
+                                    minval=1)) for n in THREEFRY_SIZES]
+    for lo, hi in THREEFRY_SPANS:
+        span, mult = randint_span(lo, hi)
+        cases.append((torch.int32, 4097, dict(key2=key2, span=span,
+                                              mult=mult, minval=lo)))
+    runs = [("index32", lambda o, epi: tf.launch(o, key, **epi)),
+            ("index64", lambda o, epi: tf.launch(o, key, index64=True,
+                                                 **epi))]
+    if parent is not None:
+        runs.append(("parent",
+                     lambda o, epi: parent.threefry_bits(o, key, **epi)))
+    out = []
+    for dtype, n, epi in cases:
+        want = tf.threefry_bits_plain(
+            torch.empty(n, dtype=dtype, device=dev), key, **epi)
+        want = want.view(torch.int32)
+        for offset in (0, 1):
+            for label, run in runs:
+                buf = torch.full((n + 8,), SENTINEL, dtype=torch.int32,
+                                 device=dev)
+                got = buf[offset:offset + n]
+                run(got.view(dtype), epi)
+                err = max_abs_err([got], [want])
+                rest = torch.cat([buf[:offset], buf[offset + n:]])
+                if not bool((rest == SENTINEL).all()):
+                    fail(f"threefry_bits ({label}) wrote outside its "
+                         f"output ({dtype}, n = {n}, offset {offset})")
+                out.append(dict(dtype=str(dtype), n=n, offset_bytes=4 * offset,
+                                run=label, span=epi.get("span"),
+                                max_abs_err=err))
+    return out
+
+
+def threefry_window(tf, dev, parent=None) -> dict:
+    """A uint32 draw of ``THREEFRY_WINDOW`` words (past 2**32, about
+    17 GB; freed after): the first 2048 words and those from 2**32 - 2048
+    on against ``threefry2x32`` on int64 index tensors, through the
+    32-bit and the 64-bit group index (each call timed), and the parent's
+    kernel when given."""
+    key = (0x452821E6, 0x38D01377)
+    out = torch.empty(THREEFRY_WINDOW, dtype=torch.uint32, device=dev)
+    words = out.view(torch.int32)
+    idx = torch.cat([torch.arange(2048),
+                     torch.arange(2**32 - 2048, THREEFRY_WINDOW)]).to(dev)
+    x0, x1 = tf.threefry2x32(key[0], key[1], idx >> 32, idx & tf.MASK32)
+    want = x0 ^ x1
+    rec = {"words": THREEFRY_WINDOW, "checked": idx.numel(),
+           "max_abs_err": 0.0}
+    runs = [("index32", lambda: tf.launch(out, key)),
+            ("index64", lambda: tf.launch(out, key, index64=True))]
+    if parent is not None:
+        runs.append(("parent", lambda: parent.threefry_bits(out, key)))
+    for label, fn in runs:
+        words.fill_(SENTINEL)
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        end.record()
+        torch.cuda.synchronize()
+        got = words[idx].to(torch.int64) & tf.MASK32
+        err = max_abs_err([got], [want])
+        rec[label] = {"ms": start.elapsed_time(end), "max_abs_err": err}
+        rec["max_abs_err"] = max(rec["max_abs_err"], err)
+    del out, words
+    torch.cuda.empty_cache()
+    return rec
+
+
+def threefry_pipes(mix: dict, group: int) -> dict:
+    """Each threefry instantiation's grid-stride loop (its largest), from
+    ``sass.mix``: instructions by pipe a loop trip and a word (a trip
+    makes ``group`` words)."""
+    out = {}
+    for name, f in mix.items():
+        m = re.search(r"threefry_kernelILi(\d)E([jy])", name)
+        if not m or not f["loops"]:
+            continue
+        loop = f["loops"][-1]
+        mode = ("bits", "uniform", "randint")[int(m.group(1))]
+        index = "u32" if m.group(2) == "j" else "u64"
+        pipes = loop["pipes"]
+        out[f"{mode}/{index}"] = dict(
+            n=loop["n"], pipes=pipes,
+            per_word={p: pipes.get(p, 0) / group for p in ("alu", "fma")})
+    return out
+
+
+def kernel_checks(cfg, mods, dev, parent=None):
     """Phase 2: each kernel against its plain version at tick 7 of the
-    headline (state reached through the port on the card)."""
+    headline (state reached through the port on the card); with
+    ``parent``, ``threefry_bits`` also against the parent's kernel, timed
+    beside it in turns."""
     from corrosion_tpu_torch.kernels import seg_sort
     from corrosion_tpu_torch.models.broadcast import (
         _largest_divisor_upto,
@@ -459,49 +619,72 @@ def kernel_checks(cfg, mods, dev):
     part = _partition_ids(cfg, dev)
     results = []
 
-    # -- threefry_bits: loss uniforms [N, K] (timed), column scores,
-    #    sync offsets and raw bits (checked)
-    def fill(dtype, shape, plain, key_=key_l, **epi):
-        out = torch.empty(shape, dtype=dtype, device=dev)
-        fn = threefry.threefry_bits_plain if plain else threefry.threefry_bits
-        return fn(out, key_words(key_), **epi)
-
+    # -- threefry_bits: the tick's draws (loss uniforms, column scores as
+    #    uniforms and as raw bits, sync offsets) against the plain version
+    #    and the parent's kernel; the four headline shapes and n = 1 timed
+    #    in turns with the parent's, each beside its bound
     span, mult = randint_span(1, u)
     kh, kl = (key_words(x) for x in split(k_s))
-    cases = [
-        (torch.float32, (n, k), key_l, {}),
-        (torch.float32, (n // u, u), fold_in(key_t, 2), {}),
-        (torch.uint32, (n // 250, 250), fold_in(key_t, 0), {}),
-        (torch.int32, (n, sp.peers_per_round), None,
-         dict(key2=kl, span=span, mult=mult, minval=1)),
+    randint = dict(key2=kl, span=span, mult=mult, minval=1)
+    cases = [  # mode, dtype, shape, key, epilogue, operations a word, timed
+        ("uniform", torch.float32, (n, k), key_words(key_l), {},
+         INT_OPS_PER_UNIFORM, True),
+        ("uniform", torch.float32, (n // u, u), key_words(fold_in(key_t, 2)),
+         {}, INT_OPS_PER_UNIFORM, False),
+        ("bits", torch.uint32, (n // u, u), key_words(fold_in(key_t, k - 1)),
+         {}, INT_OPS_PER_HASH, True),
+        ("bits", torch.uint32, (n // 250, 250), key_words(fold_in(key_t, 0)),
+         {}, INT_OPS_PER_HASH, True),
+        ("randint", torch.int32, (n, sp.peers_per_round), kh, randint,
+         INT_OPS_PER_RANDINT, True),
+        ("uniform", torch.float32, (1,), key_words(key_l), {},
+         INT_OPS_PER_UNIFORM, True),
     ]
-    err = 0.0
-    for dtype, shape, key_, epi in cases:
-        if key_ is None:  # randint: the hi key goes as the first key
-            a = torch.empty(shape, dtype=dtype, device=dev)
-            b = torch.empty(shape, dtype=dtype, device=dev)
-            threefry.threefry_bits(a, kh, **epi)
-            threefry.threefry_bits_plain(b, kh, **epi)
-        else:
-            a = fill(dtype, shape, False, key_)
-            b = fill(dtype, shape, True, key_)
-        if dtype == torch.uint32:
-            a, b = a.view(torch.int32), b.view(torch.int32)
-        err = max(err, max_abs_err([a], [b]))
-    loss_out = torch.empty((n, k), dtype=torch.float32, device=dev)
-    kw = key_words(key_l)
+    err, shapes = 0.0, []
+    for mode, dtype, shape, kw, epi, ops, timed in cases:
+        got = torch.empty(shape, dtype=dtype, device=dev)
+        want = torch.empty(shape, dtype=dtype, device=dev)
+        threefry.threefry_bits(got, kw, **epi)
+        threefry.threefry_bits_plain(want, kw, **epi)
+        err = max(err, max_abs_err([got.view(torch.int32)],
+                                   [want.view(torch.int32)]))
+        old = None
+        if parent is not None:
+            ref = parent.threefry_bits(torch.empty_like(got), kw, **epi)
+            if not torch.equal(ref.view(torch.int32), got.view(torch.int32)):
+                fail(f"threefry_bits differs from the parent's ({mode} "
+                     f"{list(shape)})")
+
+            def old(ref=ref, kw=kw, epi=epi):
+                parent.threefry_bits(ref, kw, **epi)
+        if not timed:
+            continue
+        rec = dict(mode=mode, shape=list(shape), **in_turns(
+            lambda got=got, kw=kw, epi=epi: threefry.threefry_bits(
+                got, kw, **epi),
+            old, lambda fn: time_device_ms(fn, 50)))
+        rec["bound_ms"], rec["bound_by"] = bound_ms(nbytes(got),
+                                                    got.numel() * ops)
+        if len(shapes) == 0:
+            rec["plain_ms"] = time_ms(lambda: threefry.threefry_bits_plain(
+                want, kw, **epi), 5)
+        shapes.append(rec)
+    edges = threefry_edge_checks(threefry, dev, parent)
+    window = threefry_window(threefry, dev, parent)
+    head = shapes[0]
     results.append(dict(
         name="threefry_bits", route="cuda",
         source="corrosion_tpu_torch/kernels/csrc/threefry.cu",
         replaces="jax/_src/prng.py:1184",
-        max_abs_err=err,
-        ms=time_ms(lambda: threefry.threefry_bits(loss_out, kw), 50),
-        plain_ms=time_ms(
-            lambda: threefry.threefry_bits_plain(loss_out, kw), 5),
-        bound=(nbytes(loss_out),
-               loss_out.numel() * INT_OPS_PER_UNIFORM),
+        max_abs_err=max([err] + [e["max_abs_err"] for e in edges]
+                        + [window["max_abs_err"]]),
+        ms=head["ms"], plain_ms=head["plain_ms"],
+        bound=(4 * math.prod(head["shape"]),
+               math.prod(head["shape"]) * INT_OPS_PER_UNIFORM),
         library_ms=None,
-        shape=f"uniform float32 [{n}, {k}]",
+        shape=f"uniform float32 {head['shape']} (the other shapes in "
+              f"shapes)",
+        shapes=shapes, edges=edges, window=window,
     ))
 
     # -- seg_argsort: the tick's column keys (raw bits; the 23-bit
@@ -770,14 +953,18 @@ def stats_checks(ts, dev, headline, s: int, r: int) -> dict:
         library_ms=None, shape=head["shape"], shapes=shapes, edges=edges)
 
 
+def bound_ms(b: int, ops: int) -> tuple:
+    """The least time on the card of moving ``b`` bytes and running
+    ``ops`` integer operations: (ms, "bytes" or "operations")."""
+    t_bytes = b / HBM_BYTES_PER_S * 1e3
+    t_ops = ops / INT_OPS_PER_S * 1e3
+    return max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
+
+
 def set_bound(r: dict) -> None:
     """Replace ``r["bound"]`` (bytes, integer operations) by the
     least time of the two on the card and which one it is."""
-    b, ops = r.pop("bound")
-    t_bytes = b / HBM_BYTES_PER_S * 1e3
-    t_ops = ops / INT_OPS_PER_S * 1e3
-    r["bound_ms"] = max(t_bytes, t_ops)
-    r["bound_by"] = "bytes" if t_bytes >= t_ops else "operations"
+    r["bound_ms"], r["bound_by"] = bound_ms(*r.pop("bound"))
 
 
 def states_equal(a, b) -> bool:
@@ -4042,9 +4229,9 @@ def main() -> int:
 
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--parent", help="a checkout of the parent commit: "
-                    "hold its swim_probe_select, exact_send<Bitmap> and "
-                    "shard kernels to this tree's and time them beside "
-                    "them")
+                    "hold its threefry_bits, swim_probe_select, "
+                    "exact_send<Bitmap> and shard kernels to this tree's "
+                    "and time them beside them")
     opts = ap.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
@@ -4101,12 +4288,27 @@ def main() -> int:
                               ("sent_sampler", "sent_select"),
                               ("store", "store_(claim|write)"),
                               ("swim", "swim_probe_select"))}
+    record["threefry_pipes"] = threefry_pipes(record["sass"]["threefry"],
+                                              threefry.WORDS_A_THREAD)
+    sass_line = {"threefry_pipes": record["threefry_pipes"]}
+    if parent is not None:
+        # sent_select's opcodes beside the parent's (the hash it shares
+        # with threefry now lives in common.cuh)
+        theirs = sass.mix(parent.paths["sent_sampler"], "sent_select")
+        record["parent_sass"] = {"sent_sampler": theirs}
+        # keyed from "sent_select" on: the anonymous namespace's id
+        # differs between the two builds
+        ops = [{n[n.index("sent_select"):]: f["ops"] for n, f in m.items()}
+               for m in (record["sass"]["sent_sampler"], theirs)]
+        sass_line["sent_select_ops_equal_parent"] = {
+            n: o == ops[1].get(n) for n, o in ops[0].items()}
+    print(json.dumps(sass_line), flush=True)
 
     headline, seeds = HEADLINE, HEADLINE_SEEDS
 
     # phase 2: the perm-fanout kernels against their plain versions
     results = kernel_checks(replace(headline, n_universes=seeds), mods,
-                            cuda)
+                            cuda, parent)
     print("kernels match their plain versions: "
           + ", ".join(f"{r['name']} {r['max_abs_err']}" for r in results),
           flush=True)

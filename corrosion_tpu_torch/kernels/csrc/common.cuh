@@ -65,6 +65,104 @@ __device__ __forceinline__ int randint_of(uint32_t hi, uint32_t lo,
   return minval + (int)(((hi % span) * mult + lo % span) % span);
 }
 
+// -- The same hash over U consecutive counters a thread, its work spread
+// over both integer pipes (sent_sampler.cu's filter, threefry.cu).  An
+// SM's integer instructions run on the ALU (IADD3, LOP3, SHF) or the
+// FMA pipe (IMAD, IMAD.WIDE), each taking a warp instruction every
+// other clock on a scheduler, so a hash reaches the dispatch rate only
+// when the two pipes are busy for equal times (kernels/sass.py counts
+// their instructions).  The adds run as IMAD by a multiplier of 1 that
+// ptxas cannot see (a launch argument, `one`), and the rotates of the
+// rounds set in a kernel's WIDE mask (bit r for round r) as a 32 x 32
+// -> 64 multiply by 2**r on the FMA pipe, whose halves the xor's LOP3
+// folds.  An IMAD.WIDE holds the FMA pipe longer than an IMAD, so each
+// kernel's mask is the one its timings chose (PERF.md rows 1 and 10).
+
+// threefry2x32's rotation of round r
+__host__ __device__ constexpr int rot_of(int r) {
+  constexpr int rots[8] = {13, 15, 26, 6, 17, 29, 16, 24};
+  return rots[r % 8];
+}
+
+// a + b as an IMAD (a * one + b): the FMA pipe's share of the adds
+__device__ __forceinline__ uint32_t add_fma(uint32_t a, uint32_t b,
+                                            uint32_t one) {
+  uint32_t d;
+  asm("mad.lo.u32 %0, %1, %2, %3;" : "=r"(d) : "r"(a), "r"(one), "r"(b));
+  return d;
+}
+
+// One threefry2x32 round on each of U independent counters.
+template <unsigned WIDE, int R, int U>
+__device__ __forceinline__ void tf_round(uint32_t (&x0)[U],
+                                         uint32_t (&x1)[U], uint32_t one) {
+  constexpr int rot = rot_of(R);
+#pragma unroll
+  for (int u = 0; u < U; ++u) {
+    x0[u] = add_fma(x1[u], x0[u], one);
+    if constexpr ((WIDE >> R) & 1u) {
+      // x1 * 2**rot in 64 bits: the low word is x1 << rot, the high
+      // word x1 >> (32 - rot); the multiplier comes from one so that
+      // ptxas keeps the multiply, and the halves go straight to a LOP3
+      uint32_t lo, hi;
+      asm("{\n\t.reg .u64 t;\n\tmul.wide.u32 t, %2, %3;\n\t"
+          "mov.b64 {%0, %1}, t;\n\t}"
+          : "=r"(lo), "=r"(hi)
+          : "r"(x1[u]), "r"(one << rot));
+      x1[u] = (lo | hi) ^ x0[u];
+    } else {
+      x1[u] = rotl32(x1[u], rot) ^ x0[u];
+    }
+  }
+}
+
+template <unsigned WIDE, int R, int U>
+__device__ __forceinline__ void tf_four(uint32_t (&x0)[U], uint32_t (&x1)[U],
+                                        uint32_t one) {
+  tf_round<WIDE, R, U>(x0, x1, one);
+  tf_round<WIDE, R + 1, U>(x0, x1, one);
+  tf_round<WIDE, R + 2, U>(x0, x1, one);
+  tf_round<WIDE, R + 3, U>(x0, x1, one);
+}
+
+template <int U>
+__device__ __forceinline__ void tf_inject(uint32_t (&x0)[U],
+                                          uint32_t (&x1)[U], uint32_t ka,
+                                          uint32_t kb, uint32_t one) {
+#pragma unroll
+  for (int u = 0; u < U; ++u) {
+    x0[u] = add_fma(x0[u], ka, one);
+    x1[u] = add_fma(x1[u], kb, one);
+  }
+}
+
+// threefry_xor of U consecutive counters (hi, lo + u), x0 = hi + k0 and
+// x1 = lo + k1 given: out[u] the word of counter u
+template <unsigned WIDE, int U>
+__device__ __forceinline__ void hash_run(uint32_t x0_0, uint32_t x1_0,
+                                         uint32_t k0, uint32_t k1,
+                                         uint32_t k2, uint32_t one,
+                                         uint32_t (&out)[U]) {
+  uint32_t x0[U], x1[U];
+#pragma unroll
+  for (int u = 0; u < U; ++u) {
+    x0[u] = x0_0;
+    x1[u] = x1_0 + (uint32_t)u;
+  }
+  tf_four<WIDE, 0, U>(x0, x1, one);
+  tf_inject<U>(x0, x1, k1, k2 + 1u, one);
+  tf_four<WIDE, 4, U>(x0, x1, one);
+  tf_inject<U>(x0, x1, k2, k0 + 2u, one);
+  tf_four<WIDE, 8, U>(x0, x1, one);
+  tf_inject<U>(x0, x1, k0, k1 + 3u, one);
+  tf_four<WIDE, 12, U>(x0, x1, one);
+  tf_inject<U>(x0, x1, k1, k2 + 4u, one);
+  tf_four<WIDE, 16, U>(x0, x1, one);
+#pragma unroll
+  for (int u = 0; u < U; ++u)
+    out[u] = add_fma(x0[u], k2, one) ^ add_fma(x1[u], k0 + 5u, one);
+}
+
 // "not infected yet" hop depth (models/broadcast.py HOP_UNSET)
 constexpr int HOP_UNSET = 1 << 30;
 

@@ -101,9 +101,10 @@
 // gets there: its adds are written as mad.lo.u32 by a multiplier of 1
 // that ptxas cannot see (SentArgs.one) and run as IMAD, and the
 // rotates of WIDE_ROUNDS run as a 32 x 32 -> 64 multiply by 2**r on the
-// FMA pipe whose halves the next LOP3 folds; the row's high counter
-// word is a constant, no sent byte is read and no float is formed.
-// kernels/sass.py counts the loop's instructions by pipe (PERF.md).
+// FMA pipe whose halves the next LOP3 folds (common.cuh hash_run,
+// shared with threefry.cu); the row's high counter word is a constant,
+// no sent byte is read and no float is formed.  kernels/sass.py
+// counts the loop's instructions by pipe (PERF.md).
 // sent stays a bool [S, N, N] (the reference's leaf); a bitpacked
 // layout is later work.
 
@@ -127,11 +128,6 @@ constexpr int HIT_CAP = 128;   // a row's candidate buffer
 constexpr int WARP_ROW_MAX_N = 4096;
 constexpr unsigned FULL = 0xffffffffu;
 constexpr unsigned long long NONE = ~0ull;
-// threefry2x32's rotation of round r
-__host__ __device__ constexpr int rot_of(int r) {
-  constexpr int rots[8] = {13, 15, 26, 6, 17, 29, 16, 24};
-  return rots[r % 8];
-}
 // the rounds (bit r) whose rotate runs as a multiply on the FMA pipe
 constexpr unsigned WIDE_ROUNDS = 0x44444u;
 
@@ -178,85 +174,6 @@ __device__ __forceinline__ float uniform_at(const uint32_t* key,
 __device__ __forceinline__ unsigned long long umin64(unsigned long long x,
                                                      unsigned long long y) {
   return x < y ? x : y;
-}
-
-// a + b as an IMAD (a * one + b): the FMA pipe's share of the adds
-__device__ __forceinline__ uint32_t add_fma(uint32_t a, uint32_t b,
-                                            uint32_t one) {
-  uint32_t d;
-  asm("mad.lo.u32 %0, %1, %2, %3;" : "=r"(d) : "r"(a), "r"(one), "r"(b));
-  return d;
-}
-
-// One threefry2x32 round on each of U independent counters.
-template <int R, int U>
-__device__ __forceinline__ void tf_round(uint32_t (&x0)[U],
-                                         uint32_t (&x1)[U], uint32_t one) {
-  constexpr int rot = rot_of(R);
-#pragma unroll
-  for (int u = 0; u < U; ++u) {
-    x0[u] = add_fma(x1[u], x0[u], one);
-    if constexpr ((WIDE_ROUNDS >> R) & 1u) {
-      // x1 * 2**rot in 64 bits: the low word is x1 << rot, the high
-      // word x1 >> (32 - rot); the multiplier comes from one so that
-      // ptxas keeps the multiply, and the halves go straight to a LOP3
-      uint32_t lo, hi;
-      asm("{\n\t.reg .u64 t;\n\tmul.wide.u32 t, %2, %3;\n\t"
-          "mov.b64 {%0, %1}, t;\n\t}"
-          : "=r"(lo), "=r"(hi)
-          : "r"(x1[u]), "r"(one << rot));
-      x1[u] = (lo | hi) ^ x0[u];
-    } else {
-      x1[u] = common::rotl32(x1[u], rot) ^ x0[u];
-    }
-  }
-}
-
-template <int R, int U>
-__device__ __forceinline__ void tf_four(uint32_t (&x0)[U], uint32_t (&x1)[U],
-                                        uint32_t one) {
-  tf_round<R, U>(x0, x1, one);
-  tf_round<R + 1, U>(x0, x1, one);
-  tf_round<R + 2, U>(x0, x1, one);
-  tf_round<R + 3, U>(x0, x1, one);
-}
-
-template <int U>
-__device__ __forceinline__ void tf_inject(uint32_t (&x0)[U],
-                                          uint32_t (&x1)[U], uint32_t ka,
-                                          uint32_t kb, uint32_t one) {
-#pragma unroll
-  for (int u = 0; u < U; ++u) {
-    x0[u] = add_fma(x0[u], ka, one);
-    x1[u] = add_fma(x1[u], kb, one);
-  }
-}
-
-// threefry_xor (common.cuh) of U consecutive counters (hi, lo + u),
-// x0 = hi + k0 and x1 = lo + k1 given: out[u] the word of counter u
-template <int U>
-__device__ __forceinline__ void hash_run(uint32_t x0_0, uint32_t x1_0,
-                                         uint32_t k0, uint32_t k1,
-                                         uint32_t k2, uint32_t one,
-                                         uint32_t (&out)[U]) {
-  uint32_t x0[U], x1[U];
-#pragma unroll
-  for (int u = 0; u < U; ++u) {
-    x0[u] = x0_0;
-    x1[u] = x1_0 + (uint32_t)u;
-  }
-  tf_four<0, U>(x0, x1, one);
-  tf_inject<U>(x0, x1, k1, k2 + 1u, one);
-  tf_four<4, U>(x0, x1, one);
-  tf_inject<U>(x0, x1, k2, k0 + 2u, one);
-  tf_four<8, U>(x0, x1, one);
-  tf_inject<U>(x0, x1, k0, k1 + 3u, one);
-  tf_four<12, U>(x0, x1, one);
-  tf_inject<U>(x0, x1, k1, k2 + 4u, one);
-  tf_four<16, U>(x0, x1, one);
-#pragma unroll
-  for (int u = 0; u < U; ++u)
-    out[u] = add_fma(x0[u], k2, one) ^ add_fma(x1[u], k0 + 5u, one);
 }
 
 template <int G>
@@ -383,8 +300,8 @@ __global__ void __launch_bounds__(THREADS) sent_select(const SentArgs a) {
     const uint32_t x0_0 = base_hi + (uint32_t)seg + k0;
     for (int c0 = lo + t * UNROLL; c0 < hi; c0 += G * UNROLL) {
       uint32_t w[UNROLL];
-      hash_run<UNROLL>(x0_0, base_lo + k1 + (uint32_t)c0, k0, k1, k2, one,
-                       w);
+      common::hash_run<WIDE_ROUNDS, UNROLL>(
+          x0_0, base_lo + k1 + (uint32_t)c0, k0, k1, k2, one, w);
       bool any = false;
 #pragma unroll
       for (int u = 0; u < UNROLL; ++u) any |= w[u] <= bound;
