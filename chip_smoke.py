@@ -152,9 +152,15 @@ package.  Phases, each ending the run with a non-zero exit on failure:
     beside it;
 17. hold ``bits_pack`` / ``bits_unpack`` (at the host layout's wire,
     [2, 5,000,000] packed and [2, 1,250,000] unpacked, and odd shapes),
-    ``route_pack`` / ``route_slots`` and ``deliver_perm`` with a source
-    and a receiver window (100k nodes x R = 8 over 8 shards, the
-    default cap and an overflowing one), and ``shard_round`` /
+    ``route_slots`` and ``deliver_perm`` with a source and a receiver
+    window (100k nodes x R = 8 over 8 shards, the default cap and an
+    overflowing one), ``route_pack`` (``ROUTE_CASES``: the fabrics'
+    maps at caps 1, 256 and n_local for shards 0, 3 and 7, no sender
+    and every sender active, D = 1, 2, 8 and 64, K = 1, 99,976 nodes
+    over 8 shards (no multiple of the kernel's tile), R = 4, 6 and 8 with
+    rows_l or the outputs off a 16-byte boundary and sentinel words
+    around the outputs; its marks all zero after every call) and
+    ``shard_round`` /
     ``shard_commit`` (ticks 1 and 6 of phase 18's three runs and of a
     WAN-latency variant of the dense and host layouts: every shard's
     rounds, shard 0's and a later shard's commit) against their plain
@@ -184,13 +190,16 @@ package.  Phases, each ending the run with a non-zero exit on failure:
 
 ``python3 chip_smoke.py --parent DIR`` (DIR an unpacked ``git
 archive`` of the parent commit) also builds the parent's ``swim.cu``,
-``exact_send.cu``, ``threefry.cu`` and ``sent_sampler.cu`` and requires
-their kernels to write what this tree's write: ``threefry_bits`` in
-every case of phase 2, the 2**32 window included,
-``swim_probe_select`` at N = 64 and 4096 (phase 8),
-``exact_send<Bitmap>`` at phase 5's timed ticks, ``shard_round`` and
-``shard_commit`` in phase 17b's timed cases (both commits from restored
-copies); each pair is timed in turns (parent, change, change, parent).
+``exact_send.cu``, ``threefry.cu``, ``sent_sampler.cu`` and
+``fabric.cu`` and requires their kernels to write what this tree's
+write: ``threefry_bits`` in every case of phase 2, the 2**32 window
+included, ``swim_probe_select`` at N = 64 and 4096 (phase 8),
+``exact_send<Bitmap>`` at phase 5's timed ticks, ``route_pack`` in
+every case of phase 17a, ``shard_round`` and ``shard_commit`` in phase
+17b's timed cases (both commits from restored copies); each pair is
+timed in turns (parent, change, change, parent): ``route_pack`` at
+shard 3 of 8 at caps 12,500 and 256 (the ``{"route_pack": ...}``
+line).
 Phase 1 then also prints whether each ``sent_select`` instantiation's
 opcode counts equal the parent's.
 
@@ -242,15 +251,6 @@ INT_OPS_PER_UNIFORM = INT_OPS_PER_HASH + 2
 # run time (four multiplies each, threefry.cu fastmod), the
 # multiply-add that folds them and minval's add
 INT_OPS_PER_RANDINT = 2 * INT_OPS_PER_HASH + 3 * 4 + 2
-# the parent's threefry_launch(out, n, ka0, ka1, kb0, kb1, mode, span,
-# mult, minval, stream); this tree's adds the fastmod constant and the
-# index64 flag before the stream
-PARENT_THREEFRY_ARGTYPES = (
-    ctypes.c_void_p, ctypes.c_longlong, ctypes.c_uint, ctypes.c_uint,
-    ctypes.c_uint, ctypes.c_uint, ctypes.c_int, ctypes.c_uint, ctypes.c_uint,
-    ctypes.c_int, ctypes.c_void_p,
-)
-
 
 def fail(msg: str) -> None:
     raise SystemExit(f"chip_smoke: FAILED: {msg}")
@@ -358,18 +358,19 @@ def build_library(src: str, lib: str) -> list:
 
 
 class ParentDesign:
-    """The parent commit's ``swim.cu``, ``exact_send.cu``, ``threefry.cu``
-    and ``sent_sampler.cu``, built from a checkout of it (``--parent
-    DIR``, one ``nvcc`` each, all at once) and launched as its wrappers
-    launched them, for timing beside this tree's kernels in one run
-    (``sent_sampler`` only for its SASS).  The C interfaces of
-    ``swim_launch``, ``exact_send_launch`` and ``shard_launch`` are
-    unchanged since, so this tree's wrappers fill their arguments
-    (``kernels.swim.prepare``, ``exact_send.send_args``,
-    ``shard_exact.round_args`` / ``commit_args``); ``threefry_launch``
-    takes ``PARENT_THREEFRY_ARGTYPES``."""
+    """The parent commit's ``swim.cu``, ``exact_send.cu``, ``threefry.cu``,
+    ``sent_sampler.cu`` and ``fabric.cu``, built from a checkout of it
+    (``--parent DIR``, one ``nvcc`` each, all at once) and launched as
+    its wrappers launched them, for timing beside this tree's kernels in
+    one run (``sent_sampler`` only for its SASS).  The C interfaces of
+    ``swim_launch``, ``exact_send_launch``, ``shard_launch``,
+    ``route_pack_launch`` and ``threefry_launch`` are unchanged since, so
+    this tree's wrappers fill their arguments (``kernels.swim.prepare``,
+    ``exact_send.send_args``, ``shard_exact.round_args`` /
+    ``commit_args``, ``threefry._ARGTYPES``; ``route_pack``'s scratch
+    argument is the parent's zeroed byte marks)."""
 
-    SOURCES = ("swim", "exact_send", "threefry", "sent_sampler")
+    SOURCES = ("swim", "exact_send", "threefry", "sent_sampler", "fabric")
 
     def __init__(self, root: str):
         from corrosion_tpu_torch import kernels
@@ -397,6 +398,26 @@ class ParentDesign:
         fn.argtypes, fn.restype = list(argtypes), ctypes.c_int
         kernels.raise_on_error(f"parent {symbol}", fn(*args))
 
+    def route_pack(self, senders, active_l, rows_l, shard: int, cap: int):
+        """The parent's ``route_pack`` (``route_pack``'s arguments) on the
+        zeroed byte marks and overflow its wrapper made."""
+        from corrosion_tpu_torch import kernels
+        from corrosion_tpu_torch.kernels import fabric
+
+        k, n = senders.shape
+        n_local, r = rows_l.shape
+        d, dev, i32 = n // n_local, rows_l.device, torch.int32
+        needed = torch.zeros((d, n_local), dtype=torch.uint8, device=dev)
+        out = (torch.empty((d, cap), dtype=i32, device=dev),
+               torch.empty((d, cap, r), dtype=i32, device=dev),
+               torch.zeros((1,), dtype=i32, device=dev))
+        p = kernels.ptr
+        self._launch("fabric", "route_pack_launch", fabric._ROUTE_ARGTYPES,
+                     p(senders), p(active_l), p(rows_l), p(needed),
+                     *map(p, out), k, n, shard * n_local, n_local, d, cap, r,
+                     kernels.stream(rows_l))
+        return out
+
     def threefry_bits(self, out, key, key2=None, span=0, mult=0,
                       minval=0):
         """The parent's ``threefry_bits`` into the CUDA tensor ``out``
@@ -405,9 +426,11 @@ class ParentDesign:
         from corrosion_tpu_torch.kernels import threefry as tf
 
         kb = key2 if key2 is not None else (0, 0)
-        self._launch("threefry", "threefry_launch", PARENT_THREEFRY_ARGTYPES,
+        mode = tf._MODES[out.dtype]
+        self._launch("threefry", "threefry_launch", tf._ARGTYPES,
                      kernels.ptr(out), out.numel(), key[0], key[1], kb[0],
-                     kb[1], tf._MODES[out.dtype], span, mult, minval,
+                     kb[1], mode, span, mult, minval,
+                     tf.fastmod_m(span) if mode == 2 else 0, 0,
                      kernels.stream(out))
         return out
 
@@ -3313,9 +3336,6 @@ HOST_MSGS = os.path.join(HERE, "corrosion_tpu_torch", "kernels", "build",
 MESH_COUNTED = ("shard_round", "shard_commit", "exact_commit", "sync_pull",
                 "tick_stats", "threefry_bits")
 HOST_COUNTED = MESH_COUNTED + ("bits_pack", "bits_unpack")
-# the broadcast fabrics at the headline's width: one 100k-node universe,
-# R = 8, fanout 2 + 2, ring0 256, 5% loss, over 8 node shards
-FABRIC_N, FABRIC_R, FABRIC_D, FABRIC_TICKS = 100_000, 8, 8, 12
 FABRIC_COUNTED = ("route_pack", "route_slots", "deliver_perm",
                   "seg_argsort", "threefry_bits")
 SHARD_TICKS = (1, BUSY_TICK)
@@ -3335,38 +3355,123 @@ def mesh_cfgs():
     )
 
 
-def fabric_params():
-    from corrosion_tpu_torch.models.broadcast import BroadcastParams
+# route_pack's bitwise cases (phase 17a): (label, nodes, shards, maps,
+# R, shards packed, caps, active senders, words that rows_l and the
+# outputs lie past a 16-byte boundary, None for fresh tensors).  The
+# fabrics' own maps and state at every cap edge and the first, a middle
+# and the last shard; no sender and every sender active; one, two and
+# 64 destinations (two: the host layout's width; 64: more than the
+# warp that sums the overflow); one map; a shard of
+# 12,497 rows (no multiple of the kernel's 256-row tile); R = 4 (one
+# 16-byte word a row, outputs between sentinel words) and R = 6 and 8
+# with rows_l 4 bytes past a boundary (a lane an int)
+ROUTE_CASES = (
+    ("fabric", 100_000, 8, 4, 8, (0, 3, 7), (1, 256, 12_500), "state",
+     None),
+    ("no sender active", 100_000, 8, 4, 8, (3,), (256, 12_500), "none",
+     None),
+    ("every sender active", 100_000, 8, 4, 8, (3,), (256, 12_500), "all",
+     None),
+    ("D = 1", 100_000, 1, 4, 8, (0,), (256, 100_000), "state", None),
+    ("D = 2", 100_000, 2, 4, 8, (0, 1), (256, 50_000), "state", None),
+    ("D = 64", 99_968, 64, 4, 8, (0, 63), (16, 1562), "state", None),
+    ("K = 1", 100_000, 8, 1, 8, (3,), (256, 12_500), "state", None),
+    ("ragged tiles", 99_976, 8, 4, 8, (0, 7), (1, 256, 12_497), "state",
+     None),
+    ("R = 4", 100_000, 8, 4, 4, (3,), (256, 12_500), "state", (0, 4)),
+    ("R = 6", 100_000, 8, 4, 6, (3,), (1, 256, 12_500), "state", (1, 1)),
+    ("R = 8 unaligned", 100_000, 8, 4, 8, (3,), (256, 12_500), "state",
+     (1, 1)),
+)
 
-    return BroadcastParams(n_nodes=FABRIC_N, fanout_ring0=2,
-                           fanout_global=2, ring0_size=256,
-                           max_transmissions=8, loss=0.05)
+
+def placed(shape, off: int, dev):
+    """(buffer, view): a contiguous int32 ``shape`` view ``off`` words
+    into a buffer of sentinels four words longer than it."""
+    size = math.prod(shape)
+    buf = torch.full((size + off + 4,), SENTINEL, dtype=torch.int32,
+                     device=dev)
+    return buf, buf[off:off + size].view(shape)
 
 
-def fabric_state(dev):
-    """The broadcast fabrics' start: every node's R keys from a seed,
-    the writer's ahead of everyone's and budgets on a third of the
-    nodes (active senders on every shard)."""
-    g = torch.Generator(device="cpu").manual_seed(17)
-    rows = torch.randint(0, 1 << 20, (FABRIC_N, FABRIC_R), generator=g,
-                         dtype=torch.int32)
-    rows[0] += 1 << 22
-    tx = torch.where(torch.rand(FABRIC_N, generator=g) < 0.33,
-                     torch.randint(1, 9, (FABRIC_N,), generator=g), 0)
-    tx[0] = 8
-    return (rows.to(dev), tx.to(torch.int32).to(dev),
-            torch.zeros(FABRIC_N, dtype=torch.int32, device=dev))
+def route_pack_cases(senders, rows, tx, dev, parent=None):
+    """Phase 17a's ``route_pack`` cases (``ROUTE_CASES``), each bitwise
+    ``route_pack_plain`` and, with ``parent``, the parent's kernel, the
+    sentinels around placed outputs untouched and the kernel's marks
+    all zero after every call; returns (worst error, cases)."""
+    from corrosion_tpu_torch.kernels import fabric
+    from corrosion_tpu_torch.profile_tick import FABRIC_N, FABRIC_R
+
+    g = torch.Generator(device="cpu").manual_seed(15)
+    worst, cases = 0.0, []
+    for label, n, d, k, r, shards, caps, act, offs in ROUTE_CASES:
+        nl = n // d
+        if n == FABRIC_N:
+            maps = senders[:k]
+        else:
+            maps = torch.randint(0, n, (k, n), generator=g,
+                                 dtype=torch.int32).to(dev)
+        if n == FABRIC_N and r == FABRIC_R:
+            keys, busy = rows, tx > 0
+        else:
+            keys = torch.randint(0, 1 << 20, (n, r), generator=g,
+                                 dtype=torch.int32).to(dev)
+            busy = (torch.rand(n, generator=g) < 0.33).to(dev)
+        if act != "state":
+            busy = torch.full((n,), act == "all", device=dev)
+        for sh, cap in ((sh, cap) for sh in shards for cap in caps):
+            w = slice(sh * nl, (sh + 1) * nl)
+            active_l, rows_l = busy[w].contiguous(), keys[w].contiguous()
+            bufs = []
+            if offs is None:
+                got = fabric.route_pack(maps, active_l, rows_l, sh, cap)
+            else:
+                rows_l = placed((nl, r), offs[0], dev)[1].copy_(rows_l)
+                bufs = [placed(shape, offs[1], dev)
+                        for shape in ((d, cap), (d, cap, r), (1,))]
+                got = fabric._pack_into(maps, active_l, rows_l, sh,
+                                        *(v for _, v in bufs))
+            want = fabric.route_pack_plain(maps, active_l, rows_l, sh, cap)
+            err = max_abs_err(got, want)
+            if parent is not None:
+                err = max(err, max_abs_err(
+                    got, parent.route_pack(maps, active_l, rows_l, sh, cap)))
+            for buf, view in bufs:
+                off = offs[1]
+                if not (bool((buf[:off] == SENTINEL).all())
+                        and bool((buf[off + view.numel():]
+                                  == SENTINEL).all())):
+                    fail(f"route_pack {label} wrote past its outputs")
+            if not fabric.marks_clear(got[0].device, nl, d):
+                fail(f"route_pack {label} left marks set")
+            if err:
+                fail(f"route_pack {label}, shard {sh}, cap {cap} differs "
+                     f"from its plain version or the parent's: {err}")
+            worst = max(worst, err)
+            cases.append(dict(kernel="route_pack", case=label, shard=sh,
+                              cap=cap, overflow=int(want[2]),
+                              max_abs_err=err))
+    return worst, cases
 
 
-def fabric_kernel_checks(dev) -> list:
+def fabric_kernel_checks(dev, parent=None) -> list:
     """Phase 17a: ``bits_pack`` / ``bits_unpack`` at the host layout's
     wire shapes (10M nodes x 2 seeds over 2 hosts) and odd shapes;
-    ``route_pack`` / ``route_slots`` and ``deliver_perm`` with a source
-    and a receiver window at the broadcast fabrics' width (shard 3 of
-    8), the default cap and a cap that overflows; each bitwise its plain
-    version and timed behind a GPU-side sleep."""
+    ``route_slots`` and ``deliver_perm`` with a source and a receiver
+    window at the broadcast fabrics' width (shard 3 of 8), the default
+    cap and a cap that overflows; ``route_pack`` in ``ROUTE_CASES``;
+    each bitwise its plain version and timed behind a GPU-side sleep,
+    ``route_pack`` at caps 12,500 and 256 in turns with ``parent``'s
+    kernel when given."""
     from corrosion_tpu_torch.kernels import deliver, fabric
     from corrosion_tpu_torch.models.sharded import _loss_u, _senders
+    from corrosion_tpu_torch.profile_tick import (
+        FABRIC_D,
+        FABRIC_N,
+        FABRIC_R,
+        fabric_params,
+        fabric_state,
+    )
     from corrosion_tpu_torch.random import PRNGKey, split
 
     g = torch.Generator(device="cpu").manual_seed(3)
@@ -3419,36 +3524,42 @@ def fabric_kernel_checks(dev) -> list:
     loss_u = _loss_u(key_l, params, dev)
     sh = 3
     w = slice(sh * nl, (sh + 1) * nl)
-    route_err = slot_err = 0.0
+    slot_err = 0.0
     route = {}
     for cap in (nl, 256):
         sends = [fabric.route_pack(senders, tx[s * nl:(s + 1) * nl] > 0,
                                    rows[s * nl:(s + 1) * nl], s, cap)
                  for s in range(d)]
-        want = fabric.route_pack_plain(senders, tx[w] > 0, rows[w], sh, cap)
-        route_err = max(route_err, max_abs_err(sends[sh], want))
         recv_ids = torch.stack([sends[s][0][sh] for s in range(d)])
         recv_rows = torch.stack([sends[s][1][sh] for s in range(d)])
         slot_of = fabric.route_slots(recv_ids.reshape(-1), n)
         slot_err = max(slot_err, max_abs_err(
             [slot_of], [fabric.route_slots_plain(recv_ids.reshape(-1), n)]))
-        cases.append(dict(kernel="route_pack", cap=cap,
+        cases.append(dict(kernel="route_slots", cap=cap,
                           overflow=int(sum(int(x[2]) for x in sends)),
-                          max_abs_err=route_err))
+                          max_abs_err=slot_err))
         route[cap] = (recv_ids, recv_rows, slot_of)
+    route_err, route_cases = route_pack_cases(senders, rows, tx, dev,
+                                              parent)
+    cases += route_cases
     recv_ids, recv_rows, slot_of = route[nl]
     active_l = tx[w] > 0
     ids_flat = recv_ids.reshape(-1)
     route_bytes = (k * n * 4 + nl + nl * r * 4 + d * nl * (r + 1) * 4 + 4)
+    args = (senders, active_l, rows[w], sh)
+    turns = {}
+    for cap in (nl, 256):
+        turns[cap] = in_turns(
+            lambda c=cap: fabric.route_pack(*args, c),
+            parent and (lambda c=cap: parent.route_pack(*args, c)),
+            lambda fn: time_inplace_ms(none, fn, 20))
     results.append(dict(
         name="route_pack", route="cuda", source=FABRIC_SOURCE,
         replaces="corrosion_tpu/models/sharded.py:216",
-        max_abs_err=route_err,
-        ms=time_inplace_ms(none, lambda: fabric.route_pack(
-            senders, active_l, rows[w], sh, nl), 20),
+        max_abs_err=route_err, ms=turns[nl]["ms"],
         plain_ms=time_inplace_ms(none, lambda: fabric.route_pack_plain(
-            senders, active_l, rows[w], sh, nl), 3, 1),
-        bound=(route_bytes, 0), library_ms=None,
+            *args, nl), 3, 1),
+        bound=(route_bytes, 0), library_ms=None, turns=turns,
         shape=f"K={k} x {n} maps, shard {sh} of {d}, cap {nl}, R={r}"))
     results.append(dict(
         name="route_slots", route="cuda", source=FABRIC_SOURCE,
@@ -3897,14 +4008,21 @@ def mesh_full_width(counted, single_runs, dev) -> dict:
 def fabric_full_width(counted, dev) -> dict:
     """Phase 18b: the all_gather and the ring broadcast fabrics at the
     headline's width over a ``LocalFabric`` of 8 shards on the card,
-    ``FABRIC_TICKS`` ticks each with the launch counters zeroed just
-    before, both bitwise the single-device ``broadcast_step`` after
-    every tick; then the seq-sync fabric at config #4's width."""
+    ``profile_tick.FABRIC_TICKS`` ticks each with the launch counters
+    zeroed just before, both bitwise the single-device
+    ``broadcast_step`` after every tick; then the seq-sync fabric at
+    config #4's width."""
     from corrosion_tpu_torch import convert
     from corrosion_tpu_torch.mesh import LocalFabric, Mesh
     from corrosion_tpu_torch.models import sharded as ms
     from corrosion_tpu_torch.models.broadcast import broadcast_step
     from corrosion_tpu_torch.models.sync import SeqSyncParams, seq_sync_step
+    from corrosion_tpu_torch.profile_tick import (
+        FABRIC_D,
+        FABRIC_TICKS,
+        fabric_params,
+        fabric_state,
+    )
     from corrosion_tpu_torch.random import PRNGKey, fold_in
 
     params = fabric_params()
@@ -4181,13 +4299,18 @@ def mesh_phases(record: dict, counted: dict, single_runs: dict,
                 cuda, parent=None) -> list:
     """Phases 17-20; returns the new kernels' results with the main
     path's launches."""
-    fabric_results, record["fabric_cases"] = fabric_kernel_checks(cuda)
+    fabric_results, record["fabric_cases"] = fabric_kernel_checks(cuda,
+                                                                  parent)
     shard_results, record["shard_checks"] = shard_kernel_checks(cuda,
                                                                 parent)
     print("fabric and shard kernels match their plain versions: "
           + ", ".join(f"{r['name']} {r['max_abs_err']}"
                       for r in fabric_results + shard_results), flush=True)
     print(json.dumps({"shard": shard_turns(shard_results)}), flush=True)
+    pack = next(r for r in fabric_results if r["name"] == "route_pack")
+    print(json.dumps({"route_pack": dict(
+        turns=pack["turns"], bound_ms=pack["bound_ms"],
+        cases=len(record["fabric_cases"]))}), flush=True)
     runs = mesh_full_width(counted, single_runs, cuda)
     record["mesh_runs"] = runs
     fabric_runs = fabric_full_width(counted, cuda)
@@ -4230,8 +4353,8 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--parent", help="a checkout of the parent commit: "
                     "hold its threefry_bits, swim_probe_select, "
-                    "exact_send<Bitmap> and shard kernels to this tree's "
-                    "and time them beside them")
+                    "exact_send<Bitmap>, route_pack and shard kernels to "
+                    "this tree's and time them beside them")
     opts = ap.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)

@@ -7,7 +7,10 @@ the compute steps around the shard fabric's collectives
 wire encoding of a validity mask (LSB first, one bit a row).
 ``route_pack`` / ``route_slots`` replace the demand marks, the capped
 per-destination packing and the received-id slot map of
-``sharded_broadcast_step_ring`` (:216-259).  Bound on the H100: bytes.
+``sharded_broadcast_step_ring`` (:216-259).  ``route_pack`` is three
+launches over the whole card (mark, count, write; csrc/fabric.cu) that
+meet in a scratch buffer (``_scratch``, one a device and stream) whose
+marks the kernels leave zero.  Bound on the H100: bytes.
 """
 
 from __future__ import annotations
@@ -24,6 +27,36 @@ _ROUTE_ARGTYPES = ((ctypes.c_void_p,) * 7 + (ctypes.c_int,) * 7
                    + (ctypes.c_void_p,))
 _SLOTS_ARGTYPES = (ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
                    ctypes.c_int, ctypes.c_void_p)
+_SCRATCH: dict = {}
+
+
+def _scratch(device, n_local: int, d: int) -> torch.Tensor:
+    """``route_pack``'s scratch for ``d`` destinations of ``n_local``
+    rows on ``device``'s current stream: its mark words first, zero when
+    made and left zero by the kernels, then the tile counts, which the
+    kernels write whole.  One a device and stream, of the last shape:
+    another shape replaces it with a zeroed one (its marks would lie on
+    the old counts)."""
+    key = (device, torch.cuda.current_stream(device).cuda_stream)
+    held = _SCRATCH.get(key)
+    if held is None or held[0] != (n_local, d):
+        words = kernels.function("fabric", "route_pack_scratch_words",
+                                 (ctypes.c_int, ctypes.c_int))
+        held = ((n_local, d), torch.zeros(words(n_local, d),
+                                          dtype=torch.int32, device=device))
+        _SCRATCH[key] = held
+    return held[1]
+
+
+def marks_clear(device, n_local: int, d: int) -> bool:
+    """Whether ``route_pack``'s scratch for this shape on ``device``'s
+    current stream has every mark word zero, as each call must leave it
+    (true where no such scratch is held)."""
+    held = _SCRATCH.get((device,
+                         torch.cuda.current_stream(device).cuda_stream))
+    if held is None or held[0] != (n_local, d):
+        return True
+    return not int(torch.count_nonzero(held[1][:d * (-(-n_local // 32))]))
 
 
 def bits_pack_plain(mask: torch.Tensor) -> torch.Tensor:
@@ -125,20 +158,41 @@ def route_pack(senders, active_l, rows_l, shard: int, cap: int):
     if kernels.on_cpu(senders, active_l, rows_l):
         return route_pack_plain(senders, active_l, rows_l, shard, cap)
     d = n // n_local
-    kernels.check("route_pack senders", senders, torch.int32, (k, n))
-    kernels.check("route_pack active_l", active_l, torch.bool, align=1)
-    kernels.check("route_pack rows_l", rows_l, torch.int32, (n_local, r))
     dev = rows_l.device
-    needed = torch.zeros((d, n_local), dtype=torch.uint8, device=dev)
-    send_ids = torch.empty((d, cap), dtype=torch.int32, device=dev)
-    send_rows = torch.empty((d, cap, r), dtype=torch.int32, device=dev)
-    overflow = torch.zeros((1,), dtype=torch.int32, device=dev)
+    i32 = torch.int32
+    return _pack_into(senders, active_l, rows_l, shard,
+                      torch.empty((d, cap), dtype=i32, device=dev),
+                      torch.empty((d, cap, r), dtype=i32, device=dev),
+                      torch.empty((1,), dtype=i32, device=dev))
+
+
+def _pack_into(senders, active_l, rows_l, shard: int, send_ids, send_rows,
+               overflow):
+    """:func:`route_pack`'s kernels on CUDA tensors, into the given
+    outputs (send_ids [D, cap], send_rows [D, cap, R] and overflow [1]
+    int32, contiguous, 4-byte aligned); returns them."""
+    k, n = senders.shape
+    n_local, r = rows_l.shape
+    d, cap = send_ids.shape
+    kernels.check("route_pack senders", senders, torch.int32, (k, n))
+    kernels.check("route_pack active_l", active_l, torch.bool, (n_local,),
+                  align=1)
+    kernels.check("route_pack rows_l", rows_l, torch.int32, (n_local, r))
+    kernels.check("route_pack send_ids", send_ids, torch.int32, (d, cap))
+    kernels.check("route_pack send_rows", send_rows, torch.int32,
+                  (d, cap, r))
+    kernels.check("route_pack overflow", overflow, torch.int32, (1,))
+    dev = rows_l.device
+    scratch = _scratch(dev, n_local, d)
     p = kernels.ptr
     fn = kernels.function("fabric", "route_pack_launch", _ROUTE_ARGTYPES)
-    code = fn(p(senders), p(active_l), p(rows_l), p(needed), p(send_ids),
+    code = fn(p(senders), p(active_l), p(rows_l), p(scratch), p(send_ids),
               p(send_rows), p(overflow), k, n, shard * n_local, n_local, d,
               cap, r, kernels.stream(rows_l))
     route_pack.launches += 1
+    if code:  # the marks may be left set: the next call starts afresh
+        _SCRATCH.pop((dev, torch.cuda.current_stream(dev).cuda_stream),
+                      None)
     kernels.raise_on_error("route_pack", code)
     return send_ids, send_rows, overflow
 

@@ -3,7 +3,7 @@ column, anti-entropy and SWIM churn.
 
     python -m corrosion_tpu_torch.profile_tick
 
-Times twelve pieces of work: one chunk (16 ticks; the headline
+Times fourteen pieces of work: one chunk (16 ticks; the headline
 converges within it) of the headline epidemic (100k nodes x 32 seeds)
 from its initial state; the two full-width exact-sampler runs
 (``run_exact_headline`` on ``sim.calibrate.EXACT_DENSE`` x 16 seeds and
@@ -11,7 +11,11 @@ from its initial state; the two full-width exact-sampler runs
 chunk of two multi-device layouts over a ``LocalFabric`` on the card
 from the initial state (host-sparse, the 10M-node headline config x 2
 seeds on 2 hosts, 8 ticks; sharded-dense, ``EXACT_DENSE`` x 4 seeds
-over 8 node shards, 16 ticks); the whole
+over 8 node shards, 16 ticks); the ring broadcast fabric's 12 ticks
+(``ring_fabric_100k``: ``sharded_broadcast_step_ring`` at 100k nodes x
+R = 8 over a ``LocalFabric`` of 8 shards from ``fabric_state``, as
+``chip_smoke.py`` phase 18b runs it, ``route_pack`` 96 launches); the
+whole
 config #4 run (``run_anti_entropy_seeds``, 10k nodes x 32 seeds); the
 first 32-tick chunk of the churn schedule at 64 (config #2) and 4096
 nodes from the initial state; one seed of the calibration-scale exact
@@ -60,6 +64,7 @@ from corrosion_tpu_torch.convert import shard_state
 from corrosion_tpu_torch.mesh import LocalFabric, Mesh
 from corrosion_tpu_torch.ops import merge
 from corrosion_tpu_torch.models import sharded
+from corrosion_tpu_torch.models.broadcast import BroadcastParams
 from corrosion_tpu_torch.models.swim import swim_init
 from corrosion_tpu_torch.random import PRNGKey, fold_in
 from corrosion_tpu_torch.sim import antientropy, calibrate, churn
@@ -80,6 +85,10 @@ WINNERS_N = 1 << 20  # changes in the full-width winners batch
 RESYNC_VALUES = (None, 1, -4, 2.5, "x", b"\x01", "yy", "")
 ACTIVITIES = (torch.profiler.ProfilerActivity.CPU,
               torch.profiler.ProfilerActivity.CUDA)
+# the broadcast fabrics at the headline's width (chip_smoke.py phase
+# 18b): one 100k-node universe, R = 8, fanout 2 + 2, ring0 256, 5% loss,
+# over 8 node shards, 12 ticks
+FABRIC_N, FABRIC_R, FABRIC_D, FABRIC_TICKS = 100_000, 8, 8, 12
 
 
 def _timed(prepare, profiled: bool):
@@ -172,6 +181,45 @@ def mesh_chunk(cfg, seeds: int, axis: str, shards: int, sparse: bool,
         diags = {sh: calibrate._zero_diag(mesh.device)
                  for sh in mesh.local_shards}
         return lambda: chunk(state, base, diags)
+    return prepare
+
+
+def fabric_params() -> BroadcastParams:
+    return BroadcastParams(n_nodes=FABRIC_N, fanout_ring0=2,
+                           fanout_global=2, ring0_size=256,
+                           max_transmissions=8, loss=0.05)
+
+
+def fabric_state(dev):
+    """The broadcast fabrics' start: every node's R keys from a seed,
+    the writer's ahead of everyone's and budgets on a third of the
+    nodes (active senders on every shard)."""
+    g = torch.Generator(device="cpu").manual_seed(17)
+    rows = torch.randint(0, 1 << 20, (FABRIC_N, FABRIC_R), generator=g,
+                         dtype=torch.int32)
+    rows[0] += 1 << 22
+    tx = torch.where(torch.rand(FABRIC_N, generator=g) < 0.33,
+                     torch.randint(1, 9, (FABRIC_N,), generator=g), 0)
+    tx[0] = 8
+    return (rows.to(dev), tx.to(torch.int32).to(dev),
+            torch.zeros(FABRIC_N, dtype=torch.int32, device=dev))
+
+
+def ring_fabric_run():
+    """The ring broadcast fabric's ``FABRIC_TICKS`` ticks over a
+    ``LocalFabric`` of ``FABRIC_D`` shards on the card from
+    ``fabric_state`` (made and laid out untimed)."""
+    def prepare():
+        mesh = Mesh("nodes", LocalFabric(FABRIC_D, "cuda"))
+        state = shard_state(sharded.BroadcastShard(*fabric_state("cuda")),
+                            sharded.BroadcastShard(0, 0, 0), mesh)
+        step = sharded.sharded_broadcast_step_ring(mesh, fabric_params())
+
+        def work():
+            st = state
+            for t in range(FABRIC_TICKS):
+                st, _ = step(st, fold_in(PRNGKey(8), t))
+        return work
     return prepare
 
 
@@ -365,6 +413,9 @@ def pieces() -> dict:
             lambda e=ecfg, s=seeds, a=axis, d=shards, sp=sparse, h=host:
             profile(mesh_chunk(e, s, a, d, sp, h), nodes=e.n_nodes,
                     seeds=s, shards=d, axis=a, ticks=e.chunk_ticks))
+    table["ring_fabric_100k"] = lambda: profile(
+        ring_fabric_run(), nodes=FABRIC_N, shards=FABRIC_D,
+        ticks=FABRIC_TICKS)
     table["anti_entropy_config4"] = lambda: profile(
         anti_entropy_run(antientropy.CONFIG4, antientropy.CONFIG4_SEEDS),
         nodes=antientropy.CONFIG4.n_nodes, seeds=antientropy.CONFIG4_SEEDS)
