@@ -64,16 +64,24 @@ package.  Phases, each ending the run with a non-zero exit on failure:
    the per-tick statistics and the run's stats dict to be equal;
 8. hold ``seq_sync`` and ``seq_stats`` against their plain versions at
    config #4's full width (10k nodes x 32 seeds, 64 seqs) at ticks 1
-   and 20, and the SWIM kernels (``swim_tick``: probe/select, spread,
-   gather, settle) at N = 64, 1000, 1003 and 4096 at a tick during
+   and 20, and the SWIM kernels (``swim_tick``: probe/select,
+   disseminate, settle) at N = 64, 1000, 1003 and 4096 at a tick during
    suspicion, that tick with whole rows at the retransmission limit,
    the revive tick, the revive tick with the victim probed by the node
    it announces to, a 15%-loss tick, a tick without gossip targets and
    a crafted-tie state at 8, 12 and 20 gossip entries (one, two and
-   three selection passes), and at N = 5 with 9 gossip entries, every
-   leaf bitwise; time each kernel with CUDA events, ``torch.gather``
-   beside ``swim_gather``, and ``swim_probe_select`` alone at N = 64
-   and 4096;
+   three selection passes), at N = 5 with 9 gossip entries, a crafted
+   ordering state (the passes' order shows) at N = 16 and 4096 with
+   and without loss, gossip targets and a second selection pass, and
+   at N = 16384 with 20 entries (more than the card's threads at
+   once), every leaf bitwise and ``swim_disseminate`` bitwise
+   ``swim_disseminate_plain`` on the kernels' own selection; time each
+   host call's kernels with CUDA events and ``swim_probe_select`` alone
+   at N = 64 and 4096, and there the host's enqueue of a tick (the
+   device asleep), the dissemination between two events, a whole tick
+   and the dissemination as five PyTorch calls (three
+   ``scatter_reduce_``, two ``torch.gather``), which must leave the
+   kernels' view;
 9. run config #4 (``run_anti_entropy_seeds``, 10k x 32 seeds), config
    #2 (``run_churn``, 64 nodes) and the 4096-node churn cycle on the
    card, each with the launch counters zeroed just before, and hold
@@ -193,7 +201,9 @@ archive`` of the parent commit) also builds the parent's ``swim.cu``,
 ``exact_send.cu``, ``threefry.cu``, ``sent_sampler.cu`` and
 ``fabric.cu`` and requires their kernels to write what this tree's
 write: ``threefry_bits`` in every case of phase 2, the 2**32 window
-included, ``swim_probe_select`` at N = 64 and 4096 (phase 8),
+included, ``swim_probe_select`` at N = 64 and 4096 (phase 8; there
+the parent's dissemination, five launches and five host calls, is
+timed in turns with this tree's, and the whole tick with each),
 ``exact_send<Bitmap>`` at phase 5's timed ticks, ``route_pack`` in
 every case of phase 17a, ``shard_round`` and ``shard_commit`` in phase
 17b's timed cases (both commits from restored copies); each pair is
@@ -368,7 +378,8 @@ class ParentDesign:
     this tree's wrappers fill their arguments (``kernels.swim.prepare``,
     ``exact_send.send_args``, ``shard_exact.round_args`` /
     ``commit_args``, ``threefry._ARGTYPES``; ``route_pack``'s scratch
-    argument is the parent's zeroed byte marks)."""
+    argument is the parent's zeroed byte marks), but for ``swim_launch``'s
+    ``ack_pay``, which the parent does not take (``_swim``)."""
 
     SOURCES = ("swim", "exact_send", "threefry", "sent_sampler", "fabric")
 
@@ -434,13 +445,28 @@ class ParentDesign:
                      kernels.stream(out))
         return out
 
+    def _swim(self, launch, phase: int) -> None:
+        """The parent's ``swim_launch`` of ``phase`` on a tick's
+        ``Launch``, without its ``ack_pay`` pointer."""
+        from corrosion_tpu_torch.kernels import swim as ksw
+
+        ack_pay = launch.work["ack_pay"].data_ptr()
+        args = [a for a in launch.args
+                if not (isinstance(a, ctypes.c_void_p) and a.value == ack_pay)]
+        self._launch("swim", "swim_launch", ksw._ARGTYPES[1:], *args, phase,
+                     launch.stream)
+
     def swim_probe_select(self, launch) -> None:
         """The parent's ``swim_probe_select`` on a tick's ``Launch``
         (one 256-thread block a row)."""
-        from corrosion_tpu_torch.kernels import swim as ksw
+        self._swim(launch, 0)
 
-        self._launch("swim", "swim_launch", ksw._ARGTYPES, *launch.args, 0,
-                     launch.stream)
+    def swim_disseminate(self, launch, gossip: bool) -> None:
+        """The parent's dissemination on a tick's ``Launch``: its gossip
+        pass (with ``gossip``), gather, ping pass, gather and ack pass,
+        five launches and five host calls."""
+        for phase in (1,) * gossip + (2, 3, 2, 4):
+            self._swim(launch, phase)
 
     def exact_send(self, infected, tx, next_send, msgs, pending, sent, keys,
                    tick, p, tier, diag):
@@ -1520,12 +1546,22 @@ CHURN4096_WANT = dict(detect_latency=None, rejoin_latency=None,
 AE_TICKS = (1, 20)  # phase 8's anti-entropy ticks
 # phase 8's SWIM clusters; the last is timed
 SWIM_SIZES = (64, 1000, 1003, 4096)
-SWIM_TURNS = (64, 4096)  # swim_probe_select timed alone (and the parent's)
+# swim_probe_select timed alone and the dissemination's costs (and the
+# parent's)
+SWIM_TURNS = (64, 4096)
 # gossip widths of the crafted-tie checks: one selection pass of the
 # kernel, and two and three passes
 SWIM_TIE_ENTRIES = (8, 12, 20)
-SWIM_KERNELS = ("swim_probe_select", "swim_spread", "swim_gather",
-                "swim_settle")
+# the crafted ordering state's clusters and its variants
+# (tests/test_torch_swim.py's ordering cases)
+ORDERING_SIZES = (16, 4096)
+ORDERING_VARIANTS = {"": {}, "_loss_0.15": dict(loss=0.15),
+                     "_no_gossip_targets": dict(gossip_targets=0),
+                     "_entries_12": dict(gossip_entries=12)}
+# a cluster whose dissemination has more entries (N x M) than the card
+# holds threads at once
+WIDE_SWIM = (16384, 20)
+SWIM_KERNELS = ("swim_probe_select", "swim_disseminate", "swim_settle")
 
 
 def ae_state_at(cfg, seeds: int, tick: int, dev):
@@ -1677,6 +1713,28 @@ def crafted_tie_state(n: int):
     )
 
 
+def crafted_ordering_state(n: int, seed: int = 5):
+    """Records that differ widely from row to row (incarnations 0..63,
+    ALIVE or DOWN), so that the gossip pass raises entries that probers
+    then select and the ping and ack passes must read the view as the
+    pass before left it (tests/test_torch_swim.py ``ordering_state``)."""
+    from corrosion_tpu_torch.models.swim import SwimState
+
+    rng = np.random.default_rng(seed)
+    view = (4 * rng.integers(0, 64, (n, n))
+            + 2 * rng.integers(0, 2, (n, n))).astype(np.int32)
+    inc = rng.integers(0, 64, n).astype(np.int32)
+    view[np.arange(n), np.arange(n)] = 4 * inc
+    return SwimState(
+        view=torch.from_numpy(view),
+        suspect_since=torch.full((n, n), 2**31 - 1, dtype=torch.int32),
+        incarnation=torch.from_numpy(inc),
+        msgs=torch.zeros(n, dtype=torch.int32),
+        update_tx=torch.from_numpy(
+            rng.integers(0, 3, (n, n)).astype(np.int32)),
+    )
+
+
 def rows_at_limit(state, limit: int):
     """``state`` with every third row's update_tx at the retransmission
     limit and every seventh (from row 1) past it: those rows score all
@@ -1727,13 +1785,27 @@ def swim_case(ksw, state, key, tick, params, alive, revived=None,
         fa = torch.zeros(2, dtype=torch.int32, device=state.view.device)
         fb = torch.zeros_like(fa)
         names.append("flags")
+    keys = ksw.tick_keys(key)
     got = [*ksw.swim_tick(*state, key, tick, params, alive, revived,
                           victim=victim, flags=fa)]
-    want = [*ksw.swim_tick_plain(*state, ksw.tick_keys(key), tick, params,
-                                 alive, revived, victim, fb)]
+    want = [*ksw.swim_tick_plain(*state, keys, tick, params, alive, revived,
+                                 victim, fb)]
     if victim is not None:
         got.append(fa)
         want.append(fb)
+    # the dissemination alone, on the kernels' own selection
+    launch = ksw.prepare(*state, keys, tick, params, alive, revived)
+    ksw.swim_probe_select(launch)
+    w = launch.work
+    probe = w["probe"]
+    plain = ksw.swim_disseminate_plain(
+        launch.out[0].clone(), w["ge"].long(), w["sendable"].bool(),
+        w["target"].long(), (probe & 1).bool(), (probe & 2).bool(), alive,
+        keys, params)
+    ksw.swim_disseminate(launch, params.gossip_targets > 0)
+    names.append("disseminate")
+    got.append(launch.out[0])
+    want.append(plain)
     return dict(max_abs_err=max_abs_err(got, want),
                 differs=[f for f, x, y in zip(names, got, want)
                          if not torch.equal(x, y)],
@@ -1770,26 +1842,29 @@ def probe_select_turns(ksw, parent, state, key, tick, params, alive,
 
 def swim_kernel_checks(dev, parent=None):
     """Phase 8b: the SWIM kernels against their plain version on the
-    card, every leaf and the victim counters bitwise, at N = 64, 1000,
-    1003 (no multiple of 4: rows of both 16-byte alignments, a scalar
-    head and tail) and 4096: a tick during suspicion, that tick with
-    whole rows at and past the retransmission limit (all +inf, the
-    lowest indices taken), the revive tick, the revive tick under a key
-    whose victim is probed by the node it announces to, a loss = 0.15
-    run, a run without gossip targets (no gossip pass) and a
-    crafted-tie state at one selection pass of gossip entries
-    (``MAX_ENTRIES``) and at two and three passes (12, 20); at N = 5
-    with 9 gossip entries (m = n) the suspicion and revive ticks.
-    Each kernel timed at N = 4096's suspicion tick (CUDA events around
-    each launch, the host's enqueue hidden behind a GPU-side sleep),
-    ``torch.gather`` beside ``swim_gather`` the same way, and
-    ``swim_probe_select`` alone at N = 64's and 4096's, against the
-    parent's in turns when given."""
+    card, every leaf and the victim counters bitwise, and
+    ``swim_disseminate`` against ``swim_disseminate_plain`` on the
+    kernels' own selection (``swim_case``), at N = 64, 1000, 1003 (no
+    multiple of 4: rows of both 16-byte alignments, a scalar head and
+    tail) and 4096: a tick during suspicion, that tick with whole rows
+    at and past the retransmission limit (all +inf, the lowest indices
+    taken), the revive tick, the revive tick under a key whose victim
+    is probed by the node it announces to, a loss = 0.15 run, a run
+    without gossip targets (no gossip pass) and a crafted-tie state at
+    one selection pass of gossip entries (``MAX_ENTRIES``) and at two
+    and three passes (12, 20); at N = 5 with 9 gossip entries (m = n)
+    the suspicion and revive ticks; the crafted ordering state at
+    ``ORDERING_SIZES`` in ``ORDERING_VARIANTS``; and ``WIDE_SWIM``'s
+    suspicion tick.  Each kernel timed at N = 4096's suspicion tick
+    (CUDA events around each call, the host's enqueue hidden behind a
+    GPU-side sleep), ``swim_probe_select`` alone at N = 64's and
+    4096's and the dissemination's costs there (``swim_costs``),
+    against the parent's in turns when given."""
     from corrosion_tpu_torch.kernels import swim as ksw
     from corrosion_tpu_torch.models.swim import SwimState
     from corrosion_tpu_torch.sim.churn import ChurnConfig
 
-    checks, timed, turns = [], None, {}
+    checks, timed, turns, costs = [], None, {}, {}
     for n in SWIM_SIZES:
         cfg = ChurnConfig(n_nodes=n)
         cases = [("suspicion", cfg.kill_tick + 3, {}),
@@ -1807,6 +1882,8 @@ def swim_kernel_checks(dev, parent=None):
             if n in SWIM_TURNS:
                 turns[n] = probe_select_turns(ksw, parent, state, key, tick,
                                               params, alive, revived)
+                costs[n] = swim_costs(ksw, parent, state, key, tick, params,
+                                      alive, revived)
             if n == SWIM_SIZES[-1]:
                 timed = swim_times(ksw, state, key, tick, params, alive,
                                    revived)
@@ -1845,73 +1922,82 @@ def swim_kernel_checks(dev, parent=None):
             small, tick, dev, gossip_entries=9)
         checks.append(dict(n=5, case=label, tick=tick, **swim_case(
             ksw, state, key, tick, params, alive, revived, victim)))
+    from corrosion_tpu_torch.models.swim import SwimParams
+    from corrosion_tpu_torch.random import PRNGKey, fold_in
+
+    for n in ORDERING_SIZES:
+        state = SwimState(*(t.to(dev) for t in crafted_ordering_state(n)))
+        alive = torch.ones(n, dtype=torch.bool, device=dev)
+        for label, kw in ORDERING_VARIANTS.items():
+            for tick in (0, 1):
+                checks.append(dict(n=n, case=f"ordering{label}", tick=tick,
+                                   **swim_case(
+                                       ksw, state, fold_in(PRNGKey(0), tick),
+                                       tick, SwimParams(n_nodes=n, **kw),
+                                       alive)))
+    n, entries = WIDE_SWIM
+    cfg = ChurnConfig(n_nodes=n)
+    tick = cfg.kill_tick + 3
+    state, params, (key, alive, revived, victim) = churn_state_at(
+        cfg, tick, dev, gossip_entries=entries)
+    checks.append(dict(n=n, case=f"suspicion_entries_{entries}", tick=tick,
+                       **swim_case(ksw, state, key, tick, params, alive,
+                                   revived, victim)))
+    del state
     for c in checks:
         if c["max_abs_err"] != 0.0 or c["differs"]:
             fail(f"swim kernels differ from their plain version: {c}")
     timed["probe_select_turns"] = turns
+    timed["costs"] = costs
+    n = SWIM_SIZES[-1]
+    timed["swim_disseminate"].update(library_ms=costs[n]["library"]["ms"],
+                                     plain_ms=costs[n]["plain_ms"])
     err = max(c["max_abs_err"] for c in checks)
     res = []
-    for name, line in (("swim_probe_select", 108), ("swim_spread", 233),
-                       ("swim_gather", 253), ("swim_settle", 277)):
+    for name, line in (("swim_probe_select", 108), ("swim_disseminate", 226),
+                       ("swim_settle", 277)):
         t = timed[name]
         res.append(dict(
             name=name, route="cuda",
             source="corrosion_tpu_torch/kernels/csrc/swim.cu",
             replaces=f"corrosion_tpu/models/swim.py:{line}",
-            max_abs_err=err, ms=t["ms"], plain_ms=timed["plain_ms"],
+            max_abs_err=err, ms=t["ms"],
+            plain_ms=t.get("plain_ms", timed["plain_ms"]),
             bound=t["bound"], library_ms=t.get("library_ms"),
-            shape=f"N = {SWIM_SIZES[-1]}, tick {cfg.kill_tick + 3}, "
-                  f"{t['launches']} launch(es) a tick; plain_ms is the "
-                  "whole tick's"))
+            shape=f"N = {n}, tick {ChurnConfig(n_nodes=n).kill_tick + 3}; "
+                  "plain_ms is the whole tick's but swim_disseminate's"))
         set_bound(res[-1])
     return res, checks, timed
 
 
 def swim_times(ksw, state, key, tick, params, alive, revived,
                reps: int = 10) -> dict:
-    """Device ms of each kernel's launch (mean over ``reps`` ticks on the
-    same inputs and over its launches in a tick), the whole tick's ms
-    and the plain version's, with each kernel's bound from this tick's
-    data (bytes, integer operations; a launch's mean where a tick
-    launches it more than once); ``torch.gather`` of the tick's view at
-    the selection, which ``swim_gather`` computes, timed after the
-    tick's launches the same way (it must give the kernel's payload)."""
-    from corrosion_tpu_torch.kernels.threefry import threefry_bits_plain
-    from corrosion_tpu_torch.models.common import peers_from_offsets
-    from corrosion_tpu_torch.random import randint_span
-
+    """Device ms of each host call's kernels (mean over ``reps`` ticks on
+    the same inputs, an event between two calls), the whole tick's ms
+    and the plain version's, with each call's bound from this tick's
+    data (bytes, integer operations)."""
     n = state.view.shape[0]
     keys = ksw.tick_keys(key)
     order = ksw.launch_order(params.gossip_targets)
     names = [fn.__name__ for fn, _ in order]
     per = dict.fromkeys(SWIM_KERNELS, 0.0)
-    tick_ms = library_ms = 0.0
-    launch = ksw.prepare(*state, keys, tick, params, alive, revived)
-    ksw.swim_probe_select(launch)
-    ge = launch.work["ge"].long()  # every rep selects the same entries
+    tick_ms = 0.0
     for r in range(reps + 1):
         launch = ksw.prepare(*state, keys, tick, params, alive, revived)
         events = [torch.cuda.Event(enable_timing=True)
-                  for _ in range(len(order) + 2)]
+                  for _ in range(len(order) + 1)]
         torch.cuda.synchronize()
-        torch.cuda._sleep(SLEEP_CYCLES)  # covers the eight enqueues
+        torch.cuda._sleep(SLEEP_CYCLES)  # covers the enqueues
         events[0].record()
         for (fn, extra), ev in zip(order, events[1:]):
             fn(launch, *extra)
             ev.record()
-        gathered = torch.gather(launch.out[0], 1, ge)
-        events[-1].record()
         torch.cuda.synchronize()
         if r == 0:
             continue  # warm
-        for name, a, b in zip(names, events, events[1:-1]):
+        for name, a, b in zip(names, events, events[1:]):
             per[name] += a.elapsed_time(b) / reps
-        tick_ms += events[0].elapsed_time(events[-2]) / reps
-        library_ms += events[-2].elapsed_time(events[-1]) / reps
-    ksw.swim_gather(launch)  # the tick's final view at the selection
-    if (not torch.equal(launch.work["ge"].long(), ge)
-            or not torch.equal(launch.work["pay"], gathered)):
-        fail("torch.gather of the view differs from swim_gather's payload")
+        tick_ms += events[0].elapsed_time(events[-1]) / reps
     plain_ms = time_ms(lambda: ksw.swim_tick_plain(
         *state, keys, tick, params, alive, revived), 3)
 
@@ -1919,25 +2005,9 @@ def swim_times(ksw, state, key, tick, params, alive, revived,
     w = launch.work
     mat = 4 * n * n  # one [N, N] int32 leaf
     entries = w["ge"].numel()
-    sendable = w["sendable"].bool()
-    g = params.gossip_targets
-    span, mult = randint_span(1, max(n, 2))
-    offs = torch.empty((n, g), dtype=torch.int32, device=state.view.device)
-    threefry_bits_plain(offs, *keys["gt"], span=span, mult=mult, minval=1)
-    gt = peers_from_offsets(offs, n).long()
-    ok = (alive[:, None, None] & alive[gt][:, :, None]
-          & sendable[:, None, :])
-    if params.loss > 0.0:
-        u = torch.empty(ok.shape, dtype=torch.float32, device=ok.device)
-        ok &= threefry_bits_plain(u, keys["gloss"]) >= params.loss
-    probe = w["probe"].long()
-    per_row = sendable.sum(dim=1)
-    scatters = {  # cells each pass scatters into
-        ksw.GOSSIP: int(ok.sum()),
-        ksw.PING: int(((probe & 1) * per_row).sum()),
-        ksw.ACK: int((((probe >> 1) & 1) * per_row[w["target"].long()]).sum()),
-    }
-    spreads = [extra[0] for fn, extra in order if fn is ksw.swim_spread]
+    cells = dissemination_cells(ksw, launch, keys, params, alive)
+    scatters = {p: int((cells[p] != n * n).sum())  # cells each pass
+                for p in ("gossip", "ping", "ack") if p in cells}
     hashed = int((state.update_tx < params.update_tx_limit).sum())
     suspect = int((state.view % 4 == ksw.SUSPECT).sum())
     bounds = {
@@ -1946,25 +2016,201 @@ def swim_times(ksw, state, key, tick, params, alive, revived,
         # tie uniform for each cell under the retransmission limit
         "swim_probe_select": (3 * mat + suspect * SECTOR + entries * 9,
                               hashed * INT_OPS_PER_UNIFORM),
-        # the selection and payload read (ge, sendable, pay), a sector
-        # for each cell scattered into
-        "swim_spread": (sum(entries * 9 + scatters[mode] * SECTOR
-                            for mode in spreads) / len(spreads), 0),
-        # ge read, the payload written, a sector for each gathered cell
-        "swim_gather": (entries * (8 + SECTOR), 0),
+        # the selection (ge, sendable, pay) and each node's target,
+        # probe flags and live flag read once, a sector for each cell a
+        # pass scatters into; the passes' payloads are the selection's
+        # and what the passes before them scattered, so no view read
+        "swim_disseminate": (entries * 9 + n * 6
+                             + sum(scatters.values()) * SECTOR, 0),
         # the tick's and the input view, suspect_since and update_tx
         # read, suspect_since and update_tx written, the selection read
         "swim_settle": (6 * mat + entries * 5, 0),
     }
-    launches = {name: names.count(name) for name in SWIM_KERNELS}
-    out = {
-        **{name: dict(ms=per[name] / launches[name], bound=bounds[name],
-                      launches=launches[name]) for name in SWIM_KERNELS},
+    return {
+        **{name: dict(ms=per[name], bound=bounds[name]) for name in names},
         "tick_ms": tick_ms, "plain_ms": plain_ms, "scatters": scatters,
         "suspect_cells": suspect, "hashed_cells": hashed,
     }
-    out["swim_gather"]["library_ms"] = library_ms
+
+
+def dissemination_cells(ksw, launch, keys, params, alive) -> dict:
+    """The flat cells of a tick's dissemination as PyTorch calls, on the
+    selection ``swim_probe_select`` left in ``launch.work``: each pass's
+    scattered cells (``n * n``, one past the view, for a dropped leg),
+    the gossip payload, and the cells each gather reads (the rows'
+    entries for the ping, the targets' entries for the ack)."""
+    w = launch.work
+    n, m = w["ge"].shape
+    dev = w["ge"].device
+    ge, sendable = w["ge"].long(), w["sendable"].bool()
+    target, probe = w["target"].long(), w["probe"].long()
+    rows = torch.arange(n, device=dev)[:, None]
+    drop = n * n
+    out = {}
+    g = params.gossip_targets
+    if g > 0:
+        gt = ksw.rand_peers(keys, "gt", (n, g), n, dev)
+        ok = (alive[:, None, None] & alive[gt][:, :, None]
+              & sendable[:, None, :]
+              & ksw.surviving_legs(keys, "gloss", (n, g, m), params.loss,
+                                   dev))
+        out["gossip"] = torch.where(ok, gt[:, :, None] * n + ge[:, None, :],
+                                    drop).reshape(-1)
+        out["gossip_pay"] = w["pay"][:, None, :].expand(n, g, m).reshape(-1)
+    out["ping_src"] = (rows * n + ge).reshape(-1)
+    out["ping"] = torch.where((probe[:, None] & 1).bool() & sendable,
+                              target[:, None] * n + ge, drop).reshape(-1)
+    ge_t = ge[target]
+    out["ack_src"] = (target[:, None] * n + ge_t).reshape(-1)
+    out["ack"] = torch.where((probe[:, None] & 2).bool() & sendable[target],
+                             rows * n + ge_t, drop).reshape(-1)
     return out
+
+
+def library_calls(cells: dict, flat: torch.Tensor) -> list:
+    """The dissemination as PyTorch calls on ``flat`` (the view, flat,
+    and one cell past it): ``scatter_reduce_`` of the gossip payload
+    (with gossip targets), ``torch.gather`` of the rows' entries,
+    ``scatter_reduce_`` of them (the ping), ``torch.gather`` of the
+    targets' entries, ``scatter_reduce_`` of those (the ack).  Returns
+    the calls, to be run in order."""
+    calls = []
+    if "gossip" in cells:
+        calls.append(lambda: flat.scatter_reduce_(
+            0, cells["gossip"], cells["gossip_pay"], reduce="amax"))
+    held = {}
+    for name in ("ping", "ack"):
+        calls.append(lambda name=name: held.__setitem__(
+            name, torch.gather(flat, 0, cells[f"{name}_src"])))
+        calls.append(lambda name=name: flat.scatter_reduce_(
+            0, cells[name], held[name], reduce="amax"))
+    return calls
+
+
+def swim_costs(ksw, parent, state, key, tick, params, alive, revived,
+               reps: int = 20) -> dict:
+    """What a tick's dissemination costs on one tick's inputs: the
+    host's time to enqueue a tick (``prepare``, then every call of
+    ``launch_order``; the device asleep behind a GPU-side sleep, which
+    must outlast it), the dissemination's device ms between two events
+    (mean over ``reps`` ticks behind a GPU-side sleep; the parent's in
+    turns when given) and the whole tick's, and the dissemination as
+    PyTorch calls (``library_calls``), each call's ms and their sum,
+    which must leave the kernels' view."""
+    from time import perf_counter
+
+    n = state.view.shape[0]
+    keys = ksw.tick_keys(key)
+    order = ksw.launch_order(params.gossip_targets)
+    middle = order[1:-1]
+    args = (*state, keys, tick, params, alive, revived)
+
+    # the host's enqueue, the device asleep (a tick run first, so every
+    # library and function is loaded)
+    launch = ksw.prepare(*args)
+    for fn, extra in order:
+        fn(launch, *extra)
+    prep_us, call_us = [], []
+    for r in range(reps + 1):
+        torch.cuda.synchronize()
+        torch.cuda._sleep(10 * SLEEP_CYCLES)
+        t0 = perf_counter()
+        launch = ksw.prepare(*args)
+        t1 = perf_counter()
+        for fn, extra in order:
+            fn(launch, *extra)
+        t2 = perf_counter()
+        done = torch.cuda.Event()
+        done.record()
+        if done.query():
+            fail("swim_costs: the device woke before the tick was "
+                 "enqueued")
+        if r:
+            prep_us.append((t1 - t0) * 1e6)
+            call_us.append((t2 - t1) * 1e6)
+    torch.cuda.synchronize()
+
+    def windows(disseminate) -> tuple:
+        """Mean device ms of ``disseminate`` between two events, and of
+        the whole tick with no event inside it."""
+        out = []
+        for inner in (True, False):
+            launches = [ksw.prepare(*args) for _ in range(reps + 1)]
+            ev = [[torch.cuda.Event(enable_timing=True) for _ in range(2)]
+                  for _ in launches]
+            torch.cuda.synchronize()
+            torch.cuda._sleep(SLEEP_CYCLES * (1 + reps // 4))
+            for launch, (e0, e1) in zip(launches, ev):
+                if not inner:
+                    e0.record()
+                ksw.swim_probe_select(launch)
+                if inner:
+                    e0.record()
+                disseminate(launch)
+                if inner:
+                    e1.record()
+                ksw.swim_settle(launch)
+                if not inner:
+                    e1.record()
+            torch.cuda.synchronize()
+            out.append(sum(e0.elapsed_time(e1) for e0, e1 in ev[1:]) / reps)
+        return tuple(out)
+
+    def mine(launch):
+        for fn, extra in middle:
+            fn(launch, *extra)
+
+    tick_ms = []
+
+    def timer(fn):
+        d, t = windows(fn)
+        tick_ms.append(t)
+        return d
+
+    old = None
+    if parent is not None:
+        def old(launch):
+            parent.swim_disseminate(launch, params.gossip_targets > 0)
+    turns = in_turns(mine, old, timer)
+
+    # the PyTorch calls on the kernels' selection, held to their view
+    launch = ksw.prepare(*args)
+    ksw.swim_probe_select(launch)
+    cells = dissemination_cells(ksw, launch, keys, params, alive)
+    flat = torch.empty(n * n + 1, dtype=torch.int32, device=alive.device)
+    flat[:-1] = launch.out[0].reshape(-1)
+    w = launch.work
+    view0 = launch.out[0].clone()
+    plain_ms = time_ms(lambda: ksw.swim_disseminate_plain(
+        view0, w["ge"].long(), w["sendable"].bool(), w["target"].long(),
+        (w["probe"] & 1).bool(), (w["probe"] & 2).bool(), alive, keys,
+        params), 3)
+    mine(launch)
+    calls = library_calls(cells, flat)
+    for call in calls:
+        call()
+    if not torch.equal(flat[:-1], launch.out[0].reshape(-1)):
+        fail(f"the dissemination's PyTorch calls differ from the kernels' "
+             f"view at N = {n}")
+    call_ms = [0.0] * len(calls)
+    for r in range(reps + 1):
+        ev = [torch.cuda.Event(enable_timing=True)
+              for _ in range(len(calls) + 1)]
+        torch.cuda.synchronize()
+        torch.cuda._sleep(SLEEP_CYCLES)
+        ev[0].record()
+        for call, e in zip(calls, ev[1:]):
+            call()
+            e.record()
+        torch.cuda.synchronize()
+        if r:
+            for q in range(len(calls)):
+                call_ms[q] += ev[q].elapsed_time(ev[q + 1]) / reps
+    return {"n": n, "host_calls": len(order),
+            "enqueue_us": {"prepare": sorted(prep_us),
+                           "calls": sorted(call_us)},
+            "dissemination": turns, "tick_ms": tick_ms, "plain_ms": plain_ms,
+            "library": {"calls_ms": call_ms, "ms": sum(call_ms)}}
 
 
 def full_width_paths(counted) -> dict:
@@ -4377,8 +4623,8 @@ def main() -> int:
         threefry.threefry_bits, deliver.deliver_perm, sync_pull.sync_pull,
         tick_stats.tick_stats, exact_send.exact_send,
         exact_send.exact_commit, seq_sync.seq_sync, seq_sync.seq_stats,
-        swim.swim_probe_select, swim.swim_spread, swim.swim_gather,
-        swim.swim_settle, sent_sampler.sent_select,
+        swim.swim_probe_select, swim.swim_disseminate, swim.swim_settle,
+        sent_sampler.sent_select,
         sent_sampler.sent_commit, seg_sort.seg_argsort, winners.seg_cummax,
         winners.winners_a, winners.winners_b, store.store_set,
         store.store_gather, fabric.bits_pack, fabric.bits_unpack,
@@ -4519,6 +4765,7 @@ def main() -> int:
           + f" ({len(record['swim_checks'])} SWIM cases)", flush=True)
     print(json.dumps({"swim": {
         "probe_select_turns": record["swim_times"]["probe_select_turns"],
+        "costs": record["swim_times"]["costs"],
         **{r["name"]: {f: r[f] for f in ("ms", "bound_ms", "bound_by",
                                          "library_ms")}
            for r in swim_results}}}), flush=True)

@@ -1,12 +1,14 @@
-// swim: one SWIM protocol period for every node, as four kernels run
-// in order (seven launches a tick).
+// swim: one SWIM protocol period for every node, as three host calls
+// a tick: swim_probe_select, the dissemination (two kernels) and
+// swim_settle, each kernel after the first under programmatic
+// dependent launch.
 //
 // Replaces corrosion_tpu/models/swim.py swim_step (:107-316) and the
 // per-tick detection flags of corrosion_tpu/sim/churn.py _scan_chunk
 // (:86-90).  The reference runs a chain of whole-matrix phases on
 // [N, N] int32 leaves (view packed as incarnation * 4 + state,
 // suspect_since, update_tx); each phase reads what the previous one
-// wrote to other rows, so the phases are separate launches:
+// wrote to other rows, so the phases are separate kernels:
 //
 //   swim_probe_select  one warp per row i (design at the kernel).  It
 //       runs node i's rejoin announce, draws its probe target t and
@@ -22,16 +24,13 @@
 //       retransmission limit) and stores the row's M freshest entries
 //       in the reference's top_k order (score, then lower index) with
 //       their sendable flags and their gossip payload.
-//   swim_spread  one thread per (node, target, entry): the gossip pass
-//       (mode 0) scatters with atomicMax into the gossip targets' rows;
-//       the ping piggyback (mode 1) into the probe target's row; the
-//       ack piggyback (mode 2) into the prober's row, carrying the
-//       target's entries.
-//   swim_gather  re-reads every row's selected entries into the
-//       payload buffer between two spread passes: a pass sends what
-//       the view held after the previous pass finished and before any
-//       thread of its own pass scattered, as the reference's gathers
-//       on the whole view do (:226, :253, :268).
+//   the dissemination (design above swim_spread): the gossip pass
+//       scatters with atomicMax into the gossip targets' rows, the ping
+//       piggyback into the probe target's row, the ack piggyback into
+//       the prober's row, carrying the target's entries.  A pass sends
+//       what the view held after the previous pass finished and before
+//       any thread of its own pass scattered, as the reference's
+//       gathers on the whole view do (:226, :253, :268).
 //   swim_settle  one block per row: refutation / renewal on the
 //       diagonal (the probed peer's off-diagonal record of i, which no
 //       block writes here), suspect_since, and update_tx rebuilt as
@@ -56,11 +55,12 @@
 // alone moves view and update_tx in, view out and a sector of
 // suspect_since for each suspect cell; its hashes overlap that stream.
 // The design reads each input matrix in two passes (select, settle)
-// and writes each output once; the spread passes touch O(N * G * M)
+// and writes each output once; the dissemination touches O(N * G * M)
 // cells.
 
 #include <cstdint>
 #include <cuda_runtime.h>
+#include <utility>
 
 #include "common.cuh"
 
@@ -70,6 +70,7 @@ constexpr int ALIVE = 0, SUSPECT = 1, DOWN = 2;
 constexpr int NEVER = 0x7fffffff;
 constexpr int MAX_M = 8;  // entries one selection pass takes
 constexpr int THREADS = 256;  // swim_settle's block
+constexpr int DIS_THREADS = 256;  // a dissemination kernel's block
 constexpr int SEL_WARPS = 4;  // rows a block of swim_probe_select
 constexpr unsigned FULL = 0xffffffffu;
 constexpr unsigned INF_BITS = 0x7f800000u;  // +inf as float bits
@@ -99,6 +100,7 @@ struct SwimArgs {
   int* inc1;  // [N] incarnation after the announce
   unsigned char* probe;  // [N] PING_OK | ACK_OK
   int* pinged;  // [N] probers whose ping reached the node
+  unsigned* ack_pay;  // [N, M] the dissemination's shadow (swim_spread)
   int* ge;  // [N, M]
   unsigned char* sendable;  // [N, M]
   int* pay;  // [N, M]
@@ -310,6 +312,8 @@ struct Pass {
 // SM and N = 4096's rows run in one wave.
 __global__ void __launch_bounds__(SEL_WARPS * 32, 8)
 swim_probe_select(const SwimArgs a) {
+  // the gossip pass's draws need nothing of this kernel
+  asm volatile("griddepcontrol.launch_dependents;");
   const int lane = threadIdx.x & 31;
   const int i = blockIdx.x * SEL_WARPS + (threadIdx.x >> 5);
   const int n = a.n;
@@ -500,42 +504,178 @@ swim_probe_select(const SwimArgs a) {
   }
 }
 
-// mode 0 gossip, 1 ping piggyback, 2 ack piggyback
-__global__ void swim_spread(const SwimArgs a, int mode) {
-  const long long e = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  const int per = mode == 0 ? a.g * a.m : a.m;
-  if (e >= (long long)a.n * per) return;
-  const int i = (int)(e / per), slot = (int)(e % per);
-  const int n = a.n, m = a.m;
-  int src = i, dest, mm = slot;
-  if (mode == 0) {
-    const int gg = slot / m;
-    mm = slot % m;
-    if (!a.alive[i] || !a.sendable[(size_t)i * m + mm]) return;
-    const unsigned long long idx = (unsigned long long)i * a.g + gg;
-    dest = rand_peer(a, K_GT, idx, i);
-    if (!a.alive[dest] || !leg_ok(a, K_GLOSS, idx * m + mm)) return;
-  } else if (mode == 1) {
-    if (!(a.probe[i] & PING_OK) || !a.sendable[(size_t)i * m + mm]) return;
-    dest = a.target[i];
-  } else {
-    src = a.target[i];  // the target's entries ride its ack to i
-    if (!(a.probe[i] & ACK_OK) || !a.sendable[(size_t)src * m + mm]) return;
-    dest = i;
-  }
-  const size_t o = (size_t)src * m + mm;
-  atomicMax(a.view + cell(n, dest, a.ge[o]), a.pay[o]);
+// The dissemination (:204-275, the view's part), one host call: two
+// kernels chained by programmatic dependent launch:
+//
+//   swim_spread  the gossip pass and the ping piggyback, a thread a
+//                (node, gossip target, entry) (a (node, entry) without
+//                gossip targets);
+//   swim_ack     the ack piggyback, a thread a (node, entry): target
+//                t's selection as the ping pass left it into
+//                view[i, ge[t, m]].
+//
+// The work is tiny (about 120,000 scattered cells at N = 4096); what
+// costs is each kernel's launch, ramp and tail, a host call each, and
+// reading a pass's payload: the reference re-reads the selected cells
+// of the whole view after each pass (:253, :268), random cells of a
+// view larger than L2.  Here no kernel reads the view.
+//
+// The gossip and the ping pass need no boundary between them: every
+// value either scatters is the selection's payload (pay, fixed before
+// the dissemination) or a max of such values, and scatter-max is order
+// free.  The ping sends a selected cell as the gossip pass left it:
+// the cell's own payload, sent by its entry's thread, and each gossip
+// raise of it, carried on to the probe target by the gossip thread
+// that made it (where the cell is a sendable selected entry of a node
+// whose ping went through; a row's selected columns are distinct).
+// The ack pass sends a selected cell as the ping pass left it, which
+// holds raises from other nodes' threads, so it waits for them: every
+// raise of a selected cell also raises that cell's shadow in ack_pay
+// (order keys, order_key, so a zeroed shadow lies below every record),
+// which the first kernel seeds with the selection's payload.
+//
+// Each kernel first does what needs nothing of the kernel before it
+// (index math, the gossip legs' draws under K_GT and K_GLOSS and the
+// live flags; in swim_ack the selection's loads and the view cell's
+// prefetch into L2), then waits (griddepcontrol.wait: the kernel before
+// it has finished and its writes are visible), then lets the next
+// kernel launch.  swim_spread's draws overlap swim_probe_select, which
+// lets it launch at once, and it releases swim_ack only after its own
+// wait, so swim_ack's prelude runs once the selection is complete.
+// Loads of what the chain writes bypass L1 (__ldcg), and each thread
+// makes its loads before its first atomic, so their round trips
+// overlap.
+
+__device__ __forceinline__ void wait_prior() {
+  asm volatile("griddepcontrol.wait;" ::: "memory");
 }
 
-__global__ void swim_gather(const SwimArgs a) {
-  const long long e = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  if (e >= (long long)a.n * a.m) return;
+__device__ __forceinline__ void release_next() {
+  asm volatile("griddepcontrol.launch_dependents;");
+}
+
+__device__ __forceinline__ long long thread_index() {
+  return (long long)blockIdx.x * DIS_THREADS + threadIdx.x;
+}
+
+// an int's order as an unsigned (INT_MIN -> 0)
+__device__ __forceinline__ unsigned order_key(int v) {
+  return (unsigned)v ^ 0x80000000u;
+}
+
+// the selection entry of `row` whose column is col (q = -1: none) and
+// its sendable flag; columns and flags loaded 8 at a time, so their L2
+// round trips overlap
+struct Entry {
+  int q = -1;
+  bool sendable = false;
+};
+
+__device__ __forceinline__ Entry entry_of(const SwimArgs& a, int row,
+                                          int col) {
+  const size_t r0 = (size_t)row * a.m;
+  for (int q0 = 0; q0 < a.m; q0 += 8) {
+    int c[8];
+    unsigned char f[8];
+#pragma unroll
+    for (int k = 0; k < 8; ++k) {
+      const bool on = q0 + k < a.m;
+      c[k] = on ? __ldcg(a.ge + r0 + q0 + k) : -1;
+      f[k] = on ? __ldcg(a.sendable + r0 + q0 + k) : 0;
+    }
+#pragma unroll
+    for (int k = 0; k < 8; ++k)
+      if (c[k] == col) return Entry{q0 + k, f[k] != 0};
+  }
+  return Entry{};
+}
+
+// cell (row, col) of the view raised to v, and its ack shadow where
+// col is row's selected entry q
+__device__ __forceinline__ void raise_cell(const SwimArgs& a, int row,
+                                           int col, int q, int v) {
+  atomicMax(a.view + cell(a.n, row, col), v);
+  if (q >= 0) atomicMax(a.ack_pay + (size_t)row * a.m + q, order_key(v));
+}
+
+__global__ void __launch_bounds__(DIS_THREADS) swim_spread(const SwimArgs a,
+                                                          int gossip) {
+  const long long e = thread_index();
+  const int legs = gossip ? a.g : 1;  // threads an entry
+  const int per = legs * a.m;
+  const bool in = e < (long long)a.n * per;
+  int i = 0, mm = 0, gg = 0, dest = -1;
+  if (in) {
+    i = (int)(e / per);
+    const int slot = (int)(e - (long long)i * per);
+    gg = slot / a.m;
+    mm = slot - gg * a.m;
+    if (gossip && __ldg(a.alive + i)) {
+      const unsigned long long idx = (unsigned long long)i * a.g + gg;
+      const int d = rand_peer(a, K_GT, idx, i);
+      if (__ldg(a.alive + d) && leg_ok(a, K_GLOSS, idx * a.m + mm))
+        dest = d;
+    }
+  }
+  wait_prior();
+  release_next();
+  if (!in) return;
+  // the loads first, each round trip's together: the entry, both
+  // nodes' probe flags and targets; then the three searches
+  const size_t o = (size_t)i * a.m + mm;
+  const int d = dest >= 0 ? dest : i;
+  const int v = __ldcg(a.pay + o), col = __ldcg(a.ge + o);
+  const bool sent = __ldcg(a.sendable + o);
+  const unsigned char probe_i = __ldcg(a.probe + i);
+  const unsigned char probe_d = __ldcg(a.probe + d);
+  const int t = __ldcg(a.target + i), t2 = __ldcg(a.target + d);
+  // i's ping of this entry (gg = 0's thread) and the gossip leg to
+  // dest, carried on by dest's ping
+  const bool ping = gg == 0 && sent && (probe_i & PING_OK);
+  const bool leg = dest >= 0 && sent;
+  const bool dest_ping = leg && (probe_d & PING_OK);
+  const int q_t = ping ? entry_of(a, t, col).q : -1;
+  const Entry at_d = leg ? entry_of(a, d, col) : Entry{};
+  const int q_t2 = dest_ping ? entry_of(a, t2, col).q : -1;
+  if (gg == 0) atomicMax(a.ack_pay + o, order_key(v));  // the seed
+  if (ping) raise_cell(a, t, col, q_t, v);
+  if (leg) raise_cell(a, d, col, at_d.q, v);
+  if (dest_ping && at_d.sendable) raise_cell(a, t2, col, q_t2, v);
+}
+
+// entry e = i * M + m's ack leg: target t's entry m (src = t * M + m)
+// sent into cell (i, col) when i's ack came back
+struct Leg {
+  bool ok = false;
+  int col = 0;
+  size_t src = 0;
+};
+
+__device__ __forceinline__ Leg ack_leg(const SwimArgs& a, long long e) {
+  Leg l;
+  if (e >= (long long)a.n * a.m) return l;
   const int i = (int)(e / a.m);
-  a.pay[e] = a.view[cell(a.n, i, a.ge[e])];
+  if (!(__ldcg(a.probe + i) & ACK_OK)) return l;
+  const int t = __ldcg(a.target + i);
+  l.src = (size_t)t * a.m + (e - (long long)i * a.m);
+  l.ok = __ldcg(a.sendable + l.src);
+  if (l.ok) l.col = __ldcg(a.ge + l.src);
+  return l;
+}
+
+__global__ void __launch_bounds__(DIS_THREADS) swim_ack(const SwimArgs a) {
+  const long long e = thread_index();
+  const Leg l = ack_leg(a, e);
+  int* c = a.view + cell(a.n, (int)(e / a.m), l.col);
+  if (l.ok) asm volatile("prefetch.global.L2 [%0];" ::"l"(c));
+  wait_prior();
+  release_next();
+  if (l.ok) atomicMax(c, (int)(__ldcg(a.ack_pay + l.src) ^ 0x80000000u));
 }
 
 __global__ void __launch_bounds__(THREADS) swim_settle(const SwimArgs a) {
   __shared__ int s_diag, s_charge;
+  wait_prior();  // launched behind swim_ack
   const int i = blockIdx.x;
   const int n = a.n;
   if (threadIdx.x == 0) {
@@ -593,18 +733,51 @@ unsigned blocks_for(long long work, int threads) {
   return (unsigned)((work + threads - 1) / threads);
 }
 
+// a launch under programmatic dependent launch: its blocks may start
+// while the kernel before it in the stream runs, up to its
+// griddepcontrol.wait
+template <typename Kernel, typename... Args>
+cudaError_t launch_after(Kernel kernel, unsigned blocks, int threads,
+                         cudaStream_t st, Args&&... args) {
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(blocks);
+  cfg.blockDim = dim3(threads);
+  cfg.stream = st;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeProgrammaticStreamSerialization;
+  attr[0].val.programmaticStreamSerializationAllowed = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  return cudaLaunchKernelEx(&cfg, kernel, std::forward<Args>(args)...);
+}
+
+// the dissemination's two chained kernels
+cudaError_t disseminate(const SwimArgs& a, bool gossip, cudaStream_t st) {
+  const long long entries = (long long)a.n * a.m;
+  cudaError_t err = launch_after(
+      swim_spread, blocks_for(entries * (gossip ? a.g : 1), DIS_THREADS),
+      DIS_THREADS, st, a, (int)gossip);
+  if (err == cudaSuccess)
+    err = launch_after(swim_ack, blocks_for(entries, DIS_THREADS),
+                       DIS_THREADS, st, a);
+  return err;
+}
+
 }  // namespace
 
 // keys: K_WORDS uint32 words (host memory), copied into the launch's
-// argument block; flags may be null (no churn victim)
+// argument block; flags may be null (no churn victim); pinged ([N])
+// and ack_pay ([N, M]) come zeroed
 extern "C" int swim_launch(
     const void* view_in, const void* ss_in, const void* inc_in,
     const void* tx_in, const void* alive, const void* revived, void* view,
     void* ss, void* inc, void* msgs, void* tx, void* target, void* inc1,
     void* probe, void* pinged, void* ge, void* sendable, void* pay,
-    void* flags, int n, int h, int g, int m, int timeout, int limit,
-    int tick, int victim, float loss, unsigned span, unsigned mult,
+    void* ack_pay, void* flags, int n, int h, int g, int m, int timeout,
+    int limit, int tick, int victim, float loss, unsigned span, unsigned mult,
     const unsigned* keys, int phase, void* stream) {
+  // phase: 0 swim_probe_select; 1 the dissemination with its gossip
+  // pass, 2 without; 3 swim_settle
   if (n <= 1 || m < 1 || m > n || h < 0 || g < 0 || span == 0 || tick < 0)
     return (int)cudaErrorInvalidValue;
   SwimArgs a;
@@ -623,6 +796,7 @@ extern "C" int swim_launch(
   a.inc1 = static_cast<int*>(inc1);
   a.probe = static_cast<unsigned char*>(probe);
   a.pinged = static_cast<int*>(pinged);
+  a.ack_pay = static_cast<unsigned*>(ack_pay);
   a.ge = static_cast<int*>(ge);
   a.sendable = static_cast<unsigned char*>(sendable);
   a.pay = static_cast<int*>(pay);
@@ -641,32 +815,19 @@ extern "C" int swim_launch(
   a.mult = mult;
   for (int w = 0; w < K_WORDS; ++w) a.k[w] = keys[w];
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const int tpb = 256;
-  const unsigned entries = blocks_for((long long)n * m, tpb);
   switch (phase) {
     case 0:
       swim_probe_select<<<(n + SEL_WARPS - 1) / SEL_WARPS, SEL_WARPS * 32,
                           0, st>>>(a);
-      break;
-    case 1:  // the caller skips the gossip pass without gossip targets
+      return (int)cudaGetLastError();
+    case 1:  // the dissemination with its gossip pass (gossip targets)
       if (g < 1) return (int)cudaErrorInvalidValue;
-      swim_spread<<<blocks_for((long long)n * g * m, tpb), tpb, 0, st>>>(
-          a, 0);
-      break;
-    case 2:
-      swim_gather<<<entries, tpb, 0, st>>>(a);
-      break;
+      // fall through
+    case 2:  // without it
+      return (int)disseminate(a, phase == 1, st);
     case 3:
-      swim_spread<<<entries, tpb, 0, st>>>(a, 1);
-      break;
-    case 4:
-      swim_spread<<<entries, tpb, 0, st>>>(a, 2);
-      break;
-    case 5:
-      swim_settle<<<n, THREADS, 0, st>>>(a);
-      break;
+      return (int)launch_after(swim_settle, (unsigned)n, THREADS, st, a);
     default:
       return (int)cudaErrorInvalidValue;
   }
-  return (int)cudaGetLastError();
 }

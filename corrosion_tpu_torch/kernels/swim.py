@@ -1,17 +1,19 @@
 """``swim_tick``: one SWIM protocol period for every node
-(csrc/swim.cu: ``swim_probe_select``, ``swim_spread``, ``swim_gather``,
-``swim_settle``, seven launches a tick, six without gossip targets).
+(csrc/swim.cu: ``swim_probe_select``, ``swim_disseminate``,
+``swim_settle``, three host calls a tick).
 
 Replaces corrosion_tpu/models/swim.py ``swim_step`` (:107-316) and the
 per-tick detection flags of corrosion_tpu/sim/churn.py ``_scan_chunk``
 (:86-90).  Bound on the H100: bytes — the three [N, N] int32 inputs
 (view, suspect_since, update_tx) read once and the three outputs
 written once; the N^2 tie hashes of the gossip selection come second.
-The kernels order the reference's whole-matrix phases by launch
+The kernels order the reference's whole-matrix phases by kernel
 boundaries, select the freshest entries in registers in ``top_k``'s
 (score, lower index) order (``MAX_ENTRIES`` a pass, as many passes as
-the gossip width needs), and rebuild ``update_tx`` from the
-selection without a scatter.  See the source for the design.
+the gossip width needs), run the dissemination's passes as kernels
+chained by programmatic dependent launch from one host call, and
+rebuild ``update_tx`` from the selection without a scatter.  See the
+source for the design.
 """
 
 from __future__ import annotations
@@ -37,10 +39,11 @@ SPLIT_ORDER = ("probe", "loss1", "loss2", "help", "hloss", "gt", "ge",
 # uniforms, as the kernel's key table lays them out (csrc/swim.cu)
 PEER_KEYS = ("probe", "help", "gt", "ann")
 UNIFORM_KEYS = ("loss1", "loss2", "hloss", "ge", "gloss", "tu", "aloss")
-GOSSIP, PING, ACK = range(3)  # swim_spread's passes
+# swim_launch's phases
+SELECT, DISSEMINATE, DISSEMINATE_NO_GOSSIP, SETTLE = range(4)
 
 _ARGTYPES = (
-    (ctypes.c_void_p,) * 19
+    (ctypes.c_void_p,) * 20
     + (ctypes.c_int,) * 8
     + (ctypes.c_float, ctypes.c_uint, ctypes.c_uint,
        ctypes.POINTER(ctypes.c_uint), ctypes.c_int, ctypes.c_void_p)
@@ -67,6 +70,63 @@ def _key_table(keys: dict):
     return (ctypes.c_uint * len(words))(*words)
 
 
+def rand_peers(keys, name: str, shape, n: int, dev) -> torch.Tensor:
+    """The reference's rand_peers draw under ``keys[name]`` (int64 peer
+    ids)."""
+    span, mult = randint_span(1, max(n, 2))
+    offs = torch.empty(shape, dtype=torch.int32, device=dev)
+    hi, lo = keys[name]
+    threefry_bits_plain(offs, hi, lo, span=span, mult=mult, minval=1)
+    return peers_from_offsets(offs, n).to(torch.int64)
+
+
+def surviving_legs(keys, name: str, shape, loss: float,
+                   dev) -> torch.Tensor:
+    """lossy(): the legs that survive (all when ``loss`` is 0, with no
+    draw, as in the reference)."""
+    if loss > 0.0:
+        u = torch.empty(shape, dtype=torch.float32, device=dev)
+        return threefry_bits_plain(u, keys[name]) >= loss
+    return torch.ones(shape, dtype=torch.bool, device=dev)
+
+
+def _scatter_max(view, idx, src):
+    n = view.shape[0]
+    out = view.reshape(-1).clone()
+    out.scatter_reduce_(0, idx, src, "amax")
+    return out.reshape(n, n)
+
+
+def swim_disseminate_plain(view, ge, sendable, target, ping_ok, ack_ok,
+                           alive, keys, params):
+    """Plain PyTorch version of :func:`swim_disseminate` (:204-275, the
+    view's part): the gossip pass into each gossip target's row (with
+    gossip targets), the ping piggyback into the probe target's row and
+    the ack piggyback back into the prober's, each pass sending what the
+    view held when it began.  ``ge`` / ``sendable`` [N, M] are the
+    selection, ``target`` the probe targets, ``ping_ok`` / ``ack_ok``
+    [N] the legs that came through; returns the new view."""
+    n, m = ge.shape
+    dev = view.device
+    g = params.gossip_targets
+    if g > 0:
+        gt = rand_peers(keys, "gt", (n, g), n, dev)
+        ok = (alive[:, None, None]
+              & surviving_legs(keys, "gloss", (n, g, m), params.loss, dev)
+              & alive[gt][:, :, None] & sendable[:, None, :])
+        payload = view.gather(1, ge)[:, None, :].expand(n, g, m)
+        dest = gt[:, :, None] * n + ge[:, None, :]
+        view = _scatter_max(view, dest[ok], payload[ok])
+    mask = ping_ok[:, None] & sendable
+    view = _scatter_max(view, (target[:, None] * n + ge)[mask],
+                        view.gather(1, ge)[mask])
+    rows = torch.arange(n, device=dev)
+    ge_t = ge[target]
+    mask = ack_ok[:, None] & sendable[target]
+    return _scatter_max(view, (rows[:, None] * n + ge_t)[mask],
+                        view[target[:, None], ge_t][mask])
+
+
 def swim_tick_plain(view, suspect_since, incarnation, msgs, update_tx, keys,
                     tick: int, params, alive, revived=None, victim=None,
                     flags=None):
@@ -75,26 +135,14 @@ def swim_tick_plain(view, suspect_since, incarnation, msgs, update_tx, keys,
     n = view.shape[0]
     dev = view.device
     p = params
-    span, mult = randint_span(1, max(n, 2))
     rows = torch.arange(n, device=dev)
     i32 = torch.int32
 
     def peers(name, shape):
-        offs = torch.empty(shape, dtype=i32, device=dev)
-        hi, lo = keys[name]
-        threefry_bits_plain(offs, hi, lo, span=span, mult=mult, minval=1)
-        return peers_from_offsets(offs, n).to(torch.int64)
+        return rand_peers(keys, name, shape, n, dev)
 
     def lossy(name, shape):
-        if p.loss > 0.0:
-            u = torch.empty(shape, dtype=torch.float32, device=dev)
-            return threefry_bits_plain(u, keys[name]) >= p.loss
-        return torch.ones(shape, dtype=torch.bool, device=dev)
-
-    def scatter_max(v, idx, src):
-        out = v.reshape(-1).clone()
-        out.scatter_reduce_(0, idx, src, "amax")
-        return out.reshape(n, n)
+        return surviving_legs(keys, name, shape, p.loss, dev)
 
     view_in = view
     inc = incarnation
@@ -109,8 +157,8 @@ def swim_tick_plain(view, suspect_since, incarnation, msgs, update_tx, keys,
         view[rows, rows] = torch.where(revived, rec, diag)
         ann_ok = (revived & alive & alive[seed]
                   & lossy("aloss", (n, 2)).all(dim=1))
-        view = scatter_max(view, seed * n + rows,
-                           torch.where(ann_ok, rec, 0))
+        view = _scatter_max(view, seed * n + rows,
+                            torch.where(ann_ok, rec, 0))
         msgs = msgs + revived.to(i32)
         msgs = msgs.index_add(0, seed, ann_ok.to(i32))
 
@@ -151,35 +199,24 @@ def swim_tick_plain(view, suspect_since, incarnation, msgs, update_tx, keys,
                                        >= p.suspect_timeout)
     view = torch.where(expired, (view // 4) * 4 + DOWN, view)
 
-    # gossip (:204-240)
+    # the freshness selection (:204-225), then the three passes and
+    # their backlog charges (:226-275)
     g = p.gossip_targets
     m = min(p.gossip_entries, n)
-    gt = peers("gt", (n, g))
     tie = torch.empty((n, n), dtype=torch.float32, device=dev)
     threefry_bits_plain(tie, keys["ge"])
     scores = update_tx.to(torch.float32) + tie
     scores = torch.where(update_tx >= p.update_tx_limit, torch.inf, scores)
     ge = torch.sort(scores, dim=1, stable=True).indices[:, :m]  # [N, M]
     sendable = update_tx.gather(1, ge) < p.update_tx_limit
-    ok = (alive[:, None, None] & lossy("gloss", (n, g, m))
-          & alive[gt][:, :, None] & sendable[:, None, :])
-    payload = view.gather(1, ge)[:, None, :].expand(n, g, m)
-    dest = gt[:, :, None] * n + ge[:, None, :]
-    view = scatter_max(view, dest[ok], payload[ok])
+    view = swim_disseminate_plain(view, ge, sendable, target, ping_ok, ack_ok,
+                                  alive, keys, p)
     msgs = msgs + alive.to(i32) * g
+    # a gossip and a ping round for each sendable entry of a live node,
+    # an ack round for each prober whose ping reached it
     charged = (sendable & alive[:, None]).to(i32)
-    update_tx = update_tx.scatter_add(1, ge, charged)
-
-    # probe / ack piggyback (:242-275)
-    mask = ping_ok[:, None] & sendable
-    view = scatter_max(view, (target[:, None] * n + ge)[mask],
-                       view.gather(1, ge)[mask])
-    update_tx = update_tx.scatter_add(1, ge, charged)
+    update_tx = update_tx.scatter_add(1, ge, 2 * charged)
     ge_t, sendable_t = ge[target], sendable[target]
-    mask = ack_ok[:, None] & sendable_t
-    ack_payload = view[target[:, None], ge_t]
-    view = scatter_max(view, (rows[:, None] * n + ge_t)[mask],
-                       ack_payload[mask])
     update_tx = update_tx.reshape(-1).index_add(
         0, (target[:, None] * n + ge_t).reshape(-1),
         (ping_ok[:, None] & sendable_t).reshape(-1).to(i32),
@@ -248,16 +285,19 @@ def prepare(view, suspect_since, incarnation, msgs, update_tx, keys,
     if flags is not None:
         kernels.check("swim_tick flags", flags, i32, (2,))
     dev = view.device
+    # pinged and the dissemination's shadow, zeroed by one fill
+    zeroed = torch.zeros((n + n * m,), dtype=i32, device=dev)
     out = [torch.empty_like(view), torch.empty_like(suspect_since),
            torch.empty_like(incarnation), msgs.clone(),
            torch.empty_like(update_tx)]
     work = {"target": torch.empty((n,), dtype=i32, device=dev),
             "inc1": torch.empty((n,), dtype=i32, device=dev),
             "probe": torch.empty((n,), dtype=u8, device=dev),
-            "pinged": torch.zeros((n,), dtype=i32, device=dev),
+            "pinged": zeroed[:n],
             "ge": torch.empty((n, m), dtype=i32, device=dev),
             "sendable": torch.empty((n, m), dtype=u8, device=dev),
-            "pay": torch.empty((n, m), dtype=i32, device=dev)}
+            "pay": torch.empty((n, m), dtype=i32, device=dev),
+            "ack_pay": zeroed[n:].view(n, m)}
     span, mult = randint_span(1, max(n, 2))
     pt = kernels.ptr
     args = ([pt(t) for t in (view, suspect_since, incarnation, update_tx,
@@ -279,40 +319,33 @@ def _call(launch: Launch, phase: int) -> int:
 def swim_probe_select(launch: Launch) -> None:
     """Announces, probes, msgs, row patch, suspicion timeout and the
     freshness selection with its payload."""
-    code = _call(launch, 0)
+    code = _call(launch, SELECT)
     swim_probe_select.launches += 1
     kernels.raise_on_error("swim_probe_select", code)
 
 
-def swim_spread(launch: Launch, mode: int) -> None:
-    """One scatter-max pass of the payload: ``GOSSIP`` to the gossip
-    targets (needs gossip targets), ``PING`` to the probe target,
-    ``ACK`` back to the prober."""
-    code = _call(launch, (1, 3, 4)[mode])
-    swim_spread.launches += 1
-    kernels.raise_on_error("swim_spread", code)
-
-
-def swim_gather(launch: Launch) -> None:
-    """Re-read every row's selected entries into the payload."""
-    code = _call(launch, 2)
-    swim_gather.launches += 1
-    kernels.raise_on_error("swim_gather", code)
+def swim_disseminate(launch: Launch, gossip: bool) -> None:
+    """The gossip pass to the gossip targets (``gossip``: needs gossip
+    targets), then the ping piggyback to the probe target and the ack
+    piggyback back to the prober, each pass sending what the view held
+    when it began: two kernels from one host call, counted as one
+    launch."""
+    code = _call(launch, DISSEMINATE if gossip else DISSEMINATE_NO_GOSSIP)
+    swim_disseminate.launches += 1
+    kernels.raise_on_error("swim_disseminate", code)
 
 
 def swim_settle(launch: Launch) -> None:
     """Refutation, suspect_since, the backlog and the churn flags."""
-    code = _call(launch, 5)
+    code = _call(launch, SETTLE)
     swim_settle.launches += 1
     kernels.raise_on_error("swim_settle", code)
 
 
 def launch_order(gossip_targets: int) -> tuple:
-    """A tick's launches in order, as (wrapper, extra arguments); the
+    """A tick's host calls in order, as (wrapper, extra arguments); the
     gossip pass only with gossip targets."""
-    gossip = ((swim_spread, (GOSSIP,)),) if gossip_targets > 0 else ()
-    return ((swim_probe_select, ()), *gossip, (swim_gather, ()),
-            (swim_spread, (PING,)), (swim_gather, ()), (swim_spread, (ACK,)),
+    return ((swim_probe_select, ()), (swim_disseminate, (gossip_targets > 0,)),
             (swim_settle, ()))
 
 
@@ -345,6 +378,5 @@ def swim_tick(view, suspect_since, incarnation, msgs, update_tx, key,
 
 
 swim_probe_select.launches = 0
-swim_spread.launches = 0
-swim_gather.launches = 0
+swim_disseminate.launches = 0
 swim_settle.launches = 0

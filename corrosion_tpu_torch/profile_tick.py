@@ -35,9 +35,11 @@ around work that ends in ``torch.cuda.synchronize()``, then ``REPS``
 times under ``torch.profiler``, each of those with its own host clock.
 Prints one JSON object with an entry per piece: the unprofiled walls;
 for each profiled run its wall, the device time summed over every
-kernel the profiler saw in it, and its device idle share (1 - device
-time / that same wall); and, from the profiled run of median idle
-share, the device time per kernel name with its launches.
+kernel the profiler saw in it, the device's busy time (the union of
+those kernels' spans, which kernels chained by programmatic dependent
+launch overlap) and its device idle share (1 - busy time / that same
+wall); and, from the profiled run of median idle share, the device
+time per kernel name with its launches.
 ``--pieces a,b`` runs the named pieces only; ``--parent DIR`` (DIR an
 unpacked checkout of the parent commit) runs them on DIR's package and
 on this one in turns, parent, change, change, parent, each in its own
@@ -91,10 +93,26 @@ ACTIVITIES = (torch.profiler.ProfilerActivity.CPU,
 FABRIC_N, FABRIC_R, FABRIC_D, FABRIC_TICKS = 100_000, 8, 8, 12
 
 
+def _busy_ms(prof) -> float:
+    """Device ms during which some kernel, copy or fill ran: the union of
+    the device events' spans.  Kernels under programmatic dependent
+    launch start before the one they wait on ends, so the sum of their
+    times counts that overlap twice."""
+    spans = sorted((e.time_range.start, e.time_range.end)
+                   for e in prof.events()
+                   if e.device_type == torch.autograd.DeviceType.CUDA)
+    busy, end = 0.0, -float("inf")
+    for start, stop in spans:
+        if stop > end:
+            busy += stop - max(start, end)
+            end = stop
+    return busy / 1e3
+
+
 def _timed(prepare, profiled: bool):
     """Wall seconds of the work ``prepare()`` returns (``prepare``
     itself untimed) and, when ``profiled``, {kernel name: device ms and
-    launches}."""
+    launches} and the device's busy ms (``_busy_ms``)."""
     work = prepare()
     torch.cuda.synchronize()
     prof = (torch.profiler.profile(activities=list(ACTIVITIES))
@@ -105,7 +123,7 @@ def _timed(prepare, profiled: bool):
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
     if not profiled:
-        return wall, None
+        return wall, None, None
     kernels = {}
     for e in prof.key_averages():
         if e.device_type != torch.autograd.DeviceType.CUDA:
@@ -113,7 +131,7 @@ def _timed(prepare, profiled: bool):
         us = e.self_device_time_total
         if us > 0:
             kernels[e.key] = {"device_ms": us / 1e3, "launches": e.count}
-    return wall, kernels
+    return wall, kernels, _busy_ms(prof)
 
 
 def profile(prepare, **meta) -> dict:
@@ -122,19 +140,19 @@ def profile(prepare, **meta) -> dict:
     walls = [_timed(prepare, profiled=False)[0] * 1e3 for _ in range(REPS)]
     runs = []
     for _ in range(REPS):
-        wall, kernels = _timed(prepare, profiled=True)
+        wall, kernels, busy_ms = _timed(prepare, profiled=True)
         device_ms = sum(k["device_ms"] for k in kernels.values())
-        runs.append((1.0 - device_ms / (wall * 1e3), wall * 1e3, device_ms,
-                     kernels))
+        runs.append((1.0 - busy_ms / (wall * 1e3), wall * 1e3, device_ms,
+                     busy_ms, kernels))
     runs.sort(key=lambda r: r[0])
-    idle, wall_ms, device_ms, kernels = runs[len(runs) // 2]
+    idle, wall_ms, device_ms, busy_ms, kernels = runs[len(runs) // 2]
     return {
         "device": torch.cuda.get_device_name(0), **meta,
         "wall_ms_unprofiled": walls,
-        "profiled": [{"wall_ms": r[1], "device_ms": r[2], "idle_share": r[0]}
-                     for r in runs],
+        "profiled": [{"wall_ms": r[1], "device_ms": r[2], "busy_ms": r[3],
+                      "idle_share": r[0]} for r in runs],
         "median": {"wall_ms": wall_ms, "device_ms": device_ms,
-                   "idle_share": idle},
+                   "busy_ms": busy_ms, "idle_share": idle},
         "kernels": dict(sorted(kernels.items(),
                                key=lambda kv: -kv[1]["device_ms"])),
     }

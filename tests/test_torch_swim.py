@@ -7,6 +7,7 @@ equal after every tick; the churn stats are integers and float64 means
 of integer counters, so they are compared exactly."""
 
 import re
+from dataclasses import replace
 from pathlib import Path
 
 import jax
@@ -30,23 +31,56 @@ from corrosion_tpu_torch.utils import swimscale as tscale
 
 FIELDS = js.SwimState._fields
 
-# (SwimParams overrides, nodes, ticks, churn schedule): loss 0 and 0.15,
-# a revive, no revived argument, tiny clusters, other probe / gossip
-# widths, and 1000 nodes, one of the sizes chip_smoke.py holds the
-# kernels to this plain version at
-CASES = {
-    "n-1000-churn": (dict(scaled=True), 1000, 6, True),
-    "scaled-64-churn": (dict(scaled=True), 64, 40, True),
-    "loss-0.15-churn": (dict(loss=0.15, suspect_timeout=8), 32, 40, True),
-    "loss-0.15-no-revived": (dict(loss=0.15), 24, 30, False),
-    "backlog-limit-4": (dict(update_tx_limit=4), 16, 30, False),
-    "entries-past-n": (dict(gossip_entries=9, loss=0.3), 5, 30, True),
-    "no-helpers-one-target": (dict(num_indirect_probes=0, gossip_targets=1,
-                                   loss=0.15), 20, 30, True),
-    "wide-gossip": (dict(gossip_targets=5, gossip_entries=12, loss=0.15),
-                    48, 25, True),
-}
 KILL, REVIVE, VICTIM = 4, 20, 1
+ORDERING_N = 16  # the crafted ordering state's cluster
+
+
+def ordering_state(n=ORDERING_N, seed=5) -> dict:
+    """A state whose records differ widely from row to row (incarnations
+    0..63, ALIVE or DOWN), so that the gossip pass raises entries that
+    probers then select: the ping pass must send the view as the gossip
+    pass left it, and the ack pass as the ping pass left it
+    (``test_ordering_state_needs_the_post_gossip_payload``)."""
+    rng = np.random.default_rng(seed)
+    view = (4 * rng.integers(0, 64, (n, n))
+            + 2 * rng.integers(0, 2, (n, n))).astype(np.int32)
+    inc = rng.integers(0, 64, n).astype(np.int32)
+    view[np.arange(n), np.arange(n)] = 4 * inc
+    return {
+        "view": view,
+        "suspect_since": np.full((n, n), 2**31 - 1, np.int32),
+        "incarnation": inc,
+        "msgs": np.zeros(n, np.int32),
+        "update_tx": rng.integers(0, 3, (n, n)).astype(np.int32),
+    }
+
+
+# (SwimParams overrides, nodes, ticks, churn schedule, start state or
+# None): loss 0 and 0.15, a revive, no revived argument, tiny clusters,
+# other probe / gossip widths, 1000 nodes, one of the sizes
+# chip_smoke.py holds the kernels to this plain version at, and the
+# crafted ordering state with and without loss, without gossip targets
+# and with gossip entries wider than one selection pass of the kernel
+CASES = {
+    "n-1000-churn": (dict(scaled=True), 1000, 6, True, None),
+    "scaled-64-churn": (dict(scaled=True), 64, 40, True, None),
+    "loss-0.15-churn": (dict(loss=0.15, suspect_timeout=8), 32, 40, True,
+                        None),
+    "loss-0.15-no-revived": (dict(loss=0.15), 24, 30, False, None),
+    "backlog-limit-4": (dict(update_tx_limit=4), 16, 30, False, None),
+    "entries-past-n": (dict(gossip_entries=9, loss=0.3), 5, 30, True, None),
+    "no-helpers-one-target": (dict(num_indirect_probes=0, gossip_targets=1,
+                                   loss=0.15), 20, 30, True, None),
+    "wide-gossip": (dict(gossip_targets=5, gossip_entries=12, loss=0.15),
+                    48, 25, True, None),
+    "ordering": ({}, ORDERING_N, 6, True, ordering_state),
+    "ordering-loss-0.15": (dict(loss=0.15), ORDERING_N, 6, True,
+                           ordering_state),
+    "ordering-no-gossip-targets": (dict(gossip_targets=0), ORDERING_N, 6,
+                                   True, ordering_state),
+    "ordering-wide-gossip": (dict(gossip_entries=ksw.MAX_ENTRIES + 4),
+                             ORDERING_N, 6, True, ordering_state),
+}
 
 
 def _params(mod, n, kw):
@@ -92,8 +126,75 @@ def _lockstep(n, ticks, kw, churn, seed=0, ref=None, port=None):
 
 @pytest.mark.parametrize("case", sorted(CASES))
 def test_swim_step_matches_jax_bitwise_per_tick(case):
-    kw, n, ticks, churn = CASES[case]
-    _lockstep(n, ticks, kw, churn, seed=len(case))
+    kw, n, ticks, churn, start = CASES[case]
+    states = {}
+    if start is not None:
+        st = start()
+        states = dict(
+            ref=js.SwimState(**{k: jnp.asarray(v) for k, v in st.items()}),
+            port=swim_state_from_numpy(st, device="cpu"))
+    _lockstep(n, ticks, kw, churn, seed=len(case), **states)
+
+
+DISSEMINATE_PLAIN = ksw.swim_disseminate_plain
+
+
+def _stale_ping(view, ge, sendable, target, ping_ok, ack_ok, alive, keys,
+                params):
+    """The dissemination with the ping pass sending the selection as the
+    view held it before the gossip pass (a wrong order)."""
+    n = view.shape[0]
+    none = torch.zeros_like(ping_ok)
+    quiet = replace(params, gossip_targets=0)
+    stale = view.gather(1, ge)
+    out = DISSEMINATE_PLAIN(view, ge, sendable, target, none, none, alive,
+                            keys, params)  # gossip only
+    mask = ping_ok[:, None] & sendable
+    flat = out.reshape(-1).clone()
+    flat.scatter_reduce_(0, (target[:, None] * n + ge)[mask], stale[mask],
+                         "amax")
+    return DISSEMINATE_PLAIN(flat.reshape(n, n), ge, sendable, target, none,
+                             ack_ok, alive, keys, quiet)  # the ack only
+
+
+def _stale_ack(view, ge, sendable, target, ping_ok, ack_ok, alive, keys,
+               params):
+    """The dissemination with the ack pass sending the targets' entries
+    as the view held them before the ping pass (a wrong order)."""
+    n = view.shape[0]
+    none = torch.zeros_like(ping_ok)
+    quiet = replace(params, gossip_targets=0)
+    gossiped = DISSEMINATE_PLAIN(view, ge, sendable, target, none, none,
+                                 alive, keys, params)  # gossip only
+    out = DISSEMINATE_PLAIN(gossiped, ge, sendable, target, ping_ok, none,
+                            alive, keys, quiet)  # the ping only
+    ge_t = ge[target]
+    stale = gossiped[target[:, None], ge_t]
+    mask = ack_ok[:, None] & sendable[target]
+    rows = torch.arange(n)[:, None]
+    flat = out.reshape(-1).clone()
+    flat.scatter_reduce_(0, (rows * n + ge_t)[mask], stale[mask], "amax")
+    return flat.reshape(n, n)
+
+
+@pytest.mark.parametrize("stale", [_stale_ping, _stale_ack],
+                         ids=["ping", "ack"])
+def test_ordering_state_needs_the_post_gossip_payload(monkeypatch, stale):
+    """In the crafted ordering state the passes' order shows in tick 0:
+    a ping pass that sent the pre-gossip selection, or an ack pass that
+    sent the targets' pre-ping entries, would leave another view, so
+    the "ordering" cases above hold the kernels' read of each pass's
+    payload after the pass before it."""
+    n = ORDERING_N
+    st = swim_state_from_numpy(ordering_state(), device="cpu")
+    params = ts.SwimParams(n_nodes=n)
+    alive = torch.ones(n, dtype=torch.bool)
+    key = key_from_numpy(jax.random.fold_in(jax.random.PRNGKey(0), 0))
+    keys = ksw.tick_keys(key)
+    want = ksw.swim_tick_plain(*st, keys, 0, params, alive)
+    monkeypatch.setattr(ksw, "swim_disseminate_plain", stale)
+    got = ksw.swim_tick_plain(*st, keys, 0, params, alive)
+    assert not torch.equal(got[0], want[0])
 
 
 def test_crafted_ties_take_the_lower_index_first():
@@ -356,15 +457,13 @@ def test_cuda_request_without_a_card_raises():
 
 @pytest.mark.parametrize("targets", [0, 3])
 def test_launch_order_runs_the_gossip_pass_only_with_targets(targets):
-    """A tick launches probe/select, the gossip pass when there are
-    gossip targets, gather + ping, gather + ack, then settle: every
-    launch is one that starts a kernel."""
+    """A tick makes three host calls: probe/select, the dissemination
+    (its gossip pass only when there are gossip targets), then settle;
+    every call is one that starts kernels."""
     order = [(fn.__name__, extra) for fn, extra in
              ksw.launch_order(targets)]
-    gossip = [("swim_spread", (ksw.GOSSIP,))] if targets else []
-    assert order == [("swim_probe_select", ()), *gossip,
-                     ("swim_gather", ()), ("swim_spread", (ksw.PING,)),
-                     ("swim_gather", ()), ("swim_spread", (ksw.ACK,)),
+    assert order == [("swim_probe_select", ()),
+                     ("swim_disseminate", (targets > 0,)),
                      ("swim_settle", ())]
 
 
