@@ -160,15 +160,17 @@ package.  Phases, each ending the run with a non-zero exit on failure:
     beside it;
 17. hold ``bits_pack`` / ``bits_unpack`` (at the host layout's wire,
     [2, 5,000,000] packed and [2, 1,250,000] unpacked, and odd shapes),
-    ``route_slots`` and ``deliver_perm`` with a source and a receiver
-    window (100k nodes x R = 8 over 8 shards, the default cap and an
-    overflowing one), ``route_pack`` (``ROUTE_CASES``: the fabrics'
-    maps at caps 1, 256 and n_local for shards 0, 3 and 7, no sender
-    and every sender active, D = 1, 2, 8 and 64, K = 1, 99,976 nodes
-    over 8 shards (no multiple of the kernel's tile), R = 4, 6 and 8 with
-    rows_l or the outputs off a 16-byte boundary and sentinel words
-    around the outputs; its marks all zero after every call) and
-    ``shard_round`` /
+    ``route_pack`` (``ROUTE_CASES``: the fabrics' maps at caps 1, 256
+    and n_local for shards 0, 3 and 7, no sender and every sender
+    active, D = 1, 2, 8 and 64, K = 1, 99,976 nodes over 8 shards (no
+    multiple of the kernel's tile), R = 4, 6 and 8 with rows_l or the
+    outputs off a 16-byte boundary and sentinel words around the
+    outputs; its marks all zero after every call), ``ring_receive`` (the
+    same layouts, each shard and cap receiving every source's
+    ``route_pack`` buffers, on one slot map; four broken orders it
+    must flag), the all_gather fabric's ``deliver_perm`` with its
+    identity slot map and a receiver window (100k nodes x R = 8 over 8
+    shards) and ``shard_round`` /
     ``shard_commit`` (ticks 1 and 6 of phase 18's three runs and of a
     WAN-latency variant of the dense and host layouts: every shard's
     rounds, shard 0's and a later shard's commit) against their plain
@@ -198,18 +200,23 @@ package.  Phases, each ending the run with a non-zero exit on failure:
 
 ``python3 chip_smoke.py --parent DIR`` (DIR an unpacked ``git
 archive`` of the parent commit) also builds the parent's ``swim.cu``,
-``exact_send.cu``, ``threefry.cu``, ``sent_sampler.cu`` and
-``fabric.cu`` and requires their kernels to write what this tree's
-write: ``threefry_bits`` in every case of phase 2, the 2**32 window
-included, ``swim_probe_select`` at N = 64 and 4096 (phase 8; there
-the parent's dissemination, five launches and five host calls, is
-timed in turns with this tree's, and the whole tick with each),
+``exact_send.cu``, ``threefry.cu``, ``sent_sampler.cu``, ``fabric.cu``
+and ``deliver_perm.cu`` and requires their kernels to write what this
+tree's write: ``threefry_bits`` in every case of phase 2, the 2**32
+window included, the headline's ``deliver_perm`` (phase 2),
+``swim_probe_select`` at N = 64 and 4096 (phase 8; there
+the parent's dissemination is timed in turns with this tree's, and
+the whole tick with each),
 ``exact_send<Bitmap>`` at phase 5's timed ticks, ``route_pack`` in
-every case of phase 17a, ``shard_round`` and ``shard_commit`` in phase
+every case of phase 17a, its ``route_slots`` and ``deliver_perm`` in
+every ``ring_receive`` case and its delivery from the all_gather
+fabric's source, ``shard_round`` and ``shard_commit`` in phase
 17b's timed cases (both commits from restored copies); each pair is
-timed in turns (parent, change, change, parent): ``route_pack`` at
-shard 3 of 8 at caps 12,500 and 256 (the ``{"route_pack": ...}``
-line).
+timed in turns (parent, change, change, parent): the headline's
+``deliver_perm`` (the ``{"deliver_perm": ...}`` line), ``route_pack``
+and ``ring_receive`` at shard 3 of 8 at caps 12,500 and 256 and the
+all_gather delivery (the ``{"route_pack": ...}``, ``{"ring_receive":
+...}`` and ``{"deliver_perm (source, window)": ...}`` lines).
 Phase 1 then also prints whether each ``sent_select`` instantiation's
 opcode counts equal the parent's.
 
@@ -369,19 +376,21 @@ def build_library(src: str, lib: str) -> list:
 
 class ParentDesign:
     """The parent commit's ``swim.cu``, ``exact_send.cu``, ``threefry.cu``,
-    ``sent_sampler.cu`` and ``fabric.cu``, built from a checkout of it
-    (``--parent DIR``, one ``nvcc`` each, all at once) and launched as
-    its wrappers launched them, for timing beside this tree's kernels in
-    one run (``sent_sampler`` only for its SASS).  The C interfaces of
-    ``swim_launch``, ``exact_send_launch``, ``shard_launch``,
-    ``route_pack_launch`` and ``threefry_launch`` are unchanged since, so
-    this tree's wrappers fill their arguments (``kernels.swim.prepare``,
-    ``exact_send.send_args``, ``shard_exact.round_args`` /
-    ``commit_args``, ``threefry._ARGTYPES``; ``route_pack``'s scratch
-    argument is the parent's zeroed byte marks), but for ``swim_launch``'s
-    ``ack_pay``, which the parent does not take (``_swim``)."""
+    ``sent_sampler.cu``, ``fabric.cu`` and ``deliver_perm.cu``, built
+    from a checkout of it (``--parent DIR``, one ``nvcc`` each, all at
+    once) and launched as its wrappers launched them, for timing beside
+    this tree's kernels in one run (``sent_sampler`` only for its SASS).
+    The C interfaces of ``swim_launch``, ``exact_send_launch``,
+    ``shard_launch``, ``route_pack_launch``, ``deliver_perm_launch`` and
+    ``threefry_launch`` are unchanged since, so this tree's wrappers fill
+    their arguments (``kernels.swim.prepare``, ``exact_send.send_args``,
+    ``shard_exact.round_args`` / ``commit_args``, ``threefry._ARGTYPES``,
+    ``deliver.launch``; ``route_pack``'s scratch argument is the parent's
+    zeroed byte marks); ``route_slots_launch``, which this tree no
+    longer has, is typed here."""
 
-    SOURCES = ("swim", "exact_send", "threefry", "sent_sampler", "fabric")
+    SOURCES = ("swim", "exact_send", "threefry", "sent_sampler", "fabric",
+               "deliver_perm")
 
     def __init__(self, root: str):
         from corrosion_tpu_torch import kernels
@@ -402,12 +411,48 @@ class ParentDesign:
             fail(f"the parent's ShardArgs is {size} bytes, this tree's "
                  f"{ctypes.sizeof(sx._ShardArgs)}")
 
+    def _fn(self, lib: str, symbol: str, argtypes):
+        fn = getattr(self.libs[lib], symbol)
+        fn.argtypes, fn.restype = list(argtypes), ctypes.c_int
+        return fn
+
     def _launch(self, lib: str, symbol: str, argtypes, *args) -> None:
         from corrosion_tpu_torch import kernels
 
-        fn = getattr(self.libs[lib], symbol)
-        fn.argtypes, fn.restype = list(argtypes), ctypes.c_int
-        kernels.raise_on_error(f"parent {symbol}", fn(*args))
+        kernels.raise_on_error(f"parent {symbol}",
+                               self._fn(lib, symbol, argtypes)(*args))
+
+    def deliver_perm(self, rows, tx, msgs, senders, **args):
+        """The parent's ``deliver_perm`` (``deliver_perm``'s arguments on
+        CUDA tensors, every keyword given)."""
+        from corrosion_tpu_torch.kernels import deliver
+
+        return deliver.launch(self._fn("deliver_perm", "deliver_perm_launch",
+                                       deliver._ARGTYPES),
+                              rows, tx, msgs, senders, **args)
+
+    def ring_receive(self, rows, tx, msgs, senders, recv_ids, recv_rows,
+                     loss_u, loss, max_tx, lo):
+        """The parent's receive side of the ring fabric: its
+        ``route_slots`` (a fill, then a scatter) into a fresh slot map,
+        then its ``deliver_perm`` from the received rows; returns (rows,
+        tx, msgs)."""
+        from corrosion_tpu_torch import kernels
+
+        n = senders.shape[1]
+        slot_of = torch.empty((n,), dtype=torch.int32, device=rows.device)
+        self._launch("fabric", "route_slots_launch",
+                     (ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
+                      ctypes.c_int, ctypes.c_void_p),
+                     kernels.ptr(recv_ids), kernels.ptr(slot_of),
+                     recv_ids.numel(), n, kernels.stream(rows))
+        return self.deliver_perm(
+            rows, tx, msgs, senders, hops=None, next_send=None, tick=0,
+            loss_u=loss_u, wan_u=None, region=None, partition_id=None,
+            sev=None, partition_active=False, tier=None, loss=loss,
+            wan_loss=0.0, max_tx=max_tx, backoff=0.0,
+            src_rows=recv_rows.reshape(-1, rows.shape[1]), slot_of=slot_of,
+            lo=lo)[:3]
 
     def route_pack(self, senders, active_l, rows_l, shard: int, cap: int):
         """The parent's ``route_pack`` (``route_pack``'s arguments) on the
@@ -447,26 +492,25 @@ class ParentDesign:
 
     def _swim(self, launch, phase: int) -> None:
         """The parent's ``swim_launch`` of ``phase`` on a tick's
-        ``Launch``, without its ``ack_pay`` pointer."""
+        ``Launch``."""
         from corrosion_tpu_torch.kernels import swim as ksw
 
-        ack_pay = launch.work["ack_pay"].data_ptr()
-        args = [a for a in launch.args
-                if not (isinstance(a, ctypes.c_void_p) and a.value == ack_pay)]
-        self._launch("swim", "swim_launch", ksw._ARGTYPES[1:], *args, phase,
-                     launch.stream)
+        self._launch("swim", "swim_launch", ksw._ARGTYPES, *launch.args,
+                     phase, launch.stream)
 
     def swim_probe_select(self, launch) -> None:
-        """The parent's ``swim_probe_select`` on a tick's ``Launch``
-        (one 256-thread block a row)."""
-        self._swim(launch, 0)
+        """The parent's ``swim_probe_select`` on a tick's ``Launch``."""
+        from corrosion_tpu_torch.kernels import swim as ksw
+
+        self._swim(launch, ksw.SELECT)
 
     def swim_disseminate(self, launch, gossip: bool) -> None:
-        """The parent's dissemination on a tick's ``Launch``: its gossip
-        pass (with ``gossip``), gather, ping pass, gather and ack pass,
-        five launches and five host calls."""
-        for phase in (1,) * gossip + (2, 3, 2, 4):
-            self._swim(launch, phase)
+        """The parent's dissemination on a tick's ``Launch`` (one host
+        call, two kernels)."""
+        from corrosion_tpu_torch.kernels import swim as ksw
+
+        self._swim(launch, ksw.DISSEMINATE if gossip
+                   else ksw.DISSEMINATE_NO_GOSSIP)
 
     def exact_send(self, infected, tx, next_send, msgs, pending, sent, keys,
                    tick, p, tier, diag):
@@ -793,12 +837,21 @@ def kernel_checks(cfg, mods, dev, parent=None):
     inputs = (state.rows, state.tx_remaining, state.msgs, senders)
     got = deliver.deliver_perm(*inputs, **dargs)
     want = deliver.deliver_perm_plain(*inputs, **dargs)
+    old = None
+    if parent is not None:
+        full = dict(dargs, src_rows=None, slot_of=None, lo=0)
+        if max_abs_err(parent.deliver_perm(*inputs, **full), got):
+            fail("deliver_perm differs from the parent's")
+
+        def old():
+            parent.deliver_perm(*inputs, **full)
+    turns = in_turns(lambda: deliver.deliver_perm(*inputs, **dargs), old,
+                     lambda fn: time_device_ms(fn, 20))
     results.append(dict(
         name="deliver_perm", route="cuda",
         source="corrosion_tpu_torch/kernels/csrc/deliver_perm.cu",
         replaces="corrosion_tpu/models/broadcast.py:327",
-        max_abs_err=max_abs_err(got, want),
-        ms=time_ms(lambda: deliver.deliver_perm(*inputs, **dargs), 20),
+        max_abs_err=max_abs_err(got, want), ms=turns["ms"], turns=turns,
         plain_ms=time_ms(
             lambda: deliver.deliver_perm_plain(*inputs, **dargs), 3),
         bound=(nbytes(*inputs, state.hops, state.next_send, loss_u, part,
@@ -3565,6 +3618,7 @@ def apply_phases(record: dict, counted: dict, tmp: str,
 # -- phases 17-19: the multi-device layouts ----------------------------
 
 FABRIC_SOURCE = "corrosion_tpu_torch/kernels/csrc/fabric.cu"
+DELIVER_SOURCE = "corrosion_tpu_torch/kernels/csrc/deliver_perm.cu"
 SHARD_SOURCE = "corrosion_tpu_torch/kernels/csrc/exact_send.cu"
 # BENCH_FRONTIER.json "headline": host-sparse on 2 hosts, 2 seeds.  Its
 # ticks and p99 hold; its msgs mean (19.12) does not.  The reference's
@@ -3582,8 +3636,10 @@ HOST_MSGS = os.path.join(HERE, "corrosion_tpu_torch", "kernels", "build",
 MESH_COUNTED = ("shard_round", "shard_commit", "exact_commit", "sync_pull",
                 "tick_stats", "threefry_bits")
 HOST_COUNTED = MESH_COUNTED + ("bits_pack", "bits_unpack")
-FABRIC_COUNTED = ("route_pack", "route_slots", "deliver_perm",
-                  "seg_argsort", "threefry_bits")
+FABRIC_COUNTED = {"all_gather": ("deliver_perm", "seg_argsort",
+                                 "threefry_bits"),
+                  "ring": ("route_pack", "ring_receive", "seg_argsort",
+                           "threefry_bits")}
 SHARD_TICKS = (1, BUSY_TICK)
 
 
@@ -3640,44 +3696,65 @@ def placed(shape, off: int, dev):
     return buf, buf[off:off + size].view(shape)
 
 
-def route_pack_cases(senders, rows, tx, dev, parent=None):
+def route_case_state(g, n: int, k: int, r: int, act: str, fabric, dev):
+    """One ``ROUTE_CASES`` layout's maps [K, N], loss draws [N, K], rows
+    [N, R], budgets and msgs [N]: the fabrics' own (``fabric``: senders,
+    draws, rows, tx, msgs at their width) where the layout has their N
+    (and R), else drawn from ``g``; budgets forced to 3 or 0 where
+    ``act`` is "all" or "none"."""
+    from corrosion_tpu_torch.profile_tick import FABRIC_N, FABRIC_R
+
+    senders, loss_u, rows, tx, msgs = fabric
+    if n == FABRIC_N:
+        maps, draws = senders[:k], loss_u[:, :k].contiguous()
+    else:
+        maps = torch.randint(0, n, (k, n), generator=g,
+                             dtype=torch.int32).to(dev)
+        draws = torch.rand((n, k), generator=g).to(dev)
+    if n == FABRIC_N and r == FABRIC_R:
+        keys, budget, sent = rows, tx, msgs
+    else:
+        keys = torch.randint(0, 1 << 20, (n, r), generator=g,
+                             dtype=torch.int32).to(dev)
+        budget = torch.where(torch.rand(n, generator=g) < 0.33,
+                             torch.randint(1, 9, (n,), generator=g),
+                             0).to(torch.int32).to(dev)
+        sent = torch.randint(0, 99, (n,), generator=g,
+                             dtype=torch.int32).to(dev)
+    if act != "state":
+        budget = torch.full((n,), 3 if act == "all" else 0,
+                            dtype=torch.int32, device=dev)
+    return maps, draws, keys, budget, sent
+
+
+def route_pack_cases(fabric, dev, parent=None):
     """Phase 17a's ``route_pack`` cases (``ROUTE_CASES``), each bitwise
     ``route_pack_plain`` and, with ``parent``, the parent's kernel, the
     sentinels around placed outputs untouched and the kernel's marks
-    all zero after every call; returns (worst error, cases)."""
-    from corrosion_tpu_torch.kernels import fabric
-    from corrosion_tpu_torch.profile_tick import FABRIC_N, FABRIC_R
+    all zero after every call (``fabric`` as ``route_case_state``
+    takes it); returns (worst error, cases)."""
+    from corrosion_tpu_torch.kernels import fabric as kf
 
     g = torch.Generator(device="cpu").manual_seed(15)
     worst, cases = 0.0, []
     for label, n, d, k, r, shards, caps, act, offs in ROUTE_CASES:
         nl = n // d
-        if n == FABRIC_N:
-            maps = senders[:k]
-        else:
-            maps = torch.randint(0, n, (k, n), generator=g,
-                                 dtype=torch.int32).to(dev)
-        if n == FABRIC_N and r == FABRIC_R:
-            keys, busy = rows, tx > 0
-        else:
-            keys = torch.randint(0, 1 << 20, (n, r), generator=g,
-                                 dtype=torch.int32).to(dev)
-            busy = (torch.rand(n, generator=g) < 0.33).to(dev)
-        if act != "state":
-            busy = torch.full((n,), act == "all", device=dev)
+        maps, _, keys, budget, _ = route_case_state(g, n, k, r, act, fabric,
+                                                    dev)
+        busy = budget > 0
         for sh, cap in ((sh, cap) for sh in shards for cap in caps):
             w = slice(sh * nl, (sh + 1) * nl)
             active_l, rows_l = busy[w].contiguous(), keys[w].contiguous()
             bufs = []
             if offs is None:
-                got = fabric.route_pack(maps, active_l, rows_l, sh, cap)
+                got = kf.route_pack(maps, active_l, rows_l, sh, cap)
             else:
                 rows_l = placed((nl, r), offs[0], dev)[1].copy_(rows_l)
                 bufs = [placed(shape, offs[1], dev)
                         for shape in ((d, cap), (d, cap, r), (1,))]
-                got = fabric._pack_into(maps, active_l, rows_l, sh,
+                got = kf._pack_into(maps, active_l, rows_l, sh,
                                         *(v for _, v in bufs))
-            want = fabric.route_pack_plain(maps, active_l, rows_l, sh, cap)
+            want = kf.route_pack_plain(maps, active_l, rows_l, sh, cap)
             err = max_abs_err(got, want)
             if parent is not None:
                 err = max(err, max_abs_err(
@@ -3688,7 +3765,7 @@ def route_pack_cases(senders, rows, tx, dev, parent=None):
                         and bool((buf[off + view.numel():]
                                   == SENTINEL).all())):
                     fail(f"route_pack {label} wrote past its outputs")
-            if not fabric.marks_clear(got[0].device, nl, d):
+            if not kf.marks_clear(got[0].device, nl, d):
                 fail(f"route_pack {label} left marks set")
             if err:
                 fail(f"route_pack {label}, shard {sh}, cap {cap} differs "
@@ -3700,15 +3777,112 @@ def route_pack_cases(senders, rows, tx, dev, parent=None):
     return worst, cases
 
 
+def source_delivery_bytes(maps, draws, loss: float, slot_of, r: int) -> int:
+    """The bytes a delivery from a source must move for the receivers
+    whose K sender ids ``maps`` [K, n] and loss draws ``draws`` [n, K]
+    are given, through ``slot_of``: each receiver's row, tx and msgs
+    read and written, its K ids and draws read, a random sector for
+    each of its K slots, and one for each row it takes (present and not
+    lost)."""
+    k, n = maps.shape
+    taken = (slot_of[maps.to(torch.int64)] >= 0) & ~(draws.T < loss)
+    return (n * (2 * r * 4 + 4 * 4) + n * k * 8 + n * k * SECTOR
+            + int(taken.sum()) * max(r * 4, SECTOR))
+
+
+def received_for(maps, busy, keys, sh: int, d: int, cap: int):
+    """Shard ``sh``'s (recv_ids [d, cap], recv_rows [d, cap, R]) as the
+    all_to_all hands every source shard's ``route_pack`` buffers to it."""
+    from corrosion_tpu_torch.kernels import fabric
+
+    nl = keys.shape[0] // d
+    sends = [fabric.route_pack(maps, busy[e * nl:(e + 1) * nl],
+                               keys[e * nl:(e + 1) * nl], e, cap)
+             for e in range(d)]
+    return (torch.stack([sends[e][0][sh] for e in range(d)]),
+            torch.stack([sends[e][1][sh] for e in range(d)]))
+
+
+def ring_receive_cases(fabric, dev, parent=None):
+    """Phase 17a's ``ring_receive`` cases: in every ``ROUTE_CASES``
+    layout, each of its shards and caps receives every source shard's
+    ``route_pack`` buffers and delivers them through ``ring_receive``,
+    bitwise ``ring_receive_plain`` (``route_slots_plain`` and
+    ``deliver_perm_plain``) and, with ``parent``, the parent's
+    ``route_slots`` and ``deliver_perm``, its flag clear; every call
+    finds the earlier calls' tags in the one slot map.  Then four
+    broken orders of received ids (two ids swapped, an id after the
+    pads, an id of another shard's rows, a pad other than -1), which
+    the kernel and ``route_order_bad`` must both flag.  ``fabric`` is
+    as ``route_case_state`` takes it.  Returns (worst error, cases)."""
+    from corrosion_tpu_torch.kernels import fabric as kf
+    from corrosion_tpu_torch.profile_tick import FABRIC_N
+
+    g = torch.Generator(device="cpu").manual_seed(16)
+    worst, cases = 0.0, []
+    for label, n, d, k, r, shards, caps, act, _ in ROUTE_CASES:
+        nl = n // d
+        maps, draws, keys, budget, sent = route_case_state(
+            g, n, k, r, act, fabric, dev)
+        for sh, cap in ((sh, cap) for sh in shards for cap in caps):
+            w = slice(sh * nl, (sh + 1) * nl)
+            mine = (keys[w].contiguous(), budget[w].contiguous(),
+                    sent[w].contiguous(), maps)
+            recv = received_for(maps, budget > 0, keys, sh, d, cap)
+            kw = dict(loss_u=draws, loss=0.05, max_tx=8, lo=sh * nl)
+            got = kf.ring_receive(*mine, *recv, **kw)
+            err = max_abs_err(got, kf.ring_receive_plain(*mine, *recv, **kw))
+            if parent is not None:
+                err = max(err, max_abs_err(got[:3], parent.ring_receive(
+                    *mine, *recv, draws, 0.05, 8, sh * nl)))
+            if err or int(got[3]):
+                fail(f"ring_receive {label}, shard {sh}, cap {cap} differs "
+                     f"from its plain version or the parent's, or flags "
+                     f"route_pack's order: {err}, {int(got[3])}")
+            worst = max(worst, err)
+            cases.append(dict(kernel="ring_receive", case=label, shard=sh,
+                              cap=cap, received=int((recv[0] >= 0).sum()),
+                              max_abs_err=err))
+    # broken orders at the fabric's shard 3, cap 12,500
+    senders, loss_u, rows, tx, msgs = fabric
+    n, d = FABRIC_N, 8
+    nl, sh = n // d, 3
+    w = slice(sh * nl, (sh + 1) * nl)
+    mine = (rows[w].contiguous(), tx[w].contiguous(), msgs[w].contiguous(),
+            senders)
+    ids, recv_rows = received_for(senders, tx > 0, rows, sh, d, nl)
+    kw = dict(loss_u=loss_u, loss=0.05, max_tx=8, lo=sh * nl)
+    last = int((ids[5] >= 0).sum()) - 1
+    for label, e, at, value in (
+            ("swapped", 2, 1, int(ids[2, 0])),
+            ("after the pads", 5, last + 2, int(ids[5, last]) + 1),
+            ("another shard's row", 6, 0, int(ids[1, 0])),
+            ("a pad not -1", 4, int((ids[4] >= 0).sum()), -2)):
+        bad = ids.clone()
+        if label == "swapped":
+            bad[e, 0] = ids[e, 1]
+        bad[e, at] = value
+        got = kf.ring_receive(*mine, bad, recv_rows, **kw)[3]
+        want = kf.ring_receive_plain(*mine, bad, recv_rows, **kw)[3]
+        if int(got) != 1 or int(want) != 1:
+            fail(f"ring_receive did not flag ids out of route_pack's order "
+                 f"({label}): kernel {int(got)}, plain {int(want)}")
+        cases.append(dict(kernel="ring_receive", case=f"order: {label}",
+                          shard=sh, cap=nl, flagged=True))
+    return worst, cases
+
+
 def fabric_kernel_checks(dev, parent=None) -> list:
     """Phase 17a: ``bits_pack`` / ``bits_unpack`` at the host layout's
     wire shapes (10M nodes x 2 seeds over 2 hosts) and odd shapes;
-    ``route_slots`` and ``deliver_perm`` with a source and a receiver
-    window at the broadcast fabrics' width (shard 3 of 8), the default
-    cap and a cap that overflows; ``route_pack`` in ``ROUTE_CASES``;
+    ``route_pack`` in ``ROUTE_CASES``; ``ring_receive`` in the same
+    layouts and on broken orders (``ring_receive_cases``); the all_gather
+    fabric's delivery (``deliver_perm`` with its identity slot map and a
+    receiver window) at the broadcast fabrics' width (shard 3 of 8);
     each bitwise its plain version and timed behind a GPU-side sleep,
-    ``route_pack`` at caps 12,500 and 256 in turns with ``parent``'s
-    kernel when given."""
+    ``route_pack`` and ``ring_receive`` at caps 12,500 and 256 and the
+    all_gather delivery in turns with ``parent``'s kernels when
+    given."""
     from corrosion_tpu_torch.kernels import deliver, fabric
     from corrosion_tpu_torch.models.sharded import _loss_u, _senders
     from corrosion_tpu_torch.profile_tick import (
@@ -3770,27 +3944,10 @@ def fabric_kernel_checks(dev, parent=None) -> list:
     loss_u = _loss_u(key_l, params, dev)
     sh = 3
     w = slice(sh * nl, (sh + 1) * nl)
-    slot_err = 0.0
-    route = {}
-    for cap in (nl, 256):
-        sends = [fabric.route_pack(senders, tx[s * nl:(s + 1) * nl] > 0,
-                                   rows[s * nl:(s + 1) * nl], s, cap)
-                 for s in range(d)]
-        recv_ids = torch.stack([sends[s][0][sh] for s in range(d)])
-        recv_rows = torch.stack([sends[s][1][sh] for s in range(d)])
-        slot_of = fabric.route_slots(recv_ids.reshape(-1), n)
-        slot_err = max(slot_err, max_abs_err(
-            [slot_of], [fabric.route_slots_plain(recv_ids.reshape(-1), n)]))
-        cases.append(dict(kernel="route_slots", cap=cap,
-                          overflow=int(sum(int(x[2]) for x in sends)),
-                          max_abs_err=slot_err))
-        route[cap] = (recv_ids, recv_rows, slot_of)
-    route_err, route_cases = route_pack_cases(senders, rows, tx, dev,
-                                              parent)
+    state = (senders, loss_u, rows, tx, msgs)
+    route_err, route_cases = route_pack_cases(state, dev, parent)
     cases += route_cases
-    recv_ids, recv_rows, slot_of = route[nl]
     active_l = tx[w] > 0
-    ids_flat = recv_ids.reshape(-1)
     route_bytes = (k * n * 4 + nl + nl * r * 4 + d * nl * (r + 1) * 4 + 4)
     args = (senders, active_l, rows[w], sh)
     turns = {}
@@ -3807,39 +3964,70 @@ def fabric_kernel_checks(dev, parent=None) -> list:
             *args, nl), 3, 1),
         bound=(route_bytes, 0), library_ms=None, turns=turns,
         shape=f"K={k} x {n} maps, shard {sh} of {d}, cap {nl}, R={r}"))
-    results.append(dict(
-        name="route_slots", route="cuda", source=FABRIC_SOURCE,
-        replaces="corrosion_tpu/models/sharded.py:254",
-        max_abs_err=slot_err,
-        ms=time_inplace_ms(none, lambda: fabric.route_slots(ids_flat, n),
-                           30),
-        plain_ms=time_inplace_ms(none, lambda: fabric.route_slots_plain(
-            ids_flat, n), 3, 1),
-        bound=(ids_flat.numel() * 4 + n * 4, 0), library_ms=None,
-        shape=f"{ids_flat.numel()} received ids into [{n}]"))
 
-    dargs = dict(loss_u=loss_u, loss=params.loss,
-                 max_tx=params.max_transmissions, lo=sh * nl)
+    # the receive side: ring_receive at shard 3, caps 12,500 and 256, in
+    # turns with the parent's route_slots and deliver_perm
+    recv_err, recv_cases = ring_receive_cases(state, dev, parent)
+    cases += recv_cases
     mine = (rows[w].contiguous(), tx[w].contiguous(), msgs[w].contiguous(),
             senders)
-    gather = dict(dargs, src_rows=rows, slot_of=torch.where(
-        tx > 0, torch.arange(n, dtype=torch.int32, device=dev), -1
-    ).to(torch.int32))
-    routed = dict(dargs, src_rows=recv_rows.reshape(-1, r), slot_of=slot_of)
-    err = 0.0
-    for kw in (gather, routed):
-        err = max(err, max_abs_err(
-            deliver.deliver_perm(*mine, **kw)[:3],
-            deliver.deliver_perm_plain(*mine, **kw)[:3]))
+    rkw = dict(loss_u=loss_u, loss=params.loss,
+               max_tx=params.max_transmissions, lo=sh * nl)
+    recv, turns = {}, {}
+    for cap in (nl, 256):
+        recv[cap] = received_for(senders, tx > 0, rows, sh, d, cap)
+        turns[cap] = in_turns(
+            lambda c=cap: fabric.ring_receive(*mine, *recv[c], **rkw),
+            parent and (lambda c=cap: parent.ring_receive(
+                *mine, *recv[c], loss_u, params.loss,
+                params.max_transmissions, sh * nl)),
+            lambda fn: time_inplace_ms(none, fn, 20))
+    recv_ids, recv_rows = recv[nl]
+    slot_of = fabric.route_slots_plain(recv_ids.reshape(-1), n)
+    received = int((recv_ids >= 0).sum())
+    results.append(dict(
+        name="ring_receive", route="cuda", source=DELIVER_SOURCE,
+        replaces="corrosion_tpu/models/sharded.py:253",
+        max_abs_err=recv_err, ms=turns[nl]["ms"], turns=turns,
+        plain_ms=time_inplace_ms(none, lambda: fabric.ring_receive_plain(
+            *mine, recv_ids, recv_rows, **rkw), 3, 1),
+        bound=(recv_ids.numel() * 4 + received * SECTOR
+               + source_delivery_bytes(senders[:, w], loss_u[w], params.loss,
+                                       slot_of, r), 0),
+        library_ms=None, received=received,
+        shape=f"shard {sh}'s {nl} receivers of {n}, {d} x {nl} slots "
+              f"({received} ids), R={r}, K={k}"))
+
+    # the all_gather fabric's delivery: the identity slot map of the
+    # active senders through the same kernel
+    gather = dict(loss_u=loss_u, loss=params.loss,
+                  max_tx=params.max_transmissions, lo=sh * nl, src_rows=rows,
+                  slot_of=torch.where(tx > 0, torch.arange(
+                      n, dtype=torch.int32, device=dev), -1).to(torch.int32))
+    err = max_abs_err(deliver.deliver_perm(*mine, **gather)[:3],
+                      deliver.deliver_perm_plain(*mine, **gather)[:3])
+    old = None
+    if parent is not None:
+        full = dict(gather, hops=None, next_send=None, tick=0, wan_u=None,
+                    region=None, partition_id=None, sev=None,
+                    partition_active=False, tier=None, wan_loss=0.0,
+                    backoff=0.0)
+        err = max(err, max_abs_err(deliver.deliver_perm(*mine, **gather),
+                                   parent.deliver_perm(*mine, **full)))
+
+        def old():
+            parent.deliver_perm(*mine, **full)
+    turns = in_turns(lambda: deliver.deliver_perm(*mine, **gather), old,
+                     lambda fn: time_inplace_ms(none, fn, 20))
     results.append(dict(
         name="deliver_perm (source, window)", route="cuda",
-        source="corrosion_tpu_torch/kernels/csrc/deliver_perm.cu",
+        source=DELIVER_SOURCE,
         replaces="corrosion_tpu/models/sharded.py:94", max_abs_err=err,
-        ms=time_inplace_ms(none, lambda: deliver.deliver_perm(
-            *mine, **gather), 20),
+        ms=turns["ms"], turns=turns,
         plain_ms=time_inplace_ms(none, lambda: deliver.deliver_perm_plain(
             *mine, **gather), 3, 1),
-        bound=(nl * r * 8 + nl * 16 + k * nl * (4 + 4 + 4 + r * 4), 0),
+        bound=(source_delivery_bytes(senders[:, w], loss_u[w], params.loss,
+                                     gather["slot_of"], r), 0),
         library_ms=None,
         shape=f"shard {sh}'s {nl} receivers of {n}, R={r}, K={k}"))
     for rr in results:
@@ -4294,8 +4482,8 @@ def fabric_full_width(counted, dev) -> dict:
                 overflow += ov
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-        launches = {nm: counted[nm].launches for nm in FABRIC_COUNTED
-                    if label == "ring" or not nm.startswith("route")}
+        launches = {nm: counted[nm].launches
+                    for nm in FABRIC_COUNTED[label]}
         for t in range(FABRIC_TICKS):
             out = broadcast_step(rows, tx, msgs, fold_in(PRNGKey(8), t),
                                  params)
@@ -4553,10 +4741,13 @@ def mesh_phases(record: dict, counted: dict, single_runs: dict,
           + ", ".join(f"{r['name']} {r['max_abs_err']}"
                       for r in fabric_results + shard_results), flush=True)
     print(json.dumps({"shard": shard_turns(shard_results)}), flush=True)
-    pack = next(r for r in fabric_results if r["name"] == "route_pack")
-    print(json.dumps({"route_pack": dict(
-        turns=pack["turns"], bound_ms=pack["bound_ms"],
-        cases=len(record["fabric_cases"]))}), flush=True)
+    for name in ("route_pack", "ring_receive",
+                 "deliver_perm (source, window)"):
+        res = next(r for r in fabric_results if r["name"] == name)
+        print(json.dumps({name: dict(
+            turns=res["turns"], bound_ms=res["bound_ms"],
+            cases=sum(c.get("kernel") == name
+                      for c in record["fabric_cases"]))}), flush=True)
     runs = mesh_full_width(counted, single_runs, cuda)
     record["mesh_runs"] = runs
     fabric_runs = fabric_full_width(counted, cuda)
@@ -4568,10 +4759,9 @@ def mesh_phases(record: dict, counted: dict, single_runs: dict,
     launches = {
         "bits_pack": host["bits_pack"], "bits_unpack": host["bits_unpack"],
         "route_pack": fabric_runs["ring"]["launches"]["route_pack"],
-        "route_slots": fabric_runs["ring"]["launches"]["route_slots"],
-        "deliver_perm (source, window)": sum(
-            fabric_runs[k]["launches"]["deliver_perm"]
-            for k in ("all_gather", "ring")),
+        "ring_receive": fabric_runs["ring"]["launches"]["ring_receive"],
+        "deliver_perm (source, window)":
+            fabric_runs["all_gather"]["launches"]["deliver_perm"],
         "shard_round<Bitmap>": dense["shard_round"],
         "shard_commit<Bitmap>": dense["shard_commit"],
         "shard_round<Ring>": sum(s["shard_round"] for s in sparse),
@@ -4598,9 +4788,10 @@ def main() -> int:
 
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--parent", help="a checkout of the parent commit: "
-                    "hold its threefry_bits, swim_probe_select, "
-                    "exact_send<Bitmap>, route_pack and shard kernels to "
-                    "this tree's and time them beside them")
+                    "hold its threefry_bits, deliver_perm, "
+                    "swim_probe_select, exact_send<Bitmap>, route_pack, "
+                    "route_slots and shard kernels to this tree's and "
+                    "time them beside them")
     opts = ap.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
@@ -4628,7 +4819,7 @@ def main() -> int:
         sent_sampler.sent_commit, seg_sort.seg_argsort, winners.seg_cummax,
         winners.winners_a, winners.winners_b, store.store_set,
         store.store_gather, fabric.bits_pack, fabric.bits_unpack,
-        fabric.route_pack, fabric.route_slots, shard_exact.shard_round,
+        fabric.route_pack, fabric.ring_receive, shard_exact.shard_round,
         shard_exact.shard_commit)}
     headline_counted = ("threefry_bits", "seg_argsort", "deliver_perm",
                         "sync_pull", "tick_stats")
@@ -4681,6 +4872,9 @@ def main() -> int:
     print("kernels match their plain versions: "
           + ", ".join(f"{r['name']} {r['max_abs_err']}" for r in results),
           flush=True)
+    print(json.dumps({"deliver_perm": next(
+        r["turns"] for r in results if r["name"] == "deliver_perm")}),
+        flush=True)
 
     # phase 3: the headline on the card, counters from this run only
     run_epidemic_seeds(replace(headline, n_nodes=1000, max_ticks=16),

@@ -1,5 +1,6 @@
 // deliver_perm: permutation-fanout gossip delivery plus the broadcast
-// epilogue, one pass over the receivers.
+// epilogue, one pass over the receivers; and the sharded fabrics'
+// delivery from a separate source of sender rows.
 //
 // Replaces corrosion_tpu/models/broadcast.py _deliver_perm (:327) and
 // the epilogue of broadcast_step (:243-280).  The reference gathers a
@@ -18,26 +19,51 @@
 //
 // The sharded fabrics (corrosion_tpu/models/sharded.py
 // sharded_broadcast_step :121-147, sharded_broadcast_step_ring
-// :253-279) run the same delivery for one shard's receivers, the
-// window [lo, lo + n) of the N nodes: the maps, draws, regions,
-// partition ids and tiers are the global [N] (or [N, K]) arrays; a
-// sender's row comes from a separate source through the slot map:
-// row slot_of[s] of the all_gathered [N, R] rows (the identity where
-// active) or of the received [Q, R] rows (slot -1: the sender shipped
-// nothing, inactive).  The single-device call is the case src = rows,
-// the whole range, no slot map.
+// :253-279) run the same delivery, loss draws only, for one shard's
+// receivers, the window [lo, lo + n) of the N nodes: the maps and draws
+// are the global [N] (or [N, K]) arrays; a sender's row comes from a
+// separate source through a slot map, row slot_of[s] of the
+// all_gathered [N, R] rows (the identity where active, -1 where not)
+// or of the received [Q, R] rows.  That delivery is its own kernel
+// (deliver_source_kernel): a thread a receiver, SOURCE_THREADS a block
+// so that one shard's 12,500 receivers spread over the card, whose K
+// columns' loads are in flight together (the sender ids and loss
+// draws, then the slots, then the rows), not one column after another.
+//
+// ring_receive_launch is the ring fabric's whole receive side from one
+// host call, two kernels chained by programmatic dependent launch over
+// a slot map that is kept between calls and never filled: each entry
+// is a 64-bit tag, (the call's generation << 32) | slot, and the host
+// gives every call the next generation (refilling the map with zeros,
+// generation 0, once the 32-bit count wraps):
+//   1. ring_slots_kernel, a thread a received slot q: tags[id] =
+//      (gen << 32) | q.  It checks route_pack's contract on the
+//      received ids (each source shard's section ascends within that
+//      shard's rows, then -1 pads), which makes the ids unique, and
+//      writes the generation into the map's flag word where it fails;
+//   2. deliver_source_kernel<R, true>: its prelude (own row, tx, msgs,
+//      the K sender ids and loss draws) before griddepcontrol.wait,
+//      then the K tags; a tag of an earlier generation is an absent
+//      sender, so what earlier calls left in the map is never read as
+//      a slot of this one and costs no row load.  Thread 0 hands the
+//      flag (the flag word holds this generation) to the caller.
 //
 // Bound on the H100: bytes.  Each receiver reads its row, K sender
 // rows at random (32 bytes each at R = 8), the K sender ids, K loss
 // uniforms and a few [N] words, and writes R + 4 words: about 0.4 GB
-// per tick at N = 3.2M, R = 8, K = 4.  The design reads each row with
-// 16-byte vector loads when R % 4 == 0, keeps the merge in registers
-// (R is a template parameter, 1..16) and never materialises the
-// gathered [N, K, R] block.  round() is half-to-even (rintf) and the
-// backoff product is float32, as in the reference.
+// per tick at N = 3.2M, R = 8, K = 4.  The source path adds K random
+// slot_of sectors a receiver; the ring's slot map writes one random
+// sector a received id.
+// The design reads each row with 16-byte vector loads when R % 4 == 0,
+// keeps the merge in registers (R is a template parameter, 1..16) and
+// never materialises the gathered [N, K, R] block.  round() is
+// half-to-even (rintf) and the backoff product is float32, as in the
+// reference.
 
 #include <cstdint>
 #include <cuda_runtime.h>
+
+#include <type_traits>
 
 #include "common.cuh"
 
@@ -46,6 +72,10 @@ namespace {
 using common::HOP_UNSET;
 using common::load_row;
 using common::store_row;
+
+constexpr int SOURCE_THREADS = 64;  // a block of the source delivery
+constexpr int SLOT_THREADS = 256;   // a block of the ring's slot map
+constexpr int COLUMNS = 4;          // columns whose loads are in flight
 
 struct DeliverArgs {
   const int* rows;
@@ -84,6 +114,11 @@ __device__ __forceinline__ bool is_active(const DeliverArgs& a, int i) {
   return a.tx[i] > 0 && (a.next_send == nullptr || a.next_send[i] <= a.tick);
 }
 
+// The single-device delivery.  slot_of is null on its every launch (a
+// delivery from a source is deliver_source_kernel's), but the kernel
+// stays as written: without the branch on it, and with the sender rows
+// read through rows, ptxas made another headline kernel, its column
+// loop twice as long and its row loads outside the constant cache.
 template <int R>
 __global__ void deliver_perm_kernel(const DeliverArgs a) {
   const int t = blockIdx.x * blockDim.x + threadIdx.x;  // my receiver
@@ -154,8 +189,159 @@ __global__ void deliver_perm_kernel(const DeliverArgs a) {
   }
 }
 
+// -- the sharded fabrics' delivery from a separate source
+
+struct SourceArgs {
+  const int* rows;      // [n, R]: my receivers' rows
+  const int* tx;
+  const int* msgs;
+  const int* senders;   // [K, N]
+  const float* loss_u;  // [N, K] or null (no loss)
+  const int* src_rows;  // [Q, R]
+  const int* slot_of;   // [N]: a sender's row of src_rows, -1 for none
+  const unsigned long long* tags;  // the ring: [N + 1], (gen << 32) | row
+  int* rows_out;
+  int* tx_out;
+  int* msgs_out;
+  int* bad_out;         // the ring: [1] this call's flag
+  int n, k, lo, n_global, max_tx;
+  unsigned gen;         // the ring: this call's generation, >= 1
+  float loss;
+};
+
+// columns j0 .. j0 + COLUMNS - 1 (those below k) of receiver tg: the
+// sender ids, then whether each one's loss draw drops it
+__device__ __forceinline__ void columns(const SourceArgs& a, int tg, int j0,
+                                        int (&s)[COLUMNS],
+                                        bool (&lost)[COLUMNS]) {
+#pragma unroll
+  for (int c = 0; c < COLUMNS; ++c)
+    s[c] = j0 + c < a.k
+               ? __ldg(a.senders + (size_t)(j0 + c) * a.n_global + tg)
+               : 0;
+#pragma unroll
+  for (int c = 0; c < COLUMNS; ++c)
+    lost[c] = j0 + c < a.k && a.loss_u != nullptr &&
+              __ldg(a.loss_u + (size_t)tg * a.k + j0 + c) < a.loss;
+}
+
+// those columns' slots (on the ring, their tags), loaded together, then
+// the rows of the present ones, max-merged into acc
+template <int R, bool RING>
+__device__ __forceinline__ void merge_columns(const SourceArgs& a, int j0,
+                                              const int (&s)[COLUMNS],
+                                              const bool (&lost)[COLUMNS],
+                                              int (&acc)[R]) {
+  int slot[COLUMNS];
+#pragma unroll
+  for (int c = 0; c < COLUMNS; ++c) {
+    if (j0 + c >= a.k) {
+      slot[c] = -1;
+    } else if constexpr (RING) {
+      const unsigned long long tag = __ldcg(a.tags + s[c]);
+      slot[c] = (unsigned)(tag >> 32) == a.gen ? (int)(unsigned)tag : -1;
+    } else {
+      slot[c] = __ldcg(a.slot_of + s[c]);
+    }
+  }
+  int g[COLUMNS][R];
+#pragma unroll
+  for (int c = 0; c < COLUMNS; ++c)
+    if (!lost[c] && slot[c] >= 0)
+      load_row<R>(a.src_rows + (size_t)slot[c] * R, g[c]);
+#pragma unroll
+  for (int c = 0; c < COLUMNS; ++c)
+    if (!lost[c] && slot[c] >= 0)
+#pragma unroll
+      for (int e = 0; e < R; ++e) acc[e] = max(acc[e], g[c][e]);
+}
+
+template <int R, bool RING>
+__global__ void __launch_bounds__(SOURCE_THREADS)
+    deliver_source_kernel(const SourceArgs a) {
+  const int t = blockIdx.x * SOURCE_THREADS + threadIdx.x;  // my receiver
+  if (t >= a.n) return;
+  const int tg = a.lo + t;  // its global id
+  int own[R], acc[R], s[COLUMNS];
+  bool lost[COLUMNS];
+  load_row<R>(a.rows + (size_t)t * R, own);
+  const int tx = a.tx[t], msgs = a.msgs[t];
+  columns(a, tg, 0, s, lost);
+  // on the ring the slot map's kernel may run until here
+  asm volatile("griddepcontrol.wait;" ::: "memory");
+#pragma unroll
+  for (int e = 0; e < R; ++e) acc[e] = own[e];
+  for (int j0 = 0;;) {
+    merge_columns<R, RING>(a, j0, s, lost, acc);
+    j0 += COLUMNS;
+    if (j0 >= a.k) break;
+    columns(a, tg, j0, s, lost);
+  }
+  bool learned = false;
+#pragma unroll
+  for (int e = 0; e < R; ++e) learned |= acc[e] != own[e];
+  store_row<R>(a.rows_out + (size_t)t * R, acc);
+  // retransmit decay for an active sender; fresh budget on learning
+  const bool act = tx > 0;
+  a.tx_out[t] = learned ? a.max_tx : (act ? tx - 1 : tx);
+  a.msgs_out[t] = msgs + (act ? a.k : 0);
+  if (RING && t == 0)  // this call's flag
+    *a.bad_out = __ldcg(a.tags + a.n_global) == a.gen;
+}
+
+// the ring's slot map: received slot q's id (in source shard q / cap's
+// section) gets tags[id] = (gen << 32) | q where route_pack's contract
+// holds for it: an id ascends past the one before it in the section and
+// lies in that shard's rows [lo, lo + n_local); a pad is -1 and only
+// pads follow it.  Else the flag word tags[n_global] = gen (and the id
+// is not scattered).
+__global__ void __launch_bounds__(SLOT_THREADS)
+    ring_slots_kernel(const int* __restrict__ ids,
+                      unsigned long long* __restrict__ tags, unsigned gen,
+                      int q_total, int cap, int n_local, int n_global) {
+  asm volatile("griddepcontrol.launch_dependents;");
+  const int q = blockIdx.x * SLOT_THREADS + threadIdx.x;
+  if (q >= q_total) return;
+  const int e = q / cap, lo = e * n_local;
+  const bool first = q == e * cap;
+  const int id = __ldg(ids + q);
+  const int prev = first ? 0 : __ldg(ids + q - 1);
+  const bool ok = id < 0 ? id == -1
+                         : id >= lo && id < lo + n_local &&
+                               (first || (prev >= 0 && prev < id));
+  if (!ok)
+    tags[n_global] = gen;
+  else if (id >= 0)
+    tags[id] = (unsigned long long)gen << 32 | (unsigned)q;
+}
+
+// f(std::integral_constant<int, r>) for r in 1..16; false for another r
+template <typename F>
+bool with_rows(int r, F&& f) {
+  switch (r) {
+#define ROWS_CASE(RR) \
+  case RR:            \
+    f(std::integral_constant<int, RR>{}); \
+    return true;
+    ROWS_CASE(1) ROWS_CASE(2) ROWS_CASE(3) ROWS_CASE(4)
+    ROWS_CASE(5) ROWS_CASE(6) ROWS_CASE(7) ROWS_CASE(8)
+    ROWS_CASE(9) ROWS_CASE(10) ROWS_CASE(11) ROWS_CASE(12)
+    ROWS_CASE(13) ROWS_CASE(14) ROWS_CASE(15) ROWS_CASE(16)
+#undef ROWS_CASE
+    default:
+      return false;
+  }
+}
+
+unsigned blocks_of(int n, int threads) {
+  return (unsigned)((n + threads - 1) / threads);
+}
+
 }  // namespace
 
+// src_rows == rows (and no slot_of) for the single-device delivery;
+// with slot_of the source delivery (loss draws only: no hops,
+// next_send, WAN draws, partition or tiers)
 extern "C" int deliver_perm_launch(
     const void* rows, const void* tx, const void* msgs, const void* hops,
     const void* next_send, const void* senders, const void* loss_u,
@@ -166,8 +352,33 @@ extern "C" int deliver_perm_launch(
     const void* src_rows, const void* slot_of, int lo, int n_global,
     void* stream) {
   if (n <= 0) return 0;
-  if (src_rows == nullptr || lo < 0 || lo + n > n_global ||
-      (hops != nullptr && slot_of != nullptr))
+  if (src_rows == nullptr || lo < 0 || lo + n > n_global)
+    return (int)cudaErrorInvalidValue;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (slot_of != nullptr) {
+    if (hops || next_send || wan_u || part || tier)
+      return (int)cudaErrorInvalidValue;
+    SourceArgs a = {};
+    a.rows = static_cast<const int*>(rows);
+    a.tx = static_cast<const int*>(tx);
+    a.msgs = static_cast<const int*>(msgs);
+    a.senders = static_cast<const int*>(senders);
+    a.loss_u = static_cast<const float*>(loss_u);
+    a.src_rows = static_cast<const int*>(src_rows);
+    a.slot_of = static_cast<const int*>(slot_of);
+    a.rows_out = static_cast<int*>(rows_out);
+    a.tx_out = static_cast<int*>(tx_out);
+    a.msgs_out = static_cast<int*>(msgs_out);
+    a.n = n, a.k = k, a.lo = lo, a.n_global = n_global, a.max_tx = max_tx;
+    a.loss = loss;
+    if (!with_rows(r, [&](auto rc) {
+          deliver_source_kernel<decltype(rc)::value, false>
+              <<<blocks_of(n, SOURCE_THREADS), SOURCE_THREADS, 0, st>>>(a);
+        }))
+      return (int)cudaErrorInvalidValue;
+    return (int)cudaGetLastError();
+  }
+  if (lo != 0 || n != n_global || src_rows != rows)
     return (int)cudaErrorInvalidValue;
   DeliverArgs a;
   a.rows = static_cast<const int*>(rows);
@@ -197,24 +408,67 @@ extern "C" int deliver_perm_launch(
   a.max_tx = max_tx;
   a.backoff = backoff;
   a.src_rows = static_cast<const int*>(src_rows);
-  a.slot_of = static_cast<const int*>(slot_of);
+  a.slot_of = nullptr;  // a source took the branch above
   a.lo = lo;
   a.n_global = n_global;
   const int threads = 256;
-  const int blocks = (n + threads - 1) / threads;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  switch (r) {
-#define DELIVER_CASE(RR) \
-  case RR:               \
-    deliver_perm_kernel<RR><<<blocks, threads, 0, s>>>(a); \
-    break;
-    DELIVER_CASE(1) DELIVER_CASE(2) DELIVER_CASE(3) DELIVER_CASE(4)
-    DELIVER_CASE(5) DELIVER_CASE(6) DELIVER_CASE(7) DELIVER_CASE(8)
-    DELIVER_CASE(9) DELIVER_CASE(10) DELIVER_CASE(11) DELIVER_CASE(12)
-    DELIVER_CASE(13) DELIVER_CASE(14) DELIVER_CASE(15) DELIVER_CASE(16)
-#undef DELIVER_CASE
-    default:
-      return (int)cudaErrorInvalidValue;
-  }
+  if (!with_rows(r, [&](auto rc) {
+        deliver_perm_kernel<decltype(rc)::value>
+            <<<blocks_of(n, threads), threads, 0, st>>>(a);
+      }))
+    return (int)cudaErrorInvalidValue;
   return (int)cudaGetLastError();
+}
+
+// The ring fabric's receive side: recv_ids [d, cap] and recv_rows
+// [d, cap, r] as the all_to_all delivered them (section e from source
+// shard e); tags [n_global + 1] int64, the slot map then its flag word,
+// kept between calls (zero when made) and gen this call's generation,
+// above every generation the map holds; outputs rows_out [n, r],
+// tx_out, msgs_out [n] and bad_out [1].
+extern "C" int ring_receive_launch(
+    const void* rows, const void* tx, const void* msgs, const void* senders,
+    const void* loss_u, const void* recv_ids, const void* recv_rows,
+    void* tags, void* rows_out, void* tx_out, void* msgs_out, void* bad_out,
+    int n, int r, int k, float loss, int max_tx, int lo, int n_global,
+    int d, int cap, unsigned gen, void* stream) {
+  if (n < 1 || d < 1 || cap < 1 || lo < 0 || lo + n > n_global ||
+      n_global % d || cap > n_global / d || r < 1 || r > 16 || gen == 0)
+    return (int)cudaErrorInvalidValue;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  SourceArgs a = {};
+  a.rows = static_cast<const int*>(rows);
+  a.tx = static_cast<const int*>(tx);
+  a.msgs = static_cast<const int*>(msgs);
+  a.senders = static_cast<const int*>(senders);
+  a.loss_u = static_cast<const float*>(loss_u);
+  a.src_rows = static_cast<const int*>(recv_rows);
+  a.tags = static_cast<const unsigned long long*>(tags);
+  a.rows_out = static_cast<int*>(rows_out);
+  a.tx_out = static_cast<int*>(tx_out);
+  a.msgs_out = static_cast<int*>(msgs_out);
+  a.bad_out = static_cast<int*>(bad_out);
+  a.n = n, a.k = k, a.lo = lo, a.n_global = n_global, a.max_tx = max_tx;
+  a.gen = gen, a.loss = loss;
+  const int q = d * cap;
+  ring_slots_kernel<<<blocks_of(q, SLOT_THREADS), SLOT_THREADS, 0, st>>>(
+      static_cast<const int*>(recv_ids),
+      static_cast<unsigned long long*>(tags), gen,
+      q, cap, n_global / d, n_global);
+  cudaError_t e = cudaGetLastError();
+  if (e != cudaSuccess) return (int)e;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(blocks_of(n, SOURCE_THREADS));
+  cfg.blockDim = dim3(SOURCE_THREADS);
+  cfg.stream = st;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeProgrammaticStreamSerialization;
+  attr[0].val.programmaticStreamSerializationAllowed = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  with_rows(r, [&](auto rc) {
+    e = cudaLaunchKernelEx(&cfg, deliver_source_kernel<decltype(rc)::value,
+                                                       true>, a);
+  });
+  return (int)e;
 }

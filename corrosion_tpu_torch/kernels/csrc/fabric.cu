@@ -7,9 +7,10 @@
 // thread per packed byte: it reads (or writes) its eight bool bytes as
 // one 8-byte word.  Bound on the H100: bytes (M + M/8 a row, each once).
 //
-// route_pack / route_slots replace the demand, packing and slot-map
-// steps of sharded_broadcast_step_ring (sharded.py:216-259), the
-// destination-sorted fabric.  route_pack runs on one source shard
+// route_pack replaces the demand and packing steps of
+// sharded_broadcast_step_ring (sharded.py:216-248), the
+// destination-sorted fabric (its receive side is ring_receive, in
+// deliver_perm.cu).  route_pack runs on one source shard
 // ("me", rows [lo, lo + n_local)) for every destination shard d, in
 // three launches chained by programmatic dependent launch, each grid
 // spread over the whole card:
@@ -35,12 +36,8 @@
 //      is zero again for the next call; the first block writes the
 //      overflow (sum over d of max(0, total - cap)), so nothing is filled
 //      beforehand.
-// route_slots inverts the received ids: slot_of[id] = position of id in
-// recv_ids, -1 for an id not received (ids are unique: the shards own
-// disjoint rows), a fill pass then a scatter pass.
 // Bound on the H100: bytes — the K x N sender maps read once, my active
-// flags and rows read once, the D x cap slots with their R keys written
-// (route_pack); N + D x cap words (route_slots).
+// flags and rows read once, the D x cap slots with their R keys written.
 
 #include <cstdint>
 #include <cuda_runtime.h>
@@ -288,20 +285,6 @@ cudaError_t launch_after(void (*kernel)(const Pack), unsigned blocks,
   return cudaLaunchKernelEx(&cfg, kernel, a);
 }
 
-__global__ void fill_kernel(int* __restrict__ slot_of, int n) {
-  const int i = blockIdx.x * THREADS + threadIdx.x;
-  if (i < n) slot_of[i] = -1;
-}
-
-__global__ void route_slots_kernel(const int* __restrict__ recv_ids,
-                                   int* __restrict__ slot_of, int q_total,
-                                   int n) {
-  const int q = blockIdx.x * THREADS + threadIdx.x;
-  if (q >= q_total) return;
-  const int id = recv_ids[q];
-  if (id >= 0 && id < n) slot_of[id] = q;
-}
-
 unsigned grid(long long total) {
   return (unsigned)((total + THREADS - 1) / THREADS);
 }
@@ -381,17 +364,4 @@ extern "C" int route_pack_launch(const void* senders, const void* active,
                    st);
   if (e != cudaSuccess) return (int)e;
   return (int)launch_after(route_write_kernel, tiles, a, st);
-}
-
-extern "C" int route_slots_launch(const void* recv_ids, void* slot_of,
-                                  int q_total, int n, void* stream) {
-  if (n < 1 || q_total < 0) return (int)cudaErrorInvalidValue;
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  fill_kernel<<<grid(n), THREADS, 0, st>>>(static_cast<int*>(slot_of), n);
-  const cudaError_t e = cudaGetLastError();
-  if (e != cudaSuccess || q_total == 0) return (int)e;
-  route_slots_kernel<<<grid(q_total), THREADS, 0, st>>>(
-      static_cast<const int*>(recv_ids), static_cast<int*>(slot_of),
-      q_total, n);
-  return (int)cudaGetLastError();
 }

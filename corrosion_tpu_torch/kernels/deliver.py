@@ -5,12 +5,16 @@ Replaces corrosion_tpu/models/broadcast.py ``_deliver_perm`` (:327)
 and the epilogue of ``broadcast_step`` (:243-280), and with a separate
 source and a receiver window the local delivery of
 corrosion_tpu/models/sharded.py ``sharded_broadcast_step`` (:121-147)
-and ``sharded_broadcast_step_ring`` (:253-279).  Bound on the H100:
+and ``sharded_broadcast_step_ring`` (:253-279; the ring fabric calls
+it through ``kernels.fabric.ring_receive``).  Bound on the H100:
 bytes — the receiver's row, K randomly placed sender rows, the K
 sender ids and loss draws, and the [N] state words, each moved once.
 The kernel fuses the K column gathers, the validity masks, the
 max-merge, the hop-min and the tx / msgs / next_send / hops update
-into registers, so nothing [N, K, R]-shaped reaches memory.
+into registers, so nothing [N, K, R]-shaped reaches memory.  The
+delivery from a source is its own kernel (csrc/deliver_perm.cu
+``deliver_source_kernel``: small blocks, the K columns' loads in
+flight together), which takes loss draws only.
 """
 
 from __future__ import annotations
@@ -129,7 +133,8 @@ def deliver_perm(rows, tx, msgs, senders, *, hops=None, next_send=None,
     them by default, n = N).  A sender's row comes from ``rows`` (then
     n = N); or, with ``slot_of`` [N] int32, from row ``slot_of[s]`` of
     ``src_rows`` [Q, R], absent (an inactive sender) where it is -1.  A
-    source takes no ``hops``.
+    source takes no ``hops``, and on the card only ``loss_u`` of the
+    draws and masks (the sharded fabrics' delivery).
 
     Returns (rows, tx, msgs, hops, next_send) as new tensors; hops and
     next_send are None when not given."""
@@ -156,9 +161,27 @@ def deliver_perm(rows, tx, msgs, senders, *, hops=None, next_send=None,
                       slot_of):
         return deliver_perm_plain(rows, tx, msgs, senders, **args)
 
+    fn = kernels.function("deliver_perm", "deliver_perm_launch", _ARGTYPES)
+    out = launch(fn, rows, tx, msgs, senders, **args)
+    deliver_perm.launches += 1
+    return out
+
+
+def launch(fn, rows, tx, msgs, senders, *, hops, next_send, tick, loss_u,
+           wan_u, region, partition_id, sev, partition_active, tier, loss,
+           wan_loss, max_tx, backoff, src_rows, slot_of, lo):
+    """``deliver_perm`` on CUDA tensors: checks them, makes the outputs
+    and calls ``fn`` (the C ``deliver_perm_launch``, typed as
+    ``_ARGTYPES``) on them; returns the outputs."""
+    k, n_global = senders.shape
+    n, r = rows.shape
     if not 1 <= r <= MAX_ROWS:
         raise ValueError(f"deliver_perm: the kernel takes 1..{MAX_ROWS} "
                          f"cells per row, got {r}")
+    if src_rows is not None and any(t is not None for t in (
+            next_send, wan_u, partition_id, tier)):
+        raise ValueError("deliver_perm: the kernel takes a source with "
+                         "loss draws only")
     i32 = torch.int32
     kernels.check("deliver_perm rows", rows, i32, (n, r), align=16)
     for name, t in (("tx", tx), ("msgs", msgs), ("hops", hops),
@@ -189,7 +212,6 @@ def deliver_perm(rows, tx, msgs, senders, *, hops=None, next_send=None,
     hops_out = None if hops is None else torch.empty_like(hops)
     next_out = None if next_send is None else torch.empty_like(next_send)
     p = kernels.ptr
-    fn = kernels.function("deliver_perm", "deliver_perm_launch", _ARGTYPES)
     code = fn(
         p(rows), p(tx), p(msgs), p(hops), p(next_send), p(senders),
         p(loss_u), p(wan_u), p(region), p(partition_id), p(sev), sev_b,
@@ -199,7 +221,6 @@ def deliver_perm(rows, tx, msgs, senders, *, hops=None, next_send=None,
         p(rows if src_rows is None else src_rows), p(slot_of), lo,
         n_global, kernels.stream(rows),
     )
-    deliver_perm.launches += 1
     kernels.raise_on_error("deliver_perm", code)
     return rows_out, tx_out, msgs_out, hops_out, next_out
 

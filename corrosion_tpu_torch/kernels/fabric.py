@@ -1,16 +1,21 @@
-"""``bits_pack`` / ``bits_unpack`` and ``route_pack`` / ``route_slots``:
+"""``bits_pack`` / ``bits_unpack``, ``route_pack`` and ``ring_receive``:
 the compute steps around the shard fabric's collectives
-(csrc/fabric.cu).
+(csrc/fabric.cu, csrc/deliver_perm.cu).
 
 ``bits_pack`` / ``bits_unpack`` replace corrosion_tpu/models/sharded.py
 ``_pack_bits`` (:57) / ``_unpack_bits`` (:68), the multi-host layout's
 wire encoding of a validity mask (LSB first, one bit a row).
-``route_pack`` / ``route_slots`` replace the demand marks, the capped
-per-destination packing and the received-id slot map of
-``sharded_broadcast_step_ring`` (:216-259).  ``route_pack`` is three
-launches over the whole card (mark, count, write; csrc/fabric.cu) that
-meet in a scratch buffer (``_scratch``, one a device and stream) whose
-marks the kernels leave zero.  Bound on the H100: bytes.
+``route_pack`` replaces the demand marks and the capped per-destination
+packing of ``sharded_broadcast_step_ring`` (:216-248), ``ring_receive``
+its receive side, the received-id slot map and the delivery
+(:253-279).  ``route_pack`` is three launches over the whole card
+(mark, count, write; csrc/fabric.cu) that meet in a scratch buffer
+(``_scratch``, one a device and stream) whose marks the kernels leave
+zero.  ``ring_receive`` is one host call, two kernels of
+csrc/deliver_perm.cu under programmatic dependent launch (the slot
+map, then the delivery) over a slot map kept a device and stream
+(``_slot_map``) whose entries carry the call's generation, so it is
+never filled between calls.  Bound on the H100: bytes.
 """
 
 from __future__ import annotations
@@ -20,14 +25,18 @@ import ctypes
 import torch
 
 from corrosion_tpu_torch import kernels
+from corrosion_tpu_torch.kernels.deliver import MAX_ROWS, deliver_perm_plain
 
 _PACK_ARGTYPES = (ctypes.c_void_p, ctypes.c_void_p, ctypes.c_longlong,
                   ctypes.c_void_p)
 _ROUTE_ARGTYPES = ((ctypes.c_void_p,) * 7 + (ctypes.c_int,) * 7
                    + (ctypes.c_void_p,))
-_SLOTS_ARGTYPES = (ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
-                   ctypes.c_int, ctypes.c_void_p)
+_RECEIVE_ARGTYPES = ((ctypes.c_void_p,) * 12
+                     + (ctypes.c_int,) * 3 + (ctypes.c_float,)
+                     + (ctypes.c_int,) * 5 + (ctypes.c_uint, ctypes.c_void_p))
+_GENERATIONS = 2**32  # a tag holds a 32-bit generation
 _SCRATCH: dict = {}
+_SLOT_MAPS: dict = {}
 
 
 def _scratch(device, n_local: int, d: int) -> torch.Tensor:
@@ -198,7 +207,9 @@ def _pack_into(senders, active_l, rows_l, shard: int, send_ids, send_rows,
 
 
 def route_slots_plain(recv_ids, n: int):
-    """Plain PyTorch version of :func:`route_slots`."""
+    """recv_ids [Q] int32 (unique global ids, -1 pads) -> slot_of [n]
+    int32: the position of each received id, -1 where it is absent (the
+    reference's slot map, ``sharded.py`` :253-259)."""
     slot_of = torch.full((n,), -1, dtype=torch.int32, device=recv_ids.device)
     ok = recv_ids >= 0
     q = torch.arange(recv_ids.numel(), dtype=torch.int32,
@@ -207,24 +218,117 @@ def route_slots_plain(recv_ids, n: int):
     return slot_of
 
 
-def route_slots(recv_ids, n: int):
-    """recv_ids [Q] int32 (unique global ids, -1 pads) -> slot_of [n]
-    int32: the position of each received id, -1 where it is absent."""
-    if recv_ids.dtype != torch.int32 or recv_ids.dim() != 1:
-        raise ValueError("route_slots: recv_ids must be int32 [Q]")
-    if kernels.on_cpu(recv_ids):
-        return route_slots_plain(recv_ids, n)
-    kernels.check("route_slots recv_ids", recv_ids, torch.int32)
-    slot_of = torch.empty((n,), dtype=torch.int32, device=recv_ids.device)
-    fn = kernels.function("fabric", "route_slots_launch", _SLOTS_ARGTYPES)
-    code = fn(kernels.ptr(recv_ids), kernels.ptr(slot_of), recv_ids.numel(),
-              n, kernels.stream(recv_ids))
-    route_slots.launches += 1
-    kernels.raise_on_error("route_slots", code)
-    return slot_of
+def route_order_bad(recv_ids, n: int) -> torch.Tensor:
+    """[1] int32, 1 where ``recv_ids`` [D, cap] breaks ``route_pack``'s
+    contract (section e ascends within source shard e's rows
+    ``[e * n // D, (e + 1) * n // D)``, then -1 pads), else 0."""
+    d, cap = recv_ids.shape
+    n_local = n // d
+    lo = torch.arange(d, device=recv_ids.device)[:, None] * n_local
+    valid = recv_ids >= 0
+    ok = torch.where(valid, (recv_ids >= lo) & (recv_ids < lo + n_local),
+                     recv_ids == -1)
+    ok[:, 1:] &= ~valid[:, 1:] | (valid[:, :-1]
+                                  & (recv_ids[:, :-1] < recv_ids[:, 1:]))
+    return (~ok.all()).to(torch.int32).reshape(1)
+
+
+def ring_receive_plain(rows, tx, msgs, senders, recv_ids, recv_rows, *,
+                       loss_u=None, loss=0.0, max_tx=8, lo=0):
+    """Plain PyTorch version of :func:`ring_receive`: the slot map of
+    ``route_slots_plain``, ``deliver_perm_plain`` through it, and the
+    contract flag of ``route_order_bad``."""
+    n = senders.shape[1]
+    slot_of = route_slots_plain(recv_ids.reshape(-1), n)
+    out = deliver_perm_plain(
+        rows, tx, msgs, senders, loss_u=loss_u, loss=loss, max_tx=max_tx,
+        src_rows=recv_rows.reshape(-1, rows.shape[1]), slot_of=slot_of,
+        lo=lo)
+    return (*out[:3], route_order_bad(recv_ids, n))
+
+
+def _slot_map(device, n: int) -> list:
+    """``ring_receive``'s slot map on ``device``'s current stream and the
+    generation of the call about to use it: [map, generation], the map
+    [n + 1] int64 tags, ``(generation << 32) | slot`` for each id a call
+    received and then the flag word, zero (no generation) when made.
+    Each call takes the next generation, so the entries earlier calls
+    left are never taken for its own; when the 32-bit count wraps, the
+    map is zeroed again."""
+    key = (device, torch.cuda.current_stream(device).cuda_stream)
+    held = _SLOT_MAPS.get(key)
+    if held is None or held[0].numel() != n + 1:
+        held = [torch.zeros(n + 1, dtype=torch.int64, device=device), 0]
+        _SLOT_MAPS[key] = held
+    held[1] += 1
+    if held[1] == _GENERATIONS:
+        held[0].zero_()
+        held[1] = 1
+    return held
+
+
+def ring_receive(rows, tx, msgs, senders, recv_ids, recv_rows, *,
+                 loss_u=None, loss=0.0, max_tx=8, lo=0):
+    """The ring fabric's receive side for the receivers ``[lo, lo + n)``:
+    the received ids' slot map and the delivery from the received rows
+    (``deliver_perm`` with that source), in one call.
+
+    rows [n, R], tx, msgs [n] int32, my receivers' leaves; senders [K, N]
+    int32 maps; recv_ids [D, cap] int32 and recv_rows [D, cap, R] int32
+    as the all_to_all delivered ``route_pack``'s buffers, block e from
+    source shard e; loss_u [N, K] float32 draws or None.  The ids must
+    keep ``route_pack``'s contract: block e holds ids of shard e's rows
+    ``[e * N // D, (e + 1) * N // D)`` in ascending order, then -1 pads
+    (so no id comes twice).  Returns (rows, tx, msgs, bad) as new
+    tensors, ``bad`` [1] int32 nonzero where the ids break that
+    contract: the other outputs are then not the delivery's."""
+    k, n_global = senders.shape
+    n, r = rows.shape
+    if recv_ids.dim() != 2 or recv_rows.shape != (*recv_ids.shape, r):
+        raise ValueError(f"ring_receive: recv_ids [D, cap] and recv_rows "
+                         f"[D, cap, {r}], got {tuple(recv_ids.shape)} and "
+                         f"{tuple(recv_rows.shape)}")
+    d, cap = recv_ids.shape
+    if n_global % d or cap > n_global // d or not 0 <= lo <= n_global - n:
+        raise ValueError(f"ring_receive: {n} receivers from {lo} and "
+                         f"{d} x {cap} slots over {n_global} nodes")
+    args = dict(loss_u=loss_u, loss=loss, max_tx=max_tx, lo=lo)
+    if kernels.on_cpu(rows, tx, msgs, senders, recv_ids, recv_rows, loss_u):
+        return ring_receive_plain(rows, tx, msgs, senders, recv_ids,
+                                  recv_rows, **args)
+    if not 1 <= r <= MAX_ROWS:
+        raise ValueError(f"ring_receive: the kernel takes 1..{MAX_ROWS} "
+                         f"cells per row, got {r}")
+    i32 = torch.int32
+    kernels.check("ring_receive rows", rows, i32, (n, r), align=16)
+    kernels.check("ring_receive tx", tx, i32, (n,))
+    kernels.check("ring_receive msgs", msgs, i32, (n,))
+    kernels.check("ring_receive senders", senders, i32, (k, n_global))
+    kernels.check("ring_receive recv_ids", recv_ids, i32, (d, cap))
+    kernels.check("ring_receive recv_rows", recv_rows, i32, (d, cap, r),
+                  align=16)
+    if loss_u is not None:
+        kernels.check("ring_receive loss_u", loss_u, torch.float32,
+                      (n_global, k))
+    dev = rows.device
+    tags, gen = _slot_map(dev, n_global)
+    # one allocation: rows, then tx, msgs and the flag
+    out = torch.empty(n * r + 2 * n + 1, dtype=i32, device=dev)
+    rows_out = out[:n * r].view(n, r)
+    tx_out, msgs_out, bad = out[n * r:].split((n, n, 1))
+    p = kernels.ptr
+    fn = kernels.function("deliver_perm", "ring_receive_launch",
+                          _RECEIVE_ARGTYPES)
+    code = fn(p(rows), p(tx), p(msgs), p(senders), p(loss_u), p(recv_ids),
+              p(recv_rows), p(tags), p(rows_out), p(tx_out), p(msgs_out),
+              p(bad), n, r, k, float(loss), int(max_tx), lo, n_global, d,
+              cap, gen, kernels.stream(rows))
+    ring_receive.launches += 1
+    kernels.raise_on_error("ring_receive", code)
+    return rows_out, tx_out, msgs_out, bad
 
 
 bits_pack.launches = 0
 bits_unpack.launches = 0
 route_pack.launches = 0
-route_slots.launches = 0
+ring_receive.launches = 0

@@ -14,8 +14,9 @@ tick key without moving them.
 * :func:`sharded_broadcast_step_ring` — the destination-sorted fabric:
   each shard ships each destination only its active sender rows that
   destination's receivers drew (``route_pack``), over one all_to_all,
-  and the receivers deliver through the slot map (``route_slots``);
-  at the default cap bitwise :func:`sharded_broadcast_step`;
+  and the receivers deliver through the received ids' slot map
+  (``ring_receive``); at the default cap bitwise
+  :func:`sharded_broadcast_step`;
 * :func:`sharded_seq_sync_step` — the seq bitmaps all_gathered, the
   ``seq_sync`` kernel on the gathered state, each shard keeping its rows;
 * the frontier layout (:func:`sharded_frontier_exact_step`, the ring
@@ -39,8 +40,8 @@ from corrosion_tpu_torch.kernels.exact_send import exact_commit
 from corrosion_tpu_torch.kernels.fabric import (
     bits_pack,
     bits_unpack,
+    ring_receive,
     route_pack,
-    route_slots,
 )
 from corrosion_tpu_torch.mesh import all_gather, all_reduce, all_to_all
 from corrosion_tpu_torch.models.broadcast import BroadcastParams, _perm_senders
@@ -148,15 +149,12 @@ def _ring_local(sh, st: BroadcastShard, key, params, n_local, cap):
                                                  sh, cap)
     recv_ids = yield all_to_all(send_ids, "ids")
     recv_rows = yield all_to_all(send_rows, "rows")
-    slot_of = route_slots(recv_ids.reshape(-1), params.n_nodes)
-    rows, tx, msgs, _, _ = deliver_perm(
-        st.rows, st.tx, st.msgs, senders,
+    rows, tx, msgs, bad = ring_receive(
+        st.rows, st.tx, st.msgs, senders, recv_ids, recv_rows,
         loss_u=_loss_u(key_l, params, dev), loss=params.loss,
-        max_tx=params.max_transmissions,
-        src_rows=recv_rows.reshape(-1, st.rows.shape[1]), slot_of=slot_of,
-        lo=sh * n_local)
+        max_tx=params.max_transmissions, lo=sh * n_local)
     overflow = yield all_reduce(overflow_l, "overflow")
-    return BroadcastShard(rows, tx, msgs), int(overflow[0])
+    return BroadcastShard(rows, tx, msgs), overflow, bad
 
 
 def sharded_broadcast_step_ring(mesh, params: BroadcastParams,
@@ -167,7 +165,8 @@ def sharded_broadcast_step_ring(mesh, params: BroadcastParams,
     :func:`sharded_broadcast_step`) of its active rows that
     destination's receivers drew, ids and rows over one all_to_all; the
     overflow — needed rows that did not fit, summed over the shards —
-    is exact."""
+    is exact.  The step raises where a shard received ids out of
+    ``route_pack``'s order (``ring_receive``'s flag)."""
     n_local = _n_local(mesh, params.n_nodes)
     cap = n_local if slot_cap is None else min(slot_cap, n_local)
 
@@ -175,7 +174,14 @@ def sharded_broadcast_step_ring(mesh, params: BroadcastParams,
         out = mesh.run(_ring_local, {
             sh: (state[sh], key, params, n_local, cap)
             for sh in mesh.local_shards})
-        overflow = next(iter(out.values()))[1]
+        # the overflow (every shard's copy is the sum) and each shard's
+        # flag, in one read
+        overflow, *bad = torch.cat(
+            [next(iter(out.values()))[1]] + [o[2] for o in out.values()]
+        ).tolist()
+        if any(bad):
+            raise RuntimeError("the ring fabric received ids out of "
+                               "route_pack's order")
         return (state.replace({sh: o[0] for sh, o in out.items()},
                               state.tick + 1), overflow)
 
