@@ -133,8 +133,12 @@ package.  Phases, each ending the run with a non-zero exit on failure:
     require every ``MergeDecision`` field and ``impacted`` bitwise equal
     to the NumPy twin's and the plain torch core's on the card; then
     hold ``seg_cummax``, ``winners_a`` and ``winners_b`` (and the int64
-    sort) against their plain versions on that batch's intermediates
-    and time them with CUDA events;
+    sort) against their plain versions on the four batches'
+    intermediates and on edge batches (n = 1, 31, 32, 33 and 4097, one
+    row of 5,000 changes, rows of one change, a cell's accepts across
+    warps, sentinels only, one and 64 columns; cold and warm, whose
+    whole call must equal the NumPy twin's), time them with CUDA events,
+    the winner passes behind a GPU sleep;
 16. hold ``store_set`` and ``store_gather`` (the device clock cache's
     store) against their plain versions and NumPy on the card, bitwise,
     at n in {0, 1, 2500, 10000, 65536, 262144} into arrays of 1024,
@@ -200,25 +204,28 @@ package.  Phases, each ending the run with a non-zero exit on failure:
 
 ``python3 chip_smoke.py --parent DIR`` (DIR an unpacked ``git
 archive`` of the parent commit) also builds the parent's ``swim.cu``,
-``exact_send.cu``, ``threefry.cu``, ``sent_sampler.cu``, ``fabric.cu``
-and ``deliver_perm.cu`` and requires their kernels to write what this
-tree's write: ``threefry_bits`` in every case of phase 2, the 2**32
+``exact_send.cu``, ``threefry.cu``, ``sent_sampler.cu``, ``fabric.cu``,
+``deliver_perm.cu`` and ``winners.cu`` and requires their kernels to
+write what this tree's write: ``threefry_bits`` in every case of phase 2, the 2**32
 window included, the headline's ``deliver_perm`` (phase 2),
 ``swim_probe_select`` at N = 64 and 4096 (phase 8; there
 the parent's dissemination is timed in turns with this tree's, and
 the whole tick with each),
 ``exact_send<Bitmap>`` at phase 5's timed ticks, ``route_pack`` in
-every case of phase 17a, its ``route_slots`` and ``deliver_perm`` in
-every ``ring_receive`` case and its delivery from the all_gather
+every case of phase 17a, its ``ring_receive`` in every case and
+its delivery from the all_gather
 fabric's source, ``shard_round`` and ``shard_commit`` in phase
-17b's timed cases (both commits from restored copies); each pair is
+17b's timed cases (both commits from restored copies), ``winners_a``
+and ``winners_b`` on every phase-15 batch; each pair is
 timed in turns (parent, change, change, parent): the headline's
 ``deliver_perm`` (the ``{"deliver_perm": ...}`` line), ``route_pack``
 and ``ring_receive`` at shard 3 of 8 at caps 12,500 and 256 and the
 all_gather delivery (the ``{"route_pack": ...}``, ``{"ring_receive":
-...}`` and ``{"deliver_perm (source, window)": ...}`` lines).
-Phase 1 then also prints whether each ``sent_select`` instantiation's
-opcode counts equal the parent's.
+...}`` and ``{"deliver_perm (source, window)": ...}`` lines), the
+winner passes behind a GPU sleep at 2**20, interleaved and pk-grouped
+(the ``{"winners_kernels": ...}`` line).  Phase 1 then also prints
+whether each ``sent_select`` and ``seg_cummax`` function's opcode
+counts equal the parent's.
 
 Prints the card line, the ``kernels`` JSON line and, last, the
 ``{"ok": true, "device": ...}`` line; writes the full record (with
@@ -376,21 +383,28 @@ def build_library(src: str, lib: str) -> list:
 
 class ParentDesign:
     """The parent commit's ``swim.cu``, ``exact_send.cu``, ``threefry.cu``,
-    ``sent_sampler.cu``, ``fabric.cu`` and ``deliver_perm.cu``, built
+    ``sent_sampler.cu``, ``fabric.cu``, ``deliver_perm.cu`` and
+    ``winners.cu``, built
     from a checkout of it (``--parent DIR``, one ``nvcc`` each, all at
     once) and launched as its wrappers launched them, for timing beside
     this tree's kernels in one run (``sent_sampler`` only for its SASS).
     The C interfaces of ``swim_launch``, ``exact_send_launch``,
-    ``shard_launch``, ``route_pack_launch``, ``deliver_perm_launch`` and
-    ``threefry_launch`` are unchanged since, so this tree's wrappers fill
-    their arguments (``kernels.swim.prepare``, ``exact_send.send_args``,
+    ``shard_launch``, ``route_pack_launch``, ``deliver_perm_launch``,
+    ``ring_receive_launch`` and ``threefry_launch`` are unchanged since,
+    so this tree's wrappers fill their arguments
+    (``kernels.swim.prepare``, ``exact_send.send_args``,
     ``shard_exact.round_args`` / ``commit_args``, ``threefry._ARGTYPES``,
-    ``deliver.launch``; ``route_pack``'s scratch argument is the parent's
-    zeroed byte marks); ``route_slots_launch``, which this tree no
-    longer has, is typed here."""
+    ``deliver.launch``, ``fabric._RECEIVE_ARGTYPES`` on this tree's slot
+    map; ``route_pack``'s scratch argument is the parent's zeroed byte
+    marks); ``winners_a_launch``, whose pk_pos pointer this tree added,
+    is typed here."""
 
     SOURCES = ("swim", "exact_send", "threefry", "sent_sampler", "fabric",
-               "deliver_perm")
+               "deliver_perm", "winners")
+    # winners_a_launch without the pk_pos pointer; winners_b_launch took
+    # pk in stream order where this tree's takes pk_pos
+    WINNERS_A_ARGTYPES = ((ctypes.c_void_p,) * 6 + (ctypes.c_longlong,)
+                          + (ctypes.c_void_p,) * 6)
 
     def __init__(self, root: str):
         from corrosion_tpu_torch import kernels
@@ -433,26 +447,27 @@ class ParentDesign:
 
     def ring_receive(self, rows, tx, msgs, senders, recv_ids, recv_rows,
                      loss_u, loss, max_tx, lo):
-        """The parent's receive side of the ring fabric: its
-        ``route_slots`` (a fill, then a scatter) into a fresh slot map,
-        then its ``deliver_perm`` from the received rows; returns (rows,
-        tx, msgs)."""
+        """The parent's ``ring_receive`` (``ring_receive``'s arguments,
+        positional) on this tree's slot map and its next generation;
+        returns (rows, tx, msgs)."""
         from corrosion_tpu_torch import kernels
+        from corrosion_tpu_torch.kernels import fabric
 
-        n = senders.shape[1]
-        slot_of = torch.empty((n,), dtype=torch.int32, device=rows.device)
-        self._launch("fabric", "route_slots_launch",
-                     (ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
-                      ctypes.c_int, ctypes.c_void_p),
-                     kernels.ptr(recv_ids), kernels.ptr(slot_of),
-                     recv_ids.numel(), n, kernels.stream(rows))
-        return self.deliver_perm(
-            rows, tx, msgs, senders, hops=None, next_send=None, tick=0,
-            loss_u=loss_u, wan_u=None, region=None, partition_id=None,
-            sev=None, partition_active=False, tier=None, loss=loss,
-            wan_loss=0.0, max_tx=max_tx, backoff=0.0,
-            src_rows=recv_rows.reshape(-1, rows.shape[1]), slot_of=slot_of,
-            lo=lo)[:3]
+        (n, r), (k, n_global), (d, cap) = (rows.shape, senders.shape,
+                                           recv_ids.shape)
+        tags, gen = fabric._slot_map(rows.device, n_global)
+        out = torch.empty(n * r + 2 * n + 1, dtype=torch.int32,
+                          device=rows.device)
+        rows_out = out[:n * r].view(n, r)
+        tx_out, msgs_out, bad = out[n * r:].split((n, n, 1))
+        p = kernels.ptr
+        self._launch("deliver_perm", "ring_receive_launch",
+                     fabric._RECEIVE_ARGTYPES, p(rows), p(tx), p(msgs),
+                     p(senders), p(loss_u), p(recv_ids), p(recv_rows),
+                     p(tags), p(rows_out), p(tx_out), p(msgs_out), p(bad),
+                     n, r, k, float(loss), int(max_tx), lo, n_global, d,
+                     cap, gen, kernels.stream(rows))
+        return rows_out, tx_out, msgs_out
 
     def route_pack(self, senders, active_l, rows_l, shard: int, cap: int):
         """The parent's ``route_pack`` (``route_pack``'s arguments) on the
@@ -559,6 +574,32 @@ class ParentDesign:
             msgs_b, sent_l, keys, lo, tick, p, tier)
         self._shard(sa, sent_l, True, active)
         return new_infected
+
+
+    def winners_a(self, oA, prev, pk, cl, sent, seed_cl, final_cl,
+                  sent_flag, ensure, part, counts) -> None:
+        """The parent's ``winners_a`` (``winners_a``'s arguments; it
+        writes no pk_pos)."""
+        from corrosion_tpu_torch import kernels
+
+        p = kernels.ptr
+        self._launch("winners", "winners_a_launch", self.WINNERS_A_ARGTYPES,
+                     p(oA), p(prev), p(pk), p(cl), p(sent), p(seed_cl),
+                     oA.shape[0], p(final_cl), p(sent_flag), p(ensure),
+                     p(part), p(counts), kernels.stream(oA))
+
+    def winners_b(self, oB, prev, pk, cid, cl, key, part, seed_key,
+                  final_cl, n_cid, winner, clrow, counts) -> None:
+        """The parent's ``winners_b`` (``winners_b``'s arguments with pk
+        in stream order in place of pk_pos)."""
+        from corrosion_tpu_torch import kernels
+        from corrosion_tpu_torch.kernels import winners
+
+        p = kernels.ptr
+        self._launch("winners", "winners_b_launch", winners._B_ARGTYPES,
+                     p(oB), p(prev), p(pk), p(cid), p(cl), p(key), p(part),
+                     p(seed_key), p(final_cl), oB.shape[0], n_cid,
+                     p(winner), p(clrow), p(counts), kernels.stream(oB))
 
 
 # threefry_bits' small sizes (every tail of a 4-word group, more than one
@@ -3061,104 +3102,265 @@ def winners_full_width(counted) -> dict:
                 numpy_s=numpy_s, call_s=call_s, launches=launches)
             plans[label] = plan
             print(f"winners {label}: " + json.dumps(runs[label]), flush=True)
-    return runs, plans["interleaved_warm"]
+    return runs, plans
 
 
-def winners_kernel_checks(plan, dev) -> list:
+# value columns of every type, as profile_tick.RESYNC_VALUES
+WINNERS_VALUES = (None, 1, -4, 2.5, "x", b"\x01", "yy", "")
+WINNERS_TIMED = ("interleaved_warm", "pk_grouped_warm")
+
+
+def winners_edge_plans() -> dict:
+    """Phase 15's edge batches, drawn with numpy from a seed through
+    ``encode_changes``, cold and warm: n = 1, 31, 32, 33 and 4097 (either
+    side of a warp's tile and of a block's), one row of 5,000 changes
+    between short rows (cl rising with the stream, so a tile's partial
+    max is below the row's final), 1,000 rows of one change, one cell's
+    300 accepts after 50 other changes (in stream order and shuffled:
+    the cell crosses warps' tiles), sentinels only, one column and 64."""
+    from corrosion_tpu_torch.ops import merge
+
+    rng = np.random.default_rng(15)
+
+    def recs(pks, cols, sentinel=0.25, cl=None):
+        n = len(pks)
+        sent = rng.random(n) < sentinel
+        cid = rng.integers(0, cols, n)
+        cl = rng.integers(1, 6, n) if cl is None else cl
+        ver = rng.integers(1, 5, n)
+        val = rng.integers(0, len(WINNERS_VALUES), n)
+        return [(f"p{p}", None, int(c), 0, None) if s
+                else (f"p{p}", f"c{ci}", int(c), int(v), WINNERS_VALUES[x])
+                for p, s, ci, c, v, x in zip(pks, sent, cid, cl, ver, val)]
+
+    cell = (recs(rng.integers(1, 10, 50), 4)
+            + [("p0", "c1", 1, v + 1, WINNERS_VALUES[v % 8])
+               for v in range(300)])
+    batches = {f"n = {n}": (recs(rng.integers(0, max(1, n // 4), n), 4), 4)
+               for n in (1, 31, 32, 33, 4097)}
+    batches.update({
+        "one row of 5,000": (
+            recs(rng.integers(1, 20, 37), 4)
+            + recs(np.zeros(5000, np.int64), 4,
+                   cl=1 + np.arange(5000) * 5 // 5000)
+            + recs(rng.integers(1, 20, 91), 4), 4),
+        "1,000 rows of one change": (recs(rng.permutation(1000), 4), 4),
+        "a cell's 300 accepts": (cell, 4),
+        "a cell's 300 accepts, shuffled": (
+            [cell[i] for i in rng.permutation(len(cell))], 4),
+        "sentinels only": (recs(rng.integers(0, 120, 500), 4, 1.0), 4),
+        "one column": (recs(rng.integers(0, 300, 2000), 1), 1),
+        "64 columns": (recs(rng.integers(0, 300, 2000), 64), 64)})
+    plans = {}
+    for label, (records, cols) in batches.items():
+        rows = sorted({r[0] for r in records})
+        seed_cls = {p: int(rng.integers(1, 5)) for p in rows
+                    if rng.random() < 0.9}
+        seed_cells = {(p, f"c{c}"): (int(rng.integers(1, 5)),
+                                     WINNERS_VALUES[int(rng.integers(0, 4))])
+                      for p in seed_cls for c in range(cols)
+                      if rng.random() < 0.5}
+        for mode, seeds in (("cold", ({}, {})),
+                            ("warm", (seed_cls, seed_cells))):
+            plan = merge.encode_changes(records, *seeds)
+            if plan is None:
+                fail(f"winners edge batch {label}, {mode}: not encodable")
+            plans[f"{label}, {mode}"] = plan
+    return plans
+
+
+class WinnersPasses:
+    """One plan's intermediates on the card (the two orders by
+    ``seg_argsort``) and its two winner passes: this tree's kernels,
+    their plain versions and, when given, the parent's kernels, each
+    into fresh result views."""
+
+    def __init__(self, plan, dev, parent=None):
+        from corrosion_tpu_torch.kernels import seg_sort, winners
+
+        def put(a):
+            return torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+
+        self.w, self.parent, self.dev = winners, parent, dev
+        self.pk, self.cid, self.sent, self.cl, self.key = (
+            put(getattr(plan, f)) for f in ("pk", "cid", "sent", "cl", "key"))
+        self.seed_cl, self.seed_key = put(plan.seed_cl), put(plan.seed_key)
+        self.n, self.n_pk, self.n_cid = plan.n, plan.n_pk, plan.n_cid
+        self.comp = self.pk * (self.n_cid + 2) + (self.cid + 1)
+        self.bits_b = ((self.n_pk - 1) * (self.n_cid + 2)
+                       + self.n_cid).bit_length()
+        self.o_a = seg_sort.seg_argsort(
+            self.pk[None], (self.n_pk - 1).bit_length())[0]
+        self.o_b = seg_sort.seg_argsort(self.comp[None], self.bits_b)[0]
+        self.prev_a = winners.seg_cummax(self.o_a, self.pk, self.cl)
+
+    def outputs(self):
+        from corrosion_tpu_torch.kernels.winners import BIG
+
+        z = torch.zeros(self.n_pk, dtype=torch.int64, device=self.dev)
+        return dict(
+            final_cl=self.seed_cl.clone(), sent_flag=z.clone(),
+            ensure=z.clone(),
+            part=torch.zeros(self.n, dtype=torch.bool, device=self.dev),
+            counts=torch.zeros(3, dtype=torch.int64, device=self.dev),
+            winner=torch.full((self.n_pk * self.n_cid,), -1,
+                              dtype=torch.int64, device=self.dev),
+            clrow=torch.full((self.n_pk,), BIG, dtype=torch.int64,
+                             device=self.dev))
+
+    def run_a(self, fn, o):
+        """Domain A by ``fn`` into ``o``; returns its pk_pos (None from
+        the parent's kernel, which writes none)."""
+        return fn(self.o_a, self.prev_a, self.pk, self.cl, self.sent,
+                  self.seed_cl, o["final_cl"], o["sent_flag"], o["ensure"],
+                  o["part"], o["counts"])
+
+    def run_b(self, fn, o, pk_pos, prev_b, part, final_cl):
+        fn(self.o_b, prev_b, pk_pos, self.cid, self.cl, self.key, part,
+           self.seed_key, final_cl, self.n_cid, o["winner"], o["clrow"],
+           o["counts"])
+
+    def check(self) -> dict:
+        """Both passes by the kernels, the plain versions and the
+        parent's kernels; max |diff| of every output against the plain
+        versions' and the parent's (domain B on the plain versions'
+        part, final_cl and pk_pos for all three, so each pass is held
+        alone)."""
+        w = self.w
+        a_keys = ("final_cl", "sent_flag", "ensure", "part", "counts")
+        b_keys = ("winner", "clrow", "counts")
+        a_got, a_want = self.outputs(), self.outputs()
+        pos = self.run_a(w.winners_a, a_got)
+        pos_want = self.run_a(w.winners_a_plain, a_want)
+        res = {"a_err": max_abs_err([a_got[k] for k in a_keys] + [pos],
+                                    [a_want[k] for k in a_keys]
+                                    + [pos_want])}
+        part, final_cl = a_want["part"], a_want["final_cl"]
+        self.prev_b = w.seg_cummax(self.o_b, self.comp, self.key, mask=part)
+        b_got, b_want = self.outputs(), self.outputs()
+        self.run_b(w.winners_b, b_got, pos_want, self.prev_b, part, final_cl)
+        self.run_b(w.winners_b_plain, b_want, pos_want, self.prev_b, part,
+                   final_cl)
+        res["b_err"] = max_abs_err([b_got[k] for k in b_keys],
+                                   [b_want[k] for k in b_keys])
+        if self.parent is not None:
+            a_old, b_old = self.outputs(), self.outputs()
+            self.run_a(self.parent.winners_a, a_old)
+            self.run_b(self.parent.winners_b, b_old, self.pk, self.prev_b,
+                       part, final_cl)
+            res["a_parent_err"] = max_abs_err([a_got[k] for k in a_keys],
+                                              [a_old[k] for k in a_keys])
+            res["b_parent_err"] = max_abs_err([b_got[k] for k in b_keys],
+                                              [b_old[k] for k in b_keys])
+        self.part, self.final_cl, self.pk_pos = part, final_cl, pos_want
+        self.a_out, self.b_out = a_got, b_got
+        return res
+
+    def timers(self) -> dict:
+        """{pass: (this tree's launch, the parent's or None)} into
+        scratch views, on the plain versions' intermediates."""
+        w, old = self.w, self.parent
+        scratch = self.outputs()
+
+        def a(fn):
+            return lambda: self.run_a(fn, scratch)
+
+        def b(fn, pk):
+            return lambda: self.run_b(fn, scratch, pk, self.prev_b,
+                                      self.part, self.final_cl)
+
+        return {"winners_a": (a(w.winners_a), old and a(old.winners_a)),
+                "winners_b": (b(w.winners_b, self.pk_pos),
+                              old and b(old.winners_b, self.pk))}
+
+
+def winners_kernel_checks(plans: dict, dev, parent=None) -> list:
     """Each winner-selection kernel against its plain version on the
-    card, on the intermediates of ``plan`` (every output bitwise), timed
-    with CUDA events, with its bytes bound."""
+    card, and ``winners_a`` / ``winners_b`` against the parent's when
+    given, on the intermediates of the four 2**20 plans and of the edge
+    batches (every output bitwise; the edge batches' whole call also
+    against the NumPy twin); the kernels timed with their bytes bound,
+    the winner passes behind a GPU sleep in turns with the parent's."""
+    from corrosion_tpu_torch.convert import decision_diff
     from corrosion_tpu_torch.kernels import seg_sort, winners
-    from corrosion_tpu_torch.kernels.winners import BIG
+    from corrosion_tpu_torch.ops import merge
 
-    def put(a):
-        return torch.from_numpy(np.ascontiguousarray(a)).to(dev)
-
-    pk, cid, sent, cl, key = (put(getattr(plan, f)) for f in (
-        "pk", "cid", "sent", "cl", "key"))
-    seed_cl, seed_key = put(plan.seed_cl), put(plan.seed_key)
-    n, n_pk, n_cid = plan.n, plan.n_pk, plan.n_cid
-    comp = pk * (n_cid + 2) + (cid + 1)
-    bits_b = ((n_pk - 1) * (n_cid + 2) + n_cid).bit_length()
-    sort_args = (comp[None], bits_b)
-    o_b = seg_sort.seg_argsort(*sort_args)[0]
-    o_a = seg_sort.seg_argsort(pk[None], (n_pk - 1).bit_length())[0]
-    err = max(max_abs_err([o_b], [seg_sort.seg_argsort_plain(
-        *sort_args)[0]]), max_abs_err([o_a], [seg_sort.seg_argsort_plain(
-            pk[None], (n_pk - 1).bit_length())[0]]))
+    cases, kept = [], {}
+    for label, plan in {**plans, **winners_edge_plans()}.items():
+        if plan.n < 1 << 20:
+            diff = decision_diff(
+                merge.select_winners(plan, backend="torch", device="cuda"),
+                merge.select_winners(plan, backend="numpy"))
+            if diff:
+                fail(f"winners {label}: the kernels differ from the NumPy "
+                     f"twin in {diff}")
+        passes = WinnersPasses(plan, dev, parent)
+        errs = passes.check()
+        cases.append(dict(case=label, n=plan.n, n_pk=plan.n_pk,
+                          n_cid=plan.n_cid, **errs))
+        if any(errs.values()):
+            fail(f"winners {label}: the winner passes differ: {errs}")
+        if label in WINNERS_TIMED:
+            kept[label] = passes
+    print(f"winners_a / winners_b bitwise their plain versions"
+          f"{' and the parent' if parent else ''} in {len(cases)} batches",
+          flush=True)
+    t = kept[WINNERS_TIMED[0]]
+    sort_args = (t.comp[None], t.bits_b)
+    err = max(max_abs_err([t.o_b], [seg_sort.seg_argsort_plain(
+        *sort_args)[0]]), max_abs_err([t.o_a], [seg_sort.seg_argsort_plain(
+            t.pk[None], (t.n_pk - 1).bit_length())[0]]))
+    n, n_pk, n_cid = t.n, t.n_pk, t.n_cid
     res = [dict(
         name="seg_argsort (int64, one segment)", max_abs_err=err,
         ms=time_device_ms(lambda: seg_sort.seg_argsort(*sort_args), 20),
         plain_ms=time_ms(lambda: seg_sort.seg_argsort_plain(*sort_args), 5),
-        library_ms=time_device_ms(lambda: torch.sort(comp, stable=True), 20),
+        library_ms=time_device_ms(lambda: torch.sort(t.comp, stable=True),
+                                  20),
         bound=(n * (8 + 4), 0),
-        shape=f"int64 [1, {n}], {bits_b} key bits (the (pk, cid) sort)")]
+        shape=f"int64 [1, {n}], {t.bits_b} key bits (the (pk, cid) sort)")]
+    err = max(max_abs_err([t.prev_a], [winners.seg_cummax_plain(
+        t.o_a, t.pk, t.cl)]), max_abs_err([t.prev_b], [
+            winners.seg_cummax_plain(t.o_b, t.comp, t.key, mask=t.part)]))
 
-    def outputs():
-        final_cl = seed_cl.clone()
-        zeros = torch.zeros(n_pk, dtype=torch.int64, device=dev)
-        return dict(final_cl=final_cl, sent_flag=zeros.clone(),
-                    ensure=zeros.clone(),
-                    part=torch.zeros(n, dtype=torch.bool, device=dev),
-                    counts=torch.zeros(3, dtype=torch.int64, device=dev),
-                    winner=torch.full((n_pk * n_cid,), -1, dtype=torch.int64,
-                                      device=dev),
-                    clrow=torch.full((n_pk,), BIG, dtype=torch.int64,
-                                     device=dev))
+    def device_ms(fn):
+        return time_device_ms(fn, 20)
 
-    def run_a(fn, o):
-        fn(o_a, prev_a, pk, cl, sent, seed_cl, o["final_cl"],
-           o["sent_flag"], o["ensure"], o["part"], o["counts"])
-        return o
-
-    def run_b(fn, o):
-        fn(o_b, prev_b, pk, cid, cl, key, part, seed_key, final_cl, n_cid,
-           o["winner"], o["clrow"], o["counts"])
-        return o
-
-    prev_a = winners.seg_cummax(o_a, pk, cl)
-    err = max_abs_err([prev_a], [winners.seg_cummax_plain(o_a, pk, cl)])
-    a_got = run_a(winners.winners_a, outputs())
-    a_want = run_a(winners.winners_a_plain, outputs())
+    turns = {label: {name: in_turns(mine, old, device_ms)
+                     for name, (mine, old) in p.timers().items()}
+             for label, p in kept.items()}
+    scratch = t.outputs()
     a_keys = ("final_cl", "sent_flag", "ensure", "part", "counts")
-    a_err = max_abs_err([a_got[k] for k in a_keys],
-                        [a_want[k] for k in a_keys])
-    part, final_cl = a_got["part"], a_got["final_cl"]
-    prev_b = winners.seg_cummax(o_b, comp, key, mask=part)
-    err = max(err, max_abs_err([prev_b], [winners.seg_cummax_plain(
-        o_b, comp, key, mask=part)]))
-    b_got = run_b(winners.winners_b, outputs())
-    b_want = run_b(winners.winners_b_plain, outputs())
-    b_keys = ("winner", "clrow", "counts")
-    b_err = max_abs_err([b_got[k] for k in b_keys],
-                        [b_want[k] for k in b_keys])
-    scratch = outputs()
     res += [
         dict(name="seg_cummax", max_abs_err=err,
-             ms=time_ms(lambda: winners.seg_cummax(o_b, comp, key,
-                                                   mask=part), 20),
+             ms=time_ms(lambda: winners.seg_cummax(t.o_b, t.comp, t.key,
+                                                   mask=t.part), 20),
              plain_ms=time_ms(lambda: winners.seg_cummax_plain(
-                 o_b, comp, key, mask=part), 3),
+                 t.o_b, t.comp, t.key, mask=t.part), 3),
              library_ms=None,
              # order, the segment key and the value read, the mask, out
              bound=(n * (4 + 8 + 8 + 1 + 8), 0),
              shape=f"domain B, n = {n}"),
-        dict(name="winners_a", max_abs_err=a_err,
-             ms=time_ms(lambda: run_a(winners.winners_a, scratch), 20),
-             plain_ms=time_ms(lambda: run_a(winners.winners_a_plain,
-                                            outputs()), 3),
+        dict(name="winners_a", max_abs_err=max(c["a_err"] for c in cases),
+             ms=turns[WINNERS_TIMED[0]]["winners_a"]["ms"],
+             plain_ms=time_ms(lambda: t.run_a(winners.winners_a_plain,
+                                              t.outputs()), 3),
              library_ms=None,
-             bound=(nbytes(o_a, prev_a, pk, cl, sent, seed_cl,
-                           *(a_got[k] for k in a_keys)), 0),
-             shape=f"n = {n}, {n_pk} rows"),
-        dict(name="winners_b", max_abs_err=b_err,
-             ms=time_ms(lambda: run_b(winners.winners_b, scratch), 20),
-             plain_ms=time_ms(lambda: run_b(winners.winners_b_plain,
-                                            outputs()), 3),
+             # the function's inputs and outputs; pk_pos is the design's
+             bound=(nbytes(t.o_a, t.prev_a, t.pk, t.cl, t.sent, t.seed_cl,
+                           *(t.a_out[k] for k in a_keys)), 0),
+             shape=f"n = {n}, {n_pk} rows", turns=turns, cases=cases),
+        dict(name="winners_b", max_abs_err=max(c["b_err"] for c in cases),
+             ms=turns[WINNERS_TIMED[0]]["winners_b"]["ms"],
+             plain_ms=time_ms(lambda: t.run_b(
+                 winners.winners_b_plain, scratch, t.pk_pos, t.prev_b,
+                 t.part, t.final_cl), 3),
              library_ms=None,
-             bound=(nbytes(o_b, prev_b, pk, cid, cl, key, part, seed_key,
-                           final_cl, *(b_got[k] for k in b_keys)), 0),
-             shape=f"n = {n}, {n_pk} x {n_cid} cells"),
+             bound=(nbytes(t.o_b, t.prev_b, t.pk, t.cid, t.cl, t.key,
+                           t.part, t.seed_key, t.final_cl,
+                           *(t.b_out[k] for k in ("winner", "clrow",
+                                                  "counts"))), 0),
+             shape=f"n = {n}, {n_pk} x {n_cid} cells", turns=turns),
     ]
     for r in res:
         set_bound(r)
@@ -3809,7 +4011,7 @@ def ring_receive_cases(fabric, dev, parent=None):
     ``route_pack`` buffers and delivers them through ``ring_receive``,
     bitwise ``ring_receive_plain`` (``route_slots_plain`` and
     ``deliver_perm_plain``) and, with ``parent``, the parent's
-    ``route_slots`` and ``deliver_perm``, its flag clear; every call
+    ``ring_receive``, its flag clear; every call
     finds the earlier calls' tags in the one slot map.  Then four
     broken orders of received ids (two ids swapped, an id after the
     pads, an id of another shard's rows, a pad other than -1), which
@@ -3966,7 +4168,7 @@ def fabric_kernel_checks(dev, parent=None) -> list:
         shape=f"K={k} x {n} maps, shard {sh} of {d}, cap {nl}, R={r}"))
 
     # the receive side: ring_receive at shard 3, caps 12,500 and 256, in
-    # turns with the parent's route_slots and deliver_perm
+    # turns with the parent's
     recv_err, recv_cases = ring_receive_cases(state, dev, parent)
     cases += recv_cases
     mine = (rows[w].contiguous(), tx[w].contiguous(), msgs[w].contiguous(),
@@ -4790,8 +4992,8 @@ def main() -> int:
     ap.add_argument("--parent", help="a checkout of the parent commit: "
                     "hold its threefry_bits, deliver_perm, "
                     "swim_probe_select, exact_send<Bitmap>, route_pack, "
-                    "route_slots and shard kernels to this tree's and "
-                    "time them beside them")
+                    "ring_receive, shard and winner kernels to this "
+                    "tree's and time them beside them")
     opts = ap.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
@@ -4847,7 +5049,8 @@ def main() -> int:
         for name, pattern in (("threefry", ""),
                               ("sent_sampler", "sent_select"),
                               ("store", "store_(claim|write)"),
-                              ("swim", "swim_probe_select"))}
+                              ("swim", "swim_probe_select"),
+                              ("winners", "winners_[ab]_kernel|seg_cummax"))}
     record["threefry_pipes"] = threefry_pipes(record["sass"]["threefry"],
                                               threefry.WORDS_A_THREAD)
     sass_line = {"threefry_pipes": record["threefry_pipes"]}
@@ -4862,6 +5065,18 @@ def main() -> int:
                for m in (record["sass"]["sent_sampler"], theirs)]
         sass_line["sent_select_ops_equal_parent"] = {
             n: o == ops[1].get(n) for n, o in ops[0].items()}
+        # seg_cummax beside the parent's: winners.cu changed around it
+        theirs = sass.mix(parent.paths["winners"], "seg_cummax")
+        record["parent_sass"]["winners"] = theirs
+        ops = [{n[n.index("seg_cummax"):]: f["ops"] for n, f in m.items()
+                if "seg_cummax" in n}
+               for m in (record["sass"]["winners"], theirs)]
+        sass_line["seg_cummax_ops_equal_parent"] = {
+            n: o == ops[1].get(n) for n, o in ops[0].items()}
+    sass_line["winners_pipes"] = {
+        m.group(0): {"n": f["n"], "pipes": f["pipes"]}
+        for n, f in record["sass"]["winners"].items()
+        if (m := re.search("winners_[ab]_kernel", n))}
     print(json.dumps(sass_line), flush=True)
 
     headline, seeds = HEADLINE, HEADLINE_SEEDS
@@ -5008,7 +5223,8 @@ def main() -> int:
           "entries included)", flush=True)
 
     sent_results = sent_phases(record, counted, cuda)
-    winners_results = sort_winners_phases(record, counted, results, cuda)
+    winners_results = sort_winners_phases(record, counted, results, cuda,
+                                          parent)
     with tempfile.TemporaryDirectory(prefix="apply-",
                                      dir=kernels.BUILD_DIR) as tmp:
         store_results = apply_phases(record, counted, tmp,
@@ -5095,7 +5311,7 @@ def sent_phases(record: dict, counted: dict, cuda) -> list:
 
 
 def sort_winners_phases(record: dict, counted: dict, results: list,
-                        cuda) -> list:
+                        cuda, parent=None) -> list:
     """Phases 14-15, the segmented sort and the winner selection;
     returns the three winner kernels' results and adds the winners
     runs' launches to ``seg_argsort``'s (in ``results``, phase 2)."""
@@ -5110,9 +5326,9 @@ def sort_winners_phases(record: dict, counted: dict, results: list,
           f"with {record['headline_sorts']}", flush=True)
 
     # phase 15: the winner selection at full width
-    runs, plan = winners_full_width(counted)
+    runs, plans = winners_full_width(counted)
     record["winners_runs"] = runs
-    checks = winners_kernel_checks(plan, cuda)
+    checks = winners_kernel_checks(plans, cuda, parent)
     record["winners_sort"] = checks[0]
     replaces = {"seg_cummax": "corrosion_tpu/ops/merge.py:599",
                 "winners_a": "corrosion_tpu/ops/merge.py:619",
@@ -5128,6 +5344,10 @@ def sort_winners_phases(record: dict, counted: dict, results: list,
     print("winner kernels match their plain versions: "
           + ", ".join(f"{r['name']} {r['max_abs_err']}" for r in checks),
           flush=True)
+    print(json.dumps({"winners_kernels": {
+        "turns": checks[-1]["turns"],
+        **{r["name"]: {f: r[f] for f in ("ms", "bound_ms", "plain_ms")}
+           for r in checks[1:]}}}), flush=True)
     return checks[1:]
 
 

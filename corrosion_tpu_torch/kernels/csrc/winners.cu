@@ -21,15 +21,15 @@
 //              carry and applies it to its positions before its own
 //              first start, so a segment may straddle any number of
 //              block boundaries.
-//  winners_a   domain A, a thread per position: the row-generation
-//              classification against seed_cl and the prefix, the
-//              scatter-max of final_cl, the scatter-or (racing stores
-//              of 1) of sent_flag and ensure, the LWW participation
-//              mask part[oA[i]], and the raise counts (integer
-//              atomicAdds of warp sums).
+//  winners_a   domain A: the row-generation classification against
+//              seed_cl and the prefix, final_cl, the or of sent_flag
+//              and ensure, the LWW participation mask part[oA[i]], the
+//              raise counts (one atomicAdd a block), and pk_pos[i] =
+//              pk[oA[i]], pk by position, which winners_b reads.
 //  winners_b   domain B: the LWW accept against seed_key and the
-//              prefix, the accept count, the scatter-max of the winner
-//              index, and the scatter-min of the row-CL stamp clrow.
+//              prefix, the accept count, the winner index (max over
+//              the accepts of a cell), and the row-CL stamp clrow (min
+//              over the changes of a row at its final causal length).
 //              final_cl is complete at its launch, so the reference's
 //              epilogue mask (merge.py:679-683, a winner survives only
 //              at the row's final causal length) folds into the
@@ -39,12 +39,22 @@
 //              accepts, and max over {accepts with cl == final_cl}
 //              equals the masked max.
 //
+// Both orders sort by pk first (A by pk, B by (pk, cid), each stable),
+// so a row's changes hold the same run of positions in both, and
+// pk[oA[i]] == pk[oB[i]] at every position i: winners_b reads pk_pos
+// coalesced where it would gather pk[oB[i]].
+//
 // Bound on the H100: bytes (a few integer operations per change
-// against some 40 bytes moved).  The design reads every per-change
-// field once through the permutation, keeps the classification in
-// registers and writes only the decision; the scatters are 64-bit
-// atomicMax / atomicMin, exact in any order.
+// against some 40 bytes moved), most of them the gathers of per-change
+// fields through the permutation, which no design avoids.  The design
+// writes each output once a run of positions and not once a change:
+// a row's (a cell's) changes are adjacent in its order, so every output
+// is a segmented reduction over a run, scanned in registers and warp
+// shuffles, four positions a thread with all their loads in flight
+// together; an atomic only where a run crosses a warp's 128 positions,
+// and one count atomic a block.
 
+#include <climits>
 #include <cstdint>
 #include <cuda_runtime.h>
 
@@ -180,82 +190,280 @@ __global__ void seg_cummax_carry(const long long* __restrict__ agg,
     out[base + i] = max(out[base + i], c);
 }
 
-__device__ __forceinline__ void add_warp_sum(unsigned long long* dst,
-                                             long long v) {
+// -- winners_a and winners_b -------------------------------------------
+//
+// A thread takes ITEMS consecutive positions, a warp 32 * ITEMS: one
+// 16-byte load of the order and two of prev (and in B two of pk_pos),
+// then every gather of the tile, at clamped indices and
+// unconditionally, before any result is used.  A row's (or a cell's)
+// positions are adjacent in its order, so each output is a segmented
+// reduction over a run of positions: a warp scans its tile with the
+// segmented operator (thread runs, then warp shuffles) and the last
+// position of each piece of a run writes the piece's value.  A piece
+// that is a whole run writes with a plain store; only a piece at the
+// tile's edge, whose run may go on in the next or the previous warp,
+// takes an atomic: at most two a warp and an output.
+
+constexpr int ITEMS = 4;  // 2 and 1 measured no faster on the H100
+constexpr long long NO_ROW = -1;  // pk of a position past n (pk >= 0)
+
+__device__ __forceinline__ void load4(const long long* __restrict__ src,
+                                      long long (&v)[ITEMS]) {
+  const longlong2 a = __ldcs(reinterpret_cast<const longlong2*>(src));
+  const longlong2 b = __ldcs(reinterpret_cast<const longlong2*>(src + 2));
+  v[0] = a.x, v[1] = a.y, v[2] = b.x, v[3] = b.y;
+}
+
+// positions i0 .. i0 + ITEMS - 1 of an order and of prev; o = -1 past n
+__device__ __forceinline__ void load_tile(const int* __restrict__ order,
+                                          const long long* __restrict__ prev,
+                                          long long i0, long long n,
+                                          int (&o)[ITEMS],
+                                          long long (&pv)[ITEMS]) {
+  if (i0 + ITEMS <= n) {
+    const int4 v = __ldcs(reinterpret_cast<const int4*>(order + i0));
+    o[0] = v.x, o[1] = v.y, o[2] = v.z, o[3] = v.w;
+    load4(prev + i0, pv);
+    return;
+  }
+#pragma unroll
+  for (int k = 0; k < ITEMS; ++k) {
+    o[k] = i0 + k < n ? order[i0 + k] : -1;
+    pv[k] = i0 + k < n ? prev[i0 + k] : NEG_KEY;
+  }
+}
+
+// the block's sum of v into *dst: one atomic a block
+__device__ __forceinline__ void add_block_sum(unsigned long long* dst,
+                                              long long v, long long* red) {
 #pragma unroll
   for (int off = 16; off > 0; off >>= 1) v += __shfl_down_sync(FULL, v, off);
-  if ((threadIdx.x & 31) == 0 && v) atomicAdd(dst, (unsigned long long)v);
+  if ((threadIdx.x & 31) == 0) red[threadIdx.x >> 5] = v;
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    long long t = 0;
+    for (int w = 0; w < THREADS / 32; ++w) t += red[w];
+    if (t) atomicAdd(dst, (unsigned long long)t);
+  }
 }
 
-__global__ void winners_a_kernel(const int* __restrict__ oA,
-                                 const long long* __restrict__ prev,
-                                 const long long* __restrict__ pk,
-                                 const long long* __restrict__ cl,
-                                 const unsigned char* __restrict__ sent,
-                                 const long long* __restrict__ seed_cl,
-                                 long long n, long long* __restrict__ final_cl,
-                                 long long* __restrict__ sent_flag,
-                                 long long* __restrict__ ensure,
-                                 unsigned char* __restrict__ part,
-                                 unsigned long long* __restrict__ counts) {
+// domain A's segmented OR: f, a run start in the span; a, the OR of the
+// flags (bit 0 a sentinel raise, bit 1 an equal-generation live cell
+// change) since the span's last start
+struct RowOr {
+  int f, a;
+};
+
+__device__ __forceinline__ RowOr combine(RowOr x, RowOr y) {
+  return {x.f | y.f, y.f ? y.a : x.a | y.a};
+}
+
+__device__ __forceinline__ RowOr shfl_up(RowOr x, int off) {
+  return {__shfl_up_sync(FULL, x.f, off), __shfl_up_sync(FULL, x.a, off)};
+}
+
+// domain B's two segmented reductions: f bit 0, a row start in the span,
+// bit 1 a cell start (a row start is one too); mn, the least stream
+// index at the row's final causal length since the last row start
+// (INT_MAX: none); mx, the greatest accept at it since the last cell
+// start (-1: none)
+struct CellMinMax {
+  int f, mn, mx;
+};
+
+__device__ __forceinline__ CellMinMax combine(CellMinMax x, CellMinMax y) {
+  return {x.f | y.f, (y.f & 1) ? y.mn : min(x.mn, y.mn),
+          (y.f & 2) ? y.mx : max(x.mx, y.mx)};
+}
+
+__device__ __forceinline__ CellMinMax shfl_up(CellMinMax x, int off) {
+  return {__shfl_up_sync(FULL, x.f, off), __shfl_up_sync(FULL, x.mn, off),
+          __shfl_up_sync(FULL, x.mx, off)};
+}
+
+// the warp's exclusive scan of the threads' aggregates (lane 0: id)
+template <class S>
+__device__ __forceinline__ S warp_exclusive(S agg, S id) {
+  const int lane = threadIdx.x & 31;
+#pragma unroll
+  for (int off = 1; off < 32; off <<= 1) {
+    const S o = shfl_up(agg, off);
+    if (lane >= off) agg = combine(o, agg);
+  }
+  const S ex = shfl_up(agg, 1);
+  return lane ? ex : id;
+}
+
+__global__ void __launch_bounds__(THREADS)
+    winners_a_kernel(const int* __restrict__ oA,
+                     const long long* __restrict__ prev,
+                     const long long* __restrict__ pk,
+                     const long long* __restrict__ cl,
+                     const unsigned char* __restrict__ sent,
+                     const long long* __restrict__ seed_cl, long long n,
+                     long long* __restrict__ final_cl,
+                     long long* __restrict__ sent_flag,
+                     long long* __restrict__ ensure,
+                     unsigned char* __restrict__ part,
+                     long long* __restrict__ pk_pos,
+                     unsigned long long* __restrict__ counts) {
+  __shared__ long long red[2][THREADS / 32];
+  const int lane = threadIdx.x & 31;
+  const long long i0 =
+      ((long long)blockIdx.x * THREADS + threadIdx.x) * ITEMS;
+  int o[ITEMS];
+  long long pv[ITEMS], p[ITEMS], c[ITEMS], before[ITEMS];
+  bool s[ITEMS];
+  load_tile(oA, prev, i0, n, o, pv);
+#pragma unroll
+  for (int k = 0; k < ITEMS; ++k) {
+    const int oc = max(o[k], 0);
+    p[k] = pk[oc], c[k] = cl[oc], s[k] = sent[oc] != 0;
+  }
+#pragma unroll
+  for (int k = 0; k < ITEMS; ++k) {
+    before[k] = max(seed_cl[p[k]], pv[k]);
+    if (o[k] < 0) p[k] = NO_ROW;
+  }
+  // pk by position, for winners_b: both orders sort by pk first
+  if (i0 + ITEMS <= n) {
+    reinterpret_cast<longlong2*>(pk_pos + i0)[0] = {p[0], p[1]};
+    reinterpret_cast<longlong2*>(pk_pos + i0)[1] = {p[2], p[3]};
+  } else {
+#pragma unroll
+    for (int k = 0; k < ITEMS; ++k)
+      if (o[k] >= 0) pk_pos[i0 + k] = p[k];
+  }
+  const long long p_up = __shfl_up_sync(FULL, p[ITEMS - 1], 1);
+  const long long p_down = __shfl_down_sync(FULL, p[0], 1);
   long long sent_raise = 0, even_raise = 0;
-  const long long stride = (long long)gridDim.x * blockDim.x;
-  for (long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x; i < n;
-       i += stride) {
-    const int o = oA[i];
-    const long long p = pk[o], c = cl[o];
-    const bool s = sent[o] != 0, odd = (c & 1) != 0;
-    const long long before = max(seed_cl[p], prev[i]);
-    const bool raise = c > before;
-    atomicMax(&final_cl[p], c);
-    if (raise && s) {
-      sent_flag[p] = 1;
-      ++sent_raise;
-    }
-    if (raise && !s && !odd) ++even_raise;
-    if (!s && odd && c == before) ensure[p] = 1;
-    part[o] = !s && odd && c >= before;
+  RowOr e[ITEMS], agg = {0, 0};
+#pragma unroll
+  for (int k = 0; k < ITEMS; ++k) {
+    const bool live = o[k] >= 0, odd = (c[k] & 1) != 0;
+    const bool raise = live && c[k] > before[k];
+    const bool cell = live && !s[k];
+    e[k].f = k ? p[k] != p[k - 1] : lane && p[0] != p_up;
+    e[k].a = (raise && s[k]) | (cell && odd && c[k] == before[k]) << 1;
+    sent_raise += raise && s[k];
+    even_raise += raise && cell && !odd;
+    if (live) part[o[k]] = cell && odd && c[k] >= before[k];
+    agg = combine(agg, e[k]);
   }
-  add_warp_sum(&counts[0], sent_raise);
-  add_warp_sum(&counts[1], even_raise);
+  RowOr cur = warp_exclusive(agg, RowOr{0, 0});
+#pragma unroll
+  for (int k = 0; k < ITEMS; ++k) {
+    cur = combine(cur, e[k]);
+    const bool edge = k == ITEMS - 1 && lane == 31;
+    const long long next = k + 1 < ITEMS ? p[k + 1] : p_down;
+    if (o[k] < 0 || (!edge && next == p[k])) continue;
+    // the last position of a piece: prev carries the run's earlier
+    // positions from any warp, so max(before, c) is the row's final
+    // causal length where the run ends here, and no more than it
+    // where it goes on past the tile's edge
+    const long long fin = max(before[k], c[k]);
+    if (edge)
+      atomicMax(&final_cl[p[k]], fin);
+    else
+      final_cl[p[k]] = fin;
+    // flags are 0 / 1: pieces of one run store the same 1
+    if (cur.a & 1) sent_flag[p[k]] = 1;
+    if (cur.a & 2) ensure[p[k]] = 1;
+  }
+  add_block_sum(&counts[0], sent_raise, red[0]);
+  add_block_sum(&counts[1], even_raise, red[1]);
 }
 
-__global__ void winners_b_kernel(const int* __restrict__ oB,
-                                 const long long* __restrict__ prev,
-                                 const long long* __restrict__ pk,
-                                 const long long* __restrict__ cid,
-                                 const long long* __restrict__ cl,
-                                 const long long* __restrict__ key,
-                                 const unsigned char* __restrict__ part,
-                                 const long long* __restrict__ seed_key,
-                                 const long long* __restrict__ final_cl,
-                                 long long n, long long n_cid,
-                                 long long* __restrict__ winner,
-                                 long long* __restrict__ clrow,
-                                 unsigned long long* __restrict__ counts) {
+__global__ void __launch_bounds__(THREADS)
+    winners_b_kernel(const int* __restrict__ oB,
+                     const long long* __restrict__ prev,
+                     const long long* __restrict__ pk_pos,
+                     const long long* __restrict__ cid,
+                     const long long* __restrict__ cl,
+                     const long long* __restrict__ key,
+                     const unsigned char* __restrict__ part,
+                     const long long* __restrict__ seed_key,
+                     const long long* __restrict__ final_cl, long long n,
+                     long long n_cid, long long* __restrict__ winner,
+                     long long* __restrict__ clrow,
+                     unsigned long long* __restrict__ counts) {
+  __shared__ long long red[THREADS / 32];
+  const int lane = threadIdx.x & 31;
+  const long long i0 =
+      ((long long)blockIdx.x * THREADS + threadIdx.x) * ITEMS;
+  int o[ITEMS], ci[ITEMS];
+  long long pv[ITEMS], p[ITEMS], c[ITEMS], fcl[ITEMS], ky[ITEMS], sk[ITEMS];
+  bool pt[ITEMS];
+  load_tile(oB, prev, i0, n, o, pv);
+  if (i0 + ITEMS <= n) {
+    load4(pk_pos + i0, p);
+  } else {
+#pragma unroll
+    for (int k = 0; k < ITEMS; ++k)
+      p[k] = o[k] >= 0 ? pk_pos[i0 + k] : NO_ROW;
+  }
+#pragma unroll
+  for (int k = 0; k < ITEMS; ++k) {
+    const int oc = max(o[k], 0);
+    ci[k] = (int)cid[oc], c[k] = cl[oc], pt[k] = o[k] >= 0 && part[oc];
+    fcl[k] = final_cl[max(p[k], 0LL)];
+    if (o[k] < 0) ci[k] = -2;
+  }
+  // keyB is NEG_KEY where a change takes no part: never an accept
+#pragma unroll
+  for (int k = 0; k < ITEMS; ++k) {
+    ky[k] = pt[k] ? key[max(o[k], 0)] : NEG_KEY;
+    sk[k] = pt[k] && ci[k] >= 0 ? seed_key[p[k] * n_cid + ci[k]] : NEG_KEY;
+  }
+  const long long p_up = __shfl_up_sync(FULL, p[ITEMS - 1], 1);
+  const long long p_down = __shfl_down_sync(FULL, p[0], 1);
+  const int ci_up = __shfl_up_sync(FULL, ci[ITEMS - 1], 1);
+  const int ci_down = __shfl_down_sync(FULL, ci[0], 1);
   long long accepts = 0;
-  const long long stride = (long long)gridDim.x * blockDim.x;
-  for (long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x; i < n;
-       i += stride) {
-    const int o = oB[i];
-    const long long p = pk[o], c = cl[o];
-    const bool at_final = c == final_cl[p];
-    if (at_final) atomicMin(&clrow[p], (long long)o);
-    if (!part[o]) continue;  // keyB = NEG_KEY: never an accept
-    const long long ci = cid[o];
-    const long long cell = p * n_cid + max(ci, 0LL);
-    const long long seed = ci >= 0 ? seed_key[cell] : NEG_KEY;
-    if (key[o] > max(seed, prev[i])) {
-      ++accepts;
-      if (at_final) atomicMax(&winner[cell], (long long)o);
+  CellMinMax e[ITEMS], agg = {0, INT_MAX, -1};
+#pragma unroll
+  for (int k = 0; k < ITEMS; ++k) {
+    const bool at_final = o[k] >= 0 && c[k] == fcl[k];
+    const bool accept = pt[k] && ky[k] > max(sk[k], pv[k]);
+    const long long pp = k ? p[k - 1] : p_up;
+    const int cp = k ? ci[k - 1] : ci_up;
+    const bool first = k || lane;  // lane 0's first: the tile's edge
+    e[k].f = first && p[k] != pp ? 3 : first && ci[k] != cp ? 2 : 0;
+    e[k].mn = at_final ? o[k] : INT_MAX;
+    e[k].mx = accept && at_final ? o[k] : -1;
+    accepts += accept;
+    agg = combine(agg, e[k]);
+  }
+  CellMinMax cur = warp_exclusive(agg, CellMinMax{0, INT_MAX, -1});
+#pragma unroll
+  for (int k = 0; k < ITEMS; ++k) {
+    cur = combine(cur, e[k]);
+    if (o[k] < 0) continue;
+    const bool edge = k == ITEMS - 1 && lane == 31;
+    const long long pn = k + 1 < ITEMS ? p[k + 1] : p_down;
+    const int cn = k + 1 < ITEMS ? ci[k + 1] : ci_down;
+    const bool row_end = edge || pn != p[k];
+    // a piece is a whole run when a start lies in the tile at or
+    // before it and it ends its run; else its run may cross the edge
+    if (row_end && cur.mn != INT_MAX) {
+      if (!edge && (cur.f & 1))
+        clrow[p[k]] = cur.mn;
+      else
+        atomicMin(&clrow[p[k]], (long long)cur.mn);
+    }
+    if ((row_end || cn != ci[k]) && cur.mx >= 0) {
+      long long* w = &winner[p[k] * n_cid + max(ci[k], 0)];
+      if (!edge && (cur.f & 2))
+        *w = cur.mx;
+      else
+        atomicMax(w, (long long)cur.mx);
     }
   }
-  add_warp_sum(&counts[2], accepts);
+  add_block_sum(&counts[2], accepts, red);
 }
 
-int blocks_for(long long n) {
-  long long b = (n + THREADS - 1) / THREADS;
-  return (int)(b > (1 << 20) ? (1 << 20) : b);
+unsigned blocks_for(long long n) {
+  return (unsigned)((n + THREADS * ITEMS - 1) / (THREADS * ITEMS));
 }
 
 }  // namespace
@@ -277,22 +485,25 @@ extern "C" int seg_cummax_launch(const int* order, const long long* seg,
   return (int)cudaGetLastError();
 }
 
+// oA, prev and pk_pos 16-byte aligned; n < 2**31
 extern "C" int winners_a_launch(const int* oA, const long long* prev,
                                 const long long* pk, const long long* cl,
                                 const unsigned char* sent,
                                 const long long* seed_cl, long long n,
                                 long long* final_cl, long long* sent_flag,
                                 long long* ensure, unsigned char* part,
+                                long long* pk_pos,
                                 unsigned long long* counts, void* stream) {
   if (n <= 0) return 0;
   winners_a_kernel<<<blocks_for(n), THREADS, 0, (cudaStream_t)stream>>>(
       oA, prev, pk, cl, sent, seed_cl, n, final_cl, sent_flag, ensure, part,
-      counts);
+      pk_pos, counts);
   return (int)cudaGetLastError();
 }
 
+// oB, prev and pk_pos 16-byte aligned; n < 2**31
 extern "C" int winners_b_launch(const int* oB, const long long* prev,
-                                const long long* pk, const long long* cid,
+                                const long long* pk_pos, const long long* cid,
                                 const long long* cl, const long long* key,
                                 const unsigned char* part,
                                 const long long* seed_key,
@@ -302,7 +513,7 @@ extern "C" int winners_b_launch(const int* oB, const long long* prev,
                                 void* stream) {
   if (n <= 0) return 0;
   winners_b_kernel<<<blocks_for(n), THREADS, 0, (cudaStream_t)stream>>>(
-      oB, prev, pk, cid, cl, key, part, seed_key, final_cl, n, n_cid, winner,
-      clrow, counts);
+      oB, prev, pk_pos, cid, cl, key, part, seed_key, final_cl, n, n_cid,
+      winner, clrow, counts);
   return (int)cudaGetLastError();
 }

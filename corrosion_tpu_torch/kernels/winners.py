@@ -15,6 +15,11 @@ exact.
 views (one buffer, so a batch needs one device-to-host fetch): the
 caller fills ``final_cl`` with ``seed_cl``, ``clrow`` with ``BIG``,
 ``sent_flag`` / ``ensure`` / ``counts`` with 0 and ``winner`` with -1.
+``winners_a`` also returns ``pk_pos``, pk by position (``pk[oA]``),
+which ``winners_b`` reads in place of ``pk[oB]``: both orders sort by
+pk first, so the two are equal at every position.  The kernels write
+each output once a run of positions (csrc/winners.cu) and take the
+orders, ``prev`` and ``pk_pos`` 16-byte aligned.
 """
 
 from __future__ import annotations
@@ -34,7 +39,7 @@ _P = ctypes.c_void_p
 _CUMMAX_ARGTYPES = (_P, _P, _P, _P, ctypes.c_longlong, ctypes.c_int, _P, _P,
                     _P, _P)
 _A_ARGTYPES = (_P, _P, _P, _P, _P, _P, ctypes.c_longlong, _P, _P, _P, _P, _P,
-               _P)
+               _P, _P)
 _B_ARGTYPES = (_P, _P, _P, _P, _P, _P, _P, _P, _P, ctypes.c_longlong,
                ctypes.c_longlong, _P, _P, _P, _P)
 
@@ -97,8 +102,9 @@ seg_cummax.launches = 0
 
 
 def winners_a_plain(oA, prev, pk, cl, sent, seed_cl, final_cl, sent_flag,
-                    ensure, part, counts) -> None:
-    """Plain PyTorch version of :func:`winners_a` (same arguments)."""
+                    ensure, part, counts) -> torch.Tensor:
+    """Plain PyTorch version of :func:`winners_a` (same arguments, same
+    result)."""
     o = oA.to(torch.int64)
     p, c, s = pk[o], cl[o], sent[o]
     before = torch.maximum(seed_cl[p], prev)
@@ -112,53 +118,56 @@ def winners_a_plain(oA, prev, pk, cl, sent, seed_cl, final_cl, sent_flag,
     part[o] = cell & odd & (c >= before)
     counts[0] += (rise & s).sum()
     counts[1] += (rise & cell & ~odd).sum()
+    return p
 
 
 def winners_a(oA, prev, pk, cl, sent, seed_cl, final_cl, sent_flag, ensure,
-              part, counts) -> None:
+              part, counts) -> torch.Tensor:
     """Domain A of the winner selection, written into the result views:
     per change (position i of the pk order ``oA``), its row-generation
     class against ``before = max(seed_cl[pk], prev[i])`` (``prev`` the
-    exclusive prefix max of cl within its pk); scatter-max of cl into
+    exclusive prefix max of cl within its pk); the max of cl into
     ``final_cl``, sentinel raises into ``sent_flag``, equal-generation
     live cell changes into ``ensure`` (both 0/1 int64), the LWW
     participation mask ``part`` ([n] bool, stream order, every entry
     written), sentinel raises into ``counts[0]`` and even (deleting)
-    cell raises into ``counts[1]``."""
+    cell raises into ``counts[1]``.  Returns ``pk_pos``, [n] int64
+    ``pk[oA]``, for :func:`winners_b`."""
     leaves = (oA, prev, pk, cl, sent, seed_cl, final_cl, sent_flag, ensure,
               part, counts)
     if kernels.on_cpu(*leaves):
-        winners_a_plain(*leaves)
-        return
+        return winners_a_plain(*leaves)
     n, n_pk = oA.shape[0], seed_cl.shape[0]
     i64 = torch.int64
-    kernels.check("winners_a oA", oA, torch.int32, (n,))
-    for name, t, shape in (("prev", prev, (n,)), ("pk", pk, (n,)),
-                           ("cl", cl, (n,)), ("seed_cl", seed_cl, None),
-                           ("final_cl", final_cl, (n_pk,)),
-                           ("sent_flag", sent_flag, (n_pk,)),
-                           ("ensure", ensure, (n_pk,)),
-                           ("counts", counts, (3,))):
-        kernels.check(f"winners_a {name}", t, i64, shape, align=8)
+    kernels.check("winners_a oA", oA, torch.int32, (n,), align=16)
+    for name, t, shape, align in (
+            ("prev", prev, (n,), 16), ("pk", pk, (n,), 8),
+            ("cl", cl, (n,), 8), ("seed_cl", seed_cl, None, 8),
+            ("final_cl", final_cl, (n_pk,), 8),
+            ("sent_flag", sent_flag, (n_pk,), 8),
+            ("ensure", ensure, (n_pk,), 8), ("counts", counts, (3,), 8)):
+        kernels.check(f"winners_a {name}", t, i64, shape, align=align)
     kernels.check("winners_a sent", sent, torch.bool, (n,), align=1)
     kernels.check("winners_a part", part, torch.bool, (n,), align=1)
+    pk_pos = torch.empty(n, dtype=i64, device=oA.device)
     pt = kernels.ptr
     fn = kernels.function("winners", "winners_a_launch", _A_ARGTYPES)
     code = fn(pt(oA), pt(prev), pt(pk), pt(cl), pt(sent), pt(seed_cl), n,
-              pt(final_cl), pt(sent_flag), pt(ensure), pt(part), pt(counts),
-              kernels.stream(oA))
+              pt(final_cl), pt(sent_flag), pt(ensure), pt(part), pt(pk_pos),
+              pt(counts), kernels.stream(oA))
     winners_a.launches += 1
     kernels.raise_on_error("winners_a", code)
+    return pk_pos
 
 
 winners_a.launches = 0
 
 
-def winners_b_plain(oB, prev, pk, cid, cl, key, part, seed_key, final_cl,
-                    n_cid, winner, clrow, counts) -> None:
+def winners_b_plain(oB, prev, pk_pos, cid, cl, key, part, seed_key,
+                    final_cl, n_cid, winner, clrow, counts) -> None:
     """Plain PyTorch version of :func:`winners_b` (same arguments)."""
     o = oB.to(torch.int64)
-    p, ci, c, pt = pk[o], cid[o], cl[o], part[o]
+    p, ci, c, pt = pk_pos, cid[o], cl[o], part[o]
     at_final = c == final_cl[p]
     clrow.scatter_reduce_(0, p, torch.where(at_final, o, BIG), "amin")
     cell = p * n_cid + ci.clamp(min=0)
@@ -169,40 +178,41 @@ def winners_b_plain(oB, prev, pk, cid, cl, key, part, seed_key, final_cl,
     counts[2] += accept.sum()
 
 
-def winners_b(oB, prev, pk, cid, cl, key, part, seed_key, final_cl, n_cid,
-              winner, clrow, counts) -> None:
+def winners_b(oB, prev, pk_pos, cid, cl, key, part, seed_key, final_cl,
+              n_cid, winner, clrow, counts) -> None:
     """Domain B of the winner selection, written into the result views:
-    per change (position i of the (pk, cid) order ``oB``) that takes
-    part, an LWW accept where its key beats ``max(seed_key[cell],
-    prev[i])`` (``prev`` the exclusive prefix max of the participating
-    keys within the cell), counted into ``counts[2]``; the scatter-max
-    of the accepts at the row's final causal length into ``winner``
-    ([n_pk * n_cid]); and the scatter-min into ``clrow`` of the stream
-    index of every change at its row's final causal length."""
-    leaves = (oB, prev, pk, cid, cl, key, part, seed_key, final_cl, winner,
-              clrow, counts)
+    per change (position i of the (pk, cid) order ``oB``, whose pk is
+    ``pk_pos[i]``, :func:`winners_a`'s result) that takes part, an LWW
+    accept where its key beats ``max(seed_key[cell], prev[i])``
+    (``prev`` the exclusive prefix max of the participating keys within
+    the cell), counted into ``counts[2]``; the max of the accepts at the
+    row's final causal length into ``winner`` ([n_pk * n_cid]); and the
+    min into ``clrow`` of the stream index of every change at its row's
+    final causal length."""
+    leaves = (oB, prev, pk_pos, cid, cl, key, part, seed_key, final_cl,
+              winner, clrow, counts)
     if kernels.on_cpu(*leaves):
-        winners_b_plain(oB, prev, pk, cid, cl, key, part, seed_key, final_cl,
-                        n_cid, winner, clrow, counts)
+        winners_b_plain(oB, prev, pk_pos, cid, cl, key, part, seed_key,
+                        final_cl, n_cid, winner, clrow, counts)
         return
     n, n_pk = oB.shape[0], final_cl.shape[0]
     i64 = torch.int64
-    kernels.check("winners_b oB", oB, torch.int32, (n,))
-    for name, t, shape in (("prev", prev, (n,)), ("pk", pk, (n,)),
-                           ("cid", cid, (n,)), ("cl", cl, (n,)),
-                           ("key", key, (n,)),
-                           ("seed_key", seed_key, (n_pk * n_cid,)),
-                           ("final_cl", final_cl, (n_pk,)),
-                           ("winner", winner, (n_pk * n_cid,)),
-                           ("clrow", clrow, (n_pk,)),
-                           ("counts", counts, (3,))):
-        kernels.check(f"winners_b {name}", t, i64, shape, align=8)
+    kernels.check("winners_b oB", oB, torch.int32, (n,), align=16)
+    for name, t, shape, align in (
+            ("prev", prev, (n,), 16), ("pk_pos", pk_pos, (n,), 16),
+            ("cid", cid, (n,), 8), ("cl", cl, (n,), 8),
+            ("key", key, (n,), 8),
+            ("seed_key", seed_key, (n_pk * n_cid,), 8),
+            ("final_cl", final_cl, (n_pk,), 8),
+            ("winner", winner, (n_pk * n_cid,), 8),
+            ("clrow", clrow, (n_pk,), 8), ("counts", counts, (3,), 8)):
+        kernels.check(f"winners_b {name}", t, i64, shape, align=align)
     kernels.check("winners_b part", part, torch.bool, (n,), align=1)
     pt = kernels.ptr
     fn = kernels.function("winners", "winners_b_launch", _B_ARGTYPES)
-    code = fn(pt(oB), pt(prev), pt(pk), pt(cid), pt(cl), pt(key), pt(part),
-              pt(seed_key), pt(final_cl), n, n_cid, pt(winner), pt(clrow),
-              pt(counts), kernels.stream(oB))
+    code = fn(pt(oB), pt(prev), pt(pk_pos), pt(cid), pt(cl), pt(key),
+              pt(part), pt(seed_key), pt(final_cl), n, n_cid, pt(winner),
+              pt(clrow), pt(counts), kernels.stream(oB))
     winners_b.launches += 1
     kernels.raise_on_error("winners_b", code)
 

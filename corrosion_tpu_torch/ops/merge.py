@@ -616,10 +616,11 @@ def _winners_torch_core(pk, cid, sent, cl, key, seed_cl, seed_key,
     counts.zero_()
     part = torch.empty(n, dtype=torch.bool, device=pk.device)
     prev_a = cummax(o_a, pk, cl)
-    run_a(o_a, prev_a, pk, cl, sent, seed_cl, final_cl, sent_flag, ensure,
-          part, counts)
+    # both orders sort by pk first: pk_pos = pk[o_a] = pk[o_b]
+    pk_pos = run_a(o_a, prev_a, pk, cl, sent, seed_cl, final_cl, sent_flag,
+                   ensure, part, counts)
     prev_b = cummax(o_b, comp, key, mask=part)
-    run_b(o_b, prev_b, pk, cid, cl, key, part, seed_key, final_cl, n_cid,
+    run_b(o_b, prev_b, pk_pos, cid, cl, key, part, seed_key, final_cl, n_cid,
           winner, clrow, counts)
     return res
 
