@@ -95,8 +95,10 @@ package.  Phases, each ending the run with a non-zero exit on failure:
     on the CPU, and require every leaf per tick and the stats to be
     equal;
 11. hold ``sent_select`` and ``sent_commit`` (the exact ``sent_to``
-    sampler) against their plain versions, every output leaf bitwise
-    (``sent`` included), for every fanout k of 1..8, each in the row
+    sampler), and the two from one ``sent_tick`` call (the commit under
+    programmatic dependent launch), against their plain versions, every
+    output leaf bitwise (``sent`` included), for every fanout k of 1..8,
+    each in the row
     layout ``sent_select`` takes at its N (a block a row at 16,000 and
     beyond, a warp a row at 512): calibration mode at
     ``ExactConfig(16000)`` seed 0 at tick 1 and at its busiest tick,
@@ -108,7 +110,10 @@ package.  Phases, each ending the run with a non-zero exit on failure:
     force, hops; WAN drop or RTT tiers); calibration rows whose
     counters cross 2**32 (N = 65,537 and 65,600, chunk = N, a few
     active rows) against the plain selection of each row alone; time
-    both kernels behind a GPU-side sleep;
+    both kernels behind a GPU-side sleep, and the pair from one
+    ``sent_tick`` call, and the host's enqueue of a calibration tick
+    (``exact_inputs`` and ``sent_tick``, and the two wrappers; the
+    device asleep; the ``{"sent_tick": ...}`` line);
 12. run ``run_msgs_calibration(ns=(1000, 4000, 16000), seeds=3)``, the
     ``sim_trace`` config at 64, 256 and 512 nodes x 8 seeds and
     ``sim_obs_trace``'s (sync every 8 ticks) at 512 x 8 on the card,
@@ -206,8 +211,10 @@ package.  Phases, each ending the run with a non-zero exit on failure:
 archive`` of the parent commit) also builds the parent's ``swim.cu``,
 ``exact_send.cu``, ``threefry.cu``, ``sent_sampler.cu``, ``fabric.cu``,
 ``deliver_perm.cu`` and ``winners.cu`` and requires their kernels to
-write what this tree's write: ``threefry_bits`` in every case of phase 2, the 2**32
-window included, the headline's ``deliver_perm`` (phase 2),
+write what this tree's write: ``threefry_bits`` in every case of phase
+2, the 2**32 window included, the headline's ``deliver_perm`` (phase
+2), ``sent_select`` and ``sent_commit`` in every case of phase 11 but
+the counter splits (their two calls against ``sent_tick``),
 ``swim_probe_select`` at N = 64 and 4096 (phase 8; there
 the parent's dissemination is timed in turns with this tree's, and
 the whole tick with each),
@@ -222,10 +229,12 @@ timed in turns (parent, change, change, parent): the headline's
 and ``ring_receive`` at shard 3 of 8 at caps 12,500 and 256 and the
 all_gather delivery (the ``{"route_pack": ...}``, ``{"ring_receive":
 ...}`` and ``{"deliver_perm (source, window)": ...}`` lines), the
+sampler's pair and its commit alone behind a GPU sleep at 16k tick 9
+and 8 x 512 tick 4 (the ``{"sent_tick": ...}`` line), the
 winner passes behind a GPU sleep at 2**20, interleaved and pk-grouped
 (the ``{"winners_kernels": ...}`` line).  Phase 1 then also prints
 whether each ``sent_select`` and ``seg_cummax`` function's opcode
-counts equal the parent's.
+counts equal the parent's, and each ``sent_select`` loop's.
 
 Prints the card line, the ``kernels`` JSON line and, last, the
 ``{"ok": true, "device": ...}`` line; writes the full record (with
@@ -387,24 +396,22 @@ class ParentDesign:
     ``winners.cu``, built
     from a checkout of it (``--parent DIR``, one ``nvcc`` each, all at
     once) and launched as its wrappers launched them, for timing beside
-    this tree's kernels in one run (``sent_sampler`` only for its SASS).
+    this tree's kernels in one run.
     The C interfaces of ``swim_launch``, ``exact_send_launch``,
     ``shard_launch``, ``route_pack_launch``, ``deliver_perm_launch``,
-    ``ring_receive_launch`` and ``threefry_launch`` are unchanged since,
-    so this tree's wrappers fill their arguments
-    (``kernels.swim.prepare``, ``exact_send.send_args``,
-    ``shard_exact.round_args`` / ``commit_args``, ``threefry._ARGTYPES``,
-    ``deliver.launch``, ``fabric._RECEIVE_ARGTYPES`` on this tree's slot
-    map; ``route_pack``'s scratch argument is the parent's zeroed byte
-    marks); ``winners_a_launch``, whose pk_pos pointer this tree added,
-    is typed here."""
+    ``ring_receive_launch``, ``sent_select_launch``,
+    ``sent_commit_launch``, ``winners_a_launch``, ``winners_b_launch``
+    and ``threefry_launch`` are unchanged since, so this tree's wrappers
+    fill their arguments (``kernels.swim.prepare``,
+    ``exact_send.send_args``, ``sent_sampler._select_fields`` /
+    ``_commit_fields``, ``shard_exact.round_args`` / ``commit_args``,
+    ``threefry._ARGTYPES``, ``deliver.launch``,
+    ``fabric._RECEIVE_ARGTYPES`` on this tree's slot map,
+    ``winners._A_ARGTYPES`` / ``_B_ARGTYPES``; ``route_pack``'s scratch
+    argument is the parent's zeroed byte marks)."""
 
     SOURCES = ("swim", "exact_send", "threefry", "sent_sampler", "fabric",
                "deliver_perm", "winners")
-    # winners_a_launch without the pk_pos pointer; winners_b_launch took
-    # pk in stream order where this tree's takes pk_pos
-    WINNERS_A_ARGTYPES = ((ctypes.c_void_p,) * 6 + (ctypes.c_longlong,)
-                          + (ctypes.c_void_p,) * 6)
 
     def __init__(self, root: str):
         from corrosion_tpu_torch import kernels
@@ -576,29 +583,72 @@ class ParentDesign:
         return new_infected
 
 
-    def winners_a(self, oA, prev, pk, cl, sent, seed_cl, final_cl,
-                  sent_flag, ensure, part, counts) -> None:
-        """The parent's ``winners_a`` (``winners_a``'s arguments; it
-        writes no pk_pos)."""
+    def sent_block(self, select, commit):
+        """One argument block for the parent's ``sent_select_launch`` and
+        ``sent_commit_launch`` on a tick's inputs (``{**select,
+        **commit}`` as ``sent_tick`` takes them), with the outputs its
+        wrappers allocated (counts zero-filled): (block, outputs in
+        ``sent_tick``'s order)."""
+        from corrosion_tpu_torch.kernels import sent_sampler as ss
+
+        outs, fields = ss._select_fields("parent sent_select", **select)
+        tx, msgs, ns, hops = (commit["tx"], commit["msgs"],
+                              commit.get("next_send"), commit.get("hops"))
+        counts = torch.zeros_like(tx)
+        c_outs = (torch.empty_like(tx), torch.empty_like(msgs),
+                  None if ns is None else torch.empty_like(ns),
+                  None if hops is None else torch.empty_like(hops))
+        a = ss._args(counts=counts, **fields, **ss._commit_fields(
+            msgs, commit.get("tier"), commit["max_tx"],
+            commit.get("backoff", 0.0), c_outs))
+        tx_out, msgs_out, next_out, hops_out = c_outs
+        if select.get("infected") is not None:
+            return a, (*outs, counts, tx_out, next_out, msgs_out)
+        return a, (*outs, counts, tx_out, msgs_out, hops_out, next_out)
+
+    def sent_launch(self, symbol: str, a, t) -> None:
+        """The parent's ``sent_select_launch`` or ``sent_commit_launch``
+        on a block of ``sent_block``."""
         from corrosion_tpu_torch import kernels
 
+        self._launch("sent_sampler", symbol,
+                     (ctypes.c_void_p, ctypes.c_void_p),
+                     ctypes.addressof(a), kernels.stream(t))
+
+    def sent_pair(self, select, commit):
+        """The parent's two calls of a tick (``sent`` marked in place);
+        returns their outputs in ``sent_tick``'s order."""
+        a, outs = self.sent_block(select, commit)
+        for symbol in ("sent_select_launch", "sent_commit_launch"):
+            self.sent_launch(symbol, a, commit["tx"])
+        return outs
+
+    def winners_a(self, oA, prev, pk, cl, sent, seed_cl, final_cl,
+                  sent_flag, ensure, part, counts):
+        """The parent's ``winners_a`` (``winners_a``'s arguments);
+        returns its pk_pos."""
+        from corrosion_tpu_torch import kernels
+        from corrosion_tpu_torch.kernels import winners
+
         p = kernels.ptr
-        self._launch("winners", "winners_a_launch", self.WINNERS_A_ARGTYPES,
+        pk_pos = torch.empty(oA.shape[0], dtype=torch.int64,
+                             device=oA.device)
+        self._launch("winners", "winners_a_launch", winners._A_ARGTYPES,
                      p(oA), p(prev), p(pk), p(cl), p(sent), p(seed_cl),
                      oA.shape[0], p(final_cl), p(sent_flag), p(ensure),
-                     p(part), p(counts), kernels.stream(oA))
+                     p(part), p(pk_pos), p(counts), kernels.stream(oA))
+        return pk_pos
 
-    def winners_b(self, oB, prev, pk, cid, cl, key, part, seed_key,
+    def winners_b(self, oB, prev, pk_pos, cid, cl, key, part, seed_key,
                   final_cl, n_cid, winner, clrow, counts) -> None:
-        """The parent's ``winners_b`` (``winners_b``'s arguments with pk
-        in stream order in place of pk_pos)."""
+        """The parent's ``winners_b`` (``winners_b``'s arguments)."""
         from corrosion_tpu_torch import kernels
         from corrosion_tpu_torch.kernels import winners
 
         p = kernels.ptr
         self._launch("winners", "winners_b_launch", winners._B_ARGTYPES,
-                     p(oB), p(prev), p(pk), p(cid), p(cl), p(key), p(part),
-                     p(seed_key), p(final_cl), oB.shape[0], n_cid,
+                     p(oB), p(prev), p(pk_pos), p(cid), p(cl), p(key),
+                     p(part), p(seed_key), p(final_cl), oB.shape[0], n_cid,
                      p(winner), p(clrow), p(counts), kernels.stream(oB))
 
 
@@ -2531,20 +2581,24 @@ SENT_SPLIT_CASES = ((65_537, (0, 40_000, 65_535, 65_536)),
                     (65_600, (1, 65_472, 65_473)))
 
 
-def sent_kernel_checks(dev):
-    """Phase 11: ``sent_select`` and ``sent_commit`` against their plain
-    versions on the card at the main path's shapes, every output leaf
-    bitwise (``sent``, the counts and the fresh buffers included), for
-    every fanout k of 1..8, each in the row layout the kernel takes at
-    its N (a block a row at 16,000 and beyond, a warp a row at 512):
-    calibration at ``ExactConfig(16000)`` seed 0, ticks 1 and the
-    busiest tick (which must hold tied scores), and that tick with
-    crafted rows that leave the filter fewer than k peers (the exact
-    fallback); broadcast at
+def sent_kernel_checks(dev, parent=None):
+    """Phase 11: ``sent_select`` and ``sent_commit``, and the two from
+    one ``sent_tick`` call, against their plain versions on the card at
+    the main path's shapes, every output leaf bitwise (``sent``, the
+    counts and the fresh buffers included), for every fanout k of 1..8,
+    each in the row layout the kernel takes at its N (a block a row at
+    16,000 and beyond, a warp a row at 512): calibration at
+    ``ExactConfig(16000)`` seed 0, ticks 1 and the busiest tick (which
+    must hold tied scores), and that tick with crafted rows that leave
+    the filter fewer than k peers (the exact fallback); broadcast at
     512 nodes x 8 seeds on the sim_trace config (int32 and int64 keys)
     and two fault variants at a tick where the partition holds; rows
-    whose counters cross 2**32 (``split_checks``).  Times both kernels
-    behind a GPU-side sleep."""
+    whose counters cross 2**32 (``split_checks``).  With ``parent``
+    (``ParentDesign``) ``sent_tick`` must also equal the parent's two
+    calls in every case but the counter splits.  Times both kernels
+    behind a GPU-side sleep, the pair and the commit in turns with the
+    parent's, and the host's enqueue of a calibration tick
+    (``sent_enqueue``)."""
     from corrosion_tpu_torch.kernels import sent_sampler as ss
     from corrosion_tpu_torch.models.broadcast import sent_inputs
     from corrosion_tpu_torch.random import PRNGKey, fold_in, split
@@ -2588,11 +2642,31 @@ def sent_kernel_checks(dev):
                    else ("tx", "msgs", "hops", "next_send"))
         c_err, c_bad = compare("sent_commit", list(c_got), list(c_want),
                                c_names)
+        # the one host call (each kernel's outputs held as its own), and
+        # the parent's two calls
+        n_sel = len(sel_names)
+        sent_t = select["sent"].clone()
+        t_got = ss.sent_tick(**{**select, **commit, "sent": sent_t})
+        t_bad = (compare("sent_select", [*t_got[:n_sel], sent_t],
+                         [*want, sent_p], [*sel_names, "sent"])[1]
+                 + compare("sent_commit", list(t_got[n_sel:]), list(c_want),
+                           c_names)[1])
+        del sent_t
+        p_bad = None
+        if parent is not None:
+            sent_q = select["sent"].clone()
+            p_got = parent.sent_pair({**select, "sent": sent_q}, commit)
+            p_bad = [nm for nm, x, y in zip(
+                [*sel_names, *c_names, "sent"], [*t_got, sent_p],
+                [*p_got, sent_q]) if not (x is None and y is None
+                                          or torch.equal(x, y))]
+            del sent_q
         active = int(ss.active_rows(select["tx"], select["next_send"],
                                     select["tick"],
                                     select.get("infected")).sum())
         return dict(max_abs_err=err, differs=bad, commit_max_abs_err=c_err,
-                    commit_differs=c_bad, active_rows=active,
+                    commit_differs=c_bad, tick_differs=t_bad,
+                    parent_differs=p_bad, active_rows=active,
                     fanout=select["fanout"],
                     sends=int(got[-1].sum())), got
 
@@ -2612,7 +2686,9 @@ def sent_kernel_checks(dev):
             checks.append(rec)
             if tick > 1 and k == ccfg.fanout:
                 timed.update(sent_times(ss, "calibration", select, commit,
-                                        got, rec, ccfg.n_nodes, 1))
+                                        got, rec, ccfg.n_nodes, 1, parent))
+                timed["enqueue/calibration"] = sent_enqueue(
+                    ss, state, fold_in(key, tick), ccfg)
             del got
         if tick > 1:
             checks += fallback_checks(select, commit, run_pair)
@@ -2658,11 +2734,14 @@ def sent_kernel_checks(dev):
                 checks.append(rec)
                 if label == "sim_trace" and not keys and k == select["fanout"]:
                     timed.update(sent_times(ss, "broadcast", select, commit,
-                                            got, rec, cfg.n_nodes, 8))
+                                            got, rec, cfg.n_nodes, 8,
+                                            parent))
     checks += split_checks(ss, dev)
     for c in checks:
-        if c["differs"] or c.get("commit_differs"):
+        if c["differs"] or c.get("commit_differs") or c.get("tick_differs"):
             fail(f"sent kernels differ from their plain versions: {c}")
+        if c.get("parent_differs"):
+            fail(f"sent_tick differs from the parent's two calls: {c}")
     results = []
     for name, replaces in (
         ("sent_select", "corrosion_tpu/sim/calibrate.py:71"),
@@ -2676,8 +2755,10 @@ def sent_kernel_checks(dev):
             shape=t["shape"]))
         set_bound(results[-1])
     for t in timed.values():
-        b, ops = t["bound"]
-        t["bound_ms"] = max(b / HBM_BYTES_PER_S, ops / INT_OPS_PER_S) * 1e3
+        if "bound" in t:
+            b, ops = t["bound"]
+            t["bound_ms"] = max(b / HBM_BYTES_PER_S,
+                                ops / INT_OPS_PER_S) * 1e3
     return results, checks, timed
 
 
@@ -2754,16 +2835,30 @@ def split_checks(ss, dev) -> list:
                 want_counts[0, r] = t.numel()
                 want_rows[r] = sent[0, r].clone()
                 want_rows[r][t] = True
-            work = sent.clone()
-            new_inf, counts = ss.sent_select(work, **select)
-            marks = int(work.sum()) - base_marks
-            bad = [] if (torch.equal(new_inf, want_inf)
-                         and torch.equal(counts, want_counts)
-                         and all(torch.equal(work[0, r], want_rows[r])
-                                 for r in rows)
-                         and marks == int(want_counts.sum())) \
-                else ["new_infected, counts or sent"]
-            del work
+            commit = dict(msgs=torch.zeros_like(tx), max_tx=8)
+            want_commit = ss.sent_commit_plain(
+                want_counts, tx, commit["msgs"], tick=0, max_tx=8,
+                next_send=select["next_send"], infected=infected,
+                new_infected=want_inf)
+            bad = []
+            for call in ("sent_select", "sent_tick"):
+                work = sent.clone()
+                if call == "sent_select":
+                    new_inf, counts = ss.sent_select(work, **select)
+                    rest_ok = True
+                else:
+                    new_inf, counts, *rest = ss.sent_tick(work, **select,
+                                                          **commit)
+                    rest_ok = all(map(torch.equal, rest, want_commit))
+                marks = int(work.sum()) - base_marks
+                if not (torch.equal(new_inf, want_inf)
+                        and torch.equal(counts, want_counts) and rest_ok
+                        and all(torch.equal(work[0, r], want_rows[r])
+                                for r in rows)
+                        and marks == int(want_counts.sum())):
+                    bad.append(f"{call}: new_infected, counts, sent or "
+                               "the commit's outputs")
+                del work
             out.append(dict(mode="calibration", variant="counter_split",
                             n=n, rows=list(rows), fanout=k, differs=bad,
                             sends=int(want_counts.sum())))
@@ -2772,10 +2867,14 @@ def split_checks(ss, dev) -> list:
     return out
 
 
-def sent_times(ss, mode, select, commit, got, rec, n, seeds) -> dict:
+def sent_times(ss, mode, select, commit, got, rec, n, seeds,
+               parent=None) -> dict:
     """Times of ``sent_select`` and ``sent_commit`` (kernel and plain) on
-    one tick's inputs, with their bounds: (bytes, integer
-    operations)."""
+    one tick's inputs, with their bounds: (bytes, integer operations);
+    and, in turns with the parent's when given (``in_turns``), the pair
+    from one ``sent_tick`` call (the parent's two calls, its counts
+    zero-filled first) and the commit alone, each between two events
+    behind a GPU-side sleep."""
     work = select["sent"].clone()
 
     def restore():
@@ -2823,7 +2922,84 @@ def sent_times(ss, mode, select, commit, got, rec, n, seeds) -> dict:
             lambda: ss.sent_commit_plain(got[-1], **extra, **commit), 3),
         bound=(com_bytes, 0),
         shape=f"{mode} {seeds} x {n}, tick {select['tick']}")
+    parent_pair = parent_commit = None
+    if parent is not None:
+        a, _ = parent.sent_block(sel, commit)
+        a.counts = got[-1].data_ptr()  # the commit on this selection
+        if calib:
+            a.new_infected = got[0].data_ptr()
+        else:
+            a.new_rows = got[0].data_ptr()
+            a.cand = None if got[1] is None else got[1].data_ptr()
+
+        def parent_pair():
+            parent.sent_pair(sel, commit)
+
+        def parent_commit():
+            parent.sent_launch("sent_commit_launch", a, got[-1])
+
+    out[f"sent_tick/{mode}"] = dict(
+        pair=in_turns(lambda: ss.sent_tick(**{**sel, **commit}), parent_pair,
+                      lambda fn: time_inplace_ms(restore, fn, 20)),
+        commit=in_turns(
+            lambda: ss.sent_commit(got[-1], **extra, **commit),
+            parent_commit, lambda fn: time_inplace_ms(lambda: None, fn, 20)),
+        select_ms=out[f"sent_select/{mode}"]["ms"],
+        shape=out[f"sent_select/{mode}"]["shape"])
     return out
+
+
+def sent_enqueue(ss, state, key, cfg, reps: int = 20) -> dict:
+    """The host's time (µs, medians of ``reps``) to enqueue one
+    calibration tick's sampler, the device asleep behind a GPU-side
+    sleep that must outlast it: ``sent_tick``, and the two wrappers
+    ``sent_select`` and ``sent_commit``, in turns (two, one, one, two),
+    on a copy of ``sent``; and ``exact_inputs`` before each, the device
+    idle (its key upload waits for the stream)."""
+    from corrosion_tpu_torch.sim import calibrate as cal
+
+    state = state._replace(sent=state.sent.clone())
+
+    def one_call(select, commit):
+        ss.sent_tick(**{**select, **commit})
+        return time.perf_counter()
+
+    def two_calls(select, commit):
+        new_infected, counts = ss.sent_select(**select)
+        t = time.perf_counter()
+        ss.sent_commit(counts, new_infected=new_infected, **commit)
+        return t
+
+    def measure(fn):
+        for _ in range(3):
+            fn(*cal.exact_inputs(state, key, cfg))
+        inputs, calls, last = [], [], []
+        for _ in range(reps):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            args = cal.exact_inputs(state, key, cfg)
+            t1 = time.perf_counter()
+            torch.cuda._sleep(10 * SLEEP_CYCLES)
+            t2 = time.perf_counter()
+            mid = fn(*args)
+            t3 = time.perf_counter()
+            done = torch.cuda.Event()
+            done.record()
+            if done.query():
+                fail("sent_enqueue: the device woke before the tick was "
+                     "enqueued")
+            inputs.append((t1 - t0) * 1e6)
+            calls.append((t3 - t2) * 1e6)
+            last.append((t3 - mid) * 1e6)
+        torch.cuda.synchronize()
+        # last_call_us: sent_commit's wrapper of the two, ~0 for one
+        return {"inputs_us": float(np.median(inputs)),
+                "calls_us": float(np.median(calls)),
+                "last_call_us": float(np.median(last))}
+
+    runs = [measure(fn) for fn in (two_calls, one_call, one_call,
+                                   two_calls)]
+    return {"sent_tick": runs[1:3], "two_calls": [runs[0], runs[3]]}
 
 
 # every run of phase 12 launches these; the calibration's perm column
@@ -3209,8 +3385,7 @@ class WinnersPasses:
                              device=self.dev))
 
     def run_a(self, fn, o):
-        """Domain A by ``fn`` into ``o``; returns its pk_pos (None from
-        the parent's kernel, which writes none)."""
+        """Domain A by ``fn`` into ``o``; returns its pk_pos."""
         return fn(self.o_a, self.prev_a, self.pk, self.cl, self.sent,
                   self.seed_cl, o["final_cl"], o["sent_flag"], o["ensure"],
                   o["part"], o["counts"])
@@ -3245,11 +3420,12 @@ class WinnersPasses:
                                    [b_want[k] for k in b_keys])
         if self.parent is not None:
             a_old, b_old = self.outputs(), self.outputs()
-            self.run_a(self.parent.winners_a, a_old)
-            self.run_b(self.parent.winners_b, b_old, self.pk, self.prev_b,
+            pos_old = self.run_a(self.parent.winners_a, a_old)
+            self.run_b(self.parent.winners_b, b_old, pos_want, self.prev_b,
                        part, final_cl)
-            res["a_parent_err"] = max_abs_err([a_got[k] for k in a_keys],
-                                              [a_old[k] for k in a_keys])
+            res["a_parent_err"] = max_abs_err(
+                [a_got[k] for k in a_keys] + [pos],
+                [a_old[k] for k in a_keys] + [pos_old])
             res["b_parent_err"] = max_abs_err([b_got[k] for k in b_keys],
                                               [b_old[k] for k in b_keys])
         self.part, self.final_cl, self.pk_pos = part, final_cl, pos_want
@@ -3271,7 +3447,7 @@ class WinnersPasses:
 
         return {"winners_a": (a(w.winners_a), old and a(old.winners_a)),
                 "winners_b": (b(w.winners_b, self.pk_pos),
-                              old and b(old.winners_b, self.pk))}
+                              old and b(old.winners_b, self.pk_pos))}
 
 
 def winners_kernel_checks(plans: dict, dev, parent=None) -> list:
@@ -4991,9 +5167,10 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--parent", help="a checkout of the parent commit: "
                     "hold its threefry_bits, deliver_perm, "
-                    "swim_probe_select, exact_send<Bitmap>, route_pack, "
-                    "ring_receive, shard and winner kernels to this "
-                    "tree's and time them beside them")
+                    "swim_probe_select, exact_send<Bitmap>, sent_select, "
+                    "sent_commit, route_pack, ring_receive, shard and "
+                    "winner kernels to this tree's and time them beside "
+                    "them")
     opts = ap.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
@@ -5065,6 +5242,15 @@ def main() -> int:
                for m in (record["sass"]["sent_sampler"], theirs)]
         sass_line["sent_select_ops_equal_parent"] = {
             n: o == ops[1].get(n) for n, o in ops[0].items()}
+        # and loop by loop (innermost first; the filter loop among them):
+        # whatever changed in sent_select stays outside its loops
+        loops = [{n[n.index("sent_select"):]: [lp["ops"] for lp in f["loops"]]
+                  for n, f in m.items()}
+                 for m in (record["sass"]["sent_sampler"], theirs)]
+        sass_line["sent_select_loops_equal_parent"] = {
+            n: [a == b for a, b in zip(mine, loops[1].get(n, []))]
+            + [False] * abs(len(mine) - len(loops[1].get(n, [])))
+            for n, mine in loops[0].items()}
         # seg_cummax beside the parent's: winners.cu changed around it
         theirs = sass.mix(parent.paths["winners"], "seg_cummax")
         record["parent_sass"]["winners"] = theirs
@@ -5222,7 +5408,7 @@ def main() -> int:
     print("anti-entropy and churn card == CPU per tick (gossip 12 and 20 "
           "entries included)", flush=True)
 
-    sent_results = sent_phases(record, counted, cuda)
+    sent_results = sent_phases(record, counted, cuda, parent)
     winners_results = sort_winners_phases(record, counted, results, cuda,
                                           parent)
     with tempfile.TemporaryDirectory(prefix="apply-",
@@ -5278,16 +5464,23 @@ def main() -> int:
     return 0
 
 
-def sent_phases(record: dict, counted: dict, cuda) -> list:
+def sent_phases(record: dict, counted: dict, cuda, parent=None) -> list:
     """Phases 11-13, the exact ``sent_to`` sampler; returns the kernels'
     results with the main path's launches (phase 12's runs summed)."""
-    # phase 11: sent_select / sent_commit against their plain versions
+    # phase 11: sent_select / sent_commit / sent_tick against their plain
+    # versions (and the parent's two calls)
     results, record["sent_checks"], record["sent_times"] = (
-        sent_kernel_checks(cuda))
+        sent_kernel_checks(cuda, parent))
     ties = sum(c.get("tied_rows", 0) for c in record["sent_checks"])
     print("sent kernels match their plain versions: "
           + ", ".join(f"{r['name']} {r['max_abs_err']}" for r in results)
-          + f"; {ties} active rows with tied scores", flush=True)
+          + f"; {ties} active rows with tied scores; sent_tick in "
+          f"{len(record['sent_checks'])} cases"
+          + (" (the parent's two calls too)" if parent else ""), flush=True)
+    times = record["sent_times"]
+    print(json.dumps({"sent_tick": {
+        k: v for k, v in times.items()
+        if k.startswith(("sent_tick/", "enqueue/"))}}), flush=True)
 
     # phase 12: run_msgs_calibration and the track_sent runs at full
     # width, each held to the reference's numbers

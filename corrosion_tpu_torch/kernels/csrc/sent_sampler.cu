@@ -43,8 +43,11 @@
 //           atomicMax-es the sender's packed keys into new_rows[t] (a
 //           copy of rows) and atomicMin-s min(hops[i], HOP_UNSET) + 1
 //           into cand[t].
-//       Thread 0 writes the row's send count (zero-filled by the
-//       wrapper, so inactive rows read 0).
+//       Thread 0 writes the row's send count (inactive rows read 0:
+//       the wrapper fills counts first, or sent_tick's commit writes
+//       their 0).  Its blocks release the commit at their start
+//       (griddepcontrol.launch_dependents), a no-op unless the commit
+//       is launched behind it under programmatic dependent launch.
 //   sent_commit  one thread per (seed, node): msgs plus the count, the
 //       budget (calibration: a send decrements, an exhausted row
 //       retires to 0; broadcast: an active row decrements), the
@@ -52,6 +55,16 @@
 //       learners' fresh budget (calibration: new_infected & ~infected;
 //       broadcast: any key of new_rows[i] != rows[i]) and the hops.
 //       It is a second launch because it needs every sender's stores.
+//   sent_tick_launch enqueues both from one host call, the commit under
+//       programmatic dependent launch (CHAINED): its blocks start once
+//       every selection block has started, load every input of the
+//       tick (leaves the selection never writes) before
+//       griddepcontrol.wait and the selection's outputs after it, each
+//       group issued together, then compute from registers and store;
+//       an inactive row's count is not loaded but written, 0, so
+//       nothing is filled first.  What held the separate launch back
+//       was latency (a launch of its own, and a chain of loads behind
+//       the activity test's short circuit: PERF.md), not its bytes.
 //
 // Where the trouble is:
 // - Counters.  Calibration draws uniform(fold_in(key_t, start), (ci,
@@ -120,6 +133,7 @@ using common::HOP_UNSET;
 
 constexpr int MAX_K = 8;
 constexpr int THREADS = 256;
+constexpr int COMMIT_THREADS = 128;  // 125 blocks at 16k: an SM each
 constexpr int UNROLL = 8;      // columns a thread hashes a filter step
 constexpr int HIT_CAP = 128;   // a row's candidate buffer
 // rows of up to this many columns take a warp each, longer ones a block
@@ -149,7 +163,7 @@ struct SentArgs {
   unsigned char* new_infected;    // [S, N] copy of infected
   void* new_rows;                 // [S, N, R] copy of rows
   int* cand;                      // [S, N] HOP_UNSET-filled, or null
-  int* counts;                    // [S, N] zero-filled
+  int* counts;                    // [S, N] zero-filled (sent_tick: not)
   int* tx_out;
   int* next_out;
   int* msgs_out;
@@ -270,6 +284,9 @@ __global__ void __launch_bounds__(THREADS) sent_select(const SentArgs a) {
   __shared__ unsigned long long s_sel[ROWS][K];
   __shared__ unsigned long long s_warp[THREADS / 32];
   __shared__ int s_count[ROWS];
+  // sent_tick's commit may start its blocks now: they load the tick's
+  // inputs and wait (griddepcontrol.wait) for this grid to finish
+  asm volatile("griddepcontrol.launch_dependents;");
   const int lr = threadIdx.x / G, t = threadIdx.x % G;
   const size_t g = (size_t)blockIdx.x * ROWS + lr;
   const int n = a.n;
@@ -356,49 +373,91 @@ __device__ __forceinline__ int backoff_gap(const SentArgs& a, int tx) {
   return max(1, (int)rintf(__fmul_rn(a.backoff, (float)(a.max_tx - tx))));
 }
 
-__global__ void sent_commit(const SentArgs a) {
-  const size_t g = (size_t)blockIdx.x * blockDim.x + threadIdx.x;
+// a row of a [S, N, R] int32 / int64 leaf as VECS 16-byte vectors
+template <int VECS>
+__device__ __forceinline__ void load_row(const void* base, size_t g,
+                                         uint4 (&w)[VECS]) {
+  const uint4* p = static_cast<const uint4*>(base) + g * VECS;
+#pragma unroll
+  for (int v = 0; v < VECS; ++v) w[v] = p[v];
+}
+
+__device__ __forceinline__ bool differs(uint4 x, uint4 y) {
+  return ((x.x ^ y.x) | (x.y ^ y.y) | (x.z ^ y.z) | (x.w ^ y.w)) != 0;
+}
+
+// The epilogue for (seed, node) g.  Every input of the tick is loaded
+// first, unconditionally (a null leaf aside), then griddepcontrol.wait
+// (behind sent_select in sent_tick_launch; at once in a plain launch),
+// then sent_select's outputs; activity comes from registers.  VECS > 0:
+// a broadcast row is VECS aligned 16-byte vectors, compared as 32-bit
+// words (an int64 key differs exactly when one of its halves does);
+// VECS = 0: r << wide words one by one, after the wait.  CHAINED (from
+// sent_tick_launch): counts was not filled, so an active row's count is
+// read and an inactive row's written, 0; alone every row's is read.
+template <bool CALIB, int VECS, bool CHAINED>
+__global__ void __launch_bounds__(COMMIT_THREADS)
+    sent_commit(const SentArgs a) {
+  const size_t g = (size_t)blockIdx.x * COMMIT_THREADS + threadIdx.x;
   if (g >= (size_t)a.s * a.n) return;
   const int i = (int)(g % a.n);
-  const bool act = row_active(a, g);
-  const int cnt = a.counts[g];
-  const int tx = a.tx[g];
-  a.msgs_out[g] = a.msgs[g] + cnt;
-  if (a.infected != nullptr) {  // calibration (exact_tick)
+  const int tx = a.tx[g], msgs = a.msgs[g];
+  const int ns = a.next_send != nullptr ? a.next_send[g] : 0;
+  unsigned char inf = 0;
+  int tier = 1, hops = 0;
+  uint4 row[VECS > 0 ? VECS : 1];
+  if constexpr (CALIB) {
+    inf = a.infected[g];
+  } else {
+    if (a.tier != nullptr) tier = a.tier[i];
+    if (a.hops != nullptr) hops = a.hops[g];
+    if constexpr (VECS > 0) load_row<VECS>(a.rows, g, row);
+  }
+  const bool due = tx > 0 && (a.next_send == nullptr || ns <= a.tick);
+  const bool act = CALIB ? inf && due : due;  // sent_select's row_active
+  asm volatile("griddepcontrol.wait;" ::: "memory");
+  int cnt = 0;
+  if (!CHAINED || act)
+    cnt = a.counts[g];
+  else
+    a.counts[g] = 0;
+  if constexpr (CALIB) {
+    const bool fresh = a.new_infected[g] && !inf;
     const bool sent_now = act && cnt > 0, exhausted = act && cnt == 0;
     int tx2 = sent_now ? tx - 1 : (exhausted ? 0 : tx);
-    int nxt = sent_now ? a.tick + backoff_gap(a, tx2) : a.next_send[g];
-    if (a.new_infected[g] && !a.infected[g]) {
+    int nxt = sent_now ? a.tick + backoff_gap(a, tx2) : ns;
+    if (fresh) {
       tx2 = a.max_tx;
       nxt = a.tick + 1;
     }
+    a.msgs_out[g] = msgs + cnt;
     a.tx_out[g] = tx2;
     a.next_out[g] = nxt;
-    return;
-  }
-  bool learned = false;
-  if (a.wide) {
-    const long long* x = static_cast<const long long*>(a.rows) + g * a.r;
-    const long long* y = static_cast<const long long*>(a.new_rows) + g * a.r;
-    for (int c = 0; c < a.r; ++c) learned |= x[c] != y[c];
   } else {
-    const int* x = static_cast<const int*>(a.rows) + g * a.r;
-    const int* y = static_cast<const int*>(a.new_rows) + g * a.r;
-    for (int c = 0; c < a.r; ++c) learned |= x[c] != y[c];
-  }
-  const int tx2 = learned ? a.max_tx : (act ? tx - 1 : tx);
-  a.tx_out[g] = tx2;
-  if (a.next_out != nullptr) {
-    int gap = backoff_gap(a, tx2), first = 1;
-    if (a.tier != nullptr) {
-      gap *= a.tier[i];
-      first = a.tier[i];
+    const int cand = a.hops_out != nullptr ? a.cand[g] : 0;
+    bool learned = false;
+    if constexpr (VECS > 0) {
+      uint4 now[VECS];
+      load_row<VECS>(a.new_rows, g, now);
+#pragma unroll
+      for (int v = 0; v < VECS; ++v) learned |= differs(row[v], now[v]);
+    } else {
+      const int words = a.r << a.wide;
+      const uint32_t* x = static_cast<const uint32_t*>(a.rows) + g * words;
+      const uint32_t* y =
+          static_cast<const uint32_t*>(a.new_rows) + g * words;
+      for (int c = 0; c < words; ++c) learned |= x[c] != y[c];
     }
-    int nxt = act ? a.tick + gap : a.next_send[g];
-    a.next_out[g] = learned ? a.tick + first : nxt;
+    const int tx2 = learned ? a.max_tx : (act ? tx - 1 : tx);
+    a.msgs_out[g] = msgs + cnt;
+    a.tx_out[g] = tx2;
+    if (a.next_out != nullptr) {
+      const int nxt = act ? a.tick + backoff_gap(a, tx2) * tier : ns;
+      a.next_out[g] = learned ? a.tick + tier : nxt;
+    }
+    if (a.hops_out != nullptr)
+      a.hops_out[g] = learned ? min(hops, cand) : hops;
   }
-  if (a.hops_out != nullptr)
-    a.hops_out[g] = learned ? min(a.hops[g], a.cand[g]) : a.hops[g];
 }
 
 // the leaves both kernels read, by mode
@@ -434,31 +493,88 @@ cudaError_t launch_select_g(const SentArgs& a, cudaStream_t stream) {
   return cudaErrorInvalidValue;
 }
 
+bool bad_select(const SentArgs& a) {
+  return bad_leaves(a) || a.k < 1 || a.k > MAX_K || a.chunk < 1 ||
+         a.nchunks != (a.n + a.chunk - 1) / a.chunk || a.sent == nullptr ||
+         a.keys == nullptr ||
+         (a.infected == nullptr && a.loss_keys == nullptr) || a.one != 1u ||
+         (a.hit_bits & 511u) != 511u;
+}
+
+bool bad_commit(const SentArgs& a) {
+  return bad_leaves(a) || a.tx_out == nullptr || a.msgs_out == nullptr ||
+         (a.infected != nullptr && a.next_out == nullptr) ||
+         (a.next_out != nullptr && a.next_send == nullptr) ||
+         (a.hops_out != nullptr && (a.hops == nullptr || a.cand == nullptr));
+}
+
+cudaError_t enqueue_select(const SentArgs& a, cudaStream_t st) {
+  if (a.n <= WARP_ROW_MAX_N) return launch_select_g<32>(a, st);
+  return launch_select_g<THREADS>(a, st);
+}
+
+// after: under programmatic dependent launch behind the kernel before
+// it in the stream (its blocks may start while that one runs, up to
+// their griddepcontrol.wait)
+template <bool CALIB, int VECS>
+cudaError_t launch_commit(const SentArgs& a, cudaStream_t st, bool after) {
+  const unsigned long long total = (unsigned long long)a.s * a.n;
+  const unsigned blocks =
+      (unsigned)((total + COMMIT_THREADS - 1) / COMMIT_THREADS);
+  if (!after) {
+    sent_commit<CALIB, VECS, false><<<blocks, COMMIT_THREADS, 0, st>>>(a);
+    return cudaGetLastError();
+  }
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(blocks);
+  cfg.blockDim = dim3(COMMIT_THREADS);
+  cfg.stream = st;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeProgrammaticStreamSerialization;
+  attr[0].val.programmaticStreamSerializationAllowed = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  return cudaLaunchKernelEx(&cfg, sent_commit<CALIB, VECS, true>, a);
+}
+
+// the instantiation by mode and by a broadcast row's width and
+// alignment: R = 4 keys (sim_trace's) in one or two 16-byte vectors
+cudaError_t enqueue_commit(const SentArgs& a, cudaStream_t st, bool after) {
+  if (a.infected != nullptr) return launch_commit<true, 0>(a, st, after);
+  const uintptr_t ends = reinterpret_cast<uintptr_t>(a.rows) |
+                         reinterpret_cast<uintptr_t>(a.new_rows);
+  if (ends % 16 == 0) {
+    switch (a.r * (a.wide ? 8 : 4)) {
+      case 16: return launch_commit<false, 1>(a, st, after);
+      case 32: return launch_commit<false, 2>(a, st, after);
+    }
+  }
+  return launch_commit<false, 0>(a, st, after);
+}
+
 }  // namespace
 
 extern "C" int sent_args_size() { return (int)sizeof(SentArgs); }
 
 extern "C" int sent_select_launch(const void* args, void* stream) {
   const SentArgs& a = *static_cast<const SentArgs*>(args);
-  if (bad_leaves(a) || a.k < 1 || a.k > MAX_K || a.chunk < 1 ||
-      a.nchunks != (a.n + a.chunk - 1) / a.chunk || a.sent == nullptr ||
-      a.keys == nullptr || (a.infected == nullptr && a.loss_keys == nullptr) ||
-      a.one != 1u || (a.hit_bits & 511u) != 511u)
-    return (int)cudaErrorInvalidValue;
-  const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (a.n <= WARP_ROW_MAX_N) return (int)launch_select_g<32>(a, st);
-  return (int)launch_select_g<THREADS>(a, st);
+  if (bad_select(a)) return (int)cudaErrorInvalidValue;
+  return (int)enqueue_select(a, static_cast<cudaStream_t>(stream));
 }
 
 extern "C" int sent_commit_launch(const void* args, void* stream) {
   const SentArgs& a = *static_cast<const SentArgs*>(args);
-  if (bad_leaves(a) || a.tx_out == nullptr || a.msgs_out == nullptr ||
-      (a.infected != nullptr && a.next_out == nullptr) ||
-      (a.next_out != nullptr && a.next_send == nullptr) ||
-      (a.hops_out != nullptr && (a.hops == nullptr || a.cand == nullptr)))
-    return (int)cudaErrorInvalidValue;
-  const unsigned long long total = (unsigned long long)a.s * a.n;
-  const unsigned blocks = (unsigned)((total + THREADS - 1) / THREADS);
-  sent_commit<<<blocks, THREADS, 0, static_cast<cudaStream_t>(stream)>>>(a);
-  return (int)cudaGetLastError();
+  if (bad_commit(a)) return (int)cudaErrorInvalidValue;
+  return (int)enqueue_commit(a, static_cast<cudaStream_t>(stream), false);
+}
+
+// one tick: sent_select, then sent_commit under programmatic dependent
+// launch behind it
+extern "C" int sent_tick_launch(const void* args, void* stream) {
+  const SentArgs& a = *static_cast<const SentArgs*>(args);
+  if (bad_select(a) || bad_commit(a)) return (int)cudaErrorInvalidValue;
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const cudaError_t err = enqueue_select(a, st);
+  if (err != cudaSuccess) return (int)err;
+  return (int)enqueue_commit(a, st, true);
 }

@@ -1,5 +1,6 @@
-"""``sent_select`` / ``sent_commit``: the exact ``sent_to``-excluding
-sampler (csrc/sent_sampler.cu).
+"""``sent_select`` / ``sent_commit``, and ``sent_tick``, both from one
+host call: the exact ``sent_to``-excluding sampler
+(csrc/sent_sampler.cu).
 
 Replaces corrosion_tpu/sim/calibrate.py ``exact_tick`` (:71-121) and
 the ``sent`` branch of corrosion_tpu/models/broadcast.py
@@ -26,7 +27,10 @@ other output is a fresh tensor.  Bound on the H100: threefry operations
 sent rows' bytes.  The kernel hashes every column of an active row,
 keeps the few under a mantissa bound (:func:`hit_bits`) and selects
 among those, with an exact fallback when fewer than k remain; see the
-source for the design.
+source for the design.  The ticks (``exact_tick``, ``deliver_sent``)
+call :func:`sent_tick`, which enqueues both kernels from one argument
+block, the commit under programmatic dependent launch; the two
+wrappers stay for their own callers.
 """
 
 from __future__ import annotations
@@ -249,6 +253,26 @@ def key_tensor(rows, device) -> torch.Tensor:
     return torch.tensor(words, dtype=torch.uint32).to(device)
 
 
+def sent_tick_plain(sent, keys, fanout: int, chunk: int, *, tx, msgs,
+                    tick: int, max_tx: int, backoff: float = 0.0,
+                    next_send=None, infected=None, rows=None, hops=None,
+                    tier=None, **select):
+    """Plain PyTorch version of :func:`sent_tick`:
+    :func:`sent_select_plain`, then :func:`sent_commit_plain` on its
+    results."""
+    out = sent_select_plain(sent, keys, fanout, chunk, tx=tx,
+                            next_send=next_send, tick=tick,
+                            infected=infected, rows=rows, hops=hops,
+                            **select)
+    calib = infected is not None
+    return (*out, *sent_commit_plain(
+        out[-1], tx, msgs, tick=tick, max_tx=max_tx, backoff=backoff,
+        next_send=next_send, infected=infected,
+        new_infected=out[0] if calib else None, rows=rows,
+        new_rows=None if calib else out[0], hops=hops,
+        cand=None if calib else out[1], tier=tier))
+
+
 def _check_shapes(name, tensors) -> None:
     for label, t, shape in tensors:
         if t is not None and tuple(t.shape) != shape:
@@ -266,11 +290,17 @@ def _args(**fields) -> _Args:
     return a
 
 
+_SIZE_CHECKED: dict = {}  # the library whose SentArgs size was checked
+
+
 def _launch(name: str, symbol: str, a: _Args, t) -> None:
-    size = kernels.function("sent_sampler", "sent_args_size", ())()
-    if size != ctypes.sizeof(_Args):
-        raise RuntimeError(f"{name}: the argument block is {size} bytes in "
-                           f"the kernel, {ctypes.sizeof(_Args)} here")
+    lib = kernels.load("sent_sampler")
+    if _SIZE_CHECKED.get("lib") is not lib:
+        size = kernels.function("sent_sampler", "sent_args_size", ())()
+        if size != ctypes.sizeof(_Args):
+            raise RuntimeError(f"{name}: the argument block is {size} bytes "
+                               f"in the kernel, {ctypes.sizeof(_Args)} here")
+        _SIZE_CHECKED["lib"] = lib
     fn = kernels.function("sent_sampler", symbol,
                           (ctypes.c_void_p, ctypes.c_void_p))
     code = fn(ctypes.addressof(a), kernels.stream(t))
@@ -287,6 +317,73 @@ def _check_cuda(name, named) -> None:
         if t is not None:
             kernels.check(f"{name} {label}", t, dtype,
                           align=t.element_size())
+
+
+def _check_select(name, sent, keys, fanout, chunk, tx, next_send, infected,
+                  rows, hops, loss_keys, region, partition_id) -> None:
+    """sent_select's argument rules, on either device."""
+    s, n = tx.shape
+    calib = infected is not None
+    if calib == (rows is not None):
+        raise ValueError(f"{name}: give infected (calibration) or rows "
+                         "(broadcast), not both")
+    if not calib and chunk != n:
+        raise ValueError(f"{name}: broadcast mode draws one chunk of N")
+    if not 1 <= chunk <= n or fanout < 1:
+        raise ValueError(f"{name}: chunk must be in 1..{n} and fanout "
+                         f">= 1, got {chunk} and {fanout}")
+    _check_shapes(name, (
+        ("keys", keys, (s, -(-n // chunk), 2)), ("sent", sent, (s, n, n)),
+        ("next_send", next_send, (s, n)),
+        ("infected", infected, (s, n)), ("hops", hops, (s, n)),
+        ("loss_keys", loss_keys, (s, 2, 2)), ("region", region, (n,)),
+        ("partition_id", partition_id, (n,)),
+    ))
+    if rows is not None and (rows.dim() != 3 or rows.shape[:2] != (s, n)):
+        raise ValueError(f"{name}: rows must be [{s}, {n}, R]")
+
+
+def _select_fields(name, sent, keys, fanout, chunk, *, tx, next_send=None,
+                   tick=0, infected=None, rows=None, hops=None,
+                   loss_keys=None, loss=0.0, wan_loss=0.0, region=None,
+                   partition_id=None, sev=None, partition_active=False):
+    """The card's checks of sent_select's leaves (arguments as
+    :func:`sent_select`'s), its fresh outputs other than counts
+    (new_infected, or new_rows and cand) and its fields of the argument
+    block."""
+    if fanout > MAX_FANOUT:
+        raise ValueError(f"{name}: the kernel takes a fanout of at most "
+                         f"{MAX_FANOUT}, got {fanout}")
+    if sev is not None:
+        sev = sev.to(torch.uint8).contiguous()
+    if rows is not None and rows.dtype not in (torch.int32, torch.int64):
+        raise ValueError(f"{name}: rows must be int32 or int64, got "
+                         f"{rows.dtype}")
+    _check_cuda(name, (
+        ("sent", sent, BOOL), ("keys", keys, U32), ("tx", tx, I32),
+        ("next_send", next_send, I32), ("infected", infected, BOOL),
+        ("rows", rows, None if rows is None else rows.dtype),
+        ("hops", hops, I32), ("loss_keys", loss_keys, U32),
+        ("region", region, I32), ("partition_id", partition_id, I32),
+        ("sev", sev, torch.uint8)))
+    s, n = tx.shape
+    calib = infected is not None
+    if calib:
+        outs = (infected.clone(),)
+    else:
+        outs = (rows.clone(),
+                None if hops is None else torch.full_like(hops, HOP_UNSET))
+    return outs, dict(
+        sent=sent, keys=keys, loss_keys=loss_keys, infected=infected, tx=tx,
+        next_send=next_send, rows=rows, hops=hops, part=partition_id,
+        sev=sev, region=region, new_infected=outs[0] if calib else None,
+        new_rows=None if calib else outs[0],
+        cand=None if calib else outs[1], s=s, n=n, k=fanout, chunk=chunk,
+        nchunks=-(-n // chunk), r=0 if calib else rows.shape[2],
+        wide=int(rows is not None and rows.dtype == torch.int64),
+        sev_b=0 if sev is None else sev.shape[0], tick=tick,
+        part_active=int(bool(partition_active)), use_loss=int(loss > 0.0),
+        loss=loss, wan_loss=wan_loss, one=1, hit_bits=hit_bits(n, fanout))
 
 
 def sent_select(sent, keys, fanout: int, chunk: int, *, tx, next_send=None,
@@ -308,70 +405,31 @@ def sent_select(sent, keys, fanout: int, chunk: int, *, tx, next_send=None,
     [N] int32 with ``sev`` [B, B] bool or None and a host
     ``partition_active``; returns (new_rows, cand [S, N] int32 or None,
     counts).  Inactive rows send nothing and count 0."""
-    s, n = tx.shape
-    calib = infected is not None
-    if calib == (rows is not None):
-        raise ValueError("sent_select: give infected (calibration) or rows "
-                         "(broadcast), not both")
-    if not calib and chunk != n:
-        raise ValueError("sent_select: broadcast mode draws one chunk of N")
-    if not 1 <= chunk <= n or fanout < 1:
-        raise ValueError(f"sent_select: chunk must be in 1..{n} and fanout "
-                         f">= 1, got {chunk} and {fanout}")
-    _check_shapes("sent_select", (
-        ("keys", keys, (s, -(-n // chunk), 2)), ("sent", sent, (s, n, n)),
-        ("next_send", next_send, (s, n)),
-        ("infected", infected, (s, n)), ("hops", hops, (s, n)),
-        ("loss_keys", loss_keys, (s, 2, 2)), ("region", region, (n,)),
-        ("partition_id", partition_id, (n,)),
-    ))
-    if rows is not None and (rows.dim() != 3 or rows.shape[:2] != (s, n)):
-        raise ValueError(f"sent_select: rows must be [{s}, {n}, R]")
     args = dict(tx=tx, next_send=next_send, tick=tick, infected=infected,
                 rows=rows, hops=hops, loss_keys=loss_keys, loss=loss,
                 wan_loss=wan_loss, region=region, partition_id=partition_id,
                 sev=sev, partition_active=partition_active)
+    _check_select("sent_select", sent, keys, fanout, chunk, tx, next_send,
+                  infected, rows, hops, loss_keys, region, partition_id)
     if kernels.on_cpu(sent, keys, tx, next_send, infected, rows, hops,
                       loss_keys, region, partition_id, sev):
         return sent_select_plain(sent, keys, fanout, chunk, **args)
-    if fanout > MAX_FANOUT:
-        raise ValueError(f"sent_select: the kernel takes a fanout of at "
-                         f"most {MAX_FANOUT}, got {fanout}")
-    if sev is not None:
-        sev = sev.to(torch.uint8).contiguous()
-    if rows is not None and rows.dtype not in (torch.int32, torch.int64):
-        raise ValueError(f"sent_select: rows must be int32 or int64, got "
-                         f"{rows.dtype}")
-    _check_cuda("sent_select", (
-        ("sent", sent, BOOL), ("keys", keys, U32), ("tx", tx, I32),
-        ("next_send", next_send, I32), ("infected", infected, BOOL),
-        ("rows", rows, None if rows is None else rows.dtype),
-        ("hops", hops, I32), ("loss_keys", loss_keys, U32),
-        ("region", region, I32), ("partition_id", partition_id, I32),
-        ("sev", sev, torch.uint8)))
-    counts = torch.zeros((s, n), dtype=torch.int32, device=tx.device)
-    new_infected = infected.clone() if calib else None
-    new_rows = None if calib else rows.clone()
-    cand = None
-    if hops is not None:
-        cand = torch.full_like(hops, HOP_UNSET)
-    a = _args(
-        sent=sent, keys=keys, loss_keys=loss_keys, infected=infected, tx=tx,
-        next_send=next_send, rows=rows, hops=hops, part=partition_id,
-        sev=sev, region=region, new_infected=new_infected,
-        new_rows=new_rows, cand=cand, counts=counts, s=s, n=n, k=fanout,
-        chunk=chunk, nchunks=-(-n // chunk),
-        r=0 if calib else rows.shape[2],
-        wide=int(rows is not None and rows.dtype == torch.int64),
-        sev_b=0 if sev is None else sev.shape[0], tick=tick,
-        part_active=int(bool(partition_active)), use_loss=int(loss > 0.0),
-        loss=loss, wan_loss=wan_loss, one=1, hit_bits=hit_bits(n, fanout),
-    )
-    _launch("sent_select", "sent_select_launch", a, tx)
+    outs, fields = _select_fields("sent_select", sent, keys, fanout, chunk,
+                                  **args)
+    counts = torch.zeros(tx.shape, dtype=I32, device=tx.device)
+    _launch("sent_select", "sent_select_launch",
+            _args(counts=counts, **fields), tx)
     sent_select.launches += 1
-    if calib:
-        return new_infected, counts
-    return new_rows, cand, counts
+    return (*outs, counts)
+
+
+def _commit_fields(msgs, tier, max_tx, backoff, outs):
+    """sent_commit's own fields of the argument block; ``outs`` its
+    int32 outputs (tx, msgs, next_send or None, hops or None)."""
+    tx_out, msgs_out, next_out, hops_out = outs
+    return dict(msgs=msgs, tier=tier, tx_out=tx_out, next_out=next_out,
+                msgs_out=msgs_out, hops_out=hops_out, max_tx=max_tx,
+                backoff=backoff)
 
 
 def sent_commit(counts, tx, msgs, *, tick: int, max_tx: int,
@@ -420,22 +478,74 @@ def sent_commit(counts, tx, msgs, *, tick: int, max_tx: int,
         ("new_infected", new_infected, BOOL), ("rows", rows, row_dtype),
         ("new_rows", new_rows, row_dtype), ("hops", hops, I32),
         ("cand", cand, I32), ("tier", tier, I32)))
-    tx_out, msgs_out = torch.empty_like(tx), torch.empty_like(msgs)
-    next_out = None if next_send is None else torch.empty_like(next_send)
-    hops_out = None if hops is None else torch.empty_like(hops)
+    outs = (torch.empty_like(tx), torch.empty_like(msgs),
+            None if next_send is None else torch.empty_like(next_send),
+            None if hops is None else torch.empty_like(hops))
     a = _args(
-        infected=infected, tx=tx, next_send=next_send, msgs=msgs, rows=rows,
-        hops=hops, tier=tier, new_infected=new_infected, new_rows=new_rows,
-        cand=cand, counts=counts, tx_out=tx_out, next_out=next_out,
-        msgs_out=msgs_out, hops_out=hops_out, s=s, n=n,
-        r=0 if calib else rows.shape[2], wide=int(row_dtype == torch.int64),
-        tick=tick, max_tx=max_tx, backoff=backoff,
-    )
+        infected=infected, tx=tx, next_send=next_send, rows=rows, hops=hops,
+        new_infected=new_infected, new_rows=new_rows, cand=cand,
+        counts=counts, s=s, n=n, r=0 if calib else rows.shape[2],
+        wide=int(row_dtype == torch.int64), tick=tick,
+        **_commit_fields(msgs, tier, max_tx, backoff, outs))
     _launch("sent_commit", "sent_commit_launch", a, tx)
     sent_commit.launches += 1
+    tx_out, msgs_out, next_out, hops_out = outs
     if calib:
         return tx_out, next_out, msgs_out
     return tx_out, msgs_out, hops_out, next_out
+
+
+def sent_tick(sent, keys, fanout: int, chunk: int, *, tx, msgs, tick: int,
+              max_tx: int, backoff: float = 0.0, next_send=None,
+              infected=None, rows=None, hops=None, loss_keys=None, loss=0.0,
+              wan_loss=0.0, region=None, partition_id=None, sev=None,
+              partition_active=False, tier=None):
+    """One tick of the sampler from one host call: :func:`sent_select`
+    then :func:`sent_commit` on its results (arguments as theirs; the
+    commit's ``max_tx``, ``backoff``, ``msgs`` and ``tier``).  The
+    leaves are checked once, every output is allocated at once and one
+    argument block enqueues both kernels, the commit under programmatic
+    dependent launch.  ``sent`` is marked in place.
+
+    Returns sent_select's results followed by sent_commit's:
+    calibration (new_infected, counts, tx, next_send, msgs); broadcast
+    (new_rows, cand, counts, tx, msgs, hops, next_send)."""
+    select = dict(tx=tx, next_send=next_send, tick=tick, infected=infected,
+                  rows=rows, hops=hops, loss_keys=loss_keys, loss=loss,
+                  wan_loss=wan_loss, region=region,
+                  partition_id=partition_id, sev=sev,
+                  partition_active=partition_active)
+    _check_select("sent_tick", sent, keys, fanout, chunk, tx, next_send,
+                  infected, rows, hops, loss_keys, region, partition_id)
+    s, n = tx.shape
+    if infected is not None and next_send is None:
+        raise ValueError("sent_tick: calibration mode needs next_send")
+    _check_shapes("sent_tick", (("msgs", msgs, (s, n)),
+                                ("tier", tier, (n,))))
+    if kernels.on_cpu(sent, keys, tx, msgs, next_send, infected, rows, hops,
+                      loss_keys, region, partition_id, sev, tier):
+        return sent_tick_plain(sent, keys, fanout, chunk, msgs=msgs,
+                               max_tx=max_tx, backoff=backoff, tier=tier,
+                               **select)
+    outs, fields = _select_fields("sent_tick", sent, keys, fanout, chunk,
+                                  **select)
+    _check_cuda("sent_tick", (("msgs", msgs, I32), ("tier", tier, I32)))
+    # counts (its inactive rows' 0 the commit's), tx, msgs, then
+    # next_send and hops where given: one buffer, nothing filled
+    given = (next_send is not None, hops is not None)
+    buf = torch.empty((3 + sum(given), s, n), dtype=I32, device=tx.device)
+    counts, tx_out, msgs_out, *more = buf.unbind(0)
+    next_out = more.pop(0) if given[0] else None
+    hops_out = more.pop(0) if given[1] else None
+    _launch("sent_tick", "sent_tick_launch", _args(
+        counts=counts, **fields,
+        **_commit_fields(msgs, tier, max_tx, backoff,
+                         (tx_out, msgs_out, next_out, hops_out))), tx)
+    sent_select.launches += 1
+    sent_commit.launches += 1
+    if infected is not None:
+        return (*outs, counts, tx_out, next_out, msgs_out)
+    return (*outs, counts, tx_out, msgs_out, hops_out, next_out)
 
 
 sent_select.launches = 0

@@ -17,8 +17,9 @@ epilogue in one pass.
 
 The exact sender-side sampler (``sent``: the agents' per-payload
 ``sent_to`` exclusion, calibration scale) runs through the
-``sent_select`` / ``sent_commit`` kernels instead, for S universes of N
-nodes at once (``deliver_sent``).
+``sent_select`` / ``sent_commit`` kernels instead, both from one
+``sent_tick`` call, for S universes of N nodes at once
+(``deliver_sent``).
 """
 
 from __future__ import annotations
@@ -34,11 +35,7 @@ from corrosion_tpu_torch.kernels.deliver import (  # noqa: F401 - HOP_UNSET
     deliver_perm,
 )
 from corrosion_tpu_torch.kernels.seg_sort import seg_argsort
-from corrosion_tpu_torch.kernels.sent_sampler import (
-    key_tensor,
-    sent_commit,
-    sent_select,
-)
+from corrosion_tpu_torch.kernels.sent_sampler import key_tensor, sent_tick
 from corrosion_tpu_torch.models.common import severance_matrix
 from corrosion_tpu_torch.random import bits, fold_in, randint, split, uniform
 
@@ -214,8 +211,8 @@ def sent_inputs(rows, tx_remaining, msgs_sent, hops, tick, next_send, sent,
                 partition_active=False):
     """(select, commit): the keyword arguments of a tick's
     ``sent_select`` call and of its ``sent_commit`` call (less the
-    selection's outputs), for S universes of N nodes (``params.n_nodes``
-    = N): every leaf [S, N, ...], ``sent`` [S, N, N] bool, ``keys`` S
+    selection's outputs; together those of its ``sent_tick`` call), for
+    S universes of N nodes (``params.n_nodes`` = N): every leaf [S, N, ...], ``sent`` [S, N, N] bool, ``keys`` S
     host pairs ``(key_t, key_l)`` (each universe's ``split`` of its
     broadcast key), ``partition_id`` [N] int32 or None."""
     n = params.n_nodes
@@ -251,14 +248,13 @@ def deliver_sent(rows, tx_remaining, msgs_sent, hops, tick, next_send, sent,
     universes (arguments as :func:`sent_inputs`): each active sender
     sends to the ``fanout`` peers of lowest uniform score it has not
     sent to yet (``sent_select``; ``sent`` is marked in place), then
-    ``sent_commit`` runs the epilogue.  Returns (rows, tx, msgs, hops,
-    next_send) as fresh tensors."""
+    ``sent_commit`` runs the epilogue, both from one ``sent_tick`` call.
+    Returns (rows, tx, msgs, hops, next_send) as fresh tensors."""
     select, commit = sent_inputs(rows, tx_remaining, msgs_sent, hops, tick,
                                  next_send, sent, keys, params, partition_id,
                                  partition_active)
-    new_rows, cand, counts = sent_select(**select)
-    tx, msgs, new_hops, nxt = sent_commit(counts, new_rows=new_rows,
-                                          cand=cand, **commit)
+    new_rows, _, _, tx, msgs, new_hops, nxt = sent_tick(**{**select,
+                                                           **commit})
     return new_rows, tx, msgs, new_hops, nxt
 
 

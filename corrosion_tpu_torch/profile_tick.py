@@ -39,7 +39,8 @@ kernel the profiler saw in it, the device's busy time (the union of
 those kernels' spans, which kernels chained by programmatic dependent
 launch overlap) and its device idle share (1 - busy time / that same
 wall); and, from the profiled run of median idle share, the device
-time per kernel name with its launches.
+time per kernel name with its launches and its share of the busy
+time (a chained kernel's time past the one before it).
 ``--pieces a,b`` runs the named pieces only; ``--parent DIR`` (DIR an
 unpacked checkout of the parent commit) runs them on DIR's package and
 on this one in turns, parent, change, change, parent, each in its own
@@ -93,26 +94,30 @@ ACTIVITIES = (torch.profiler.ProfilerActivity.CPU,
 FABRIC_N, FABRIC_R, FABRIC_D, FABRIC_TICKS = 100_000, 8, 8, 12
 
 
-def _busy_ms(prof) -> float:
+def _busy_ms(prof):
     """Device ms during which some kernel, copy or fill ran: the union of
-    the device events' spans.  Kernels under programmatic dependent
-    launch start before the one they wait on ends, so the sum of their
-    times counts that overlap twice."""
-    spans = sorted((e.time_range.start, e.time_range.end)
+    the device events' spans; and {name: its share of that union}, the
+    parts of its spans that no earlier-starting span covers.  Kernels
+    under programmatic dependent launch start before the one they wait
+    on ends, so the sum of their times counts that overlap twice; a
+    chained kernel's share is its time past the one before it."""
+    spans = sorted((e.time_range.start, e.time_range.end, e.name)
                    for e in prof.events()
                    if e.device_type == torch.autograd.DeviceType.CUDA)
-    busy, end = 0.0, -float("inf")
-    for start, stop in spans:
+    busy, end, share = 0.0, -float("inf"), {}
+    for start, stop, name in spans:
         if stop > end:
-            busy += stop - max(start, end)
+            part = stop - max(start, end)
+            busy += part
+            share[name] = share.get(name, 0.0) + part
             end = stop
-    return busy / 1e3
+    return busy / 1e3, {k: v / 1e3 for k, v in share.items()}
 
 
 def _timed(prepare, profiled: bool):
     """Wall seconds of the work ``prepare()`` returns (``prepare``
-    itself untimed) and, when ``profiled``, {kernel name: device ms and
-    launches} and the device's busy ms (``_busy_ms``)."""
+    itself untimed) and, when ``profiled``, {kernel name: device ms,
+    launches and busy ms} and the device's busy ms (``_busy_ms``)."""
     work = prepare()
     torch.cuda.synchronize()
     prof = (torch.profiler.profile(activities=list(ACTIVITIES))
@@ -124,14 +129,16 @@ def _timed(prepare, profiled: bool):
         wall = time.perf_counter() - t0
     if not profiled:
         return wall, None, None
+    busy_ms, share = _busy_ms(prof)
     kernels = {}
     for e in prof.key_averages():
         if e.device_type != torch.autograd.DeviceType.CUDA:
             continue
         us = e.self_device_time_total
         if us > 0:
-            kernels[e.key] = {"device_ms": us / 1e3, "launches": e.count}
-    return wall, kernels, _busy_ms(prof)
+            kernels[e.key] = {"device_ms": us / 1e3, "launches": e.count,
+                              "busy_ms": share.get(e.key, 0.0)}
+    return wall, kernels, busy_ms
 
 
 def profile(prepare, **meta) -> dict:

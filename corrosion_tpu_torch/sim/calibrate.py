@@ -7,9 +7,10 @@ Calibration scale (``ExactConfig``, N = 1k-16k, one seed at a time):
 ``sent`` is one [N, N] bool; each tick every active sender scores its
 peers with a uniform draw (one [C, N] draw per sender chunk), drops the
 ones it has sent to and itself, and sends to the ``fanout`` lowest —
-the ``sent_select`` / ``sent_commit`` kernels.  ``run_msgs_calibration``
-sets msgs/node at convergence of this sampler against the matched
-perm-fanout config (``CALIB_MSGS.json``'s exact/perm ratio).
+the ``sent_select`` / ``sent_commit`` kernels, from one ``sent_tick``
+call.  ``run_msgs_calibration`` sets msgs/node at convergence of this
+sampler against the matched perm-fanout config (``CALIB_MSGS.json``'s
+exact/perm ratio).
 
 Headline scale, the exact column of every sweep row: each sender
 draws its k targets uniformly WITHOUT replacement from the nodes it has
@@ -63,11 +64,7 @@ from corrosion_tpu_torch.kernels.exact_send import (
     exact_send,
     raise_on_capped,
 )
-from corrosion_tpu_torch.kernels.sent_sampler import (
-    key_tensor,
-    sent_commit,
-    sent_select,
-)
+from corrosion_tpu_torch.kernels.sent_sampler import key_tensor, sent_tick
 from corrosion_tpu_torch.kernels.sync_pull import sync_pull
 from corrosion_tpu_torch.kernels.tick_stats import (
     CONVERGED,
@@ -140,7 +137,8 @@ def chunk_keys(key, cfg: ExactConfig) -> list:
 def exact_inputs(state: ExactState, key, cfg: ExactConfig):
     """(select, commit): the keyword arguments of a tick's
     ``sent_select`` call and of its ``sent_commit`` call (less the
-    selection's outputs), with the seed axis of one seed."""
+    selection's outputs), with the seed axis of one seed; together,
+    ``{**select, **commit}``, those of its ``sent_tick`` call."""
     infected, tx, next_send = (state.infected[None], state.tx[None],
                                state.next_send[None])
     select = dict(
@@ -159,13 +157,13 @@ def exact_tick(state: ExactState, key, cfg: ExactConfig) -> ExactState:
     """One tick: every active sender (infected, budget left, schedule
     due) sends to its ``fanout`` lowest-scored peers not yet sent to
     (``sent_select``), then the budget / backoff epilogue
-    (``sent_commit``): a send decrements, exhausted coverage retires,
-    learners get a fresh budget and forward next tick.  ``sent`` is
-    marked in place; the other leaves are fresh tensors."""
+    (``sent_commit``), both from one ``sent_tick`` call: a send
+    decrements, exhausted coverage retires, learners get a fresh budget
+    and forward next tick.  ``sent`` is marked in place; the other
+    leaves are fresh tensors."""
     select, commit = exact_inputs(state, key, cfg)
-    new_infected, counts = sent_select(**select)
-    tx, next_send, msgs = sent_commit(counts, new_infected=new_infected,
-                                      **commit)
+    new_infected, _, tx, next_send, msgs = sent_tick(**{**select,
+                                                        **commit})
     return ExactState(new_infected[0], tx[0], next_send[0], state.sent,
                       msgs[0], state.tick + 1)
 

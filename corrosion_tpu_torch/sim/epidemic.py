@@ -19,8 +19,9 @@ space (seed-flattening), as in the reference.
 ``track_sent`` (the agents' exact ``sent_to`` sampler, [N, N] bool
 memory per universe) takes the reference's vmapped path instead: every
 leaf gains a leading seed axis, each seed is one universe of N nodes
-with its own key, and one ``sent_select`` / ``sent_commit`` launch
-serves all seeds (``_run_epidemic_seeds_sent``).
+with its own key, and one ``sent_tick`` call (a ``sent_select`` and a
+``sent_commit`` launch) serves all seeds
+(``_run_epidemic_seeds_sent``).
 """
 
 from __future__ import annotations
