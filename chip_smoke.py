@@ -12,7 +12,9 @@ package.  Phases, each ending the run with a non-zero exit on failure:
    ``store_set`` and ``swim_probe_select`` (``kernels/sass.py`` over
    ``cuobjdump -sass``); print each threefry instantiation's loop (a
    mode, a group index width) with its ALU and FMA counts, a trip and a
-   word (the ``threefry_pipes`` line);
+   word (the ``threefry_pipes`` line), and ``seg_cummax``'s
+   instructions, ``LDG`` and ``BAR`` counts (the ``seg_cummax_sass``
+   entry of that line);
 2. hold the perm-fanout kernels (the threefry draws, ``seg_argsort``,
    ``deliver_perm``, ``sync_pull``, ``tick_stats``) against their plain
    PyTorch versions on the card, bitwise, on the inputs the headline's
@@ -142,8 +144,21 @@ package.  Phases, each ending the run with a non-zero exit on failure:
     intermediates and on edge batches (n = 1, 31, 32, 33 and 4097, one
     row of 5,000 changes, rows of one change, a cell's accepts across
     warps, sentinels only, one and 64 columns; cold and warm, whose
-    whole call must equal the NumPy twin's), time them with CUDA events,
-    the winner passes behind a GPU sleep;
+    whole call must equal the NumPy twin's), ``seg_cummax`` in both
+    domains, exclusive and inclusive; then ``seg_cummax`` alone on
+    inputs through a random permutation (one segment of 2**22 positions,
+    more tiles than the card holds at once, random, rising and falling
+    values; segments starting at every tile's first position; n = 1,
+    2, 1023, 1024, 1025, 2047, 2048, 2049 and 4097; segments of one
+    position; masks all false and all true; values at ``NEG_KEY`` and
+    2**62 - 1; three calls at falling n without a synchronisation
+    between them; a CUDA graph of two calls replayed three times),
+    bitwise its plain version; time them with CUDA events, the winner
+    passes and ``seg_cummax`` (both domains, interleaved and
+    pk-grouped) behind a GPU sleep (the ``{"winners_kernels": ...}``
+    and ``{"seg_cummax": ...}`` lines, the latter with each domain's
+    bound from its inputs and domain B's interleaved time between two
+    events without the sleep);
 16. hold ``store_set`` and ``store_gather`` (the device clock cache's
     store) against their plain versions and NumPy on the card, bitwise,
     at n in {0, 1, 2500, 10000, 65536, 262144} into arrays of 1024,
@@ -232,9 +247,12 @@ all_gather delivery (the ``{"route_pack": ...}``, ``{"ring_receive":
 sampler's pair and its commit alone behind a GPU sleep at 16k tick 9
 and 8 x 512 tick 4 (the ``{"sent_tick": ...}`` line), the
 winner passes behind a GPU sleep at 2**20, interleaved and pk-grouped
-(the ``{"winners_kernels": ...}`` line).  Phase 1 then also prints
-whether each ``sent_select`` and ``seg_cummax`` function's opcode
-counts equal the parent's, and each ``sent_select`` loop's.
+(the ``{"winners_kernels": ...}`` line), and ``seg_cummax`` (the parent's
+launches, with their own scratch) in every phase-15 case and timed the
+same way in both domains (the ``{"seg_cummax": ...}`` line).  Phase 1
+then also prints whether each ``sent_select`` function's opcode counts
+equal the parent's, and each ``sent_select`` loop's, and the parent's
+``seg_cummax`` counts beside this tree's.
 
 Prints the card line, the ``kernels`` JSON line and, last, the
 ``{"ok": true, "device": ...}`` line; writes the full record (with
@@ -346,6 +364,12 @@ def max_abs_err(a, b) -> float:
     return worst
 
 
+def mismatches(a, b) -> int:
+    """Entries that differ over paired integer tensors (0: bitwise
+    equal; exact where float64 would round int64 keys near 2**62)."""
+    return sum(int((x != y).sum()) for x, y in zip(a, b))
+
+
 def card_line() -> str:
     out = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -408,7 +432,12 @@ class ParentDesign:
     ``threefry._ARGTYPES``, ``deliver.launch``,
     ``fabric._RECEIVE_ARGTYPES`` on this tree's slot map,
     ``winners._A_ARGTYPES`` / ``_B_ARGTYPES``; ``route_pack``'s scratch
-    argument is the parent's zeroed byte marks)."""
+    argument is the parent's zeroed byte marks).  The parent's
+    ``seg_cummax_launch`` (two kernels, its aggregates and first starts
+    in scratch of its own) takes ``CUMMAX_ARGTYPES``."""
+
+    CUMMAX_ARGTYPES = (ctypes.c_void_p,) * 4 + (
+        ctypes.c_longlong, ctypes.c_int) + (ctypes.c_void_p,) * 4
 
     SOURCES = ("swim", "exact_send", "threefry", "sent_sampler", "fabric",
                "deliver_perm", "winners")
@@ -623,6 +652,20 @@ class ParentDesign:
             self.sent_launch(symbol, a, commit["tx"])
         return outs
 
+    def seg_cummax(self, order, seg, values, mask=None, exclusive=True):
+        """The parent's ``seg_cummax`` (``seg_cummax``'s arguments)."""
+        from corrosion_tpu_torch import kernels
+
+        p, n, dev = kernels.ptr, order.shape[0], order.device
+        blocks = -(-n // 2048)
+        out = torch.empty(n, dtype=torch.int64, device=dev)
+        agg = torch.empty(blocks, dtype=torch.int64, device=dev)
+        first = torch.empty(blocks, dtype=torch.int32, device=dev)
+        self._launch("winners", "seg_cummax_launch", self.CUMMAX_ARGTYPES,
+                     p(order), p(seg), p(values), p(mask), n, int(exclusive),
+                     p(out), p(agg), p(first), kernels.stream(order))
+        return out
+
     def winners_a(self, oA, prev, pk, cl, sent, seed_cl, final_cl,
                   sent_flag, ensure, part, counts):
         """The parent's ``winners_a`` (``winners_a``'s arguments);
@@ -743,6 +786,18 @@ def threefry_window(tf, dev, parent=None) -> dict:
     del out, words
     torch.cuda.empty_cache()
     return rec
+
+
+def cummax_sass(mix: dict) -> dict:
+    """{seg_cummax function: its instructions, loads (``LDG``) and
+    barriers (``BAR``)} of a ``sass.mix`` of ``winners.cu``, keyed from
+    "seg_cummax" on (the anonymous namespace's id differs between
+    builds)."""
+    return {name[name.index("seg_cummax"):]: {
+        "n": f["n"], "ldg": sum(c for op, c in f["ops"].items()
+                                if op.startswith("LDG")),
+        "bar": sum(c for op, c in f["ops"].items() if op.startswith("BAR"))}
+        for name, f in mix.items() if "seg_cummax" in name}
 
 
 def threefry_pipes(mix: dict, group: int) -> dict:
@@ -3384,6 +3439,13 @@ class WinnersPasses:
             clrow=torch.full((self.n_pk,), BIG, dtype=torch.int64,
                              device=self.dev))
 
+    def cummax_args(self, part=None) -> dict:
+        """``seg_cummax``'s arguments in domain A and domain B (the
+        mask ``part``, the plain pass's unless given)."""
+        part = self.part if part is None else part
+        return {"A": (self.o_a, self.pk, self.cl, None),
+                "B": (self.o_b, self.comp, self.key, part)}
+
     def run_a(self, fn, o):
         """Domain A by ``fn`` into ``o``; returns its pk_pos."""
         return fn(self.o_a, self.prev_a, self.pk, self.cl, self.sent,
@@ -3418,6 +3480,18 @@ class WinnersPasses:
                    final_cl)
         res["b_err"] = max_abs_err([b_got[k] for k in b_keys],
                                    [b_want[k] for k in b_keys])
+        # seg_cummax in both domains, exclusive (the passes' prev) and
+        # inclusive, against its plain version and the parent's kernel
+        doms = self.cummax_args(part).values()
+        mine = [self.prev_a, self.prev_b] + [
+            w.seg_cummax(*a, exclusive=False) for a in doms]
+        res["cummax_err"] = mismatches(mine, [
+            w.seg_cummax_plain(*a, exclusive=ex) for ex in (True, False)
+            for a in doms])
+        if self.parent is not None:
+            res["cummax_parent_err"] = mismatches(mine, [
+                self.parent.seg_cummax(*a, exclusive=ex)
+                for ex in (True, False) for a in doms])
         if self.parent is not None:
             a_old, b_old = self.outputs(), self.outputs()
             pos_old = self.run_a(self.parent.winners_a, a_old)
@@ -3448,6 +3522,124 @@ class WinnersPasses:
         return {"winners_a": (a(w.winners_a), old and a(old.winners_a)),
                 "winners_b": (b(w.winners_b, self.pk_pos),
                               old and b(old.winners_b, self.pk_pos))}
+
+
+def cummax_bytes(order, seg, values, mask=None) -> int:
+    """The bytes ``seg_cummax`` must move on these inputs: order, the
+    segment key and (under a mask) the mask read at every position, the
+    value read where the mask keeps the position, out written."""
+    n = order.shape[0]
+    kept = n if mask is None else int(mask.sum())
+    return n * (4 + 8 + 8 + (0 if mask is None else 1)) + 8 * kept
+
+
+# either side of one tile of 1024 positions, of two, and of four
+CUMMAX_EDGE_NS = (1, 2, 1023, 1024, 1025, 2047, 2048, 2049, 4097)
+CUMMAX_BIG = 1 << 22  # one segment over more tiles than the card holds
+
+
+def cummax_edge_inputs(dev) -> dict:
+    """``seg_cummax``'s own edge inputs, drawn with numpy from a seed:
+    {label: (order, seg, values, mask)}, position i reading seg, values
+    and mask at order[i], a random permutation."""
+    from corrosion_tpu_torch.kernels.winners import NEG_KEY
+
+    rng = np.random.default_rng(20)
+    top = (1 << 62) - 1
+    cases = {}
+
+    def case(label, seg, vals, mask=None):
+        order = rng.permutation(seg.shape[0]).astype(np.int32)
+
+        def by_stream(a):
+            out = np.empty_like(a)
+            out[order] = a
+            return torch.from_numpy(out).to(dev)
+
+        cases[label] = (torch.from_numpy(order).to(dev), by_stream(seg),
+                        by_stream(vals),
+                        None if mask is None else by_stream(mask))
+
+    def vals(n):
+        return rng.integers(NEG_KEY, top, n, dtype=np.int64)
+
+    for n in CUMMAX_EDGE_NS:
+        case(f"n = {n}", np.cumsum(rng.random(n) < 0.3), vals(n),
+             rng.random(n) < 0.7)
+    big = np.zeros(CUMMAX_BIG, np.int64)
+    case("one segment of 2^22", big, vals(CUMMAX_BIG))
+    case("one segment of 2^22, rising", big,
+         np.arange(CUMMAX_BIG, dtype=np.int64))
+    case("one segment of 2^22, falling", big,
+         -np.arange(CUMMAX_BIG, dtype=np.int64))
+    n = 1 << 16
+    case("starts at every tile's first position", np.arange(n) // 1024,
+         vals(n))
+    case("segments of one position", np.arange(n), vals(n))
+    case("mask all false", np.arange(n) // 300, vals(n), np.zeros(n, bool))
+    case("mask all true", np.arange(n) // 300, vals(n), np.ones(n, bool))
+    case("values at NEG_KEY and 2^62 - 1", np.arange(n) // 5000,
+         rng.choice(np.array([NEG_KEY, NEG_KEY + 1, top, top - 1]), n),
+         rng.random(n) < 0.8)
+    return cases
+
+
+def cummax_edge_checks(dev, parent=None) -> list:
+    """``seg_cummax`` on its edge inputs, exclusive and inclusive,
+    against its plain version (and the parent's kernel), and three
+    calls at falling n on one stream with no synchronisation between
+    them (a larger call's tile words lie under the smaller ones'),
+    bitwise; returns the cases."""
+    from corrosion_tpu_torch.kernels import winners
+
+    cases = cummax_edge_inputs(dev)
+    checks = []
+    for label, args in cases.items():
+        for ex in (True, False):
+            got = winners.seg_cummax(*args, exclusive=ex)
+            r = dict(case=label, n=args[0].shape[0], exclusive=ex,
+                     mismatches=mismatches([got], [
+                         winners.seg_cummax_plain(*args, exclusive=ex)]))
+            if parent is not None:
+                r["parent_mismatches"] = mismatches([got], [
+                    parent.seg_cummax(*args, exclusive=ex)])
+            checks.append(r)
+    chain = ("one segment of 2^22, rising", "n = 4097", "n = 2049")
+    torch.cuda.synchronize()
+    outs = [winners.seg_cummax(*cases[c]) for c in chain]
+    torch.cuda.synchronize()
+    checks.append(dict(
+        case="falling n, no synchronisation: " + ", ".join(chain),
+        mismatches=mismatches(outs, [winners.seg_cummax_plain(*cases[c])
+                                     for c in chain])))
+    # a CUDA graph of two calls, replayed three times: each launch must
+    # leave its scratch (ticket, epoch) ready for the next; the outputs
+    # are cleared before each replay, so one a replay leaves unwritten
+    # shows
+    graphed = ("one segment of 2^22, falling", "mask all true")
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        for c in graphed:  # the stream's scratch, made before capture
+            winners.seg_cummax(*cases[c])
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph, stream=side):
+        outs = [winners.seg_cummax(*cases[c]) for c in graphed]
+    wants = [winners.seg_cummax_plain(*cases[c]) for c in graphed]
+    for replay in range(3):
+        for out in outs:
+            out.fill_(7)
+        graph.replay()
+        torch.cuda.synchronize()
+        checks.append(dict(
+            case=f"a CUDA graph of {', '.join(graphed)}, replay {replay}",
+            mismatches=mismatches(outs, wants)))
+    bad = [c for c in checks
+           if c["mismatches"] or c.get("parent_mismatches")]
+    if bad:
+        fail(f"seg_cummax differs on its edge inputs: {bad}")
+    return checks
 
 
 def winners_kernel_checks(plans: dict, dev, parent=None) -> list:
@@ -3495,9 +3687,10 @@ def winners_kernel_checks(plans: dict, dev, parent=None) -> list:
                                   20),
         bound=(n * (8 + 4), 0),
         shape=f"int64 [1, {n}], {t.bits_b} key bits (the (pk, cid) sort)")]
-    err = max(max_abs_err([t.prev_a], [winners.seg_cummax_plain(
-        t.o_a, t.pk, t.cl)]), max_abs_err([t.prev_b], [
-            winners.seg_cummax_plain(t.o_b, t.comp, t.key, mask=t.part)]))
+    edges = cummax_edge_checks(dev, parent)
+    print(f"seg_cummax bitwise its plain version"
+          f"{' and the parent' if parent else ''} in {len(cases)} batches "
+          f"(both domains) and {len(edges)} edge cases", flush=True)
 
     def device_ms(fn):
         return time_device_ms(fn, 20)
@@ -3505,18 +3698,32 @@ def winners_kernel_checks(plans: dict, dev, parent=None) -> list:
     turns = {label: {name: in_turns(mine, old, device_ms)
                      for name, (mine, old) in p.timers().items()}
              for label, p in kept.items()}
+    cummax_turns = {
+        label: {dom: in_turns(
+            lambda a=args: winners.seg_cummax(*a),
+            parent and (lambda a=args: parent.seg_cummax(*a)), device_ms)
+            for dom, args in p.cummax_args().items()}
+        for label, p in kept.items()}
+    cummax_bound = {label: {dom: bound_ms(cummax_bytes(*a), 0)[0]
+                            for dom, a in p.cummax_args().items()}
+                    for label, p in kept.items()}
+    cummax_b = t.cummax_args()["B"]
+    cummax_events = in_turns(lambda: winners.seg_cummax(*cummax_b),
+                             parent and (lambda: parent.seg_cummax(
+                                 *cummax_b)),
+                             lambda fn: time_ms(fn, 20))
     scratch = t.outputs()
     a_keys = ("final_cl", "sent_flag", "ensure", "part", "counts")
     res += [
-        dict(name="seg_cummax", max_abs_err=err,
-             ms=time_ms(lambda: winners.seg_cummax(t.o_b, t.comp, t.key,
-                                                   mask=t.part), 20),
+        dict(name="seg_cummax",
+             max_abs_err=float(max(c["cummax_err"] for c in cases)),
+             ms=cummax_turns[WINNERS_TIMED[0]]["B"]["ms"],
              plain_ms=time_ms(lambda: winners.seg_cummax_plain(
                  t.o_b, t.comp, t.key, mask=t.part), 3),
-             library_ms=None,
-             # order, the segment key and the value read, the mask, out
-             bound=(n * (4 + 8 + 8 + 1 + 8), 0),
-             shape=f"domain B, n = {n}"),
+             library_ms=None, bound=(cummax_bytes(*cummax_b), 0),
+             shape=f"domain B, n = {n}", turns=cummax_turns,
+             events=cummax_events, bound_by_domain=cummax_bound,
+             edge_cases=edges),
         dict(name="winners_a", max_abs_err=max(c["a_err"] for c in cases),
              ms=turns[WINNERS_TIMED[0]]["winners_a"]["ms"],
              plain_ms=time_ms(lambda: t.run_a(winners.winners_a_plain,
@@ -5251,14 +5458,11 @@ def main() -> int:
             n: [a == b for a, b in zip(mine, loops[1].get(n, []))]
             + [False] * abs(len(mine) - len(loops[1].get(n, [])))
             for n, mine in loops[0].items()}
-        # seg_cummax beside the parent's: winners.cu changed around it
+        # the parent's two seg_cummax kernels, beside this tree's one
         theirs = sass.mix(parent.paths["winners"], "seg_cummax")
         record["parent_sass"]["winners"] = theirs
-        ops = [{n[n.index("seg_cummax"):]: f["ops"] for n, f in m.items()
-                if "seg_cummax" in n}
-               for m in (record["sass"]["winners"], theirs)]
-        sass_line["seg_cummax_ops_equal_parent"] = {
-            n: o == ops[1].get(n) for n, o in ops[0].items()}
+        sass_line["seg_cummax_sass_parent"] = cummax_sass(theirs)
+    sass_line["seg_cummax_sass"] = cummax_sass(record["sass"]["winners"])
     sass_line["winners_pipes"] = {
         m.group(0): {"n": f["n"], "pipes": f["pipes"]}
         for n, f in record["sass"]["winners"].items()
@@ -5541,6 +5745,11 @@ def sort_winners_phases(record: dict, counted: dict, results: list,
         "turns": checks[-1]["turns"],
         **{r["name"]: {f: r[f] for f in ("ms", "bound_ms", "plain_ms")}
            for r in checks[1:]}}}), flush=True)
+    cummax = checks[1]
+    print(json.dumps({"seg_cummax": {
+        "device": torch.cuda.get_device_name(0), "turns": cummax["turns"],
+        "events_b": cummax["events"], "bound_ms": cummax["bound_by_domain"],
+        "edge_cases": len(cummax["edge_cases"])}}), flush=True)
     return checks[1:]
 
 

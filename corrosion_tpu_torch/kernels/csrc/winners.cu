@@ -12,15 +12,23 @@
 //              before i (exclusive; NEG_KEY at a segment start) or up
 //              to i (inclusive), where v[i] = values[order[i]] (NEG_KEY
 //              where mask[order[i]] is 0) and a segment starts where
-//              seg[order[i]] changes.  Two launches: each block of 2048
-//              scans its own positions with the segmented-max operator
-//              on (start flag, value) pairs (thread runs, warp shuffles,
-//              a scan of warp totals) and records its aggregate and its
-//              first start; then each block folds the aggregates of the
-//              blocks back to the last one holding a start into its
-//              carry and applies it to its positions before its own
-//              first start, so a segment may straddle any number of
-//              block boundaries.
+//              seg[order[i]] changes.  One launch: each block claims a
+//              tile of 1024 positions by a ticket, in claim order, and
+//              scans it with the segmented-max operator on (start flag,
+//              value) pairs (thread runs, warp shuffles, a scan of warp
+//              totals); it publishes the tile's aggregate in one 16-byte
+//              word with the call's epoch and a status (complete at once
+//              where the tile holds a start), then, unless its first
+//              position starts a segment, folds its predecessors' words
+//              back to the first complete one, 32 at once (decoupled
+//              look-back), publishes its inclusive word and writes each
+//              position once.  A segment may span any number of tiles.
+//              The ticket and the epoch share the scratch's first 8
+//              bytes, so a tile reads its launch's epoch with its
+//              ticket, and the last tile to claim one sets the count to
+//              0 and advances the epoch: each launch leaves the scratch
+//              ready for the next, a replayed CUDA graph's too, and
+//              nothing is ever filled.
 //  winners_a   domain A: the row-generation classification against
 //              seed_cl and the prefix, final_cl, the or of sent_flag
 //              and ensure, the LWW participation mask part[oA[i]], the
@@ -45,14 +53,25 @@
 // coalesced where it would gather pk[oB[i]].
 //
 // Bound on the H100: bytes (a few integer operations per change
-// against some 40 bytes moved), most of them the gathers of per-change
-// fields through the permutation, which no design avoids.  The design
-// writes each output once a run of positions and not once a change:
-// a row's (a cell's) changes are adjacent in its order, so every output
-// is a segmented reduction over a run, scanned in registers and warp
-// shuffles, four positions a thread with all their loads in flight
-// together; an atomic only where a run crosses a warp's 128 positions,
-// and one count atomic a block.
+// against some 30 to 40 bytes moved), most of them the gathers of
+// per-change fields through the permutation, which no design avoids.
+// seg_cummax moves 28 bytes a position in domain A (order, seg and
+// values read, out written): 0.0088 ms at 2**20 at 3.35 TB/s; in B 21
+// (order, seg, mask, out) and 8 more where the mask keeps the position
+// (its value): 0.0071 ms at 2**20 where it keeps 22%, as in the winner
+// selection's batches.  It gathers seg once a position (the start
+// flag compares with the previous position's value, held by the same
+// thread, its left lane, or across a warp's edge in shared memory; a
+// tile reads its predecessor's once), values only where the mask keeps
+// them, and loads order and stores out 16 bytes a thread.  Its random
+// 8-byte gathers each take a 32-byte sector from L2, which is what
+// bounds it at 2**20 in practice.  The winner passes write each output
+// once a run of positions and not once a change: a row's (a cell's)
+// changes are adjacent in its order, so every output is a segmented
+// reduction over a run, scanned in registers and warp shuffles, four
+// positions a thread with all their loads in flight together; an
+// atomic only where a run crosses a warp's 128 positions, and one count
+// atomic a block.
 
 #include <climits>
 #include <cstdint>
@@ -61,9 +80,23 @@
 namespace {
 
 constexpr long long NEG_KEY = -(1LL << 62);
-constexpr int CM_THREADS = 512;
+constexpr int CM_THREADS = 256;
 constexpr int CM_ITEMS = 4;
-constexpr int CM_TILE = CM_THREADS * CM_ITEMS;  // 2048
+constexpr int CM_TILE = CM_THREADS * CM_ITEMS;  // 1024
+// eight blocks an SM: 32 registers a thread, every 2**20 tile resident
+constexpr int CM_BLOCKS_PER_SM = 8;
+constexpr int CM_WARPS = CM_THREADS / 32;
+constexpr int LOOK_BACK = 32;  // predecessors' words a warp loads at once
+// a tile word's status, the low two bits of its tag (epoch << 2 | status)
+constexpr long long TILE_PARTIAL = 1;  // the max over the tile alone
+constexpr long long TILE_DONE = 2;     // the running max at its end
+
+// the scratch's first 8 bytes (of 16), zero when made: the launch's
+// epoch above the tiles it has claimed, TICKET_BITS wide; between
+// launches the count is 0 and the epoch is the next launch's (it wraps
+// after 2**42 launches)
+constexpr int TICKET_BITS = 22;
+constexpr unsigned long long TICKETS = (1ull << TICKET_BITS) - 1;
 constexpr int THREADS = 256;
 constexpr unsigned FULL = 0xffffffffu;
 
@@ -80,114 +113,195 @@ __device__ __forceinline__ SegMax shfl_up(SegMax x, int off) {
   return {__shfl_up_sync(FULL, x.f, off), __shfl_up_sync(FULL, x.a, off)};
 }
 
-__device__ __forceinline__ long long block_max(long long v, long long* red) {
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-#pragma unroll
-  for (int off = 16; off > 0; off >>= 1)
-    v = max(v, __shfl_down_sync(FULL, v, off));
-  __syncthreads();  // red is free again
-  if (lane == 0) red[warp] = v;
-  __syncthreads();
-  v = red[0];
-  for (int w = 1; w < (int)(blockDim.x >> 5); ++w) v = max(v, red[w]);
-  return v;
+// A tile word, (value, tag), read and written whole: one 16-byte access,
+// past L1, so a waiting tile sees its predecessor's latest word
+__device__ __forceinline__ longlong2 load_word(const longlong2* p) {
+  longlong2 w;
+  asm volatile("ld.volatile.global.v2.s64 {%0, %1}, [%2];"
+               : "=l"(w.x), "=l"(w.y)
+               : "l"(p)
+               : "memory");
+  return w;
 }
 
-__global__ void seg_cummax_local(const int* __restrict__ order,
-                                 const long long* __restrict__ seg,
-                                 const long long* __restrict__ values,
-                                 const unsigned char* __restrict__ mask,
-                                 long long n, int exclusive,
-                                 long long* __restrict__ out,
-                                 long long* __restrict__ agg,
-                                 int* __restrict__ first) {
-  __shared__ SegMax warp_tot[CM_THREADS / 32];
-  __shared__ int s_first;
+__device__ __forceinline__ void store_word(longlong2* p, long long value,
+                                           long long tag) {
+  asm volatile("st.volatile.global.v2.s64 [%0], {%1, %2};" ::"l"(p),
+               "l"(value), "l"(tag)
+               : "memory");
+}
+
+// One tile of 1024 positions a block, four a thread.  words[t] is tile
+// t's word in this launch (its tag's epoch is the launch's; a word of
+// an earlier launch is never read as this one's); the tile comes from
+// the ticket, so every predecessor has started and will publish: the
+// look-back cannot wait on a tile that is not running.  Every block has
+// claimed its ticket, and read the epoch with it, before the last claim
+// resets the count.
+template <bool MASKED>
+__global__ void __launch_bounds__(CM_THREADS, CM_BLOCKS_PER_SM)
+    seg_cummax_kernel(const int* __restrict__ order,
+                      const long long* __restrict__ seg,
+                      const long long* __restrict__ values,
+                      const unsigned char* __restrict__ mask, long long n,
+                      int exclusive, long long* __restrict__ out,
+                      unsigned long long* head, longlong2* words) {
+  __shared__ SegMax s_pre[CM_WARPS];  // warp totals, then their prefixes
+  __shared__ long long s_first[CM_WARPS], s_last[CM_WARPS];
+  __shared__ int s_start[CM_WARPS];   // a start at the warp's first position
+  __shared__ long long s_carry, s_epoch;
+  __shared__ unsigned s_tile;
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const long long p0 = (long long)blockIdx.x * CM_TILE + threadIdx.x * CM_ITEMS;
-  if (threadIdx.x == 0) s_first = CM_TILE;
-  long long v[CM_ITEMS];
+  if (threadIdx.x == 0) {
+    const unsigned long long h = atomicAdd(head, 1ull);
+    s_tile = (unsigned)(h & TICKETS);
+    s_epoch = (long long)(h >> TICKET_BITS);
+    if (s_tile == gridDim.x - 1)  // the last claim: the next launch's head
+      atomicAdd(head, (1ull << TICKET_BITS) - gridDim.x);
+  }
+  __syncthreads();
+  const long long tile = s_tile, epoch = s_epoch;
+  const long long t0 = tile * CM_TILE;
+  const long long p0 = t0 + threadIdx.x * CM_ITEMS;
+  // 1. the order 16 bytes a thread, then every gather at a clamped index
+  //    (the values, under a mask, only where it keeps them)
+  int o[CM_ITEMS];
+  if (p0 + CM_ITEMS <= n) {
+    const int4 q = *reinterpret_cast<const int4*>(order + p0);
+    o[0] = q.x, o[1] = q.y, o[2] = q.z, o[3] = q.w;
+  } else {
+#pragma unroll
+    for (int k = 0; k < CM_ITEMS; ++k) o[k] = p0 + k < n ? order[p0 + k] : 0;
+  }
+  long long s_pred = 0;  // seg at the tile's predecessor position
+  if (threadIdx.x == 0 && t0 > 0) s_pred = seg[order[t0 - 1]];
+  long long s[CM_ITEMS], v[CM_ITEMS];
+  bool keep[CM_ITEMS];
+#pragma unroll
+  for (int k = 0; k < CM_ITEMS; ++k) {
+    s[k] = seg[o[k]];
+    keep[k] = !MASKED || mask[o[k]];
+    if (!MASKED) v[k] = values[o[k]];
+  }
+  if (MASKED) {
+#pragma unroll
+    for (int k = 0; k < CM_ITEMS; ++k)
+      v[k] = keep[k] ? values[o[k]] : NEG_KEY;
+  }
+  // 2. start flags from the previous position's seg (a warp's first
+  //    position's after the barrier), the thread's run, the warp's scan
+  const long long up = __shfl_up_sync(FULL, s[CM_ITEMS - 1], 1);
   int flag[CM_ITEMS];
   SegMax run = {0, NEG_KEY};
 #pragma unroll
   for (int k = 0; k < CM_ITEMS; ++k) {
-    const long long p = p0 + k;
-    flag[k] = 0;
-    v[k] = NEG_KEY;
-    if (p < n) {
-      const int o = order[p];
-      flag[k] = p == 0 || seg[o] != seg[order[p - 1]];
-      if (mask == nullptr || mask[o]) v[k] = values[o];
-    }
+    const bool live = p0 + k < n;
+    flag[k] = live && (k || lane) && s[k] != (k ? s[k - 1] : up);
+    if (!live || !keep[k]) v[k] = NEG_KEY;
     run = combine(run, SegMax{flag[k], v[k]});
   }
-  // exclusive prefix of this thread within the block
+  // a span's max never reads its own first flag, so the scans' values
+  // are right without the warp's first flag; its f is or-ed in after
   SegMax incl = run;
 #pragma unroll
   for (int off = 1; off < 32; off <<= 1) {
-    const SegMax o = shfl_up(incl, off);
-    if (lane >= off) incl = combine(o, incl);
+    const SegMax x = shfl_up(incl, off);
+    if (lane >= off) incl = combine(x, incl);
   }
-  if (lane == 31) warp_tot[warp] = incl;
+  SegMax lane_ex = shfl_up(incl, 1);
+  if (lane == 31) {
+    s_pre[warp] = incl;
+    s_last[warp] = s[CM_ITEMS - 1];
+  }
+  if (lane == 0) s_first[warp] = s[0];
+  if (threadIdx.x == 0) s_start[0] = t0 == 0 || s[0] != s_pred;
   __syncthreads();
+  // 3. warp 0: the warps' first flags and prefixes, the tile's word,
+  //    the look-back, the inclusive word
   if (warp == 0) {
-    SegMax w = lane < CM_THREADS / 32 ? warp_tot[lane] : SegMax{0, NEG_KEY};
+    SegMax w = {0, NEG_KEY};
+    int start = 0;
+    if (lane < CM_WARPS) {
+      w = s_pre[lane];
+      start = lane ? t0 + lane * 32 * CM_ITEMS < n &&
+                         s_first[lane] != s_last[lane - 1]
+                   : s_start[0];
+      w.f |= start;
+    }
+    SegMax inc = w;
 #pragma unroll
     for (int off = 1; off < 32; off <<= 1) {
-      const SegMax o = shfl_up(w, off);
-      if (lane >= off) w = combine(o, w);
+      const SegMax x = shfl_up(inc, off);
+      if (lane >= off) inc = combine(x, inc);
     }
-    if (lane < CM_THREADS / 32) warp_tot[lane] = w;
+    SegMax ex = shfl_up(inc, 1);
+    if (lane == 0) ex = SegMax{0, NEG_KEY};
+    const int agg_f = __shfl_sync(FULL, inc.f, CM_WARPS - 1);
+    const long long agg_a = __shfl_sync(FULL, inc.a, CM_WARPS - 1);
+    const int tile_start = __shfl_sync(FULL, start, 0);
+    if (lane < CM_WARPS) {
+      s_pre[lane] = ex;
+      s_start[lane] = start;
+    }
+    if (lane == 0)
+      store_word(&words[tile], agg_a,
+                 epoch << 2 | (agg_f ? TILE_DONE : TILE_PARTIAL));
+    long long carry = NEG_KEY;
+    if (!tile_start) {  // tile 0 always starts a segment: the walk ends
+      for (long long hi = tile - 1;; hi -= LOOK_BACK) {
+        const long long pt = hi - lane;
+        long long val = NEG_KEY;
+        int st = (int)TILE_DONE;
+        if (pt >= 0) {
+          do {
+            const longlong2 wd = load_word(&words[pt]);
+            st = (wd.y >> 2) == epoch ? (int)(wd.y & 3) : 0;
+            val = wd.x;
+          } while (st == 0);
+        }
+        // fold back to the nearest complete word (lane order is tile
+        // order, nearest first)
+        const unsigned done = __ballot_sync(FULL, st == (int)TILE_DONE);
+        const int stop = done ? __ffs(done) - 1 : 31;
+        long long mx = lane <= stop ? val : NEG_KEY;
+#pragma unroll
+        for (int off = 16; off > 0; off >>= 1)
+          mx = max(mx, __shfl_xor_sync(FULL, mx, off));
+        carry = max(carry, mx);
+        if (done) break;
+      }
+      if (lane == 0 && !agg_f)
+        store_word(&words[tile], max(carry, agg_a), epoch << 2 | TILE_DONE);
+    }
+    if (lane == 0) s_carry = carry;
   }
-  SegMax lane_excl = shfl_up(incl, 1);
-  if (lane == 0) lane_excl = SegMax{0, NEG_KEY};
   __syncthreads();
-  SegMax pre = warp ? combine(warp_tot[warp - 1], lane_excl) : lane_excl;
-  // pre.a: the max since the last start before this thread's first
-  // position (NEG_KEY at the block's first position: phase 2's carry)
-  long long cur = pre.a;
-  int first_local = CM_TILE;
+  // 4. each position once: the carry where no start precedes it in the
+  //    tile, then two 16-byte stores a thread
+  const int wstart = s_start[warp];
+  SegMax pre = s_pre[warp];
+  if (lane) {
+    lane_ex.f |= wstart;
+    pre = combine(pre, lane_ex);
+  } else {
+    flag[0] = wstart;
+  }
+  long long cur = pre.f ? pre.a : max(s_carry, pre.a);
+  long long r[CM_ITEMS];
 #pragma unroll
   for (int k = 0; k < CM_ITEMS; ++k) {
-    const long long p = p0 + k;
-    if (p >= n) break;
-    long long before = flag[k] ? NEG_KEY : cur;
+    const long long before = flag[k] ? NEG_KEY : cur;
     cur = flag[k] ? v[k] : max(cur, v[k]);
-    out[p] = exclusive ? before : cur;
-    if (flag[k] && first_local == CM_TILE)
-      first_local = threadIdx.x * CM_ITEMS + k;
+    r[k] = exclusive ? before : cur;
   }
-  if (first_local < CM_TILE) atomicMin(&s_first, first_local);
-  __syncthreads();
-  if (threadIdx.x == CM_THREADS - 1) {
-    const SegMax tot = combine(pre, run);
-    agg[blockIdx.x] = tot.a;
-    first[blockIdx.x] = s_first;
+  if (p0 + CM_ITEMS <= n) {
+    reinterpret_cast<longlong2*>(out + p0)[0] = make_longlong2(r[0], r[1]);
+    reinterpret_cast<longlong2*>(out + p0)[1] = make_longlong2(r[2], r[3]);
+  } else {
+#pragma unroll
+    for (int k = 0; k < CM_ITEMS; ++k)
+      if (p0 + k < n) out[p0 + k] = r[k];
   }
-}
-
-// block b >= 1: carry = max of agg over the blocks from the last one
-// holding a start (block 0 always does) to b - 1, applied to b's
-// positions before its first start
-__global__ void seg_cummax_carry(const long long* __restrict__ agg,
-                                 const int* __restrict__ first, long long n,
-                                 long long* __restrict__ out) {
-  __shared__ long long red[32];
-  const int b = blockIdx.x + 1;
-  const int upto = first[b];
-  if (upto == 0) return;
-  long long last = -1;
-  for (int hi = b - 1; hi >= 0 && last < 0; hi -= blockDim.x) {
-    const int k = hi - (int)threadIdx.x;
-    last = block_max(k >= 0 && first[k] < CM_TILE ? k : -1, red);
-  }
-  long long c = NEG_KEY;
-  for (long long k = last + threadIdx.x; k < b; k += blockDim.x)
-    c = max(c, agg[k]);
-  c = block_max(c, red);
-  const long long base = (long long)b * CM_TILE;
-  for (int i = threadIdx.x; i < upto && base + i < n; i += blockDim.x)
-    out[base + i] = max(out[base + i], c);
 }
 
 // -- winners_a and winners_b -------------------------------------------
@@ -468,20 +582,28 @@ unsigned blocks_for(long long n) {
 
 }  // namespace
 
-// scratch: agg [ceil(n / 2048)] int64, first [ceil(n / 2048)] int32
+// order and words 16-byte aligned; words: 16 bytes per tile,
+// ceil(n / 1024) < 2**22, and 16 more ahead of them, zero when first
+// used and kept for the launches that follow on one stream (never two
+// at once)
 extern "C" int seg_cummax_launch(const int* order, const long long* seg,
                                  const long long* values,
                                  const unsigned char* mask, long long n,
-                                 int exclusive, long long* out,
-                                 long long* agg, int* first, void* stream) {
+                                 int exclusive, long long* out, void* words,
+                                 void* stream) {
   if (n <= 0) return 0;
-  cudaStream_t st = (cudaStream_t)stream;
   const long long blocks = (n + CM_TILE - 1) / CM_TILE;
-  seg_cummax_local<<<(unsigned)blocks, CM_THREADS, 0, st>>>(
-      order, seg, values, mask, n, exclusive, out, agg, first);
-  if (blocks > 1)
-    seg_cummax_carry<<<(unsigned)(blocks - 1), THREADS, 0, st>>>(agg, first,
-                                                                  n, out);
+  if (blocks > (long long)TICKETS) return (int)cudaErrorInvalidValue;
+  unsigned long long* head = static_cast<unsigned long long*>(words);
+  longlong2* w = static_cast<longlong2*>(words) + 1;
+  if (mask)
+    seg_cummax_kernel<true>
+        <<<(unsigned)blocks, CM_THREADS, 0, (cudaStream_t)stream>>>(
+            order, seg, values, mask, n, exclusive, out, head, w);
+  else
+    seg_cummax_kernel<false>
+        <<<(unsigned)blocks, CM_THREADS, 0, (cudaStream_t)stream>>>(
+            order, seg, values, mask, n, exclusive, out, head, w);
   return (int)cudaGetLastError();
 }
 

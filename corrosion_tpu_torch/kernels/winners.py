@@ -20,6 +20,15 @@ which ``winners_b`` reads in place of ``pk[oB]``: both orders sort by
 pk first, so the two are equal at every position.  The kernels write
 each output once a run of positions (csrc/winners.cu) and take the
 orders, ``prev`` and ``pk_pos`` 16-byte aligned.
+
+``seg_cummax`` is one launch a call: its tiles publish words that their
+successors read (a decoupled look-back), held per device and stream in
+a buffer that is zeroed once and never filled again.  One word at its
+head holds the call's epoch and the tiles' ticket: a tile reads both
+with one atomic, and the call's last claim resets the ticket and
+advances the epoch (csrc/winners.cu), so the words earlier calls left
+are never read as a later call's, and a CUDA graph that captured a
+call may replay it.
 """
 
 from __future__ import annotations
@@ -33,11 +42,11 @@ from corrosion_tpu_torch import kernels
 #: "no value" for packed LWW keys and segment seeds (ops/merge.py)
 NEG_KEY = -(1 << 62)
 BIG = 1 << 62
-CM_TILE = 2048  # positions a seg_cummax block scans (csrc CM_TILE)
+CM_TILE = 1024  # positions a seg_cummax block scans (csrc CM_TILE)
 
 _P = ctypes.c_void_p
 _CUMMAX_ARGTYPES = (_P, _P, _P, _P, ctypes.c_longlong, ctypes.c_int, _P, _P,
-                    _P, _P)
+                    _P)
 _A_ARGTYPES = (_P, _P, _P, _P, _P, _P, ctypes.c_longlong, _P, _P, _P, _P, _P,
                _P, _P)
 _B_ARGTYPES = (_P, _P, _P, _P, _P, _P, _P, _P, _P, ctypes.c_longlong,
@@ -69,6 +78,23 @@ def seg_cummax_plain(order, seg, values, mask=None, exclusive=True):
     return torch.where(starts, NEG_KEY, prev)
 
 
+_TILE_WORDS: dict = {}
+
+
+def _tile_words(key, device, tiles: int) -> torch.Tensor:
+    """``seg_cummax``'s scratch under ``key`` (a device and stream) for a
+    call of ``tiles`` tiles: int64, 16 bytes of header, then 16 a tile,
+    zero when made and kept for the calls that follow.  A call of more
+    tiles than it holds makes new words, at least twice as many."""
+    held = _TILE_WORDS.get(key)
+    need = 2 * (tiles + 1)
+    if held is None or held.numel() < need:
+        size = max(need, 0 if held is None else 2 * held.numel())
+        held = _TILE_WORDS[key] = torch.zeros(size, dtype=torch.int64,
+                                              device=device)
+    return held
+
+
 def seg_cummax(order, seg, values, mask=None, exclusive=True):
     """[n] int64 segmented prefix max through a permutation: position
     i holds the max of ``v`` over the earlier positions of its segment
@@ -76,23 +102,24 @@ def seg_cummax(order, seg, values, mask=None, exclusive=True):
     ``v[i] = values[order[i]]`` (``NEG_KEY`` where ``mask[order[i]]`` is
     False) and a segment starts where ``seg[order[i]]`` changes.
 
-    order [n] int32; seg, values [m] int64; mask [m] bool or None."""
+    order [n] int32 (16-byte aligned on the card); seg, values [m]
+    int64; mask [m] bool or None."""
     if kernels.on_cpu(order, seg, values, mask):
         return seg_cummax_plain(order, seg, values, mask, exclusive)
     n = order.shape[0]
-    kernels.check("seg_cummax order", order, torch.int32, (n,))
+    kernels.check("seg_cummax order", order, torch.int32, (n,), align=16)
     kernels.check("seg_cummax seg", seg, torch.int64, align=8)
     kernels.check("seg_cummax values", values, torch.int64, align=8)
     if mask is not None:
         kernels.check("seg_cummax mask", mask, torch.bool, align=1)
-    out = torch.empty(n, dtype=torch.int64, device=order.device)
-    blocks = -(-n // CM_TILE)
-    agg = torch.empty(blocks, dtype=torch.int64, device=order.device)
-    first = torch.empty(blocks, dtype=torch.int32, device=order.device)
+    dev = order.device
+    out = torch.empty(n, dtype=torch.int64, device=dev)
+    words = _tile_words((dev, torch.cuda.current_stream(dev).cuda_stream),
+                        dev, -(-n // CM_TILE))
     pt = kernels.ptr
     fn = kernels.function("winners", "seg_cummax_launch", _CUMMAX_ARGTYPES)
     code = fn(pt(order), pt(seg), pt(values), pt(mask), n, int(exclusive),
-              pt(out), pt(agg), pt(first), kernels.stream(order))
+              pt(out), pt(words), kernels.stream(order))
     seg_cummax.launches += 1
     kernels.raise_on_error("seg_cummax", code)
     return out
