@@ -52,7 +52,17 @@ package.  Phases, each ending the run with a non-zero exit on failure:
    dense run also at tick 8, the sparse at its busiest) and of a
    WAN-latency variant of each, the bitmap also at N = 64, K = 4 with
    an empty bitmap and with one that makes rows redraw past the
-   block's round keys, and time them at those ticks;
+   block's round keys, and time them at those ticks; then
+   ``exact_commit`` alone, bitwise its plain version, at every shape
+   the main paths launch it at (``COMMIT_SHAPES``: dense [16, 100k],
+   sparse and frontier [4, 1M], the host layout's [2, 5M] window at
+   5M of a [2, 10M] pair, read in place, the sharded-dense shard's
+   [4, 12,500] and one at column 3 of a [4, 100k] pair), with few and
+   many learners, a tier given and not, learners at the window's
+   first and last byte, sentinel words around tx / next_send, and
+   new_infected 2 bytes off infected's alignment; timed behind a GPU
+   sleep with the L2 flushed before each call, each with its bound
+   from its learners' sectors (the ``{"exact_commit": ...}`` line);
 6. run the exact column at full width through ``run_exact_headline``:
    dense 100k nodes x 16 seeds (a 20 GB bitmap, partitioned) and
    sparse 1M nodes x 4 seeds, each with the launch counters zeroed just
@@ -233,7 +243,11 @@ the counter splits (their two calls against ``sent_tick``),
 ``swim_probe_select`` at N = 64 and 4096 (phase 8; there
 the parent's dissemination is timed in turns with this tree's, and
 the whole tick with each),
-``exact_send<Bitmap>`` at phase 5's timed ticks, ``route_pack`` in
+``exact_send<Bitmap>`` at phase 5's timed ticks, ``exact_commit`` in
+every case of phase 5 (on ``.contiguous()`` copies of the windows, as
+its caller made them; timed in turns at dense tick 6 and every
+``COMMIT_SHAPES`` case, and at the 10M window with its caller's two
+copies), ``route_pack`` in
 every case of phase 17a, its ``ring_receive`` in every case and
 its delivery from the all_gather
 fabric's source, ``shard_round`` and ``shard_commit`` in phase
@@ -248,7 +262,7 @@ sampler's pair and its commit alone behind a GPU sleep at 16k tick 9
 and 8 x 512 tick 4 (the ``{"sent_tick": ...}`` line), the
 winner passes behind a GPU sleep at 2**20, interleaved and pk-grouped
 (the ``{"winners_kernels": ...}`` line), and ``seg_cummax`` (the parent's
-launches, with their own scratch) in every phase-15 case and timed the
+launch, on tile words of its own) in every phase-15 case and timed the
 same way in both domains (the ``{"seg_cummax": ...}`` line).  Phase 1
 then also prints whether each ``sent_select`` function's opcode counts
 equal the parent's, and each ``sent_select`` loop's, and the parent's
@@ -424,20 +438,24 @@ class ParentDesign:
     The C interfaces of ``swim_launch``, ``exact_send_launch``,
     ``shard_launch``, ``route_pack_launch``, ``deliver_perm_launch``,
     ``ring_receive_launch``, ``sent_select_launch``,
-    ``sent_commit_launch``, ``winners_a_launch``, ``winners_b_launch``
-    and ``threefry_launch`` are unchanged since, so this tree's wrappers
+    ``sent_commit_launch``, ``winners_a_launch``, ``winners_b_launch``,
+    ``seg_cummax_launch`` and ``threefry_launch`` are unchanged since, so
+    this tree's wrappers
     fill their arguments (``kernels.swim.prepare``,
     ``exact_send.send_args``, ``sent_sampler._select_fields`` /
     ``_commit_fields``, ``shard_exact.round_args`` / ``commit_args``,
     ``threefry._ARGTYPES``, ``deliver.launch``,
     ``fabric._RECEIVE_ARGTYPES`` on this tree's slot map,
-    ``winners._A_ARGTYPES`` / ``_B_ARGTYPES``; ``route_pack``'s scratch
+    ``winners._A_ARGTYPES`` / ``_B_ARGTYPES`` / ``_CUMMAX_ARGTYPES``,
+    the last on tile words of the parent's own; ``route_pack``'s scratch
     argument is the parent's zeroed byte marks).  The parent's
-    ``seg_cummax_launch`` (two kernels, its aggregates and first starts
-    in scratch of its own) takes ``CUMMAX_ARGTYPES``."""
+    ``exact_commit_launch`` (a thread a position of contiguous masks)
+    takes ``COMMIT_ARGTYPES``."""
 
-    CUMMAX_ARGTYPES = (ctypes.c_void_p,) * 4 + (
-        ctypes.c_longlong, ctypes.c_int) + (ctypes.c_void_p,) * 4
+    # the parent's exact_commit_launch: contiguous masks, a flat count
+    COMMIT_ARGTYPES = (ctypes.c_void_p,) * 5 + (
+        ctypes.c_longlong, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+        ctypes.c_void_p)
 
     SOURCES = ("swim", "exact_send", "threefry", "sent_sampler", "fabric",
                "deliver_perm", "winners")
@@ -582,6 +600,21 @@ class ParentDesign:
                      kernels.stream(infected))
         return new_infected
 
+    def exact_commit(self, infected, new_infected, tx, next_send, tick,
+                     max_tx, tier=None) -> None:
+        """The parent's ``exact_commit`` (``exact_commit``'s arguments,
+        contiguous masks)."""
+        from corrosion_tpu_torch import kernels
+
+        p = kernels.ptr
+        s, n = infected.shape
+        if not (infected.is_contiguous() and new_infected.is_contiguous()):
+            fail("the parent's exact_commit takes contiguous masks")
+        self._launch("exact_send", "exact_commit_launch",
+                     self.COMMIT_ARGTYPES, p(infected), p(new_infected),
+                     p(tx), p(next_send), p(tier), s * n, n, tick, max_tx,
+                     kernels.stream(infected))
+
     def _shard(self, sa, sent_l, commit: bool, t) -> None:
         from corrosion_tpu_torch import kernels
 
@@ -653,17 +686,20 @@ class ParentDesign:
         return outs
 
     def seg_cummax(self, order, seg, values, mask=None, exclusive=True):
-        """The parent's ``seg_cummax`` (``seg_cummax``'s arguments)."""
+        """The parent's ``seg_cummax`` (``seg_cummax``'s arguments), on
+        tile words kept apart from this tree's."""
         from corrosion_tpu_torch import kernels
+        from corrosion_tpu_torch.kernels import winners
 
         p, n, dev = kernels.ptr, order.shape[0], order.device
-        blocks = -(-n // 2048)
         out = torch.empty(n, dtype=torch.int64, device=dev)
-        agg = torch.empty(blocks, dtype=torch.int64, device=dev)
-        first = torch.empty(blocks, dtype=torch.int32, device=dev)
-        self._launch("winners", "seg_cummax_launch", self.CUMMAX_ARGTYPES,
-                     p(order), p(seg), p(values), p(mask), n, int(exclusive),
-                     p(out), p(agg), p(first), kernels.stream(order))
+        words = winners._tile_words(
+            ("parent", dev, torch.cuda.current_stream(dev).cuda_stream), dev,
+            -(-n // winners.CM_TILE))
+        self._launch("winners", "seg_cummax_launch",
+                     winners._CUMMAX_ARGTYPES, p(order), p(seg), p(values),
+                     p(mask), n, int(exclusive), p(out), p(words),
+                     kernels.stream(order))
         return out
 
     def winners_a(self, oA, prev, pk, cl, sent, seed_cl, final_cl,
@@ -1473,6 +1509,10 @@ def exact_kernel_checks(dev, parent=None):
     for c in checks:
         if c["differs"] or c.get("commit_max_abs_err", 0.0) != 0.0:
             fail(f"exact kernels differ from their plain versions: {c}")
+    commit, commit_times = commit_checks(es, dev, parent)
+    checks += commit
+    timed["commit"] = {**commit_times["host_2x5m_of_10m few"],
+                       "shapes": commit_times}
     source = "corrosion_tpu_torch/kernels/csrc/exact_send.cu"
     results = []
     for name, key, replaces in (
@@ -1484,7 +1524,8 @@ def exact_kernel_checks(dev, parent=None):
         results.append(dict(
             name=name, route="cuda", source=source, replaces=replaces,
             max_abs_err=errs[key], library_ms=None, **timed[key]))
-        set_bound(results[-1])
+        if "bound" in results[-1]:
+            set_bound(results[-1])
     return results, checks, busiest
 
 
@@ -1618,14 +1659,170 @@ def exact_times(es, cfg, seeds, ring, rep, tick, args, saved, work,
                           cfg.max_transmissions, args["tier"])
 
     out["commit"] = dict(
-        ms=time_inplace_ms(c_restore, commit(es.exact_commit), 20),
+        **in_turns(commit(es.exact_commit),
+                   parent and commit(parent.exact_commit),
+                   lambda fn: time_inplace_ms(c_restore, fn, 20)),
         plain_ms=time_inplace_ms(c_restore, commit(es.exact_commit_plain),
                                  3),
-        bound=(total * 2 + learned * 8, 0),
+        bound=(commit_bytes(new_infected & ~args["infected"]), 0),
         shape=f"{seeds} seeds x {cfg.n_nodes}, tick {tick}, "
               f"{learned} learners",
     )
     return out
+
+
+# exact_commit's shapes on the main paths (label, seeds, row of the
+# masks, window's first column, width): the dense and sparse runs, the
+# host layout's window of the 10M pair (host 1), the sharded-dense
+# layout's shard of 12,500 nodes (and one off a 16-byte boundary), the
+# frontier layout's replicated [4, 1M]
+COMMIT_SHAPES = (
+    ("dense_16x100k", 16, 100_000, 0, 100_000),
+    ("sparse_4x1m", 4, 1_000_000, 0, 1_000_000),
+    ("host_2x5m_of_10m", 2, 10_000_000, 5_000_000, 5_000_000),
+    ("sharded_dense_4x12500", 4, 12_500, 0, 12_500),
+    ("sharded_dense_4x12500_lo3", 4, 100_000, 3, 12_500),
+    ("frontier_4x1m", 4, 1_000_000, 0, 1_000_000),
+)
+# learners a position: a first chunk's few (the 10M run's first ticks)
+# and a busy tick's many
+COMMIT_LEARNERS = {"few": 1e-4, "many": 0.3}
+L2_FLUSH_BYTES = 128 << 20  # over the card's 50 MB L2
+
+
+def commit_bytes(learned: torch.Tensor, tier=None) -> int:
+    """What ``exact_commit`` must move on these masks: 2 bytes a position
+    read, and each 32-byte sector of tx and next_send ([S, n] int32)
+    that holds a learner written (of tier, read, with one)."""
+    def sectors(flat):
+        pad = (-flat.numel()) % 8
+        return int(torch.nn.functional.pad(flat, (0, pad)).view(-1, 8)
+                   .any(1).sum())
+
+    b = 2 * learned.numel() + 2 * SECTOR * sectors(learned.reshape(-1))
+    if tier is not None:
+        b += SECTOR * sectors(learned.any(0))
+    return b
+
+
+def commit_case(g, s: int, n_full: int, lo: int, width: int, frac: float,
+                dev):
+    """Seeded [s, n_full] masks (30% infected, ``frac`` of the rest
+    learning; learners at the window's first and last byte), the
+    window's tier map and tx / next_send placed between sentinel
+    words."""
+    inf = torch.rand((s, n_full), generator=g, device=dev) < 0.3
+    new = inf | (torch.rand((s, n_full), generator=g, device=dev) < frac)
+    for c in (lo, lo + width - 1):
+        inf[:, c], new[:, c] = False, True
+    tier = torch.randint(1, 5, (width,), generator=g, device=dev,
+                         dtype=torch.int32)
+    outs = []
+    for hi in (9, 40):
+        buf, view = placed((s, width), 3, dev)
+        view.copy_(torch.randint(0, hi, (s, width), generator=g, device=dev,
+                                 dtype=torch.int32))
+        outs.append((buf, view))
+    return inf, new, tier, outs
+
+
+def commit_checks(es, dev, parent=None):
+    """``exact_commit`` against its plain version, bitwise, at every
+    shape of ``COMMIT_SHAPES`` with few and many learners, tier given
+    and not, on the window in place (the masks' rows a full row apart),
+    the words around tx / next_send untouched; also with the two masks
+    off 16-byte alignment from each other (byte loads), and with
+    ``parent`` the parent's kernel on ``.contiguous()`` copies (its
+    caller's layout).  Times (no tier) behind a GPU sleep, the L2 filled
+    with other, clean lines before each call (a read of 128 MB), in
+    turns with the parent's (on copies made beforehand); at the 10M
+    window also the parent's with its caller's two copies.  Returns the
+    checks and {label: times and bound}."""
+    g = torch.Generator(device=dev)
+    g.manual_seed(21)
+    flush = torch.zeros(L2_FLUSH_BYTES // 4, dtype=torch.int32, device=dev)
+
+    def evict():
+        flush.sum()
+    checks, times = [], {}
+    for label, s, n_full, lo, width in COMMIT_SHAPES:
+        for dense_label, frac in COMMIT_LEARNERS.items():
+            inf, new, tier, outs = commit_case(g, s, n_full, lo, width,
+                                               frac, dev)
+            w_inf, w_new = inf[:, lo:lo + width], new[:, lo:lo + width]
+            learned = w_new & ~w_inf
+            start = [v.clone() for _, v in outs]
+            row = dict(shape=label, learners=dense_label,
+                       count=int(learned.sum()), differs=[])
+            for tr in (None, tier):
+                want = [t.clone() for t in start]
+                es.exact_commit_plain(w_inf, w_new, *want, 5, 8, tr)
+                runs = {"kernel": lambda o, tr=tr: es.exact_commit(
+                    w_inf, w_new, *o, 5, 8, tr)}
+                if parent is not None:
+                    runs["parent"] = lambda o, tr=tr: parent.exact_commit(
+                        w_inf.contiguous(), w_new.contiguous(), *o, 5, 8, tr)
+                if lo:  # new_infected 2 bytes further along its row
+                    shifted = torch.zeros((s, n_full + 2), dtype=torch.bool,
+                                          device=dev)
+                    shifted[:, lo + 2:lo + 2 + width] = w_new
+                    runs["apart"] = lambda o, tr=tr: es.exact_commit(
+                        w_inf, shifted[:, lo + 2:lo + 2 + width], *o, 5, 8,
+                        tr)
+                for who, run in runs.items():
+                    for (_, v), x in zip(outs, start):
+                        v.copy_(x)
+                    run([v for _, v in outs])
+                    torch.cuda.synchronize()
+                    tag = f"{who}{'' if tr is None else ' tier'}"
+                    if not all(torch.equal(v, w) for (_, v), w in
+                               zip(outs, want)):
+                        row["differs"].append(tag)
+                    if not all(bool((b[:3] == SENTINEL).all())
+                               and bool((b[-4:] == SENTINEL).all())
+                               for b, _ in outs):
+                        row["differs"].append(f"{tag} sentinels")
+            checks.append(row)
+            if row["differs"]:
+                fail(f"exact_commit differs from its plain version: {row}")
+            if label.endswith("lo3"):
+                continue
+            o = [v for _, v in outs]
+
+            def kernel():
+                es.exact_commit(w_inf, w_new, *o, 5, 8)
+
+            old = None
+            if parent is not None:
+                copies = w_inf.contiguous(), w_new.contiguous()
+
+                def old():
+                    parent.exact_commit(*copies, *o, 5, 8)
+            entry = dict(
+                **in_turns(kernel, old, lambda fn: time_inplace_ms(
+                    evict, fn, 20)),
+                plain_ms=time_inplace_ms(evict, lambda:
+                                         es.exact_commit_plain(
+                                             w_inf, w_new, *o, 5, 8), 3),
+                learners=row["count"],
+                bound=(commit_bytes(learned), 0),
+                shape=f"[{s}, {width}] of [{s}, {n_full}] at {lo}, "
+                      f"{row['count']} learners",
+            )
+            if parent is not None and lo:
+                # the parent's caller copied both windows first
+                entry["parent_with_copies_ms"] = time_inplace_ms(
+                    evict, lambda: parent.exact_commit(
+                        inf[:, lo:lo + width].contiguous(),
+                        new[:, lo:lo + width].contiguous(), *o, 5, 8), 20)
+            set_bound(entry)
+            times[f"{label} {dense_label}"] = entry
+            del inf, new, tier, outs, w_inf, w_new, learned, start, old
+        torch.cuda.empty_cache()
+    del flush
+    torch.cuda.empty_cache()
+    print(json.dumps({"exact_commit": times}), flush=True)
+    return checks, times
 
 
 EXACT_COUNTED = ("exact_send", "exact_commit", "sync_pull", "tick_stats",
@@ -5374,7 +5571,8 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--parent", help="a checkout of the parent commit: "
                     "hold its threefry_bits, deliver_perm, "
-                    "swim_probe_select, exact_send<Bitmap>, sent_select, "
+                    "swim_probe_select, exact_send<Bitmap>, "
+                    "exact_commit, sent_select, "
                     "sent_commit, route_pack, ring_receive, shard and "
                     "winner kernels to this tree's and time them beside "
                     "them")
@@ -5458,7 +5656,7 @@ def main() -> int:
             n: [a == b for a, b in zip(mine, loops[1].get(n, []))]
             + [False] * abs(len(mine) - len(loops[1].get(n, [])))
             for n, mine in loops[0].items()}
-        # the parent's two seg_cummax kernels, beside this tree's one
+        # the parent's seg_cummax kernels, beside this tree's
         theirs = sass.mix(parent.paths["winners"], "seg_cummax")
         record["parent_sass"]["winners"] = theirs
         sass_line["seg_cummax_sass_parent"] = cummax_sass(theirs)

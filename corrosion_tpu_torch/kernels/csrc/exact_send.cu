@@ -48,10 +48,21 @@
 // The latency queue's promote pass clears slots and must run before this
 // kernel, never inside it, or a concurrent atomicMin is lost.
 //
-// exact_commit: one thread per (seed, node): a node that learned this
-// tick (new_infected & ~infected) gets a fresh budget and forwards
-// after one tick, its RTT tier's worth on the tiered topologies.  It
-// is a second launch because it needs every sender's stores.
+// exact_commit: a node that learned this tick (new_infected & ~infected)
+// gets a fresh budget and forwards after one tick, its RTT tier's worth
+// on the tiered topologies.  It is a second launch because it needs
+// every sender's stores.  Bound: bytes, 2 a position read and the
+// learners' 32-byte sectors of tx and next_send (and of tier).  A warp
+// takes a tile of 512 positions of one row, each lane 16 of them by one
+// 16-byte load of each mask; a lane whose 16 cross the row's first or
+// last byte, or masks that lie 16-byte aligned apart, take byte loads.
+// A tile with no learner stores nothing; else lane l stores position
+// 32 j + l of the tile, its learned bit shuffled from the lane that
+// loaded it, so each store instruction covers 32 neighbouring ints.
+// The masks may be windows of wider rows (a row stride each); tier is
+// indexed by the column.  A plain grid, a warp a tile: a persistent grid
+// walking the tiles measured no faster (within 5%, slower with many
+// learners), and it needs an occupancy query on the host every launch.
 //
 // Bound on the H100: bytes.  Every row's activity test reads 9 bytes;
 // an active row moves its own leaves, K random bitmap sectors (or its
@@ -851,17 +862,66 @@ __global__ void __launch_bounds__(THREADS)
   }
 }
 
-__global__ void exact_commit_kernel(const unsigned char* __restrict__ infected,
-                                    const unsigned char* __restrict__ new_inf,
-                                    int* __restrict__ tx,
-                                    int* __restrict__ next_send,
-                                    const int* __restrict__ tier,
-                                    size_t total, int n, int tick,
-                                    int max_tx) {
-  const size_t g = (size_t)blockIdx.x * blockDim.x + threadIdx.x;
-  if (g >= total || !new_inf[g] || infected[g]) return;
-  tx[g] = max_tx;
-  next_send[g] = tick + (tier ? tier[g % n] : 1);
+constexpr int COMMIT_LANE = 16;  // positions a lane loads: 16 bytes a mask
+constexpr int COMMIT_TILE = 32 * COMMIT_LANE;  // positions a warp takes
+
+struct CommitArgs {
+  const unsigned char* infected;  // [s] rows of n bytes, ld_inf apart
+  const unsigned char* new_inf;   // [s] rows of n bytes, ld_new apart
+  int* tx;                        // [s, n]
+  int* next_send;                 // [s, n]
+  const int* tier;                // [n] or null
+  long long ld_inf, ld_new;
+  int s, n, tick, max_tx;
+  unsigned tiles;  // warp tiles a row: its 16-byte groups, 32 at once
+  int vec;         // the two masks' rows lie 16-byte aligned alike
+};
+
+// One bit a byte, in byte order: new != 0 and infected == 0.
+__device__ __forceinline__ unsigned learned4(unsigned nw, unsigned inf) {
+  const unsigned m = __vcmpne4(nw, 0u) & __vcmpeq4(inf, 0u) & 0x80808080u;
+  return ((m >> 7) * 0x00204081u) >> 21 & 0xFu;
+}
+
+__global__ void __launch_bounds__(THREADS)
+    exact_commit_kernel(const CommitArgs c) {
+  const unsigned lane = threadIdx.x & 31;
+  const unsigned t = blockIdx.x * (THREADS / 32) + threadIdx.x / 32;
+  if (t >= (unsigned)c.s * c.tiles) return;  // the whole warp
+  const unsigned row = t / c.tiles;
+  const unsigned char* nw = c.new_inf + (size_t)row * c.ld_new;
+  const unsigned char* inf = c.infected + (size_t)row * c.ld_inf;
+  // the tile's first position: its row's tiles start at the 16-byte
+  // boundary at or before the row's first byte of new_inf
+  const int base = (int)(t - row * c.tiles) * COMMIT_TILE -
+                   (int)(reinterpret_cast<uintptr_t>(nw) & 15u);
+  const int p0 = base + (int)lane * COMMIT_LANE;
+  unsigned bits = 0;
+  if (c.vec && p0 >= 0 && p0 + COMMIT_LANE <= c.n) {
+    const uint4 a = __ldg(reinterpret_cast<const uint4*>(nw + p0));
+    const uint4 b = __ldg(reinterpret_cast<const uint4*>(inf + p0));
+    bits = learned4(a.x, b.x) | learned4(a.y, b.y) << 4 |
+           learned4(a.z, b.z) << 8 | learned4(a.w, b.w) << 12;
+  } else {
+    for (int i = 0; i < COMMIT_LANE; ++i) {
+      const int p = p0 + i;
+      if (p >= 0 && p < c.n && nw[p] && !inf[p]) bits |= 1u << i;
+    }
+  }
+  const unsigned busy = __ballot_sync(FULL, bits != 0);
+  if (!busy) return;
+  int* tx = c.tx + (size_t)row * c.n;
+  int* ns = c.next_send + (size_t)row * c.n;
+  for (int j = 0; j < COMMIT_LANE; ++j) {
+    // positions 32 j .. 32 j + 31 of the tile: lanes 2 j and 2 j + 1
+    if (!(busy >> 2 * j & 3u)) continue;
+    const unsigned mine = __shfl_sync(FULL, bits, 2 * j + (int)(lane >> 4));
+    if (mine >> (lane & 15u) & 1u) {
+      const int p = base + 32 * j + (int)lane;
+      tx[p] = c.max_tx;
+      ns[p] = c.tick + (c.tier ? __ldg(c.tier + p) : 1);
+    }
+  }
 }
 
 // A persistent grid of `kernel` for `rows` rows: as many blocks as the
@@ -981,19 +1041,40 @@ extern "C" int shard_launch(const void* args, int ring, int commit,
   return (int)cudaGetLastError();
 }
 
+// The commit over [s, n]: infected / new_infected rows ld_inf / ld_new
+// bytes apart (windows of wider rows allowed), tx / next_send [s, n],
+// tier [n] or null.
 extern "C" int exact_commit_launch(const void* infected,
-                                   const void* new_infected, void* tx,
-                                   void* next_send, const void* tier,
-                                   long long total, int n, int tick,
+                                   const void* new_infected,
+                                   long long ld_inf, long long ld_new,
+                                   void* tx, void* next_send,
+                                   const void* tier, int s, int n, int tick,
                                    int max_tx, void* stream) {
-  if (total <= 0) return 0;
-  if (n < 1) return (int)cudaErrorInvalidValue;
-  const int threads = 256;
-  const unsigned blocks = (unsigned)((total + threads - 1) / threads);
-  exact_commit_kernel<<<blocks, threads, 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const unsigned char*>(infected),
-      static_cast<const unsigned char*>(new_infected),
-      static_cast<int*>(tx), static_cast<int*>(next_send),
-      static_cast<const int*>(tier), (size_t)total, n, tick, max_tx);
+  if (s == 0 || n == 0) return 0;
+  if (s < 0 || n < 0 || n > 0x7fffffff - 2 * COMMIT_TILE ||
+      (long long)s * n > 0x7fffffffLL ||
+      (s > 1 && (ld_inf < n || ld_new < n)) || infected == nullptr ||
+      new_infected == nullptr || tx == nullptr || next_send == nullptr)
+    return (int)cudaErrorInvalidValue;
+  const uintptr_t apart = reinterpret_cast<uintptr_t>(infected) -
+                          reinterpret_cast<uintptr_t>(new_infected);
+  const CommitArgs c{static_cast<const unsigned char*>(infected),
+                     static_cast<const unsigned char*>(new_infected),
+                     static_cast<int*>(tx),
+                     static_cast<int*>(next_send),
+                     static_cast<const int*>(tier),
+                     ld_inf,
+                     ld_new,
+                     s,
+                     n,
+                     tick,
+                     max_tx,
+                     (unsigned)(((long long)n + 15 + COMMIT_TILE - 1) /
+                                COMMIT_TILE),
+                     (int)(apart % 16 == 0 && (ld_inf - ld_new) % 16 == 0)};
+  const size_t warps = (size_t)s * c.tiles;
+  exact_commit_kernel<<<(unsigned)((warps + THREADS / 32 - 1) /
+                                   (THREADS / 32)),
+                        THREADS, 0, static_cast<cudaStream_t>(stream)>>>(c);
   return (int)cudaGetLastError();
 }

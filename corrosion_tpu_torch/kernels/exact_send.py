@@ -20,7 +20,12 @@ row loaded once into registers and the rounds' randint keys derived
 once a block.  The bitmap's send is one launch of a persistent grid:
 each warp ballots its tiles' activity and deals the active rows to its
 lanes, with the block's round keys; a row's accepted bitmap bytes stay
-in registers for its marks.
+in registers for its marks.  The commit's bound is 2 bytes a position
+and the learners' 32-byte sectors: a warp takes 512 positions of a row,
+16 a lane by one 16-byte load of each mask, and a learner's words are
+stored by the lane of its position, so a store instruction covers 32
+neighbouring words; the masks may be windows of wider rows, read in
+place.
 
 Both functions update their state arguments in place (``tx``,
 ``next_send``, ``msgs``, ``pending``, ``sent``; the commit ``tx`` and
@@ -105,9 +110,8 @@ class _Args(ctypes.Structure):
 
 
 _COMMIT_ARGTYPES = (
-    (ctypes.c_void_p,) * 5
-    + (ctypes.c_longlong, ctypes.c_int, ctypes.c_int, ctypes.c_int,
-       ctypes.c_void_p)
+    (ctypes.c_void_p,) * 2 + (ctypes.c_longlong,) * 2
+    + (ctypes.c_void_p,) * 3 + (ctypes.c_int,) * 4 + (ctypes.c_void_p,)
 )
 
 
@@ -459,11 +463,28 @@ def _check_layout() -> None:
 
 def exact_commit_plain(infected, new_infected, tx, next_send, tick: int,
                        max_tx: int, tier=None):
-    """Plain PyTorch version of :func:`exact_commit`."""
+    """Plain PyTorch version of :func:`exact_commit` (the masks may be
+    windows of wider rows, as the kernel takes them)."""
     learned = new_infected & ~infected
     tx.masked_fill_(learned, max_tx)
     first = torch.ones_like(next_send) if tier is None else tier
     next_send.copy_(torch.where(learned, tick + first, next_send))
+
+
+def _mask_stride(name: str, t, s: int, n: int) -> int:
+    """The row stride of a [s, n] bool mask that :func:`exact_commit`
+    takes: its rows may be windows of wider ones (stride (ld, 1), ld >=
+    n), as a slice ``x[:, lo:lo + n]`` of an [s, N] tensor is; any
+    other layout raises."""
+    if t.dtype != torch.bool or tuple(t.shape) != (s, n):
+        raise ValueError(f"exact_commit: {name} must be {torch.bool} "
+                         f"[{s}, {n}]")
+    ld, col = t.stride()
+    if (s > 1 and ld < n) or (n > 1 and col != 1):
+        raise ValueError(f"exact_commit: {name} must hold its rows' bytes "
+                         f"in order (stride (>= {n}, 1)), got "
+                         f"{t.stride()}")
+    return ld if s > 1 else n
 
 
 def exact_commit(infected, new_infected, tx, next_send, tick: int,
@@ -471,28 +492,33 @@ def exact_commit(infected, new_infected, tx, next_send, tick: int,
     """The learners of a tick (``new_infected & ~infected``, [S, N]
     bool) get ``max_tx`` transmissions and forward at ``tick + 1`` (its
     RTT tier's worth with ``tier`` [N] int32); tx and next_send [S, N]
-    int32 are updated in place."""
+    int32 are updated in place.  The masks may be [S, N] windows of
+    wider rows (``x[:, lo:lo + N]``, read in place); tx, next_send and
+    tier are contiguous."""
     s, n = infected.shape
-    for name, t, dtype in (("new_infected", new_infected, torch.bool),
-                           ("tx", tx, torch.int32),
-                           ("next_send", next_send, torch.int32)):
-        if t.dtype != dtype or tuple(t.shape) != (s, n):
-            raise ValueError(f"exact_commit: {name} must be {dtype} "
+    lds = [_mask_stride(name, t, s, n) for name, t in (
+        ("infected", infected), ("new_infected", new_infected))]
+    for name, t in (("tx", tx), ("next_send", next_send)):
+        if t.dtype != torch.int32 or tuple(t.shape) != (s, n):
+            raise ValueError(f"exact_commit: {name} must be {torch.int32} "
                              f"[{s}, {n}]")
+    if tier is not None and (tier.dtype != torch.int32
+                             or tuple(tier.shape) != (n,)):
+        raise ValueError(f"exact_commit: tier must be {torch.int32} [{n}]")
     if kernels.on_cpu(infected, new_infected, tx, next_send, tier):
         return exact_commit_plain(infected, new_infected, tx, next_send,
                                   tick, max_tx, tier)
-    for name, t in (("infected", infected), ("new_infected", new_infected),
-                    ("tx", tx), ("next_send", next_send), ("tier", tier)):
+    if s * n >= 2**31:
+        raise ValueError(f"exact_commit: {s} seeds x {n} rows is past the "
+                         "kernel's 32-bit index")
+    for name, t in (("tx", tx), ("next_send", next_send), ("tier", tier)):
         if t is not None:
-            kernels.check(f"exact_commit {name}", t, t.dtype, align=1)
-    if tier is not None and tuple(tier.shape) != (n,):
-        raise ValueError(f"exact_commit: tier must be [{n}]")
+            kernels.check(f"exact_commit {name}", t, t.dtype)
     pt = kernels.ptr
     fn = kernels.function("exact_send", "exact_commit_launch",
                           _COMMIT_ARGTYPES)
-    code = fn(pt(infected), pt(new_infected), pt(tx), pt(next_send),
-              pt(tier), s * n, n, tick, max_tx, kernels.stream(infected))
+    code = fn(pt(infected), pt(new_infected), *lds, pt(tx), pt(next_send),
+              pt(tier), s, n, tick, max_tx, kernels.stream(infected))
     exact_commit.launches += 1
     kernels.raise_on_error("exact_commit", code)
 

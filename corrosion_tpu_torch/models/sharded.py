@@ -313,9 +313,10 @@ def _sharded_frontier_host_tick_local(sh: int, st: FrontierExactState, keys,
             sh, n, active_l, active, ring_l, triples, tick,
             _send_params(cfg, True, writer), diag, True, infected,
             pending if latency else None, tx_l, next_send_l, msgs_l, tier)
-        exact_commit(infected[:, lo:lo + n_local].contiguous(),
-                     new_infected[:, lo:lo + n_local].contiguous(), tx_l,
-                     next_send_l, tick, cfg.max_transmissions, tier=tier_l)
+        # my windows of the replicated masks, read in place
+        exact_commit(infected[:, lo:lo + n_local],
+                     new_infected[:, lo:lo + n_local], tx_l, next_send_l,
+                     tick, cfg.max_transmissions, tier=tier_l)
         infected = new_infected
     if _sync_due(cfg, tick):
         infected, pay = _sync_pull(
