@@ -192,8 +192,14 @@ package.  Phases, each ending the run with a non-zero exit on failure:
     the last, with the launch counters zeroed just before it.  The arms
     held against the torch store's run in two spawned worker processes
     beside it;
-17. hold ``bits_pack`` / ``bits_unpack`` (at the host layout's wire,
-    [2, 5,000,000] packed and [2, 1,250,000] unpacked, and odd shapes),
+17. hold the validity wire, ``bits_pack``, ``bits_pack_above``,
+    ``bits_pack_active``, ``bits_unpack`` and ``bits_unpack_add`` (at
+    the host layout's shapes, [2, 5,000,000] packed, the active window
+    at 5,000,000 of the replicated [2, 10,000,000], [2, 1,250,000]
+    unpacked, and odd shapes, inputs and outputs off their alignment,
+    sentinels around the outputs, the unpacks' counts, also under CUDA
+    graph replay; ``bits_pack`` packs no mask of a main path and stays
+    off the kernels line),
     ``route_pack`` (``ROUTE_CASES``: the fabrics' maps at caps 1, 256
     and n_local for shards 0, 3 and 7, no sender and every sender
     active, D = 1, 2, 8 and 64, K = 1, 99,976 nodes over 8 shards (no
@@ -244,10 +250,9 @@ the counter splits (their two calls against ``sent_tick``),
 the parent's dissemination is timed in turns with this tree's, and
 the whole tick with each),
 ``exact_send<Bitmap>`` at phase 5's timed ticks, ``exact_commit`` in
-every case of phase 5 (on ``.contiguous()`` copies of the windows, as
-its caller made them; timed in turns at dense tick 6 and every
-``COMMIT_SHAPES`` case, and at the 10M window with its caller's two
-copies), ``route_pack`` in
+every case of phase 5 (on the windows in place; timed in turns at
+dense tick 6 and every ``COMMIT_SHAPES`` case), ``bits_pack`` and
+``bits_unpack`` at the host layout's shapes (phase 17a), ``route_pack`` in
 every case of phase 17a, its ``ring_receive`` in every case and
 its delivery from the all_gather
 fabric's source, ``shard_round`` and ``shard_commit`` in phase
@@ -439,23 +444,19 @@ class ParentDesign:
     ``shard_launch``, ``route_pack_launch``, ``deliver_perm_launch``,
     ``ring_receive_launch``, ``sent_select_launch``,
     ``sent_commit_launch``, ``winners_a_launch``, ``winners_b_launch``,
-    ``seg_cummax_launch`` and ``threefry_launch`` are unchanged since, so
-    this tree's wrappers
+    ``seg_cummax_launch``, ``threefry_launch`` and
+    ``exact_commit_launch`` are unchanged since, so this tree's wrappers
     fill their arguments (``kernels.swim.prepare``,
     ``exact_send.send_args``, ``sent_sampler._select_fields`` /
     ``_commit_fields``, ``shard_exact.round_args`` / ``commit_args``,
     ``threefry._ARGTYPES``, ``deliver.launch``,
     ``fabric._RECEIVE_ARGTYPES`` on this tree's slot map,
     ``winners._A_ARGTYPES`` / ``_B_ARGTYPES`` / ``_CUMMAX_ARGTYPES``,
-    the last on tile words of the parent's own; ``route_pack``'s scratch
-    argument is the parent's zeroed byte marks).  The parent's
-    ``exact_commit_launch`` (a thread a position of contiguous masks)
-    takes ``COMMIT_ARGTYPES``."""
-
-    # the parent's exact_commit_launch: contiguous masks, a flat count
-    COMMIT_ARGTYPES = (ctypes.c_void_p,) * 5 + (
-        ctypes.c_longlong, ctypes.c_int, ctypes.c_int, ctypes.c_int,
-        ctypes.c_void_p)
+    the last on tile words of the parent's own,
+    ``exact_send._COMMIT_ARGTYPES``; ``route_pack``'s scratch argument
+    is a zeroed buffer of the parent's own).  The parent's
+    ``bits_pack_launch`` / ``bits_unpack_launch`` (a thread a wire byte)
+    take ``fabric._PACK_ARGTYPES``."""
 
     SOURCES = ("swim", "exact_send", "threefry", "sent_sampler", "fabric",
                "deliver_perm", "winners")
@@ -603,17 +604,44 @@ class ParentDesign:
     def exact_commit(self, infected, new_infected, tx, next_send, tick,
                      max_tx, tier=None) -> None:
         """The parent's ``exact_commit`` (``exact_commit``'s arguments,
-        contiguous masks)."""
+        the masks' windows read in place)."""
         from corrosion_tpu_torch import kernels
+        from corrosion_tpu_torch.kernels import exact_send as es
 
         p = kernels.ptr
         s, n = infected.shape
-        if not (infected.is_contiguous() and new_infected.is_contiguous()):
-            fail("the parent's exact_commit takes contiguous masks")
+        lds = [kernels.row_stride("parent exact_commit", t, s, n)
+               for t in (infected, new_infected)]
         self._launch("exact_send", "exact_commit_launch",
-                     self.COMMIT_ARGTYPES, p(infected), p(new_infected),
-                     p(tx), p(next_send), p(tier), s * n, n, tick, max_tx,
+                     es._COMMIT_ARGTYPES, p(infected), p(new_infected),
+                     *lds, p(tx), p(next_send), p(tier), s, n, tick, max_tx,
                      kernels.stream(infected))
+
+    def bits_pack(self, mask):
+        """The parent's ``bits_pack`` (a thread a wire byte, one 8-byte
+        load)."""
+        from corrosion_tpu_torch import kernels
+        from corrosion_tpu_torch.kernels import fabric
+
+        wire = torch.empty((*mask.shape[:-1], mask.shape[-1] // 8),
+                           dtype=torch.uint8, device=mask.device)
+        self._launch("fabric", "bits_pack_launch", fabric._PACK_ARGTYPES,
+                     kernels.ptr(mask), kernels.ptr(wire), wire.numel(),
+                     kernels.stream(mask))
+        return wire
+
+    def bits_unpack(self, wire, m: int):
+        """The parent's ``bits_unpack`` (a thread a wire byte, one 8-byte
+        store)."""
+        from corrosion_tpu_torch import kernels
+        from corrosion_tpu_torch.kernels import fabric
+
+        mask = torch.empty((*wire.shape[:-1], m), dtype=torch.bool,
+                           device=wire.device)
+        self._launch("fabric", "bits_unpack_launch", fabric._PACK_ARGTYPES,
+                     kernels.ptr(wire), kernels.ptr(mask), wire.numel(),
+                     kernels.stream(wire))
+        return mask
 
     def _shard(self, sa, sent_l, commit: bool, t) -> None:
         from corrosion_tpu_torch import kernels
@@ -1732,12 +1760,10 @@ def commit_checks(es, dev, parent=None):
     and not, on the window in place (the masks' rows a full row apart),
     the words around tx / next_send untouched; also with the two masks
     off 16-byte alignment from each other (byte loads), and with
-    ``parent`` the parent's kernel on ``.contiguous()`` copies (its
-    caller's layout).  Times (no tier) behind a GPU sleep, the L2 filled
-    with other, clean lines before each call (a read of 128 MB), in
-    turns with the parent's (on copies made beforehand); at the 10M
-    window also the parent's with its caller's two copies.  Returns the
-    checks and {label: times and bound}."""
+    ``parent`` the parent's kernel on the same windows.  Times (no tier)
+    behind a GPU sleep, the L2 filled with other, clean lines before
+    each call (a read of 128 MB), in turns with the parent's.  Returns
+    the checks and {label: times and bound}."""
     g = torch.Generator(device=dev)
     g.manual_seed(21)
     flush = torch.zeros(L2_FLUSH_BYTES // 4, dtype=torch.int32, device=dev)
@@ -1761,7 +1787,7 @@ def commit_checks(es, dev, parent=None):
                     w_inf, w_new, *o, 5, 8, tr)}
                 if parent is not None:
                     runs["parent"] = lambda o, tr=tr: parent.exact_commit(
-                        w_inf.contiguous(), w_new.contiguous(), *o, 5, 8, tr)
+                        w_inf, w_new, *o, 5, 8, tr)
                 if lo:  # new_infected 2 bytes further along its row
                     shifted = torch.zeros((s, n_full + 2), dtype=torch.bool,
                                           device=dev)
@@ -1794,10 +1820,8 @@ def commit_checks(es, dev, parent=None):
 
             old = None
             if parent is not None:
-                copies = w_inf.contiguous(), w_new.contiguous()
-
                 def old():
-                    parent.exact_commit(*copies, *o, 5, 8)
+                    parent.exact_commit(w_inf, w_new, *o, 5, 8)
             entry = dict(
                 **in_turns(kernel, old, lambda fn: time_inplace_ms(
                     evict, fn, 20)),
@@ -1809,12 +1833,6 @@ def commit_checks(es, dev, parent=None):
                 shape=f"[{s}, {width}] of [{s}, {n_full}] at {lo}, "
                       f"{row['count']} learners",
             )
-            if parent is not None and lo:
-                # the parent's caller copied both windows first
-                entry["parent_with_copies_ms"] = time_inplace_ms(
-                    evict, lambda: parent.exact_commit(
-                        inf[:, lo:lo + width].contiguous(),
-                        new[:, lo:lo + width].contiguous(), *o, 5, 8), 20)
             set_bound(entry)
             times[f"{label} {dense_label}"] = entry
             del inf, new, tier, outs, w_inf, w_new, learned, start, old
@@ -4417,7 +4435,8 @@ HOST_MSGS = os.path.join(HERE, "corrosion_tpu_torch", "kernels", "build",
                          "host_msgs_10m.npz")
 MESH_COUNTED = ("shard_round", "shard_commit", "exact_commit", "sync_pull",
                 "tick_stats", "threefry_bits")
-HOST_COUNTED = MESH_COUNTED + ("bits_pack", "bits_unpack")
+HOST_COUNTED = MESH_COUNTED + ("bits_pack_above", "bits_pack_active",
+                               "bits_unpack", "bits_unpack_add")
 FABRIC_COUNTED = {"all_gather": ("deliver_perm", "seg_argsort",
                                  "threefry_bits"),
                   "ring": ("route_pack", "ring_receive", "seg_argsort",
@@ -4654,6 +4673,363 @@ def ring_receive_cases(fabric, dev, parent=None):
     return worst, cases
 
 
+# phase 17a's validity wire: the host layout's shapes (10M nodes x 2
+# seeds over 2 hosts) and odd ones; each case's input and output offsets
+# in bytes (int32 buffers: in elements), the first pair the aligned one
+VALIDITY_HOST = (2, 10_000_000)
+VALIDITY_ODD = ((3, 8), (7, 24), (1, 4096), (5, 1000))
+VALIDITY_OFFSETS = ((0, 0), (3, 4), (8, 1), (1, 3))
+VALIDITY_PAD = 64  # sentinel bytes (or int32 words) around each output
+VALIDITY_TICK = 7
+VALIDITY_SOURCE = "corrosion_tpu/models/sharded.py"
+VALIDITY_KERNELS = ("bits_pack", "bits_pack_above", "bits_pack_active",
+                    "bits_unpack", "bits_unpack_add")
+
+
+def validity_inputs(s: int, m: int, dev, g):
+    """Seeded inputs of one shape: the still-bad rows' rounds [s, m]
+    int32, a mask [s, m], the replicated infected [s, 2m] with tx and
+    next_send [s, m] of the window at m (the host layout's shard 1),
+    and wires [s, m / 8] dense (a fifth of the bits) and sparse (a
+    bit in about 600)."""
+    def bools(shape, p):
+        return (torch.rand(shape, generator=g) < p).to(dev)
+
+    return dict(
+        rounds=torch.randint(0, 4, (s, m), generator=g,
+                             dtype=torch.int32).to(dev),
+        mask=bools((s, m), 0.2),
+        infected=bools((s, 2 * m), 0.5),
+        tx=torch.randint(0, 3, (s, m), generator=g,
+                         dtype=torch.int32).to(dev),
+        next_send=torch.randint(0, 2 * VALIDITY_TICK, (s, m), generator=g,
+                                dtype=torch.int32).to(dev),
+        wire=torch.randint(0, 256, (s, m // 8), generator=g).to(
+            torch.uint8).to(dev),
+        sparse=(torch.randint(0, 256, (s, m // 8), generator=g)
+                * (torch.rand((s, m // 8), generator=g) < 0.02)).to(
+            torch.uint8).to(dev))
+
+
+def validity_cases(x: dict, dev) -> tuple:
+    """The five entry points' direct launches on ``x``'s shape at every
+    ``VALIDITY_OFFSETS`` pair, into sentinel-padded outputs (inputs at
+    the offsets too: copies inside sentinel-padded buffers), against
+    the plain versions: {name: max |diff|}, the cases, and the failures
+    (a difference, a sentinel overwritten, a wrong count, the count
+    scratch left set)."""
+    from corrosion_tpu_torch import kernels
+    from corrosion_tpu_torch.kernels import fabric as kf
+
+    s, m = x["rounds"].shape
+    nb = s * m // 8
+    p = kernels.ptr
+    scratch = kf._count_scratch(dev)
+    errs = dict.fromkeys(VALIDITY_KERNELS, 0.0)
+    cases, bad = [], []
+
+    def at(t, off):
+        """A copy of ``t`` ``off`` elements into a buffer of its dtype."""
+        buf = torch.empty(t.numel() + off + VALIDITY_PAD, dtype=t.dtype,
+                          device=dev)
+        view = buf[off:off + t.numel()]
+        view.copy_(t.reshape(-1))
+        return view.view(t.shape)
+
+    def out(nbytes, off, dtype=torch.uint8):
+        """(buffer, output view) with sentinels around the view."""
+        sent = SENTINEL if dtype == torch.int32 else 0x7F
+        buf = torch.full((off + nbytes + VALIDITY_PAD,), sent, dtype=dtype,
+                         device=dev)
+        return buf, buf[off:off + nbytes]
+
+    def kept(buf, off, nbytes):
+        sent = SENTINEL if buf.dtype == torch.int32 else 0x7F
+        return bool((buf[:off] == sent).all()) and bool(
+            (buf[off + nbytes:] == sent).all())
+
+    def compare(name, label, got, want, buf, off, nbytes, count=None,
+                want_count=None):
+        err = max_abs_err([got.reshape(-1).to(torch.int32)],
+                          [want.reshape(-1).to(torch.int32)])
+        errs[name] = max(errs[name], err)
+        row = dict(kernel=name, case=label, shape=(s, m), err=err,
+                   sentinels=kept(buf, off, nbytes))
+        if count is not None:
+            row["count"] = int(count)
+            row["count_ok"] = int(count) == int(want_count)
+            row["scratch_zero"] = not bool(scratch.any())
+        cases.append(row)
+        if err or not row["sentinels"] or not row.get("count_ok", True) \
+                or not row.get("scratch_zero", True):
+            bad.append(row)
+
+    def fn(symbol, argtypes):
+        return kernels.function("fabric", symbol, argtypes)
+
+    for i_off, o_off in VALIDITY_OFFSETS:
+        label = f"in +{i_off}, out +{o_off}"
+        stream = kernels.stream(x["rounds"])
+        # bits_pack: the mask at a byte offset, the wire at a byte offset
+        mask = at(x["mask"], i_off)
+        buf, wire = out(nb, o_off)
+        kernels.raise_on_error("bits_pack", fn(
+            "bits_pack_launch", kf._PACK_ARGTYPES)(
+                p(mask), p(wire), nb, stream))
+        compare("bits_pack", label, wire, kf.bits_pack_plain(x["mask"]),
+                buf, o_off, nb)
+        # bits_pack_above: x at an int32 offset, the wire 4-byte aligned
+        rounds = at(x["rounds"], i_off)
+        w_off = 4 * (o_off % 3)
+        buf, wire = out(nb, w_off)
+        kernels.raise_on_error("bits_pack_above", fn(
+            "bits_pack_above_launch", kf._ABOVE_ARGTYPES)(
+                p(rounds), 1, p(wire), s * m, stream))
+        compare("bits_pack_above", label, wire,
+                kf.bits_pack_above_plain(x["rounds"], 1), buf, w_off, nb)
+        # bits_pack_active: the window at column m, or m - i_off, of the
+        # replicated mask; both outputs padded
+        lo = m - min(i_off, m - 1) if i_off else m
+        window = x["infected"][:, lo:lo + m]
+        a_buf, active = out(s * m, o_off)
+        w_buf, wire = out(nb, w_off)
+        kernels.raise_on_error("bits_pack_active", fn(
+            "bits_pack_active_launch", kf._ACTIVE_ARGTYPES)(
+                p(window), window.stride(0), p(x["tx"]), p(x["next_send"]),
+                VALIDITY_TICK, p(active), p(wire), s, m, stream))
+        want_a, want_w = kf.bits_pack_active_plain(
+            window, x["tx"], x["next_send"], VALIDITY_TICK)
+        compare("bits_pack_active", f"{label}, window at {lo}", active,
+                want_a, a_buf, o_off, s * m)
+        compare("bits_pack_active", f"{label} (wire)", wire, want_w, w_buf,
+                w_off, nb)
+        # bits_unpack with its count: the wire at a byte offset
+        src = at(x["wire"], i_off)
+        buf, mask_out = out(s * m, o_off)
+        count = torch.empty(1, dtype=torch.int32, device=dev)
+        kernels.raise_on_error("bits_unpack", fn(
+            "bits_unpack_launch", kf._UNPACK_ARGTYPES)(
+                p(src), p(mask_out), nb, p(scratch), p(count), stream))
+        want = kf.bits_unpack_plain(x["wire"], m)
+        compare("bits_unpack", label, mask_out, want, buf, o_off, s * m,
+                count, want.sum())
+        # bits_unpack_add: a first round over the sentinels' neighbours,
+        # then a dense and a sparse later round; accepted at an int32
+        # offset, the wires at byte offsets
+        buf, acc = out(s * m, o_off, torch.int32)
+        plain = torch.full((s, m), 9, dtype=torch.int32, device=dev)
+        for r, key in enumerate(("wire", "wire", "sparse")):
+            src = at(x[key], i_off)
+            kernels.raise_on_error("bits_unpack_add", fn(
+                "bits_unpack_add_launch", kf._UNPACK_ADD_ARGTYPES)(
+                    p(src), p(acc), nb, int(r == 0), p(scratch), p(count),
+                    stream))
+            want_c = kf.bits_unpack_add_plain(x[key], m, plain, r == 0)
+            compare("bits_unpack_add", f"{label}, round {r} ({key})", acc,
+                    plain, buf, o_off, s * m, count, want_c)
+    return errs, cases, bad
+
+
+def validity_wrapper_cases(x: dict, dev) -> tuple:
+    """The five wrappers as the host layout calls them, on ``x``'s
+    shape: my [s, m] rows packed (``bits_pack_active`` on the window at
+    m of the replicated [s, 2m] mask, both outputs), the wire of both
+    shards (``x``'s wires side by side) unpacked to [s, 2m],
+    ``bits_unpack`` with its count, ``bits_unpack_add`` in a first round
+    over a filled ``accepted`` and then a sparse later one with their
+    returned counts; each output bitwise its plain version on the same
+    inputs and the count scratch zero after each unpack.  Returns
+    ({name: max |diff|}, the cases, the failures)."""
+    from corrosion_tpu_torch.kernels import fabric as kf
+
+    s, m = x["rounds"].shape
+    wire = torch.cat([x["wire"], x["wire"]], dim=1)
+    sparse = torch.cat([x["sparse"], x["sparse"]], dim=1)
+    window = x["infected"][:, m:]
+    scratch = kf._count_scratch(dev)
+    errs = dict.fromkeys(VALIDITY_KERNELS, 0.0)
+    cases, bad = [], []
+
+    def compare(name, label, got, want, count=None, want_count=None):
+        err = max_abs_err([got.reshape(-1).to(torch.int32)],
+                          [want.reshape(-1).to(torch.int32)])
+        errs[name] = max(errs[name], err)
+        row = dict(kernel=name, case=f"wrapper, {label}", shape=(s, m),
+                   err=err)
+        if count is not None:
+            row["count"] = int(count)
+            row["count_ok"] = int(count) == int(want_count)
+            row["scratch_zero"] = not bool(scratch.any())
+        cases.append(row)
+        if err or not row.get("count_ok", True) \
+                or not row.get("scratch_zero", True):
+            bad.append(row)
+
+    compare("bits_pack", "mask", kf.bits_pack(x["mask"]),
+            kf.bits_pack_plain(x["mask"]))
+    compare("bits_pack_above", "rounds > 1", kf.bits_pack_above(
+        x["rounds"], 1), kf.bits_pack_above_plain(x["rounds"], 1))
+    got = kf.bits_pack_active(window, x["tx"], x["next_send"],
+                              VALIDITY_TICK)
+    want = kf.bits_pack_active_plain(window, x["tx"], x["next_send"],
+                                     VALIDITY_TICK)
+    compare("bits_pack_active", f"window at {m}", got[0], want[0])
+    compare("bits_pack_active", f"window at {m} (wire)", got[1], want[1])
+    count = torch.empty(1, dtype=torch.int32, device=dev)
+    want = kf.bits_unpack_plain(wire, 2 * m)
+    compare("bits_unpack", f"to [{s}, {2 * m}]",
+            kf.bits_unpack(wire, 2 * m, count=count), want, count,
+            want.sum())
+    acc = torch.full((s, 2 * m), 9, dtype=torch.int32, device=dev)
+    plain = acc.clone()
+    for r, w in enumerate((wire, sparse)):
+        got = kf.bits_unpack_add(w, 2 * m, acc, r == 0)
+        want = kf.bits_unpack_add_plain(w, 2 * m, plain, r == 0)
+        compare("bits_unpack_add", f"round {r} into [{s}, {2 * m}]", acc,
+                plain, got, want)
+    return errs, cases, bad
+
+
+def validity_graph_check(dev) -> dict:
+    """The unpacks' counts under CUDA graph replay: one graph of
+    ``bits_unpack_add`` (first round) and ``bits_unpack`` with its
+    count, captured after a warm call on its stream (so the count
+    scratch exists before the capture and no fill is captured), then
+    replayed on three wires: the counts and outputs must follow each
+    and the scratch be zero after each replay."""
+    from corrosion_tpu_torch.kernels import fabric as kf
+
+    g = torch.Generator(device="cpu").manual_seed(8)
+    s, m = 3, 4096
+    wires = [torch.randint(0, 256, (s, m // 8), generator=g).to(
+        torch.uint8).to(dev) for _ in range(2)]
+    wires.append(torch.zeros_like(wires[0]))
+    stream = torch.cuda.Stream(device=dev)
+    stream.wait_stream(torch.cuda.current_stream(dev))
+    with torch.cuda.stream(stream):
+        wire = wires[0].clone()
+        acc = torch.empty((s, m), dtype=torch.int32, device=dev)
+        count = torch.empty(1, dtype=torch.int32, device=dev)
+        kf.bits_unpack_add(wire, m, acc, True)
+        kf.bits_unpack(wire, m, count=count)
+        stream.synchronize()
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph, stream=stream):
+            c_add = kf.bits_unpack_add(wire, m, acc, True)
+            mask = kf.bits_unpack(wire, m, count=count)
+        scratch = kf._count_scratch(dev)
+    torch.cuda.current_stream(dev).wait_stream(stream)
+    replays = []
+    for w in wires + wires[:1]:
+        wire.copy_(w)
+        graph.replay()
+        torch.cuda.synchronize()
+        want = kf.bits_unpack_plain(w, m)
+        replays.append(dict(
+            bits=int(want.sum()), add_count=int(c_add), count=int(count),
+            equal=torch.equal(mask, want) and torch.equal(
+                acc, want.to(torch.int32)),
+            scratch_zero=not bool(scratch.any())))
+    bad = [r for r in replays if not (
+        r["equal"] and r["scratch_zero"]
+        and r["add_count"] == r["count"] == r["bits"])]
+    if bad:
+        fail(f"the unpacks under CUDA graph replay: {replays}")
+    return dict(replays=replays)
+
+
+def validity_kernel_checks(dev, parent=None) -> tuple:
+    """Phase 17a, the validity wire: ``bits_pack``, ``bits_pack_above``,
+    ``bits_pack_active``, ``bits_unpack`` and ``bits_unpack_add`` each
+    bitwise its plain version at the host layout's shapes ([2, 5M]
+    packed, the active window [2, 5M] at 5M of the replicated [2, 10M],
+    unpacked to [2, 10M]) and at ``VALIDITY_ODD``: through the wrappers
+    with their counts (``validity_wrapper_cases``), and by direct
+    launches with every input and output at ``VALIDITY_OFFSETS`` (the
+    scalar heads and tails) and sentinels around the outputs
+    (``validity_cases``), the count scratch checked, and under CUDA
+    graph replay; each timed behind a GPU-side
+    sleep at the host layout's shapes (``bits_unpack_add`` in a first
+    round and in a sparse later one), ``bits_pack`` / ``bits_unpack``
+    in turns with ``parent``'s.  Returns (results, cases)."""
+    from corrosion_tpu_torch.kernels import fabric as kf
+
+    g = torch.Generator(device="cpu").manual_seed(3)
+    s, n = VALIDITY_HOST
+    m = n // 2
+    errs = dict.fromkeys(VALIDITY_KERNELS, 0.0)
+    cases, bad = [], []
+    host = None
+    for shape in ((s, m), *VALIDITY_ODD):
+        x = validity_inputs(*shape, dev, g)
+        if shape == (s, m):
+            host = x
+        for check in (validity_cases, validity_wrapper_cases):
+            e, c, b = check(x, dev)
+            errs = {k: max(errs[k], e[k]) for k in errs}
+            cases += c
+            bad += b
+        del x
+    if bad:
+        fail(f"the validity wire differs from its plain versions: "
+             f"{bad[:4]}")
+    graph = validity_graph_check(dev)
+    # the host layout's shapes: my [2, 5M] rows, the wire of all [2, 10M]
+    x = host
+    wire = torch.cat([x["wire"], x["wire"]], dim=1)
+    sparse = torch.cat([x["sparse"], x["sparse"]], dim=1)
+    acc = torch.zeros((s, n), dtype=torch.int32, device=dev)
+    window = x["infected"][:, m:]
+    count = torch.empty(1, dtype=torch.int32, device=dev)
+    set_sectors = int((sparse != 0).sum())
+
+    def none():
+        pass
+
+    def timer(fn):
+        return time_inplace_ms(none, fn, 30)
+
+    nb = s * n // 8
+    rows = (
+        ("bits_pack", lambda: kf.bits_pack(x["mask"]),
+         lambda: kf.bits_pack_plain(x["mask"]),
+         parent and (lambda: parent.bits_pack(x["mask"])),
+         s * m + nb // 2, f"{VALIDITY_SOURCE}:57", f"[{s}, {m}] bool"),
+        ("bits_pack_above", lambda: kf.bits_pack_above(x["rounds"], 1),
+         lambda: kf.bits_pack_above_plain(x["rounds"], 1), None,
+         4 * s * m + nb // 2, f"{VALIDITY_SOURCE}:679",
+         f"[{s}, {m}] int32 > 1"),
+        ("bits_pack_active", lambda: kf.bits_pack_active(
+            window, x["tx"], x["next_send"], VALIDITY_TICK),
+         lambda: kf.bits_pack_active_plain(
+             window, x["tx"], x["next_send"], VALIDITY_TICK), None,
+         s * m * (1 + 4 + 4 + 1) + nb // 2, f"{VALIDITY_SOURCE}:639",
+         f"[{s}, {m}] window at {m} of [{s}, {n}]"),
+        ("bits_unpack", lambda: kf.bits_unpack(wire, n, count=count),
+         lambda: kf.bits_unpack_plain(wire, n),
+         parent and (lambda: parent.bits_unpack(wire, n)),
+         nb + s * n, f"{VALIDITY_SOURCE}:68", f"[{s}, {n // 8}] to "
+                                              f"[{s}, {n}] bool"),
+        ("bits_unpack_add", lambda: kf.bits_unpack_add(wire, n, acc, True),
+         lambda: kf.bits_unpack_add_plain(wire, n, acc, True), None,
+         nb + 4 * s * n, f"{VALIDITY_SOURCE}:669",
+         f"[{s}, {n // 8}] into [{s}, {n}] int32, first round"),
+    )
+    results = []
+    for name, fn, plain, old, nbytes, replaces, shape in rows:
+        turns = in_turns(fn, old, timer)
+        r = dict(name=name, route="cuda", source=FABRIC_SOURCE,
+                 replaces=replaces, max_abs_err=errs[name], ms=turns["ms"],
+                 turns=turns, plain_ms=time_inplace_ms(none, plain, 3, 1),
+                 bound=(nbytes, 0), library_ms=None, shape=shape)
+        results.append(r)
+    later = dict(
+        ms=timer(lambda: kf.bits_unpack_add(sparse, n, acc, False)),
+        bound_ms=bound_ms(nb + 2 * SECTOR * set_sectors, 0)[0],
+        set_bytes=set_sectors, shape=f"[{s}, {n // 8}], a later round")
+    return results, cases, dict(graph=graph, later_round=later)
+
+
 def fabric_kernel_checks(dev, parent=None) -> list:
     """Phase 17a: ``bits_pack`` / ``bits_unpack`` at the host layout's
     wire shapes (10M nodes x 2 seeds over 2 hosts) and odd shapes;
@@ -4676,46 +5052,10 @@ def fabric_kernel_checks(dev, parent=None) -> list:
     )
     from corrosion_tpu_torch.random import PRNGKey, split
 
-    g = torch.Generator(device="cpu").manual_seed(3)
-    results, cases = [], []
+    results, cases, validity = validity_kernel_checks(dev, parent)
 
     def none():
         pass
-
-    def bits_masks():
-        for shape in ((2, 5_000_000), (3, 8), (7, 24), (1, 4096),
-                      (5, 1000)):
-            yield shape, (torch.rand(shape, generator=g) < 0.2).to(dev)
-
-    errs = [0.0, 0.0]
-    for shape, m in bits_masks():
-        w = fabric.bits_pack(m)
-        errs[0] = max(errs[0], max_abs_err([w], [fabric.bits_pack_plain(m)]))
-        u = fabric.bits_unpack(w, shape[-1])
-        errs[1] = max(errs[1], max_abs_err(
-            [u.to(torch.uint8)],
-            [fabric.bits_unpack_plain(w, shape[-1]).to(torch.uint8)]))
-        if not torch.equal(u, m):
-            fail(f"bits_unpack(bits_pack(m)) != m at {shape}")
-    m = (torch.rand((2, 5_000_000), generator=g) < 0.2).to(dev)
-    wire = (torch.randint(0, 256, (2, 1_250_000), generator=g)
-            .to(torch.uint8).to(dev))
-    for name, fn, plain, arg, out_bytes, in_bytes, replaces in (
-        ("bits_pack", lambda: fabric.bits_pack(m),
-         lambda: fabric.bits_pack_plain(m), m, m.numel() // 8, m.numel(),
-         "corrosion_tpu/models/sharded.py:57"),
-        ("bits_unpack", lambda: fabric.bits_unpack(wire, 10_000_000),
-         lambda: fabric.bits_unpack_plain(wire, 10_000_000), wire,
-         wire.numel() * 8, wire.numel(),
-         "corrosion_tpu/models/sharded.py:68"),
-    ):
-        results.append(dict(
-            name=name, route="cuda", source=FABRIC_SOURCE, replaces=replaces,
-            max_abs_err=errs[0 if name == "bits_pack" else 1],
-            ms=time_inplace_ms(none, fn, 30), plain_ms=time_inplace_ms(
-                none, plain, 3, 1),
-            bound=(in_bytes + out_bytes, 0), library_ms=None,
-            shape=f"{tuple(arg.shape)} {arg.dtype}"))
 
     params = fabric_params()
     n, r, d = FABRIC_N, FABRIC_R, FABRIC_D
@@ -4816,7 +5156,7 @@ def fabric_kernel_checks(dev, parent=None) -> list:
         set_bound(rr)
         if rr["max_abs_err"] != 0.0:
             fail(f"{rr['name']} differs from its plain version")
-    return results, cases
+    return results, cases, validity
 
 
 def shard_inputs(args, kind: str, sh: int, d: int, tick: int):
@@ -5187,6 +5527,12 @@ def mesh_full_width(counted, single_runs, dev) -> dict:
         res["run_s"] = time.perf_counter() - t0
         names = HOST_COUNTED if host else MESH_COUNTED
         res["launches"] = {nm: counted[nm].launches for nm in names}
+        if host:  # the bool pack is off the main path: none expected
+            res["bits_pack_launches"] = counted["bits_pack"].launches
+            if res["bits_pack_launches"]:
+                fail(f"mesh {label} packed a bool mask "
+                     f"{res['bits_pack_launches']} times; its masks are "
+                     f"packed from their sources")
         res["peak_mem_gb"] = torch.cuda.max_memory_allocated() / 1e9
         runs[label] = res
         print(f"mesh {label}: " + json.dumps({k: res[k] for k in (
@@ -5515,14 +5861,21 @@ def mesh_phases(record: dict, counted: dict, single_runs: dict,
                 cuda, parent=None) -> list:
     """Phases 17-20; returns the new kernels' results with the main
     path's launches."""
-    fabric_results, record["fabric_cases"] = fabric_kernel_checks(cuda,
-                                                                  parent)
+    fabric_results, record["fabric_cases"], validity = fabric_kernel_checks(
+        cuda, parent)
     shard_results, record["shard_checks"] = shard_kernel_checks(cuda,
                                                                 parent)
     print("fabric and shard kernels match their plain versions: "
           + ", ".join(f"{r['name']} {r['max_abs_err']}"
                       for r in fabric_results + shard_results), flush=True)
     print(json.dumps({"shard": shard_turns(shard_results)}), flush=True)
+    print(json.dumps({"validity": {
+        **{r["name"]: dict(turns=r["turns"], bound_ms=r["bound_ms"],
+                           shape=r["shape"])
+           for r in fabric_results if r["name"] in VALIDITY_KERNELS},
+        "cases": sum(c.get("kernel") in VALIDITY_KERNELS
+                     for c in record["fabric_cases"]),
+        **validity}}), flush=True)
     for name in ("route_pack", "ring_receive",
                  "deliver_perm (source, window)"):
         res = next(r for r in fabric_results if r["name"] == name)
@@ -5539,7 +5892,7 @@ def mesh_phases(record: dict, counted: dict, single_runs: dict,
                                             "sharded_sparse_1m")]
     host = runs["host_sparse_10m"]["launches"]
     launches = {
-        "bits_pack": host["bits_pack"], "bits_unpack": host["bits_unpack"],
+        **{name: host[name] for name in VALIDITY_KERNELS if name in host},
         "route_pack": fabric_runs["ring"]["launches"]["route_pack"],
         "ring_receive": fabric_runs["ring"]["launches"]["ring_receive"],
         "deliver_perm (source, window)":
@@ -5549,7 +5902,10 @@ def mesh_phases(record: dict, counted: dict, single_runs: dict,
         "shard_round<Ring>": sum(s["shard_round"] for s in sparse),
         "shard_commit<Ring>": sum(s["shard_commit"] for s in sparse),
     }
-    results = fabric_results + shard_results
+    # bits_pack packs no mask of a main path since the host layout packs
+    # from the sources: held and timed in phase 17a, off the kernels line
+    results = [r for r in fabric_results + shard_results
+               if r["name"] in launches]
     for r in results:
         r["launches"] = launches[r["name"]]
     record["mesh_equal"] = mesh_equal(cuda)
@@ -5573,9 +5929,9 @@ def main() -> int:
                     "hold its threefry_bits, deliver_perm, "
                     "swim_probe_select, exact_send<Bitmap>, "
                     "exact_commit, sent_select, "
-                    "sent_commit, route_pack, ring_receive, shard and "
-                    "winner kernels to this tree's and time them beside "
-                    "them")
+                    "sent_commit, bits_pack, bits_unpack, route_pack, "
+                    "ring_receive, shard and winner kernels to this tree's "
+                    "and time them beside them")
     opts = ap.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
@@ -5602,7 +5958,8 @@ def main() -> int:
         sent_sampler.sent_select,
         sent_sampler.sent_commit, seg_sort.seg_argsort, winners.seg_cummax,
         winners.winners_a, winners.winners_b, store.store_set,
-        store.store_gather, fabric.bits_pack, fabric.bits_unpack,
+        store.store_gather, fabric.bits_pack, fabric.bits_pack_above,
+        fabric.bits_pack_active, fabric.bits_unpack, fabric.bits_unpack_add,
         fabric.route_pack, fabric.ring_receive, shard_exact.shard_round,
         shard_exact.shard_commit)}
     headline_counted = ("threefry_bits", "seg_argsort", "deliver_perm",

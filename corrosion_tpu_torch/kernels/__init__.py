@@ -161,6 +161,20 @@ def check(name: str, t, dtype, shape=None, align: int = 4) -> None:
         raise ValueError(f"{name}: expected a {align}-byte aligned tensor")
 
 
+def row_stride(name: str, t, s: int, n: int) -> int:
+    """The row stride of a [s, n] bool mask that a kernel reads in
+    place: its rows may be windows of wider ones (stride (ld, 1), ld >=
+    n), as a slice ``x[:, lo:lo + n]`` of an [s, N] tensor is; any other
+    layout raises."""
+    if t.dtype != torch.bool or tuple(t.shape) != (s, n):
+        raise ValueError(f"{name} must be {torch.bool} [{s}, {n}]")
+    ld, col = t.stride()
+    if (s > 1 and ld < n) or (n > 1 and col != 1):
+        raise ValueError(f"{name} must hold its rows' bytes in order "
+                         f"(stride (>= {n}, 1)), got {t.stride()}")
+    return ld if s > 1 else n
+
+
 def ptr(t) -> ctypes.c_void_p:
     """Device pointer argument (NULL for an absent optional tensor)."""
     return ctypes.c_void_p(None if t is None else t.data_ptr())

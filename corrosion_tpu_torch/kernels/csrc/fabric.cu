@@ -1,11 +1,43 @@
 // fabric: the compute steps around the shard fabric's collectives.
 //
-// bits_pack / bits_unpack replace corrosion_tpu/models/sharded.py
-// _pack_bits (:57) and _unpack_bits (:68): a [..., M] bool mask (M % 8
-// == 0) as [..., M/8] uint8, LSB first within each byte — the encoding
-// the multi-host frontier layout puts on the wire, one bit a row.  One
-// thread per packed byte: it reads (or writes) its eight bool bytes as
-// one 8-byte word.  Bound on the H100: bytes (M + M/8 a row, each once).
+// The validity wire replaces corrosion_tpu/models/sharded.py _pack_bits
+// (:57) and _unpack_bits (:68): a [..., M] mask (M % 8 == 0) as
+// [..., M/8] uint8, LSB first within each byte, the encoding the
+// multi-host frontier layout puts on the wire, one bit a row.  Rows
+// hold M % 8 == 0 positions, so a mask is read flat: wire byte b holds
+// positions 8b .. 8b + 7, bit q position 8b + q.  Five entry points:
+//   bits_pack          bool source: a lane packs 32 positions from two
+//                      16-byte loads, each 8 bool bytes to a wire byte by
+//                      one multiply, and stores the 4 bytes at once;
+//   bits_pack_above    the wire of x > t on int32 x: lane l of a warp
+//                      compares position 32 i + l, and the ballot is the
+//                      4 wire bytes of those 32 (a warp's 32 ballots
+//                      stored by its lanes, one coalesced 128-byte store);
+//   bits_pack_active   the host layout's active predicate, infected (a
+//                      window of the replicated mask, read by its row
+//                      stride) & tx > 0 & next_send <= tick, as bool and
+//                      as wire in one pass, the wire by ballots;
+//   bits_unpack        wire to bool: a lane spreads a wire word into 32
+//                      bool bytes by one multiply a byte, a warp's 1024
+//                      positions stored in coalesced 16-byte chunks (the
+//                      bits shuffled to the storing lane);
+//   bits_unpack_add    accepted += unpack(wire) on int32, without the bool
+//                      mask: with `first` it writes accepted whole as
+//                      0 / 1 (the warp's chunks as above), else it reads
+//                      the wire 16 bytes a lane and rewrites only the
+//                      32-byte sectors that hold a set bit (a position
+//                      has one owner: no atomics).
+// Heads and tails that the vectors' alignment does not reach take a
+// scalar path, a thread a wire byte.  The unpacks also write the set
+// bits' count, the host's test of the exchange: each block adds its
+// sum and a ticket to a per-stream 8-byte scratch word in one atomic,
+// and the last block moves the sum out and zeroes the word, so nothing
+// is filled between calls and a replayed CUDA graph counts right.  Grids
+// are grid-stride, at most BITS_BLOCKS_PER_SM blocks an SM, but for the
+// first round's unpack into accepted (a warp a tile).  Bound on the
+// H100: bytes (the
+// sources read once, the outputs written once; a later round of
+// bits_unpack_add the wire and 64 bytes a sector holding a set bit).
 //
 // route_pack replaces the demand and packing steps of
 // sharded_broadcast_step_ring (sharded.py:216-248), the
@@ -44,34 +76,278 @@
 
 namespace {
 
-constexpr int THREADS = 256;
 constexpr int PACK_THREADS = 256;
 constexpr int TILE_WORDS = PACK_THREADS / 32;  // a warp a mark word
 constexpr int TILE = TILE_WORDS * 32;          // local indices a tile
 constexpr int MARK_LOADS = 4;  // sender loads a mark thread has in flight
 
-__global__ void bits_pack_kernel(const uint64_t* __restrict__ mask,
-                                 unsigned char* __restrict__ wire,
-                                 long long n_bytes) {
-  const long long b = (long long)blockIdx.x * THREADS + threadIdx.x;
-  if (b >= n_bytes) return;
-  const uint64_t w = mask[b];
-  unsigned v = 0;
-#pragma unroll
-  for (int q = 0; q < 8; ++q) v |= (unsigned)((w >> (8 * q)) & 1u) << q;
-  wire[b] = (unsigned char)v;
+// -- the validity wire -------------------------------------------------
+
+constexpr int BITS_THREADS = 256;
+constexpr int BITS_BLOCKS_PER_SM = 8;
+constexpr unsigned FULL = 0xffffffffu;
+
+// 8 bool bytes (each 0 or 1) to one wire byte: byte q to bit q
+__device__ __forceinline__ unsigned pack8(uint64_t w) {
+  return (unsigned)(((w & 0x0101010101010101ull) * 0x0102040810204080ull) >>
+                    56);
 }
 
-__global__ void bits_unpack_kernel(const unsigned char* __restrict__ wire,
-                                   uint64_t* __restrict__ mask,
-                                   long long n_bytes) {
-  const long long b = (long long)blockIdx.x * THREADS + threadIdx.x;
-  if (b >= n_bytes) return;
-  const unsigned v = wire[b];
-  uint64_t w = 0;
+// one wire byte to 8 bool bytes: bit q to byte q
+__device__ __forceinline__ uint64_t spread8(unsigned v) {
+  return (((((uint64_t)v * 0x0101010101010101ull) & 0x8040201008040201ull) +
+           0x7F7F7F7F7F7F7F7Full) >>
+          7) &
+         0x0101010101010101ull;
+}
+
+// A flat wire of `bytes` bytes cut for the vector path: `head` bytes
+// before the body, `units` body units of UNIT bytes, the rest (head and
+// tail, `scalar` bytes) a thread a byte.
+struct Split {
+  int head, units, scalar;
+};
+
+template <int UNIT>
+__device__ __forceinline__ int scalar_byte(const Split& s, int i) {
+  return i < s.head ? i : i + s.units * UNIT;
+}
+
+// a 16-byte chunk of CHUNK positions from their CHUNK wire bits: 16
+// bool bytes or 4 int32
+template <int CHUNK>
+__device__ __forceinline__ uint4 chunk_of(unsigned bits) {
+  if constexpr (CHUNK == 16) {
+    const uint64_t lo = spread8(bits & 0xffu), hi = spread8(bits >> 8);
+    return make_uint4((unsigned)lo, (unsigned)(lo >> 32), (unsigned)hi,
+                      (unsigned)(hi >> 32));
+  } else {
+    return make_uint4(bits & 1u, (bits >> 1) & 1u, (bits >> 2) & 1u,
+                      bits >> 3);
+  }
+}
+
+// wire word k (positions 32k .. 32k + 31) of a wire of `bytes` bytes:
+// one 4-byte store, or its bytes where the wire ends inside it
+__device__ __forceinline__ void store_word(unsigned char* wire, int bytes,
+                                           int k, unsigned word) {
+  const int b = 4 * k;
+  if (b + 4 <= bytes) {
+    *reinterpret_cast<unsigned*>(wire + b) = word;
+  } else {
+    for (int e = 0; b + e < bytes; ++e)
+      wire[b + e] = (unsigned char)(word >> (8 * e));
+  }
+}
+
+// the block's set bits and its ticket in one 64-bit atomic on the
+// scratch word (the sum in the low half, the blocks done in the high);
+// the last block writes the call's sum to *out and zeroes the word
+__device__ __forceinline__ void finish_count(unsigned cnt,
+                                             unsigned long long* scratch,
+                                             int* out) {
+  __shared__ unsigned block_sum;
+  if (threadIdx.x == 0) block_sum = 0;
+  __syncthreads();
+  cnt = __reduce_add_sync(FULL, cnt);
+  if ((threadIdx.x & 31) == 0 && cnt) atomicAdd(&block_sum, cnt);
+  __syncthreads();
+  if (threadIdx.x != 0) return;
+  const unsigned long long old =
+      atomicAdd(scratch, (1ull << 32) | block_sum);
+  if ((old >> 32) == gridDim.x - 1) {
+    *out = (int)((unsigned)old + block_sum);
+    atomicExch(scratch, 0ull);
+  }
+}
+
+// bool mask -> wire: a unit is 4 wire bytes, 32 positions from two
+// 16-byte loads
+__global__ void __launch_bounds__(BITS_THREADS)
+    bits_pack_kernel(const unsigned char* __restrict__ mask,
+                     unsigned char* __restrict__ wire, const Split s) {
+  const int stride = gridDim.x * BITS_THREADS;
+  for (int i = blockIdx.x * BITS_THREADS + threadIdx.x;
+       i < s.units + s.scalar; i += stride) {
+    if (i < s.units) {
+      const int b = s.head + 4 * i;
+      const uint4* src = reinterpret_cast<const uint4*>(mask + 8LL * b);
+      const uint4 u = src[0], v = src[1];
+      *reinterpret_cast<unsigned*>(wire + b) =
+          pack8(((uint64_t)u.y << 32) | u.x) |
+          pack8(((uint64_t)u.w << 32) | u.z) << 8 |
+          pack8(((uint64_t)v.y << 32) | v.x) << 16 |
+          pack8(((uint64_t)v.w << 32) | v.z) << 24;
+    } else {
+      const int b = scalar_byte<4>(s, i - s.units);
+      uint64_t w = 0;
 #pragma unroll
-  for (int q = 0; q < 8; ++q) w |= (uint64_t)((v >> q) & 1u) << (8 * q);
-  mask[b] = w;
+      for (int q = 0; q < 8; ++q) w |= (uint64_t)mask[8LL * b + q] << (8 * q);
+      wire[b] = (unsigned char)pack8(w);
+    }
+  }
+}
+
+// wire -> bool (CHUNK 16, one byte a position) or -> int32 0 / 1 (CHUNK
+// 4, bits_unpack_add's first round).  A warp's tile is 32 body words
+// (1024 positions): lane l loads word l, and store j of lane l is the
+// tile's 16-byte chunk 32 j + l, its bits shuffled from the word's lane.
+template <int CHUNK, typename T>
+__global__ void __launch_bounds__(BITS_THREADS)
+    bits_unpack_kernel(const unsigned char* __restrict__ wire,
+                       T* __restrict__ out, const Split s,
+                       unsigned long long* __restrict__ scratch,
+                       int* __restrict__ count) {
+  constexpr int PER = 1024 / CHUNK / 32;  // a lane's chunks a tile
+  const int tid = blockIdx.x * BITS_THREADS + threadIdx.x;
+  const int stride = gridDim.x * BITS_THREADS;
+  const int lane = threadIdx.x & 31;
+  unsigned cnt = 0;
+  for (int w0 = tid - lane; w0 < s.units; w0 += stride) {  // warp-uniform
+    const int k = w0 + lane;
+    const unsigned word =
+        k < s.units
+            ? *reinterpret_cast<const unsigned*>(wire + s.head + 4 * k)
+            : 0u;
+    cnt += __popc(word);
+    uint4* dst = reinterpret_cast<uint4*>(out + 8LL * s.head + 32LL * w0);
+#pragma unroll
+    for (int j = 0; j < PER; ++j) {
+      const int c = 32 * j + lane;
+      const int src = c * CHUNK / 32;
+      const unsigned v = __shfl_sync(FULL, word, src);
+      if (w0 + src < s.units)
+        dst[c] = chunk_of<CHUNK>((v >> (c * CHUNK % 32)) &
+                                 ((1u << CHUNK) - 1u));
+    }
+  }
+  for (int i = tid; i < s.scalar; i += stride) {
+    const int b = scalar_byte<4>(s, i);
+    const unsigned v = wire[b];
+    cnt += __popc(v);
+#pragma unroll
+    for (int q = 0; q < 8; ++q) out[8LL * b + q] = (T)((v >> q) & 1u);
+  }
+  if (count) finish_count(cnt, scratch, count);
+}
+
+// accepted += unpack(wire) after the first round: a unit is 16 wire
+// bytes; a zero byte is skipped, a set one rewrites its 32-byte sector
+__global__ void __launch_bounds__(BITS_THREADS)
+    bits_unpack_add_kernel(const unsigned char* __restrict__ wire,
+                           int* __restrict__ acc, const Split s,
+                           unsigned long long* __restrict__ scratch,
+                           int* __restrict__ count) {
+  const int stride = gridDim.x * BITS_THREADS;
+  unsigned cnt = 0;
+  for (int i = blockIdx.x * BITS_THREADS + threadIdx.x;
+       i < s.units + s.scalar; i += stride) {
+    if (i < s.units) {
+      const int b = s.head + 16 * i;
+      const uint4 u = *reinterpret_cast<const uint4*>(wire + b);
+      const unsigned words[4] = {u.x, u.y, u.z, u.w};
+#pragma unroll
+      for (int k = 0; k < 4; ++k) {
+        if (!words[k]) continue;
+        cnt += __popc(words[k]);
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const unsigned v = (words[k] >> (8 * e)) & 0xffu;
+          if (!v) continue;
+          int4* p = reinterpret_cast<int4*>(acc + 8LL * (b + 4 * k + e));
+          int4 x = p[0], y = p[1];
+          x.x += v & 1u, x.y += (v >> 1) & 1u, x.z += (v >> 2) & 1u,
+              x.w += (v >> 3) & 1u;
+          y.x += (v >> 4) & 1u, y.y += (v >> 5) & 1u, y.z += (v >> 6) & 1u,
+              y.w += v >> 7;
+          p[0] = x, p[1] = y;
+        }
+      }
+    } else {
+      const int b = scalar_byte<16>(s, i - s.units);
+      const unsigned v = wire[b];
+      cnt += __popc(v);
+      for (int q = 0; q < 8; ++q)
+        if ((v >> q) & 1u) acc[8LL * b + q] += 1;
+    }
+  }
+  if (count) finish_count(cnt, scratch, count);
+}
+
+// the wire of x > t over `n` positions of int32 x: a warp's tile is
+// 1024 positions, lane l loads position 32 j + l of it and the warp's
+// ballot of j is wire word j of the tile, which lane j stores
+__global__ void __launch_bounds__(BITS_THREADS)
+    bits_pack_above_kernel(const int* __restrict__ x, int t,
+                           unsigned char* __restrict__ wire, int n) {
+  const int lane = threadIdx.x & 31;
+  const int stride = gridDim.x * BITS_THREADS;
+  const int bytes = n / 8;
+  for (int p0 = (blockIdx.x * BITS_THREADS + threadIdx.x - lane) * 32;
+       p0 < n; p0 += stride * 32) {  // warp-uniform
+    unsigned mine = 0;
+#pragma unroll
+    for (int half = 0; half < 2; ++half) {
+      int v[16];
+#pragma unroll
+      for (int j = 0; j < 16; ++j) {
+        const int p = p0 + 32 * (16 * half + j) + lane;
+        v[j] = p < n ? x[p] : t;
+      }
+#pragma unroll
+      for (int j = 0; j < 16; ++j) {
+        const unsigned bal = __ballot_sync(FULL, v[j] > t);
+        if (lane == 16 * half + j) mine = bal;
+      }
+    }
+    if (p0 + 32 * lane < n) store_word(wire, bytes, p0 / 32 + lane, mine);
+  }
+}
+
+// the host layout's active rows: infected [s, m] by row stride ld,
+// tx and next_send [s, m] contiguous; active [s, m] bool and the wire,
+// flat, in the tiles of bits_pack_above_kernel, ACTIVE_BATCH positions
+// a lane loaded at a time
+constexpr int ACTIVE_BATCH = 8;
+
+__global__ void __launch_bounds__(BITS_THREADS)
+    bits_pack_active_kernel(const unsigned char* __restrict__ infected,
+                            long long ld, const int* __restrict__ tx,
+                            const int* __restrict__ next_send, int tick,
+                            bool* __restrict__ active,
+                            unsigned char* __restrict__ wire, int n, int m) {
+  const int lane = threadIdx.x & 31;
+  const int stride = gridDim.x * BITS_THREADS;
+  const int bytes = n / 8;
+  for (int p0 = (blockIdx.x * BITS_THREADS + threadIdx.x - lane) * 32;
+       p0 < n; p0 += stride * 32) {  // warp-uniform
+    // my first position's row and column, then 32 further each step
+    int row = (p0 + lane) / m, col = (p0 + lane) - row * m;
+    unsigned mine = 0;
+#pragma unroll
+    for (int j0 = 0; j0 < 32; j0 += ACTIVE_BATCH) {
+      unsigned char inf[ACTIVE_BATCH];
+      int txv[ACTIVE_BATCH], nsv[ACTIVE_BATCH];
+#pragma unroll
+      for (int j = 0; j < ACTIVE_BATCH; ++j) {
+        const int p = p0 + 32 * (j0 + j) + lane;
+        const bool in = p < n;
+        inf[j] = in ? infected[row * ld + col] : 0;
+        txv[j] = in ? tx[p] : 0;
+        nsv[j] = in ? next_send[p] : 0;
+        for (col += 32; col >= m; col -= m) ++row;
+      }
+#pragma unroll
+      for (int j = 0; j < ACTIVE_BATCH; ++j) {
+        const int p = p0 + 32 * (j0 + j) + lane;
+        const bool a = inf[j] && txv[j] > 0 && nsv[j] <= tick;
+        if (p < n) active[p] = a;
+        const unsigned bal = __ballot_sync(FULL, a);
+        if (lane == j0 + j) mine = bal;
+      }
+    }
+    if (p0 + 32 * lane < n) store_word(wire, bytes, p0 / 32 + lane, mine);
+  }
 }
 
 // -- route_pack: three launches, each after the one before under
@@ -285,10 +561,6 @@ cudaError_t launch_after(void (*kernel)(const Pack), unsigned blocks,
   return cudaLaunchKernelEx(&cfg, kernel, a);
 }
 
-unsigned grid(long long total) {
-  return (unsigned)((total + THREADS - 1) / THREADS);
-}
-
 Pack pack_args(const void* senders, const void* active, const void* rows,
                void* scratch, void* send_ids, void* send_rows,
                void* overflow, int k, int n, int lo, int n_local, int d,
@@ -313,23 +585,143 @@ Pack pack_args(const void* senders, const void* active, const void* rows,
 
 }  // namespace
 
+namespace {
+
+int sm_count() {
+  static int counts[64];
+  int dev = 0;
+  cudaGetDevice(&dev);
+  if (dev < 0 || dev >= 64) dev = 0;
+  if (!counts[dev])
+    cudaDeviceGetAttribute(&counts[dev], cudaDevAttrMultiProcessorCount, dev);
+  return counts[dev] > 0 ? counts[dev] : 132;
+}
+
+// blocks for `threads` threads of work, at least one; at most
+// BITS_BLOCKS_PER_SM an SM where `capped` (the first round's unpack into
+// accepted takes a warp a tile: its blocks retire and start one by one,
+// where a warp's loop over tiles leaves an uneven tail)
+unsigned bits_grid(long long threads, bool capped = true) {
+  const long long cap = (long long)sm_count() * BITS_BLOCKS_PER_SM;
+  const long long want = (threads + BITS_THREADS - 1) / BITS_THREADS;
+  return (unsigned)(want < 1 ? 1 : !capped || want < cap ? want : cap);
+}
+
+// `bytes` wire bytes cut for units of `unit` wire bytes: the body starts
+// at the first byte where the wire is `align`-byte aligned and the other
+// side (`per` bytes a wire byte) 16-byte aligned; where no byte is both,
+// every byte takes the scalar path
+Split split(const void* wire, int align, int unit, const void* side, int per,
+            int bytes) {
+  const uintptr_t w = reinterpret_cast<uintptr_t>(wire),
+                  o = reinterpret_cast<uintptr_t>(side);
+  Split s{bytes, 0, bytes};
+  for (int h = 0; h < 16 && h <= bytes; ++h)
+    if ((w + h) % align == 0 && (o + (uintptr_t)h * per) % 16 == 0) {
+      s.head = h;
+      s.units = (bytes - h) / unit;
+      s.scalar = bytes - s.units * unit;
+      break;
+    }
+  return s;
+}
+
+// positions (8 a wire byte) stay below 2**30, so a grid-stride step
+// never overflows an int
+bool too_big(long long bytes) { return bytes < 0 || bytes >= (1LL << 27); }
+
+}  // namespace
+
+// mask [n_bytes * 8] bool -> wire [n_bytes]
 extern "C" int bits_pack_launch(const void* mask, void* wire,
                                 long long n_bytes, void* stream) {
-  if (n_bytes <= 0) return 0;
-  bits_pack_kernel<<<grid(n_bytes), THREADS, 0,
+  if (too_big(n_bytes)) return (int)cudaErrorInvalidValue;
+  if (n_bytes == 0) return 0;
+  const Split s = split(wire, 4, 4, mask, 8, (int)n_bytes);
+  bits_pack_kernel<<<bits_grid(s.units + s.scalar), BITS_THREADS, 0,
                      static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const uint64_t*>(mask), static_cast<unsigned char*>(wire),
-      n_bytes);
+      static_cast<const unsigned char*>(mask),
+      static_cast<unsigned char*>(wire), s);
   return (int)cudaGetLastError();
 }
 
+// wire [n_bytes] -> mask [n_bytes * 8] bool; with `count` (and its
+// scratch, one 8-byte zero word) the set bits' count into count[0]
 extern "C" int bits_unpack_launch(const void* wire, void* mask,
-                                  long long n_bytes, void* stream) {
-  if (n_bytes <= 0) return 0;
-  bits_unpack_kernel<<<grid(n_bytes), THREADS, 0,
-                       static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const unsigned char*>(wire), static_cast<uint64_t*>(mask),
-      n_bytes);
+                                  long long n_bytes, void* scratch,
+                                  void* count, void* stream) {
+  if (too_big(n_bytes) || !scratch != !count)
+    return (int)cudaErrorInvalidValue;
+  if (n_bytes == 0 && !count) return 0;
+  const Split s = split(wire, 4, 4, mask, 8, (int)n_bytes);
+  bits_unpack_kernel<16, bool>
+      <<<bits_grid(s.units > s.scalar ? s.units : s.scalar), BITS_THREADS, 0,
+         static_cast<cudaStream_t>(stream)>>>(
+          static_cast<const unsigned char*>(wire), static_cast<bool*>(mask),
+          s, static_cast<unsigned long long*>(scratch),
+          static_cast<int*>(count));
+  return (int)cudaGetLastError();
+}
+
+// accepted [n_bytes * 8] int32 += unpack(wire) (= it, with `first`);
+// with `count` (and its scratch, one 8-byte zero word) the set bits'
+// count into count[0]
+extern "C" int bits_unpack_add_launch(const void* wire, void* accepted,
+                                      long long n_bytes, int first,
+                                      void* scratch, void* count,
+                                      void* stream) {
+  if (too_big(n_bytes) || !scratch != !count)
+    return (int)cudaErrorInvalidValue;
+  if (n_bytes == 0 && !count) return 0;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const unsigned char* w = static_cast<const unsigned char*>(wire);
+  int* acc = static_cast<int*>(accepted);
+  unsigned long long* sc = static_cast<unsigned long long*>(scratch);
+  int* out = static_cast<int*>(count);
+  if (first) {
+    const Split s = split(wire, 4, 4, accepted, 32, (int)n_bytes);
+    bits_unpack_kernel<4, int>
+        <<<bits_grid(s.units > s.scalar ? s.units : s.scalar, false),
+           BITS_THREADS, 0, st>>>(w, acc, s, sc, out);
+  } else {
+    const Split s = split(wire, 16, 16, accepted, 32, (int)n_bytes);
+    bits_unpack_add_kernel<<<bits_grid(s.units + s.scalar), BITS_THREADS, 0,
+                             st>>>(w, acc, s, sc, out);
+  }
+  return (int)cudaGetLastError();
+}
+
+// x [n] int32 (n % 8 == 0) -> the wire of x > t, [n / 8], 4-byte aligned
+extern "C" int bits_pack_above_launch(const void* x, int t, void* wire,
+                                      long long n, void* stream) {
+  if (n < 0 || n % 8 || too_big(n / 8) ||
+      reinterpret_cast<uintptr_t>(wire) % 4)
+    return (int)cudaErrorInvalidValue;
+  if (n == 0) return 0;
+  bits_pack_above_kernel<<<bits_grid((n + 31) / 32), BITS_THREADS, 0,
+                           static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const int*>(x), t, static_cast<unsigned char*>(wire),
+      (int)n);
+  return (int)cudaGetLastError();
+}
+
+// infected [s, m] bool by row stride ld (>= m), tx / next_send [s, m]
+// int32 -> active [s, m] bool and its wire [s, m / 8], 4-byte aligned
+extern "C" int bits_pack_active_launch(const void* infected, long long ld,
+                                       const void* tx, const void* next_send,
+                                       int tick, void* active, void* wire,
+                                       int s, int m, void* stream) {
+  const long long n = (long long)s * m;
+  if (s < 0 || m < 0 || m % 8 || (s > 1 && ld < m) ||
+      too_big(n / 8) || reinterpret_cast<uintptr_t>(wire) % 4)
+    return (int)cudaErrorInvalidValue;
+  if (n == 0) return 0;
+  bits_pack_active_kernel<<<bits_grid((n + 31) / 32), BITS_THREADS, 0,
+                            static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const unsigned char*>(infected), ld,
+      static_cast<const int*>(tx), static_cast<const int*>(next_send), tick,
+      static_cast<bool*>(active), static_cast<unsigned char*>(wire), (int)n,
+      m);
   return (int)cudaGetLastError();
 }
 

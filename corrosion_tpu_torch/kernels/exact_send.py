@@ -471,22 +471,6 @@ def exact_commit_plain(infected, new_infected, tx, next_send, tick: int,
     next_send.copy_(torch.where(learned, tick + first, next_send))
 
 
-def _mask_stride(name: str, t, s: int, n: int) -> int:
-    """The row stride of a [s, n] bool mask that :func:`exact_commit`
-    takes: its rows may be windows of wider ones (stride (ld, 1), ld >=
-    n), as a slice ``x[:, lo:lo + n]`` of an [s, N] tensor is; any
-    other layout raises."""
-    if t.dtype != torch.bool or tuple(t.shape) != (s, n):
-        raise ValueError(f"exact_commit: {name} must be {torch.bool} "
-                         f"[{s}, {n}]")
-    ld, col = t.stride()
-    if (s > 1 and ld < n) or (n > 1 and col != 1):
-        raise ValueError(f"exact_commit: {name} must hold its rows' bytes "
-                         f"in order (stride (>= {n}, 1)), got "
-                         f"{t.stride()}")
-    return ld if s > 1 else n
-
-
 def exact_commit(infected, new_infected, tx, next_send, tick: int,
                  max_tx: int, tier=None):
     """The learners of a tick (``new_infected & ~infected``, [S, N]
@@ -496,8 +480,9 @@ def exact_commit(infected, new_infected, tx, next_send, tick: int,
     wider rows (``x[:, lo:lo + N]``, read in place); tx, next_send and
     tier are contiguous."""
     s, n = infected.shape
-    lds = [_mask_stride(name, t, s, n) for name, t in (
-        ("infected", infected), ("new_infected", new_infected))]
+    lds = [kernels.row_stride(f"exact_commit: {name}", t, s, n)
+           for name, t in (("infected", infected),
+                           ("new_infected", new_infected))]
     for name, t in (("tx", tx), ("next_send", next_send)):
         if t.dtype != torch.int32 or tuple(t.shape) != (s, n):
             raise ValueError(f"exact_commit: {name} must be {torch.int32} "

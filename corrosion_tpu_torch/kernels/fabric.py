@@ -1,10 +1,18 @@
-"""``bits_pack`` / ``bits_unpack``, ``route_pack`` and ``ring_receive``:
-the compute steps around the shard fabric's collectives
-(csrc/fabric.cu, csrc/deliver_perm.cu).
+"""The validity wire (``bits_pack`` and its forms, ``bits_unpack`` and
+``bits_unpack_add``), ``route_pack`` and ``ring_receive``: the compute
+steps around the shard fabric's collectives (csrc/fabric.cu,
+csrc/deliver_perm.cu).
 
 ``bits_pack`` / ``bits_unpack`` replace corrosion_tpu/models/sharded.py
 ``_pack_bits`` (:57) / ``_unpack_bits`` (:68), the multi-host layout's
-wire encoding of a validity mask (LSB first, one bit a row).
+wire encoding of a validity mask (LSB first, one bit a row).  Its
+masks are packed straight from their sources (``bits_pack_above``: the
+still-bad rows ``rounds > t``; ``bits_pack_active``: the active rows
+and their bool mask in one pass) and unpacked straight into their
+consumer (``bits_unpack_add``: ``accepted += unpack(wire)``); the
+unpacks count the set bits for the host's test of the exchange, through
+a scratch word a device and stream (``_count_scratch``) that the kernels
+leave zero.
 ``route_pack`` replaces the demand marks and the capped per-destination
 packing of ``sharded_broadcast_step_ring`` (:216-248), ``ring_receive``
 its receive side, the received-id slot map and the delivery
@@ -29,6 +37,17 @@ from corrosion_tpu_torch.kernels.deliver import MAX_ROWS, deliver_perm_plain
 
 _PACK_ARGTYPES = (ctypes.c_void_p, ctypes.c_void_p, ctypes.c_longlong,
                   ctypes.c_void_p)
+_UNPACK_ARGTYPES = ((ctypes.c_void_p,) * 2 + (ctypes.c_longlong,)
+                    + (ctypes.c_void_p,) * 3)
+_UNPACK_ADD_ARGTYPES = ((ctypes.c_void_p,) * 2
+                        + (ctypes.c_longlong, ctypes.c_int)
+                        + (ctypes.c_void_p,) * 3)
+_ABOVE_ARGTYPES = (ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p,
+                   ctypes.c_longlong, ctypes.c_void_p)
+_ACTIVE_ARGTYPES = (ctypes.c_void_p, ctypes.c_longlong, ctypes.c_void_p,
+                    ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p,
+                    ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
+                    ctypes.c_void_p)
 _ROUTE_ARGTYPES = ((ctypes.c_void_p,) * 7 + (ctypes.c_int,) * 7
                    + (ctypes.c_void_p,))
 _RECEIVE_ARGTYPES = ((ctypes.c_void_p,) * 12
@@ -37,6 +56,7 @@ _RECEIVE_ARGTYPES = ((ctypes.c_void_p,) * 12
 _GENERATIONS = 2**32  # a tag holds a 32-bit generation
 _SCRATCH: dict = {}
 _SLOT_MAPS: dict = {}
+_COUNTS: dict = {}
 
 
 def _scratch(device, n_local: int, d: int) -> torch.Tensor:
@@ -68,6 +88,48 @@ def marks_clear(device, n_local: int, d: int) -> bool:
     return not int(torch.count_nonzero(held[1][:d * (-(-n_local // 32))]))
 
 
+def _count_scratch(device) -> torch.Tensor:
+    """The unpacks' count scratch on ``device``'s current stream: one
+    int64 word, the running sum in its low half and the blocks done in
+    its high half, zero when made and left zero by every call (the last
+    block moves the sum out)."""
+    key = (device, torch.cuda.current_stream(device).cuda_stream)
+    held = _COUNTS.get(key)
+    if held is None:
+        held = _COUNTS[key] = torch.zeros(1, dtype=torch.int64,
+                                          device=device)
+    return held
+
+
+def _launch_unpack(name: str, symbol: str, argtypes, wire, out, count,
+                   *args) -> None:
+    """Launch the unpack ``symbol(wire, out, *args, scratch, count,
+    stream)``; with ``count`` ([1] int32) it receives the wire's set
+    bits through the count scratch, which a failed launch may leave set
+    and so drops."""
+    dev = wire.device
+    key = (dev, torch.cuda.current_stream(dev).cuda_stream)
+    scratch = None if count is None else _count_scratch(dev)
+    fn = kernels.function("fabric", symbol, argtypes)
+    code = fn(kernels.ptr(wire), kernels.ptr(out), wire.numel(), *args,
+              kernels.ptr(scratch), kernels.ptr(count), kernels.stream(wire))
+    if code:
+        _COUNTS.pop(key, None)
+    kernels.raise_on_error(name, code)
+
+
+def _check_rows(name: str, t, dtype) -> None:
+    if t.dtype != dtype or t.dim() < 1 or t.shape[-1] % 8:
+        raise ValueError(f"{name}: needs a {dtype} tensor whose last axis is "
+                         f"a multiple of 8, got {t.dtype} {tuple(t.shape)}")
+
+
+def _check_wire(name: str, wire, m: int) -> None:
+    if wire.dtype != torch.uint8 or wire.dim() < 1 or m != 8 * wire.shape[-1]:
+        raise ValueError(f"{name}: needs uint8 [..., {m // 8}], got "
+                         f"{wire.dtype} {tuple(wire.shape)}")
+
+
 def bits_pack_plain(mask: torch.Tensor) -> torch.Tensor:
     """Plain PyTorch version of :func:`bits_pack`."""
     m = mask.shape[-1]
@@ -83,16 +145,35 @@ def bits_unpack_plain(wire: torch.Tensor, m: int) -> torch.Tensor:
     return bits.reshape(*wire.shape[:-1], m).bool()
 
 
+def bits_pack_above_plain(x: torch.Tensor, t: int) -> torch.Tensor:
+    """Plain PyTorch version of :func:`bits_pack_above`."""
+    return bits_pack_plain(x > t)
+
+
+def bits_pack_active_plain(infected, tx, next_send, tick: int):
+    """Plain PyTorch version of :func:`bits_pack_active`."""
+    active = infected & (tx > 0) & (next_send <= tick)
+    return active, bits_pack_plain(active)
+
+
+def bits_unpack_add_plain(wire: torch.Tensor, m: int, accepted: torch.Tensor,
+                          first: bool) -> torch.Tensor:
+    """Plain PyTorch version of :func:`bits_unpack_add`."""
+    bad = bits_unpack_plain(wire, m)
+    if first:
+        accepted.copy_(bad)
+    else:
+        accepted += bad
+    return bad.sum(dtype=torch.int32).reshape(1)
+
+
 def bits_pack(mask: torch.Tensor) -> torch.Tensor:
     """[..., M] bool (M % 8 == 0) -> [..., M // 8] uint8, bit q of byte
     b the mask's entry 8b + q."""
-    if mask.dtype != torch.bool or mask.dim() < 1 or mask.shape[-1] % 8:
-        raise ValueError("bits_pack: needs a bool mask whose last axis is "
-                         f"a multiple of 8, got {mask.dtype} "
-                         f"{tuple(mask.shape)}")
+    _check_rows("bits_pack", mask, torch.bool)
     if kernels.on_cpu(mask):
         return bits_pack_plain(mask)
-    kernels.check("bits_pack mask", mask, torch.bool, align=8)
+    kernels.check("bits_pack mask", mask, torch.bool, align=1)
     wire = torch.empty((*mask.shape[:-1], mask.shape[-1] // 8),
                        dtype=torch.uint8, device=mask.device)
     fn = kernels.function("fabric", "bits_pack_launch", _PACK_ARGTYPES)
@@ -103,23 +184,100 @@ def bits_pack(mask: torch.Tensor) -> torch.Tensor:
     return wire
 
 
-def bits_unpack(wire: torch.Tensor, m: int) -> torch.Tensor:
+def bits_pack_above(x: torch.Tensor, t: int) -> torch.Tensor:
+    """``bits_pack(x > t)`` without the bool mask: [..., M] int32 (M % 8
+    == 0) -> [..., M // 8] uint8."""
+    _check_rows("bits_pack_above", x, torch.int32)
+    if kernels.on_cpu(x):
+        return bits_pack_above_plain(x, t)
+    kernels.check("bits_pack_above x", x, torch.int32)
+    wire = torch.empty((*x.shape[:-1], x.shape[-1] // 8), dtype=torch.uint8,
+                       device=x.device)
+    fn = kernels.function("fabric", "bits_pack_above_launch",
+                          _ABOVE_ARGTYPES)
+    code = fn(kernels.ptr(x), int(t), kernels.ptr(wire), x.numel(),
+              kernels.stream(x))
+    bits_pack_above.launches += 1
+    kernels.raise_on_error("bits_pack_above", code)
+    return wire
+
+
+def bits_pack_active(infected, tx, next_send, tick: int):
+    """The host layout's active rows and their wire in one pass:
+    ``active = infected & (tx > 0) & (next_send <= tick)`` on [S, M]
+    (M % 8 == 0); ``infected`` may be a window of wider rows
+    (``x[:, lo:lo + M]``, read in place: stride (>= M, 1)), tx and
+    next_send are contiguous int32.  Returns (active [S, M] bool,
+    ``bits_pack(active)`` [S, M // 8] uint8)."""
+    if tx.dim() != 2 or tx.dtype != torch.int32 or tx.shape[1] % 8:
+        raise ValueError(f"bits_pack_active: tx must be int32 [S, M] with "
+                         f"M % 8 == 0, got {tx.dtype} {tuple(tx.shape)}")
+    s, m = tx.shape
+    ld = kernels.row_stride("bits_pack_active: infected", infected, s, m)
+    if next_send.dtype != torch.int32 or next_send.shape != tx.shape:
+        raise ValueError(f"bits_pack_active: next_send must be int32 "
+                         f"[{s}, {m}]")
+    if kernels.on_cpu(infected, tx, next_send):
+        return bits_pack_active_plain(infected, tx, next_send, tick)
+    kernels.check("bits_pack_active tx", tx, torch.int32)
+    kernels.check("bits_pack_active next_send", next_send, torch.int32)
+    dev = tx.device
+    active = torch.empty((s, m), dtype=torch.bool, device=dev)
+    wire = torch.empty((s, m // 8), dtype=torch.uint8, device=dev)
+    p = kernels.ptr
+    fn = kernels.function("fabric", "bits_pack_active_launch",
+                          _ACTIVE_ARGTYPES)
+    code = fn(p(infected), ld, p(tx), p(next_send), int(tick), p(active),
+              p(wire), s, m, kernels.stream(tx))
+    bits_pack_active.launches += 1
+    kernels.raise_on_error("bits_pack_active", code)
+    return active, wire
+
+
+def bits_unpack(wire: torch.Tensor, m: int, *, count=None) -> torch.Tensor:
     """Inverse of :func:`bits_pack`: [..., M // 8] uint8 -> [..., M]
-    bool."""
-    if wire.dtype != torch.uint8 or wire.dim() < 1 or m != 8 * wire.shape[-1]:
-        raise ValueError(f"bits_unpack: needs uint8 [..., {m // 8}], got "
-                         f"{wire.dtype} {tuple(wire.shape)}")
-    if kernels.on_cpu(wire):
-        return bits_unpack_plain(wire, m)
+    bool.  ``count``, a [1] int32 tensor on the wire's device, receives
+    the number of set bits."""
+    _check_wire("bits_unpack", wire, m)
+    if kernels.on_cpu(wire, count):
+        mask = bits_unpack_plain(wire, m)
+        if count is not None:
+            count.copy_(mask.sum(dtype=torch.int32).reshape(1))
+        return mask
     kernels.check("bits_unpack wire", wire, torch.uint8, align=1)
+    if count is not None:
+        kernels.check("bits_unpack count", count, torch.int32, (1,))
     mask = torch.empty((*wire.shape[:-1], m), dtype=torch.bool,
                        device=wire.device)
-    fn = kernels.function("fabric", "bits_unpack_launch", _PACK_ARGTYPES)
-    code = fn(kernels.ptr(wire), kernels.ptr(mask), wire.numel(),
-              kernels.stream(wire))
     bits_unpack.launches += 1
-    kernels.raise_on_error("bits_unpack", code)
+    _launch_unpack("bits_unpack", "bits_unpack_launch", _UNPACK_ARGTYPES,
+                   wire, mask, count)
     return mask
+
+
+def bits_unpack_add(wire: torch.Tensor, m: int, accepted: torch.Tensor,
+                    first: bool) -> torch.Tensor:
+    """``accepted += bits_unpack(wire, m)`` in place, without the bool
+    mask; with ``first``, ``accepted`` is written whole as the unpacked
+    0 / 1 (its old values are not read).  wire [..., M // 8] uint8,
+    accepted [..., M] int32 contiguous.  Returns the wire's set bits,
+    [1] int32."""
+    _check_wire("bits_unpack_add", wire, m)
+    if (accepted.dtype != torch.int32
+            or tuple(accepted.shape) != (*wire.shape[:-1], m)):
+        raise ValueError(f"bits_unpack_add: accepted must be int32 "
+                         f"{(*wire.shape[:-1], m)}, got {accepted.dtype} "
+                         f"{tuple(accepted.shape)}")
+    if kernels.on_cpu(wire, accepted):
+        return bits_unpack_add_plain(wire, m, accepted, first)
+    kernels.check("bits_unpack_add wire", wire, torch.uint8, align=1)
+    kernels.check("bits_unpack_add accepted", accepted, torch.int32)
+    count = torch.empty(1, dtype=torch.int32, device=wire.device)
+    bits_unpack_add.launches += 1
+    _launch_unpack("bits_unpack_add", "bits_unpack_add_launch",
+                   _UNPACK_ADD_ARGTYPES, wire, accepted, count,
+                   int(bool(first)))
+    return count
 
 
 def route_pack_plain(senders, active_l, rows_l, shard: int, cap: int):
@@ -329,6 +487,9 @@ def ring_receive(rows, tx, msgs, senders, recv_ids, recv_rows, *,
 
 
 bits_pack.launches = 0
+bits_pack_above.launches = 0
+bits_pack_active.launches = 0
 bits_unpack.launches = 0
+bits_unpack_add.launches = 0
 route_pack.launches = 0
 ring_receive.launches = 0

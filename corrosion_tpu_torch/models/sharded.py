@@ -38,7 +38,7 @@ import torch
 from corrosion_tpu_torch.kernels.deliver import deliver_perm
 from corrosion_tpu_torch.kernels.exact_send import exact_commit
 from corrosion_tpu_torch.kernels.fabric import (
-    bits_pack,
+    bits_pack_active,
     bits_unpack,
     ring_receive,
     route_pack,
@@ -303,12 +303,15 @@ def _sharded_frontier_host_tick_local(sh: int, st: FrontierExactState, keys,
         # applies them to its own rows
         infected, tx_l, next_send_l, pending = _latency_promote(
             infected, tx_l, next_send_l, pending, tick, cfg, tier_l, lo=lo)
-    active_l = (infected[:, lo:lo + n_local] & (tx_l > 0)
-                & (next_send_l <= tick))
-    wire = yield all_gather(bits_pack(active_l), "delta", dim=1)
-    active = bits_unpack(wire, n)
+    # my active rows and their wire in one pass over my window of the
+    # replicated mask; the unpack counts the set bits for the test
+    active_l, wire_l = bits_pack_active(infected[:, lo:lo + n_local], tx_l,
+                                        next_send_l, tick)
+    wire = yield all_gather(wire_l, "delta", dim=1)
+    count = torch.empty(1, dtype=torch.int32, device=dev)
+    active = bits_unpack(wire, n, count=count)
     triples, k_sync = _tick_keys(keys)
-    if bool(active.any()):
+    if int(count):
         new_infected = yield from _shard_send(
             sh, n, active_l, active, ring_l, triples, tick,
             _send_params(cfg, True, writer), diag, True, infected,

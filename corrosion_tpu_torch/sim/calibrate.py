@@ -759,9 +759,15 @@ def _shard_send(sh: int, n: int, active_l, active, sent_l, triples,
     """A shard's broadcast phase (generator): its rows' rejection loops,
     the still-bad masks exchanged round by round (bool bytes, or
     bitpacked when ``packed``) until none is bad anywhere, each row's
-    accepted round counted from them, then ``shard_commit``.  Returns
-    the new infected window."""
-    from corrosion_tpu_torch.kernels.fabric import bits_pack, bits_unpack
+    accepted round counted from them, then ``shard_commit``.  Packed, a
+    round's wire is packed straight from the rounds (``bits_pack_above``)
+    and unpacked straight into ``accepted`` (``bits_unpack_add``, whose
+    set-bit count is the loop's test; the first round writes
+    ``accepted`` whole).  Returns the new infected window."""
+    from corrosion_tpu_torch.kernels.fabric import (
+        bits_pack_above,
+        bits_unpack_add,
+    )
     from corrosion_tpu_torch.kernels.shard_exact import (
         shard_commit,
         shard_round,
@@ -770,18 +776,19 @@ def _shard_send(sh: int, n: int, active_l, active, sent_l, triples,
 
     lo = sh * active_l.shape[1]
     rounds_l = shard_round(active_l, sent_l, triples, lo, n, p, diag, tick)
-    accepted = torch.zeros(active.shape, dtype=torch.int32,
-                           device=active.device)
+    make = torch.empty if packed else torch.zeros
+    accepted = make(active.shape, dtype=torch.int32, device=active.device)
     for r in range(MAX_ROUNDS):
-        bad_l = rounds_l > r + 1
         if packed:
-            wire = yield all_gather(bits_pack(bad_l), "delta", dim=1)
-            bad = bits_unpack(wire, n)
+            wire = yield all_gather(bits_pack_above(rounds_l, r + 1),
+                                    "delta", dim=1)
+            if not int(bits_unpack_add(wire, n, accepted, r == 0)):
+                break
         else:
-            bad = yield all_gather(bad_l, "delta", dim=1)
-        if not bool(bad.any()):
-            break
-        accepted += bad
+            bad = yield all_gather(rounds_l > r + 1, "delta", dim=1)
+            if not bool(bad.any()):
+                break
+            accepted += bad
     else:
         raise RuntimeError(f"shard_round: a row found no valid tuple in "
                            f"{MAX_ROUNDS} rejection rounds")
