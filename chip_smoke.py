@@ -126,12 +126,14 @@ package.  Phases, each ending the run with a non-zero exit on failure:
     ``sent_tick`` call, and the host's enqueue of a calibration tick
     (``exact_inputs`` and ``sent_tick``, and the two wrappers; the
     device asleep; the ``{"sent_tick": ...}`` line);
-12. run ``run_msgs_calibration(ns=(1000, 4000, 16000), seeds=3)``, the
-    ``sim_trace`` config at 64, 256 and 512 nodes x 8 seeds and
-    ``sim_obs_trace``'s (sync every 8 ticks) at 512 x 8 on the card,
-    each with the launch counters zeroed just before, and hold them to
-    ``CALIB_MSGS.json``'s points, ``SIMDIFF_N*.json``'s sim numbers and
-    the reference's numbers (hard-coded here);
+12. run ``run_msgs_calibration(ns=(1000, 4000, 16000), seeds=3)``,
+    ``sim/simdiff.py``'s ``sim_trace`` at 64, 256 and 512 nodes x 8
+    seeds and ``sim/obs.py``'s ``sim_obs_trace`` (sync every 8 ticks)
+    at 512 x 8 on the card, each with the launch counters zeroed just
+    before, and hold them to ``CALIB_MSGS.json``'s points,
+    ``SIMDIFF_N*.json``'s sim numbers and the reference's numbers
+    (hard-coded here), the runner's statistics under each twin (kept
+    by ``through``) and the twin's fields equal to them;
 13. run ``exact_tick`` at 2000 nodes (a short last sender chunk,
     backoff 1.5) and the ``track_sent`` runner at 256 nodes x 4 seeds
     (phase 11's variants and ``sim_obs_trace``'s) on the card and on
@@ -236,7 +238,27 @@ package.  Phases, each ending the run with a non-zero exit on failure:
     broadcast fabrics at 256 nodes and the seq-sync fabric at 10k nodes x
     64 seqs over 8 shards on the card and on the CPU, and require every
     leaf per tick equal between them (and the layouts to the
-    single-device tick).
+    single-device tick);
+20. run the host layout at 4096 nodes x 2 seeds on 2 hosts over a
+    ``DistFabric`` of two gloo ranks (spawned processes, CUDA tensors on
+    the one card) and require every shard after every tick equal to the
+    ``LocalFabric``'s on the card, and the ranks' bytes to sum to its;
+21. run the harness twins' predictions through their entry points on
+    the card, each with the launch counters zeroed just before it:
+    ``sim_obs_trace(32)``, ``sim_chaos_trace(32)`` and ``(512,
+    oneway_blocks=((0, 1),))``, ``sim_prediction`` for the five fault
+    families at 32 and 512 nodes (heal after 0.64 s),
+    ``kernel_coverage_prediction`` at 32 and 512 nodes (heal at tick
+    64), ``model_churn_trace`` at 64 and 256 nodes over 3 cycles, and
+    ``resolve_wave`` on the subscription bench's headline burst (20
+    waves, ``backend="torch"``) and on one wave of 131,072 changes
+    (``backend="auto"``); hold each to the reference's result for the
+    same call on the CPU (``HARNESS_WANT``; the churn runs to
+    ``CHURNDIFF_N64`` / ``N256.json``, which agree with it; the waves
+    also to the NumPy twin, exactly), tick and integer fields equal,
+    floats to rel_tol 1e-6, coverage lists within 1e-4, and require
+    every kernel of each call's path to have launched (the
+    ``{"harness": ...}`` line: each call's wall and launches).
 
 ``python3 chip_smoke.py --parent DIR`` (DIR an unpacked ``git
 archive`` of the parent commit) also builds the parent's ``swim.cu``,
@@ -3277,30 +3299,56 @@ def sent_enqueue(ss, state, key, cfg, reps: int = 20) -> dict:
 SENT_COUNTED = ("sent_select", "sent_commit", "tick_stats")
 
 
+# the twins' keys beside the runner's: phase 12 holds both
+SIMDIFF_KEYS = {"converged_frac": "converged_frac",
+                "ticks_to_converge_p50": "ticks_p50",
+                "ticks_to_converge_p99": "ticks_p99",
+                "msgs_per_node": "msgs_per_node_mean",
+                "hops_p50": "hops_p50", "hops_p99": "hops_p99"}
+OBS_KEYS = {"converged_frac": "converged_frac", "ticks_p50": "ticks_p50",
+            "ticks_p99": "ticks_p99", "msgs_per_node": "msgs_per_node_mean"}
+
+
+def through(module, call):
+    """``call()`` with ``module.run_epidemic_seeds`` wrapped to keep the
+    runner's own statistics; returns them with the twin's result under
+    ``"twin"``."""
+    runner, kept = module.run_epidemic_seeds, []
+
+    def keep(*args, **kw):
+        kept.append(runner(*args, **kw))
+        return kept[-1]
+
+    module.run_epidemic_seeds = keep
+    try:
+        twin = call()
+    finally:
+        module.run_epidemic_seeds = runner
+    return {**kept[0], "twin": twin}
+
+
 def sent_full_width(counted) -> dict:
     """Phase 12: ``run_msgs_calibration`` at N = 1000, 4000 and 16000 x 3
-    seeds, the sim_trace config at 64, 256 and 512 nodes x 8 seeds and
-    sim_obs_trace's (sync) at 512 x 8 through their entry points on the
-    card, the launch counters zeroed just before each; each held to the
-    reference's numbers."""
+    seeds, ``simdiff.sim_trace`` at 64, 256 and 512 nodes x 8 seeds and
+    ``obs.sim_obs_trace`` (sync every 8 ticks) at 512 x 8 through their
+    entry points on the card, the launch counters zeroed just before
+    each; each held to the reference's numbers, the twins' results and
+    the runner's statistics under them."""
+    from corrosion_tpu_torch.sim import obs, simdiff
     from corrosion_tpu_torch.sim.calibrate import run_msgs_calibration
-    from corrosion_tpu_torch.sim.epidemic import (
-        run_epidemic_seeds,
-        sent_trace_cfg,
-    )
 
     jobs = [("calibration", lambda: run_msgs_calibration(
         ns=(1000, 4000, 16000), seeds=3, device="cuda"), None,
-        ("threefry_bits",))]
+        ("threefry_bits",), None)]
     for n in SIMDIFF_WANT:
-        jobs.append((f"sim_trace_{n}", lambda n=n: run_epidemic_seeds(
-            sent_trace_cfg(n), n_seeds=8, seed=0, device="cuda"),
-            SIMDIFF_WANT[n], ()))
-    jobs.append(("obs_sync_512", lambda: run_epidemic_seeds(
-        sent_trace_cfg(512, sync_interval=8, chunk_ticks=16), n_seeds=8,
-        seed=0, device="cuda"), OBS512_WANT, ("threefry_bits", "sync_pull")))
+        jobs.append((f"sim_trace_{n}", lambda n=n: through(
+            simdiff, lambda: simdiff.sim_trace(n, device="cuda")),
+            SIMDIFF_WANT[n], (), SIMDIFF_KEYS))
+    jobs.append(("obs_sync_512", lambda: through(
+        obs, lambda: obs.sim_obs_trace(512, device="cuda")), OBS512_WANT,
+        ("threefry_bits", "sync_pull"), OBS_KEYS))
     runs = {}
-    for label, run, want, more in jobs:
+    for label, run, want, more, twin_keys in jobs:
         torch.cuda.synchronize()
         for fn in counted.values():
             fn.launches = 0
@@ -3322,6 +3370,13 @@ def sent_full_width(counted) -> dict:
             for k, v in want.items():
                 if not math.isclose(res[k], v, rel_tol=1e-6):
                     fail(f"{label}: {k} = {res[k]}, the reference gives {v}")
+            twin = res["twin"]
+            if twin["runtime"] != "tpu-sim" or twin["n_nodes"] != res["n_nodes"]:
+                fail(f"{label}: the twin's result is not the runner's: {twin}")
+            for tk, k in twin_keys.items():
+                if twin[tk] != res[k]:
+                    fail(f"{label}: the twin's {tk} = {twin[tk]}, the "
+                         f"runner's {k} = {res[k]}")
         idle = [name for name, c in res["launches"].items() if c == 0]
         if idle:
             fail(f"{label}: kernels never launched: {idle}")
@@ -5921,6 +5976,450 @@ def mesh_phases(record: dict, counted: dict, single_runs: dict,
     return results
 
 
+# -- the harness twins' predictions (phase 21) -----------------------------
+
+# the kernels each twin's path launches: the exact sent_to sampler with
+# anti-entropy every 8 ticks, and the perm-fanout path
+TRACK_SENT_SYNC = ("threefry_bits", "sent_select", "sent_commit",
+                   "sync_pull", "tick_stats")
+PERM_PATH = ("threefry_bits", "seg_argsort", "deliver_perm", "sync_pull",
+             "tick_stats")
+# the subscription matcher's headline burst (SUBS_BENCH.json: 10,000
+# changes in waves of 512 over 3,333 pks, drawn first from bench.py
+# ``_subs_matcher_headline``'s seed 7) and one wave of 131,072 changes,
+# twice ``select_winners``' auto threshold
+SUBS_HEADLINE = dict(seed=7, n_changes=10_000, pk_space=3_333,
+                     wave_size=512)
+SUBS_WIDE = dict(seed=23, n_changes=131_072, pk_space=43_690,
+                 wave_size=131_072)
+# lists the twins round to 4 places: each entry within 1e-4
+COVERAGE_KEYS = ("coverage", "coverage_p10", "coverage_p90")
+# the reference's results for the same calls on the CPU (JAX 0.9.0, seed
+# 0; ``wall_s`` left out).  Where a committed record differs from them
+# (CHAOS_N32, OBS_N32, SCENARIOS_N32 / N512, TIMELINE_N32 / N512), the
+# record is stale against today's reference and is not a gate
+HARNESS_WANT = {
+    "sim_obs_trace(32)": {
+        "runtime": "tpu-sim", "n_nodes": 32, "converged_frac": 1.0,
+        "ticks_p50": 5.0, "ticks_p99": 6.93, "predicted_wall_p50_s": 0.1,
+        "predicted_wall_p99_s": 0.1386, "msgs_per_node": 4.16015625,
+        "tick_seconds": 0.02,
+    },
+    "sim_chaos_trace(32)": {
+        "runtime": "tpu-sim", "n_nodes": 32, "loss": 0.05,
+        "partition_blocks": 2, "heal_tick": 32, "oneway_blocks": None,
+        "converged_frac": 1.0, "ticks_to_converge_p50": 44.0,
+        "ticks_to_converge_p99": 56.0, "msgs_per_node": 15.1953125,
+    },
+    "sim_chaos_trace(512, oneway_blocks=((0, 1),))": {
+        "runtime": "tpu-sim", "n_nodes": 512, "loss": 0.05,
+        "partition_blocks": 2, "heal_tick": 32, "oneway_blocks": [[0, 1]],
+        "converged_frac": 1.0, "ticks_to_converge_p50": 40.0,
+        "ticks_to_converge_p99": 40.0, "msgs_per_node": 15.398681640625,
+    },
+    "sim_prediction('clock_skew', 32, 0.64)": {
+        "runtime": "tpu-sim", "n_nodes": 32, "converged_frac": 1.0,
+        "ticks_p50": 5.0, "ticks_p99": 6.93, "predicted_wall_p50_s": 0.1,
+        "predicted_wall_p99_s": 0.1386, "msgs_per_node": 4.16015625,
+        "tick_seconds": 0.02,
+        "residual": (
+            "the kernel does not model clock skew / disk latency / hostile "
+            "peers — they alter timestamps, lock holds and screening, not "
+            "the message dynamics — so the cell compares against the "
+            "fault-free prediction"
+        ),
+    },
+    "sim_prediction('asym_partition', 32, 0.64)": {
+        "runtime": "tpu-sim", "n_nodes": 32, "loss": 0.0,
+        "partition_blocks": 2, "heal_tick": 32, "oneway_blocks": [[0, 1]],
+        "converged_frac": 1.0, "ticks_to_converge_p50": 44.0,
+        "ticks_to_converge_p99": 56.0, "msgs_per_node": 15.2109375,
+    },
+    "sim_prediction('slow_io', 32, 0.64)": {
+        "runtime": "tpu-sim", "n_nodes": 32, "converged_frac": 1.0,
+        "ticks_p50": 5.0, "ticks_p99": 6.93, "predicted_wall_p50_s": 0.1,
+        "predicted_wall_p99_s": 0.1386, "msgs_per_node": 4.16015625,
+        "tick_seconds": 0.02,
+        "residual": (
+            "the kernel does not model clock skew / disk latency / hostile "
+            "peers — they alter timestamps, lock holds and screening, not "
+            "the message dynamics — so the cell compares against the "
+            "fault-free prediction"
+        ),
+    },
+    "sim_prediction('equivocation', 32, 0.64)": {
+        "runtime": "tpu-sim", "n_nodes": 32, "converged_frac": 1.0,
+        "ticks_p50": 5.0, "ticks_p99": 6.93, "predicted_wall_p50_s": 0.1,
+        "predicted_wall_p99_s": 0.1386, "msgs_per_node": 4.16015625,
+        "tick_seconds": 0.02,
+        "residual": (
+            "the kernel does not model clock skew / disk latency / hostile "
+            "peers — they alter timestamps, lock holds and screening, not "
+            "the message dynamics — so the cell compares against the "
+            "fault-free prediction"
+        ),
+    },
+    "sim_prediction('compound', 32, 0.64)": {
+        "runtime": "tpu-sim", "n_nodes": 32, "loss": 0.05,
+        "partition_blocks": 2, "heal_tick": 32, "oneway_blocks": [[0, 1]],
+        "converged_frac": 1.0, "ticks_to_converge_p50": 44.0,
+        "ticks_to_converge_p99": 56.0, "msgs_per_node": 15.1953125,
+        "residual": (
+            "the kernel models the cell's loss + one-way partition exactly; "
+            "clock skew (the cell's third fault) alters timestamps, not "
+            "message dynamics, and carries no kernel-side model"
+        ),
+    },
+    "sim_prediction('clock_skew', 512, 0.64)": {
+        "runtime": "tpu-sim", "n_nodes": 512, "converged_frac": 1.0,
+        "ticks_p50": 8.0, "ticks_p99": 8.0, "predicted_wall_p50_s": 0.16,
+        "predicted_wall_p99_s": 0.16, "msgs_per_node": 6.52197265625,
+        "tick_seconds": 0.02,
+        "residual": (
+            "the kernel does not model clock skew / disk latency / hostile "
+            "peers — they alter timestamps, lock holds and screening, not "
+            "the message dynamics — so the cell compares against the "
+            "fault-free prediction"
+        ),
+    },
+    "sim_prediction('asym_partition', 512, 0.64)": {
+        "runtime": "tpu-sim", "n_nodes": 512, "loss": 0.0,
+        "partition_blocks": 2, "heal_tick": 32, "oneway_blocks": [[0, 1]],
+        "converged_frac": 1.0, "ticks_to_converge_p50": 40.0,
+        "ticks_to_converge_p99": 40.0, "msgs_per_node": 15.514892578125,
+    },
+    "sim_prediction('slow_io', 512, 0.64)": {
+        "runtime": "tpu-sim", "n_nodes": 512, "converged_frac": 1.0,
+        "ticks_p50": 8.0, "ticks_p99": 8.0, "predicted_wall_p50_s": 0.16,
+        "predicted_wall_p99_s": 0.16, "msgs_per_node": 6.52197265625,
+        "tick_seconds": 0.02,
+        "residual": (
+            "the kernel does not model clock skew / disk latency / hostile "
+            "peers — they alter timestamps, lock holds and screening, not "
+            "the message dynamics — so the cell compares against the "
+            "fault-free prediction"
+        ),
+    },
+    "sim_prediction('equivocation', 512, 0.64)": {
+        "runtime": "tpu-sim", "n_nodes": 512, "converged_frac": 1.0,
+        "ticks_p50": 8.0, "ticks_p99": 8.0, "predicted_wall_p50_s": 0.16,
+        "predicted_wall_p99_s": 0.16, "msgs_per_node": 6.52197265625,
+        "tick_seconds": 0.02,
+        "residual": (
+            "the kernel does not model clock skew / disk latency / hostile "
+            "peers — they alter timestamps, lock holds and screening, not "
+            "the message dynamics — so the cell compares against the "
+            "fault-free prediction"
+        ),
+    },
+    "sim_prediction('compound', 512, 0.64)": {
+        "runtime": "tpu-sim", "n_nodes": 512, "loss": 0.05,
+        "partition_blocks": 2, "heal_tick": 32, "oneway_blocks": [[0, 1]],
+        "converged_frac": 1.0, "ticks_to_converge_p50": 40.0,
+        "ticks_to_converge_p99": 40.0, "msgs_per_node": 15.398681640625,
+        "residual": (
+            "the kernel models the cell's loss + one-way partition exactly; "
+            "clock skew (the cell's third fault) alters timestamps, not "
+            "message dynamics, and carries no kernel-side model"
+        ),
+    },
+    "kernel_coverage_prediction(32, 64)": {
+        "runtime": "tpu-sim", "n_nodes": 32, "heal_tick": 64, "heal_s": 1.28,
+        "tick_seconds": 0.02,
+        "times_s": [
+            0.02, 0.04, 0.06, 0.08, 0.1, 0.12, 0.14, 0.16, 0.18, 0.2, 0.22,
+            0.24, 0.26, 0.28, 0.3, 0.32, 0.34, 0.36, 0.38, 0.4, 0.42, 0.44,
+            0.46, 0.48, 0.5, 0.52, 0.54, 0.56, 0.58, 0.6, 0.62, 0.64, 0.66,
+            0.68, 0.7, 0.72, 0.74, 0.76, 0.78, 0.8, 0.82, 0.84, 0.86, 0.88,
+            0.9, 0.92, 0.94, 0.96, 0.98, 1.0, 1.02, 1.04, 1.06, 1.08, 1.1,
+            1.12, 1.14, 1.16, 1.18, 1.2, 1.22, 1.24, 1.26, 1.28, 1.3, 1.32,
+            1.34, 1.36, 1.38, 1.4, 1.42, 1.44, 1.46, 1.48, 1.5, 1.52, 1.54,
+            1.56, 1.58, 1.6, 1.62, 1.64, 1.66, 1.68, 1.7, 1.72, 1.74, 1.76,
+            1.78, 1.8, 1.82, 1.84, 1.86, 1.88, 1.9, 1.92,
+        ],
+        "coverage": [
+            0.0664, 0.1211, 0.1914, 0.2578, 0.3359, 0.3906, 0.4141, 0.4766,
+            0.4805, 0.4805, 0.4883, 0.4961, 0.5, 0.5, 0.5, 0.5, 0.5, 0.5, 0.5,
+            0.5, 0.5, 0.5, 0.5, 0.5, 0.5, 0.5, 0.5, 0.5, 0.5, 0.5, 0.5, 0.5,
+            0.5, 0.5, 0.5, 0.5, 0.5, 0.5, 0.5, 0.5, 0.5, 0.5, 0.5, 0.5, 0.5,
+            0.5, 0.5, 0.5, 0.5, 0.5, 0.5, 0.5, 0.5, 0.5, 0.5, 0.5, 0.5, 0.5,
+            0.5, 0.5, 0.5, 0.5, 0.5, 0.5, 0.5, 0.5, 0.5, 0.5, 0.5, 0.5, 0.5,
+            0.7773, 0.7773, 0.7773, 0.7773, 0.7773, 0.7773, 0.7773, 0.7773,
+            0.9531, 0.9531, 0.9531, 0.9531, 0.9531, 0.9531, 0.9531, 0.9531,
+            0.9961, 0.9961, 0.9961, 0.9961, 0.9961, 0.9961, 0.9961, 0.9961,
+            1.0,
+        ],
+        "coverage_p10": [
+            0.0312, 0.0312, 0.0625, 0.0938, 0.1781, 0.2625, 0.3156, 0.4406,
+            0.4406, 0.4406, 0.4719, 0.4906, 0.5, 0.5, 0.5, 0.5, 0.5, 0.5, 0.5,
+            0.5, 0.5, 0.5, 0.5, 0.5, 0.5, 0.5, 0.5, 0.5, 0.5, 0.5, 0.5, 0.5,
+            0.5, 0.5, 0.5, 0.5, 0.5, 0.5, 0.5, 0.5, 0.5, 0.5, 0.5, 0.5, 0.5,
+            0.5, 0.5, 0.5, 0.5, 0.5, 0.5, 0.5, 0.5, 0.5, 0.5, 0.5, 0.5, 0.5,
+            0.5, 0.5, 0.5, 0.5, 0.5, 0.5, 0.5, 0.5, 0.5, 0.5, 0.5, 0.5, 0.5,
+            0.7094, 0.7094, 0.7094, 0.7094, 0.7094, 0.7094, 0.7094, 0.7094,
+            0.9281, 0.9281, 0.9281, 0.9281, 0.9281, 0.9281, 0.9281, 0.9281,
+            0.9906, 0.9906, 0.9906, 0.9906, 0.9906, 0.9906, 0.9906, 0.9906,
+            1.0,
+        ],
+        "coverage_p90": [
+            0.0938, 0.2188, 0.3312, 0.4156, 0.4781, 0.5, 0.5, 0.5, 0.5, 0.5,
+            0.5, 0.5, 0.5, 0.5, 0.5, 0.5, 0.5, 0.5, 0.5, 0.5, 0.5, 0.5, 0.5,
+            0.5, 0.5, 0.5, 0.5, 0.5, 0.5, 0.5, 0.5, 0.5, 0.5, 0.5, 0.5, 0.5,
+            0.5, 0.5, 0.5, 0.5, 0.5, 0.5, 0.5, 0.5, 0.5, 0.5, 0.5, 0.5, 0.5,
+            0.5, 0.5, 0.5, 0.5, 0.5, 0.5, 0.5, 0.5, 0.5, 0.5, 0.5, 0.5, 0.5,
+            0.5, 0.5, 0.5, 0.5, 0.5, 0.5, 0.5, 0.5, 0.5, 0.8844, 0.8844,
+            0.8844, 0.8844, 0.8844, 0.8844, 0.8844, 0.8844, 0.9781, 0.9781,
+            0.9781, 0.9781, 0.9781, 0.9781, 0.9781, 0.9781, 1.0, 1.0, 1.0,
+            1.0, 1.0, 1.0, 1.0, 1.0, 1.0,
+        ],
+        "converged_frac": 1.0,
+        "t_at_coverage": {
+            "0.5": 0.26, "0.75": 1.44, "0.9": 1.6, "0.99": 1.76, "1.0": 1.92,
+        },
+    },
+    "kernel_coverage_prediction(512, 64)": {
+        "runtime": "tpu-sim", "n_nodes": 512, "heal_tick": 64, "heal_s": 1.28,
+        "tick_seconds": 0.02,
+        "times_s": [
+            0.02, 0.04, 0.06, 0.08, 0.1, 0.12, 0.14, 0.16, 0.18, 0.2, 0.22,
+            0.24, 0.26, 0.28, 0.3, 0.32, 0.34, 0.36, 0.38, 0.4, 0.42, 0.44,
+            0.46, 0.48, 0.5, 0.52, 0.54, 0.56, 0.58, 0.6, 0.62, 0.64, 0.66,
+            0.68, 0.7, 0.72, 0.74, 0.76, 0.78, 0.8, 0.82, 0.84, 0.86, 0.88,
+            0.9, 0.92, 0.94, 0.96, 0.98, 1.0, 1.02, 1.04, 1.06, 1.08, 1.1,
+            1.12, 1.14, 1.16, 1.18, 1.2, 1.22, 1.24, 1.26, 1.28, 1.3, 1.32,
+            1.34, 1.36, 1.38, 1.4, 1.42, 1.44, 1.46, 1.48, 1.5, 1.52, 1.54,
+            1.56, 1.58, 1.6, 1.62, 1.64, 1.66, 1.68, 1.7, 1.72, 1.74, 1.76,
+            1.78, 1.8, 1.82, 1.84, 1.86, 1.88, 1.9, 1.92, 1.94, 1.96, 1.98,
+            2.0, 2.02, 2.04, 2.06, 2.08, 2.1, 2.12, 2.14, 2.16, 2.18, 2.2,
+            2.22, 2.24,
+        ],
+        "coverage": [
+            0.0046, 0.0083, 0.0156, 0.03, 0.0554, 0.0981, 0.1577, 0.2795,
+            0.333, 0.3743, 0.4119, 0.4377, 0.4573, 0.4719, 0.481, 0.4924,
+            0.4941, 0.4958, 0.4963, 0.4963, 0.4966, 0.4968, 0.4973, 0.4988,
+            0.499, 0.499, 0.4995, 0.4998, 0.4998, 0.4998, 0.4998, 0.5, 0.5,
+            0.5, 0.5, 0.5, 0.5, 0.5, 0.5, 0.5, 0.5, 0.5, 0.5, 0.5, 0.5, 0.5,
+            0.5, 0.5, 0.5, 0.5, 0.5, 0.5, 0.5, 0.5, 0.5, 0.5, 0.5, 0.5, 0.5,
+            0.5, 0.5, 0.5, 0.5, 0.5, 0.5, 0.5, 0.5, 0.5, 0.5, 0.5, 0.5,
+            0.7434, 0.7434, 0.7434, 0.7434, 0.7434, 0.7434, 0.7434, 0.7434,
+            0.9395, 0.9395, 0.9395, 0.9395, 0.9395, 0.9395, 0.9395, 0.9395,
+            0.9951, 0.9951, 0.9951, 0.9951, 0.9951, 0.9951, 0.9951, 0.9951,
+            0.9998, 0.9998, 0.9998, 0.9998, 0.9998, 0.9998, 0.9998, 0.9998,
+            1.0, 1.0, 1.0, 1.0, 1.0, 1.0, 1.0, 1.0, 1.0,
+        ],
+        "coverage_p10": [
+            0.002, 0.002, 0.0053, 0.0105, 0.0197, 0.0332, 0.0547, 0.1242,
+            0.1715, 0.2332, 0.301, 0.367, 0.4129, 0.4465, 0.4678, 0.4871,
+            0.4883, 0.4936, 0.4936, 0.4936, 0.4936, 0.4941, 0.4941, 0.4961,
+            0.4975, 0.4975, 0.4988, 0.4994, 0.4994, 0.4994, 0.4994, 0.5, 0.5,
+            0.5, 0.5, 0.5, 0.5, 0.5, 0.5, 0.5, 0.5, 0.5, 0.5, 0.5, 0.5, 0.5,
+            0.5, 0.5, 0.5, 0.5, 0.5, 0.5, 0.5, 0.5, 0.5, 0.5, 0.5, 0.5, 0.5,
+            0.5, 0.5, 0.5, 0.5, 0.5, 0.5, 0.5, 0.5, 0.5, 0.5, 0.5, 0.5,
+            0.7318, 0.7318, 0.7318, 0.7318, 0.7318, 0.7318, 0.7318, 0.7318,
+            0.9287, 0.9287, 0.9287, 0.9287, 0.9287, 0.9287, 0.9287, 0.9287,
+            0.9922, 0.9922, 0.9922, 0.9922, 0.9922, 0.9922, 0.9922, 0.9922,
+            0.9994, 0.9994, 0.9994, 0.9994, 0.9994, 0.9994, 0.9994, 0.9994,
+            1.0, 1.0, 1.0, 1.0, 1.0, 1.0, 1.0, 1.0, 1.0,
+        ],
+        "coverage_p90": [
+            0.0064, 0.0143, 0.026, 0.0473, 0.0889, 0.1494, 0.2344, 0.3764,
+            0.4227, 0.449, 0.4711, 0.4805, 0.4883, 0.4895, 0.4928, 0.4967,
+            0.4986, 0.4986, 0.4986, 0.4986, 0.4986, 0.4986, 0.5, 0.5, 0.5,
+            0.5, 0.5, 0.5, 0.5, 0.5, 0.5, 0.5, 0.5, 0.5, 0.5, 0.5, 0.5, 0.5,
+            0.5, 0.5, 0.5, 0.5, 0.5, 0.5, 0.5, 0.5, 0.5, 0.5, 0.5, 0.5, 0.5,
+            0.5, 0.5, 0.5, 0.5, 0.5, 0.5, 0.5, 0.5, 0.5, 0.5, 0.5, 0.5, 0.5,
+            0.5, 0.5, 0.5, 0.5, 0.5, 0.5, 0.5, 0.76, 0.76, 0.76, 0.76, 0.76,
+            0.76, 0.76, 0.76, 0.9531, 0.9531, 0.9531, 0.9531, 0.9531, 0.9531,
+            0.9531, 0.9531, 0.998, 0.998, 0.998, 0.998, 0.998, 0.998, 0.998,
+            0.998, 1.0, 1.0, 1.0, 1.0, 1.0, 1.0, 1.0, 1.0, 1.0, 1.0, 1.0, 1.0,
+            1.0, 1.0, 1.0, 1.0, 1.0,
+        ],
+        "converged_frac": 1.0,
+        "t_at_coverage": {
+            "0.5": 0.64, "0.75": 1.6, "0.9": 1.6, "0.99": 1.76, "1.0": 2.08,
+        },
+    },
+    "resolve_wave(headline waves)": {
+        "waves": 20, "pks": 9238, "alive": 8254,
+        "sha256": (
+            "cf1f3b93b85e02ed9bf9929c5bb1cfb4b4dd8312b0b8c67d73f051cf1ca8aaed"
+        ),
+        "numpy_equal": True,
+    },
+    "resolve_wave(131,072 changes)": {
+        "waves": 1, "pks": 41447, "alive": 30172,
+        "sha256": (
+            "e9494006e9623e34bf716cd16adbf89e5b60da01e13dbee945576aef70f2ba0f"
+        ),
+        "numpy_equal": True,
+    },
+}
+# CHURNDIFF_N64 / N256.json's "model" blocks equal the reference's
+# results today, so the records are the gates
+HARNESS_RECORDS = {"model_churn_trace(64, cycles=3)": "CHURNDIFF_N64.json",
+                   "model_churn_trace(256, cycles=3)": "CHURNDIFF_N256.json"}
+
+
+def subs_waves(seed: int, n_changes: int, pk_space: int,
+               wave_size: int) -> list:
+    """bench.py ``_subs_make_burst``'s waves from ``random.Random(seed)``
+    as the port's ``Change`` rows: mostly upserts with a delete tail,
+    several changes a pk, so waves carry duplicate and superseded
+    work."""
+    import random
+
+    from corrosion_tpu_torch.agent.pack import pack_values
+    from corrosion_tpu_torch.types.base import CrsqlDbVersion, CrsqlSeq
+    from corrosion_tpu_torch.types.change import SENTINEL_CID, Change
+
+    rng = random.Random(seed)
+    actor = b"\xbb" * 16
+    hi, waves = {}, []
+    for v, base in enumerate(range(0, n_changes, wave_size), 1):
+        changes = []
+        for seq in range(min(wave_size, n_changes - base)):
+            pk = rng.randrange(pk_space)
+            if rng.random() < 0.1:
+                cid, val, cv, cl = SENTINEL_CID, None, hi.get(pk, 1), 2
+            else:
+                cv = hi.get(pk, 0) + 1
+                hi[pk] = cv
+                cid, val, cl = "text", f"v{v}s{seq}", 1
+            changes.append(Change(
+                table="tests", pk=pack_values([pk]), cid=cid, val=val,
+                col_version=cv, db_version=CrsqlDbVersion(v),
+                seq=CrsqlSeq(seq), site_id=actor, cl=cl))
+        waves.append(changes)
+    return waves
+
+
+def wave_summary(resolved: list, plain: list) -> dict:
+    """Counts and a sha256 over resolved waves' (pks, alive), and
+    whether they equal ``plain`` (the NumPy twin's) exactly."""
+    import hashlib
+
+    h = hashlib.sha256()
+    for pks, alive in resolved:
+        h.update(len(pks).to_bytes(4, "little"))
+        for pk, a in zip(pks, alive):
+            h.update(len(pk).to_bytes(2, "little") + pk + bytes([a]))
+    return {"waves": len(resolved),
+            "pks": sum(len(p) for p, _ in resolved),
+            "alive": sum(sum(a) for _, a in resolved),
+            "sha256": h.hexdigest(), "numpy_equal": resolved == plain}
+
+
+def harness_diff(got, want, path: str = "") -> list:
+    """Where ``got`` departs from the reference's ``want``: keys in the
+    reference's order, tick and integer fields equal, floats to rel_tol
+    1e-6, entries of the coverage lists within 1e-4."""
+    if isinstance(want, dict):
+        if not isinstance(got, dict) or list(got) != list(want):
+            keys = list(got) if isinstance(got, dict) else got
+            return [f"{path}: keys {keys}, the reference's {list(want)}"]
+        return [d for k in want
+                for d in harness_diff(got[k], want[k], f"{path}.{k}")]
+    if isinstance(want, list):
+        if not isinstance(got, list) or len(got) != len(want):
+            return [f"{path}: {got}, the reference gives {want}"]
+        return [d for i, (g, w) in enumerate(zip(got, want))
+                for d in harness_diff(g, w, f"{path}[{i}]")]
+    leaf = path.rsplit(".", 1)[-1].split("[")[0]
+    if (isinstance(want, float) and isinstance(got, float)
+            and "tick" not in leaf):
+        ok = (abs(got - want) <= 1e-4 if leaf in COVERAGE_KEYS
+              else math.isclose(got, want, rel_tol=1e-6))
+    else:
+        ok = got == want and (got is None) == (want is None)
+    return [] if ok else [f"{path}: {got}, the reference gives {want}"]
+
+
+def harness_want(label: str) -> dict:
+    if label in HARNESS_RECORDS:
+        with open(os.path.join(HERE, HARNESS_RECORDS[label])) as f:
+            return json.load(f)["model"]
+    return HARNESS_WANT[label]
+
+
+def harness_jobs() -> list:
+    """Phase 21's calls through the twins' entry points on the card:
+    (label, call, kernels its path launches)."""
+    from corrosion_tpu_torch.agent import submatch
+    from corrosion_tpu_torch.sim import chaos, churndiff, obs, scenarios
+    from corrosion_tpu_torch.sim import timeline
+
+    jobs = [
+        ("sim_obs_trace(32)", lambda: obs.sim_obs_trace(32, device="cuda"),
+         TRACK_SENT_SYNC),
+        ("sim_chaos_trace(32)",
+         lambda: chaos.sim_chaos_trace(32, device="cuda"), TRACK_SENT_SYNC),
+        ("sim_chaos_trace(512, oneway_blocks=((0, 1),))",
+         lambda: chaos.sim_chaos_trace(512, oneway_blocks=((0, 1),),
+                                       device="cuda"), PERM_PATH),
+    ]
+    for n in (32, 512):
+        for fam in scenarios.FAMILIES:
+            perm = fam in ("asym_partition", "compound") and n > 128
+            jobs.append((
+                f"sim_prediction({fam!r}, {n}, 0.64)",
+                lambda fam=fam, n=n: scenarios.sim_prediction(
+                    fam, n, 0.64, device="cuda"),
+                PERM_PATH if perm else TRACK_SENT_SYNC))
+    for n in (32, 512):
+        jobs.append((f"kernel_coverage_prediction({n}, 64)",
+                     lambda n=n: timeline.kernel_coverage_prediction(
+                         n, 64, device="cuda"), PERM_PATH))
+    for n in (64, 256):
+        jobs.append((f"model_churn_trace({n}, cycles=3)",
+                     lambda n=n: churndiff.model_churn_trace(
+                         n, cycles=3, device="cuda"), SWIM_KERNELS))
+    # the NumPy twin's answers, made before the counted runs
+    for label, spec, backend in (("resolve_wave(headline waves)",
+                                  SUBS_HEADLINE, "torch"),
+                                 ("resolve_wave(131,072 changes)",
+                                  SUBS_WIDE, "auto")):
+        waves = subs_waves(**spec)
+        plain = [submatch.resolve_wave(w, backend="numpy") for w in waves]
+        jobs.append((label, lambda waves=waves, plain=plain,
+                     backend=backend: wave_summary(
+                         [submatch.resolve_wave(w, backend=backend,
+                                                device="cuda")
+                          for w in waves], plain), WINNERS_COUNTED))
+    return jobs
+
+
+def harness_phase(counted) -> dict:
+    """Phase 21: the prediction halves of the six sim-vs-agent harnesses
+    and the subscription matcher's wave resolver, each call through its
+    entry point on the card with the launch counters zeroed just before
+    it, held to the reference's result for the same call on the CPU
+    (``harness_want``, ``wall_s`` left out) and required to launch every
+    kernel its path runs."""
+    runs = {}
+    t0 = time.perf_counter()
+    for label, run, kernels_ in harness_jobs():
+        torch.cuda.synchronize()
+        for fn in counted.values():
+            fn.launches = 0
+        t1 = time.perf_counter()
+        res = run()
+        torch.cuda.synchronize()
+        run_s = time.perf_counter() - t1
+        launches = {name: counted[name].launches for name in kernels_}
+        res.pop("wall_s", None)
+        runs[label] = dict(run_s=run_s, launches=launches, result=res)
+        print(f"{label}: " + json.dumps(runs[label]), flush=True)
+        diff = harness_diff(res, harness_want(label), label)
+        if diff:
+            fail("; ".join(diff[:8]))
+        idle = [name for name, c in launches.items() if c == 0]
+        if idle:
+            fail(f"{label}: kernels never launched: {idle}")
+    print(f"phase 21: {len(runs)} harness calls held to the reference in "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+    return runs
+
+
 def main() -> int:
     import argparse
 
@@ -6177,6 +6676,13 @@ def main() -> int:
     mesh_results = mesh_phases(record, counted, runs, cuda, parent)
     results += (exact_results + ae_results + swim_results + sent_results
                 + winners_results + store_results + mesh_results)
+
+    # phase 21: the harness twins' predictions through their entry points
+    harness = harness_phase(counted)
+    record["harness"] = harness
+    for r in results:
+        r["launches"] += sum(h["launches"].get(r["name"], 0)
+                             for h in harness.values())
     record["kernels"] = results
     with open(kernels.BUILD_DIR / "chip_smoke.json", "w") as f:
         json.dump(record, f, indent=1, default=str)
@@ -6209,6 +6715,9 @@ def main() -> int:
         "ticks_p99", "msgs_per_node_mean", "msgs_per_node_p99", "wall_s",
         "peak_mem_gb", "fabric")} for k, v in record["mesh_runs"].items()},
         "fabrics": record["fabric_runs"]}), flush=True)
+    print(json.dumps({"harness": {
+        label: {"run_s": h["run_s"], "launches": h["launches"]}
+        for label, h in harness.items()}}), flush=True)
     line = {"kernels": [
         {key: r[key] for key in (
             "name", "route", "source", "replaces", "launches",

@@ -165,17 +165,20 @@ HEADLINE = EpidemicConfig(
 HEADLINE_SEEDS = 32
 
 
-def sent_trace_cfg(n: int, sync_interval: int = 0,
-                   chunk_ticks: int = 8) -> EpidemicConfig:
-    """The ``track_sent`` config the sim-vs-agents comparisons run:
-    corrosion_tpu/sim/simdiff.py ``sim_trace`` (:68-84; its ``sync``
-    is ``sync_interval=8``), and with ``sync_interval=8,
-    chunk_ticks=16`` sim/obs.py ``sim_obs_trace`` (:53-67).  Uniform
-    sampling without a ring0 tier, fanout 3, 5 transmissions, no loss,
-    the agents' backoff ratio of 2.5 ticks; run with 8 seeds."""
+def sent_trace_cfg(n: int, sync_interval: int = 0, chunk_ticks: int = 8,
+                   fanout: int = 3, max_transmissions: int = 5,
+                   backoff_ticks: float = 2.5) -> EpidemicConfig:
+    """The ``track_sent`` config the sim-vs-agents comparisons run, the
+    one source of ``sim/simdiff.py`` ``sim_trace``'s (its ``sync`` is
+    ``sync_interval=8``) and, with ``sync_interval=8,
+    chunk_ticks=16``, ``sim/obs.py`` ``sim_obs_trace``'s.  Uniform
+    sampling without a ring0 tier, no loss; by default fanout 3, 5
+    transmissions and the agents' backoff ratio of 2.5 ticks; run with
+    8 seeds."""
     return EpidemicConfig(
-        n_nodes=n, n_rows=4, fanout_ring0=0, fanout_global=3, ring0_size=1,
-        max_transmissions=5, loss=0.0, backoff_ticks=2.5, track_sent=True,
+        n_nodes=n, n_rows=4, fanout_ring0=0, fanout_global=fanout,
+        ring0_size=1, max_transmissions=max_transmissions, loss=0.0,
+        backoff_ticks=backoff_ticks, track_sent=True,
         sync_interval=sync_interval, sync_peers=1, max_ticks=256,
         chunk_ticks=chunk_ticks,
     )
