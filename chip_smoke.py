@@ -258,7 +258,27 @@ package.  Phases, each ending the run with a non-zero exit on failure:
     also to the NumPy twin, exactly), tick and integer fields equal,
     floats to rel_tol 1e-6, coverage lists within 1e-4, and require
     every kernel of each call's path to have launched (the
-    ``{"harness": ...}`` line: each call's wall and launches).
+    ``{"harness": ...}`` line: each call's wall and launches);
+22. the twin of the reference's multi-chip dry run, through
+    ``corrosion_tpu_torch.entry``: (a) ``dryrun_multichip(8)`` as 8
+    shards of a ``LocalFabric`` on the card, a ``("seeds", "nodes")``
+    mesh of 2 x 4, with every assert of the reference's inline path
+    (its two lines, then the ``{"dryrun_multichip": ...}`` line with its
+    launches and fabric bytes); (b) the headline's config per seed
+    (100k nodes, R = 8) for 4 seeds under ``split(PRNGKey(7), 4)`` over
+    that mesh for 16 ticks (the partition, its heal at 12, two sync
+    ticks), every leaf of every seed bitwise the single-device
+    ``epidemic_tick`` after every tick; (c) SWIM at N = 4096 (the churn
+    run's parameters, loss 0.05) over 4 node shards for 32 ticks of the
+    churn schedule (suspicion, DOWN, refutations and the rejoin
+    required), every leaf and the churn flags bitwise the single-device
+    ``swim_step`` after every tick (the ``{"multichip_epidemic": ...}``
+    and ``{"multichip_swim": ...}`` lines: each tick's wall beside the
+    single-device tick's, the fabric's bytes and calls by kind, the
+    launches of the sharded ticks alone); (d) each window kernel
+    (``deliver_perm``'s and ``sync_pull``'s at (b)'s shape, the SWIM
+    tick's phases at (c)'s) against its plain version, timed, with its
+    bound (the ``{"window_kernels": ...}`` line).
 
 ``python3 chip_smoke.py --parent DIR`` (DIR an unpacked ``git
 archive`` of the parent commit) also builds the parent's ``swim.cu``,
@@ -6420,6 +6440,508 @@ def harness_phase(counted) -> dict:
     return runs
 
 
+# -- the twin of dryrun_multichip: the two-axis mesh (phase 22) ------------
+
+MULTICHIP_SHAPE = (2, 4)  # (seeds_ax, nodes_ax)
+MULTICHIP_SEEDS = 4
+MULTICHIP_TICKS = 16  # the partition, its heal at 12, syncs at 7 and 15
+MULTICHIP_CHECK = (7, 5)  # (tick, shard) of (d)'s delivery and sync
+SWIM_MESH_SHARDS = 4
+SWIM_MESH_TICKS = 32
+SWIM_MESH_CHECK = (22, 2)  # the revive tick, shard 2
+SWIM_MESH_LOSS = 0.05  # false suspicions, so live nodes refute
+SYNC_SOURCE = "corrosion_tpu_torch/kernels/csrc/sync_pull.cu"
+SWIM_SOURCE = "corrosion_tpu_torch/kernels/csrc/swim.cu"
+EPIDEMIC_MESH_COUNTED = ("threefry_bits", "seg_argsort", "deliver_perm",
+                         "sync_pull")
+SWIM_MESH_COUNTED = SWIM_KERNELS
+
+
+def multichip_cfg():
+    """(b)'s config per seed: the headline's."""
+    from corrosion_tpu_torch.sim.epidemic import HEADLINE
+
+    return HEADLINE
+
+
+def swim_mesh_churn():
+    from corrosion_tpu_torch.sim.churn import ChurnConfig
+
+    cfg = ChurnConfig(n_nodes=4096, kill_tick=2, revive_tick=22)
+    return cfg, replace(cfg.params, loss=SWIM_MESH_LOSS)
+
+
+def delta(after: dict, before: dict) -> dict:
+    return {k: v - before.get(k, 0) for k, v in after.items()
+            if v != before.get(k, 0)}
+
+
+def multichip_epidemic(counted, dev) -> tuple:
+    """Phase 22b: the headline's config per seed (100k nodes, R = 8,
+    loss 0.05, two partition blocks healing at tick 12, sync every 8),
+    4 seeds under ``split(PRNGKey(7), 4)`` over a (2, 4) mesh of 8
+    ``LocalFabric`` shards on the card, ``MULTICHIP_TICKS`` ticks (tick
+    key ``fold_in(seed key, tick)``), each seed's every leaf bitwise its
+    single-device ``epidemic_tick`` after every tick.  Returns the run
+    (walls, fabric bytes and calls a tick, launches of the sharded
+    ticks alone) and (d)'s inputs: seed 0's state before
+    ``MULTICHIP_CHECK``'s tick and its key."""
+    from corrosion_tpu_torch import entry
+    from corrosion_tpu_torch.mesh import MESH_AXES, LocalFabric, Mesh
+    from corrosion_tpu_torch.models.sharded import sharded_epidemic_tick
+    from corrosion_tpu_torch.random import PRNGKey, fold_in, split
+    from corrosion_tpu_torch.sim.epidemic import (
+        _sync_due,
+        epidemic_init,
+        epidemic_tick,
+    )
+
+    cfg = multichip_cfg()
+    fabric = LocalFabric(MULTICHIP_SHAPE[0] * MULTICHIP_SHAPE[1], dev)
+    mesh = Mesh(MESH_AXES, fabric, MULTICHIP_SHAPE)
+    base = list(split(PRNGKey(7), MULTICHIP_SEEDS))
+    single = [epidemic_init(cfg, device=dev) for _ in base]
+    batched = entry.batch_state(single[0], MULTICHIP_SEEDS)
+    specs = entry.epidemic_shardings(mesh, batched)
+    state = entry.shard_state(batched, mesh, specs)
+    step = sharded_epidemic_tick(mesh, cfg)
+    launches = dict.fromkeys(EPIDEMIC_MESH_COUNTED, 0)
+    ticks, check = [], None
+    for t in range(MULTICHIP_TICKS):
+        keys = [fold_in(k, t) for k in base]
+        if t == MULTICHIP_CHECK[0]:
+            check = (single[0], keys[0])
+        torch.cuda.synchronize()
+        b0, c0 = dict(fabric.bytes), dict(fabric.calls)
+        l0 = {k: counted[k].launches for k in launches}
+        t0 = time.perf_counter()
+        state = step(state, keys)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        for k in launches:
+            launches[k] += counted[k].launches - l0[k]
+        t0 = time.perf_counter()
+        single = [epidemic_tick(st, k, cfg) for st, k in zip(single, keys)]
+        torch.cuda.synchronize()
+        single_wall = time.perf_counter() - t0
+        got = entry.unshard_state(state, specs)
+        for s, st in enumerate(single):
+            if not entry.leaves_equal(entry.seed_state(got, s), st):
+                fail(f"sharded epidemic seed {s} differs from the "
+                     f"single-device tick at tick {t}")
+        ticks.append(dict(tick=t, sync=_sync_due(cfg, t),
+                          partition=t < cfg.heal_tick, wall_s=wall,
+                          single_wall_s=single_wall,
+                          bytes=delta(fabric.bytes, b0),
+                          calls=delta(fabric.calls, c0)))
+    covered = float(sum((st.rows == st.rows[0]).all(dim=1).float().mean()
+                        for st in single) / len(single))
+    run = dict(n_nodes=cfg.n_nodes, seeds=MULTICHIP_SEEDS,
+               mesh=dict(zip(MESH_AXES, MULTICHIP_SHAPE)),
+               ticks=ticks, launches=launches, coverage=covered,
+               bytes=dict(fabric.bytes), calls=dict(fabric.calls))
+    idle = [k for k, v in launches.items() if v == 0]
+    if idle:
+        fail(f"sharded epidemic never launched {idle}")
+    return run, check
+
+
+def multichip_swim(counted, dev) -> tuple:
+    """Phase 22c: the churn run's width (N = 4096, ``SwimParams.scaled``)
+    with ``SWIM_MESH_LOSS`` over 4 node shards on the card, 32 ticks of
+    ``sim/churn.py``'s schedule (victim 1 killed at tick 2, revived at
+    22), every leaf and the churn flags bitwise the single-device
+    ``swim_step`` after every tick; suspicion, DOWN, a refutation and
+    the rejoin must each happen.  Returns the run and (d)'s inputs:
+    the state before ``SWIM_MESH_CHECK``'s tick and its tick inputs."""
+    from corrosion_tpu_torch import entry
+    from corrosion_tpu_torch.mesh import LocalFabric, Mesh
+    from corrosion_tpu_torch.models.sharded import sharded_swim_step
+    from corrosion_tpu_torch.models.swim import (
+        ALIVE,
+        DOWN,
+        SUSPECT,
+        swim_init,
+        swim_step,
+    )
+    from corrosion_tpu_torch.random import PRNGKey, fold_in
+    from corrosion_tpu_torch.sim.churn import _schedule
+
+    cfg, params = swim_mesh_churn()
+    n = cfg.n_nodes
+    fabric = LocalFabric(SWIM_MESH_SHARDS, dev)
+    mesh = Mesh("nodes", fabric)
+    single = swim_init(n, device=dev)
+    specs = entry.swim_shardings(mesh, single)
+    state = entry.shard_state(single, mesh, specs)
+    step = sharded_swim_step(mesh, params)
+    flags = torch.zeros(2, dtype=torch.int32, device=dev)
+    want_flags = torch.zeros(2, dtype=torch.int32, device=dev)
+    launches = dict.fromkeys(SWIM_MESH_COUNTED, 0)
+    ticks, check = [], None
+    seen = dict(suspect=0, down=0, refuted=0, rejoined=0)
+    for t in range(SWIM_MESH_TICKS):
+        victim, dead, rev = _schedule(cfg, t)
+        alive = torch.ones(n, dtype=torch.bool, device=dev)
+        alive[victim] = not dead
+        revived = torch.zeros(n, dtype=torch.bool, device=dev)
+        revived[victim] = rev
+        key = fold_in(PRNGKey(0), t)
+        if t == SWIM_MESH_CHECK[0]:
+            check = (single, key, t, params, alive, revived, victim)
+        inc_before = single.incarnation.clone()
+        torch.cuda.synchronize()
+        b0, c0 = dict(fabric.bytes), dict(fabric.calls)
+        l0 = {k: counted[k].launches for k in launches}
+        t0 = time.perf_counter()
+        state = step(state, key, t, alive, revived, victim=victim,
+                     flags=flags)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        for k in launches:
+            launches[k] += counted[k].launches - l0[k]
+        t0 = time.perf_counter()
+        single = swim_step(single, key, t, params, alive, revived=revived,
+                           victim=victim, flags=want_flags)
+        torch.cuda.synchronize()
+        single_wall = time.perf_counter() - t0
+        if not entry.leaves_equal(entry.unshard_state(state, specs),
+                                  single):
+            fail(f"sharded swim differs from the single-device step at "
+                 f"tick {t}")
+        if not torch.equal(flags, want_flags):
+            fail(f"sharded swim's churn flags differ at tick {t}")
+        col = single.view[:, victim] % 4
+        bumped = single.incarnation > inc_before
+        seen["suspect"] += int((single.view % 4 == SUSPECT).any())
+        seen["down"] += int((col == DOWN).any())
+        seen["refuted"] += int((bumped & ~revived).any())
+        seen["rejoined"] += int(bool(bumped[victim]) and rev)
+        ticks.append(dict(tick=t, wall_s=wall, single_wall_s=single_wall,
+                          victim_down=int((col == DOWN).sum()),
+                          victim_alive=int((col == ALIVE).sum()),
+                          bytes=delta(fabric.bytes, b0),
+                          calls=delta(fabric.calls, c0)))
+    missing = [k for k, v in seen.items() if v == 0]
+    if missing:
+        fail(f"sharded swim run never saw {missing}: {seen}")
+    idle = [k for k, v in launches.items() if v == 0]
+    if idle:
+        fail(f"sharded swim never launched {idle}")
+    run = dict(n_nodes=n, shards=SWIM_MESH_SHARDS, loss=params.loss,
+               ticks=ticks, launches=launches, seen=seen,
+               flags=flags.tolist(), bytes=dict(fabric.bytes),
+               calls=dict(fabric.calls))
+    return run, check
+
+
+def window_result(name, source, replaces, err, ms, plain_ms, bound,
+                  shape) -> dict:
+    r = dict(name=name, route="cuda", source=source, replaces=replaces,
+             max_abs_err=err, ms=ms, plain_ms=plain_ms, bound=bound,
+             library_ms=None, shape=shape)
+    set_bound(r)
+    if err != 0.0:
+        fail(f"{name} differs from its plain version: {err}")
+    return r
+
+
+def epidemic_window_checks(check, dev) -> list:
+    """Phase 22d, the epidemic's two windows at (b)'s shape: shard
+    ``MULTICHIP_CHECK[1]``'s receivers of seed 0 before tick
+    ``MULTICHIP_CHECK[0]`` (partition in force, a sync tick):
+    ``deliver_perm``'s window (the senders' hops gathered, hops,
+    next_send, loss and partition) and ``sync_pull``'s (the [N] charges
+    of the serving peers) against their plain versions, timed."""
+    from corrosion_tpu_torch.kernels import deliver, sync_pull
+    from corrosion_tpu_torch.models.sharded import _loss_u, _senders
+    from corrosion_tpu_torch.random import randint, split
+    from corrosion_tpu_torch.sim.epidemic import _partition_ids
+
+    st, key = check
+    cfg = multichip_cfg()
+    params = cfg.broadcast_params
+    n, r = st.rows.shape
+    k = params.fanout
+    nl = n // MULTICHIP_SHAPE[1]
+    lo = (MULTICHIP_CHECK[1] % MULTICHIP_SHAPE[1]) * nl
+    w = slice(lo, lo + nl)
+    k_b, k_s = split(key)
+    key_t, key_l = split(k_b)
+    part = _partition_ids(cfg, dev)
+    active = st.tick < cfg.heal_tick
+    shops = deliver.sender_hops(st.tx_remaining, st.next_send, st.tick,
+                                st.hops)
+    senders = _senders(key_t, params, dev)
+    loss_u = _loss_u(key_l, params, dev)
+    args = dict(hops=st.hops[w], next_send=st.next_send[w], tick=st.tick,
+                loss_u=loss_u, partition_id=part, partition_active=active,
+                loss=params.loss, max_tx=params.max_transmissions,
+                backoff=params.backoff_ticks, src_rows=st.rows, shops=shops,
+                lo=lo)
+    mine = (st.rows[w], st.tx_remaining[w], st.msgs[w], senders)
+    err = max_abs_err(deliver.deliver_perm(*mine, **args),
+                      deliver.deliver_perm_plain(*mine, **args))
+    # the same window through a slot map of the active senders (hop
+    # candidate 0): the source mode's hops, next_send and partition
+    slots = {**args, "shops": None, "slot_of": torch.where(
+        shops < deliver.HOP_UNSET, torch.arange(n, dtype=torch.int32,
+                                                device=dev), -1).to(
+        torch.int32)}
+    err = max(err, max_abs_err(deliver.deliver_perm(*mine, **slots),
+                               deliver.deliver_perm_plain(*mine, **slots)))
+    s = senders[:, w].to(torch.int64)  # [K, nl]
+    taken = ((shops[s] < deliver.HOP_UNSET) & ~(loss_u[w].T < params.loss)
+             & ~((part[s] != part[w][None, :]) & active))
+    # my rows, tx, msgs, hops and next_send read and written; K ids and
+    # draws read; a sector of shops and of the partition for each column;
+    # a sector a row taken
+    dbytes = (nl * (2 * r * 4 + 8 * 4 + 4) + nl * k * (8 + 2 * SECTOR)
+              + int(taken.sum()) * max(r * 4, SECTOR))
+    out = [window_result(
+        "deliver_perm (window)", DELIVER_SOURCE,
+        "corrosion_tpu/models/broadcast.py:327", err,
+        time_device_ms(lambda: deliver.deliver_perm(*mine, **args), 20),
+        time_ms(lambda: deliver.deliver_perm_plain(*mine, **args), 3),
+        (dbytes, 0), f"shard {MULTICHIP_CHECK[1]}'s {nl} receivers of {n} "
+                     f"(seed 0, tick {st.tick}), R={r}, K={k}")]
+    offs = randint(k_s, (n, cfg.sync_peers), 1, max(n, 2), device=dev)
+    sargs = dict(src_rows=st.rows, lo=lo, partition_id=part,
+                 partition_active=active,
+                 cells_per_chunk=cfg.cells_per_chunk,
+                 handshake_msgs=cfg.sync_params.handshake_msgs)
+    smine = (st.rows[w], st.msgs[w], offs, n)
+    err = max_abs_err(sync_pull.sync_pull(*smine, **sargs),
+                      sync_pull.sync_pull_window_plain(*smine, **sargs))
+    peers = (torch.arange(lo, lo + nl, device=dev)[:, None]
+             + offs[w].to(torch.int64)) % n
+    up = ~((part[peers] != part[w][:, None]) & active)
+    # my rows read and written, msgs read and written, my offsets, a
+    # sector of the partition a draw, for each session a peer row and a
+    # charge's sector, the [N] delta zeroed and read back
+    sbytes = (nl * (2 * r * 4 + 8) + offs[w].numel() * (4 + SECTOR)
+              + int(up.sum()) * (max(r * 4, SECTOR) + SECTOR) + 8 * n)
+    out.append(window_result(
+        "sync_pull (window)", SYNC_SOURCE, "corrosion_tpu/models/sync.py:90",
+        err, time_device_ms(lambda: sync_pull.sync_pull(*smine, **sargs), 20),
+        time_ms(lambda: sync_pull.sync_pull_window_plain(*smine, **sargs), 3),
+        (sbytes, 0), f"shard {MULTICHIP_CHECK[1]}'s {nl} clients of {n}, "
+                     f"P={cfg.sync_peers}, R={r}"))
+    return out
+
+
+def swim_window_checks(check, dev) -> list:
+    """Phase 22d, the SWIM tick's windows at (c)'s shape: shard
+    ``SWIM_MESH_CHECK[1]`` of 4 before the revive tick, each phase of
+    ``swim_window_launch`` (the selection; the gossip, ping and ack
+    passes with their read-backs and the records at the targets; the
+    settle) against its plain version on the inputs the whole tick's
+    plain phases give it (the exchanges' results), every output
+    bitwise, each timed with its inputs restored."""
+    from corrosion_tpu_torch.kernels import swim as ksw
+
+    st, key, tick, params, alive, revived, victim = check
+    n = st.view.shape[0]
+    nl = n // SWIM_MESH_SHARDS
+    lo = SWIM_MESH_CHECK[1] * nl
+    w = slice(lo, lo + nl)
+    keys = ksw.tick_keys(key)
+    gossip = params.gossip_targets > 0
+    rows = torch.arange(n, device=dev)
+    incd = torch.stack([st.incarnation, st.view[rows, rows]]).contiguous()
+    # every row's plain phases: the exchanges' results
+    sel = ksw.swim_select_window_plain(st.view, st.suspect_since,
+                                       st.update_tx, incd, keys, tick,
+                                       params, alive, revived, 0)
+    ge, sendable, pay = sel["ge"], sel["sendable"], sel["pay"]
+    target = sel["target"]
+    probe = sel["probe"]
+    v1, sent1 = ksw.swim_gossip_window_plain(sel["view"], ge, sendable, pay,
+                                             keys, params, alive, 0, gossip)
+    v2, sent2 = ksw.swim_ping_window_plain(v1, ge, sendable, target, probe,
+                                           sent1, 0)
+    v3, peer_rec = ksw.swim_ack_window_plain(v2, ge, sendable, target, probe,
+                                             sent2, 0)
+    m = ge.shape[1]
+    call = ksw.WindowCall(st.view[w], st.suspect_since[w], st.update_tx[w],
+                          keys, tick, params, alive, revived, lo, victim)
+    out = []
+
+    # the selection
+    def select():
+        return ksw._select_window(call, st.view[w], st.suspect_since[w],
+                                  st.update_tx[w], incd)
+
+    got = select()
+    want = ksw.swim_select_window_plain(
+        st.view[w], st.suspect_since[w], st.update_tx[w], incd, keys, tick,
+        params, alive, revived, lo)
+    names = ("view", "target", "inc1", "probe", "ge", "sendable", "pay",
+             "counts")
+    err = max_abs_err([got[k] for k in names], [want[k] for k in names])
+    mat = 4 * nl * n
+    hashed = int((st.update_tx[w] < params.update_tx_limit).sum())
+    suspect = int((st.view[w] % 4 == ksw.SUSPECT).sum())
+    out.append(window_result(
+        "swim_probe_select (window)", SWIM_SOURCE,
+        "corrosion_tpu/models/swim.py:108", err,
+        time_device_ms(select, 10),
+        time_ms(lambda: ksw.swim_select_window_plain(
+            st.view[w], st.suspect_since[w], st.update_tx[w], incd, keys,
+            tick, params, alive, revived, lo), 3),
+        (3 * mat + suspect * SECTOR + nl * m * 9 + 8 * n,
+         hashed * INT_OPS_PER_UNIFORM),
+        f"shard {SWIM_MESH_CHECK[1]}'s {nl} rows of N = {n}, tick {tick}"))
+
+    # the three passes: each kernel on a copy of the view the pass before
+    # left, against its plain version
+    ins = {ksw.W_GOSSIP if gossip else ksw.W_COLLECT: sel["view"][w],
+           ksw.W_PING: v1[w], ksw.W_ACK: v2[w]}
+    ptrs = {ksw.W_GOSSIP: dict(ge=ge, sendable=sendable, pay=pay),
+            ksw.W_COLLECT: dict(ge=ge, sendable=sendable, pay=pay),
+            ksw.W_PING: dict(ge=ge, sendable=sendable, target=target,
+                             probe=probe, sent=sent1),
+            ksw.W_ACK: dict(ge=ge, sendable=sendable, target=target,
+                            probe=probe, sent=sent2)}
+    plain = {ksw.W_GOSSIP: lambda v: ksw.swim_gossip_window_plain(
+                 v, ge, sendable, pay, keys, params, alive, lo, gossip),
+             ksw.W_PING: lambda v: ksw.swim_ping_window_plain(
+                 v, ge, sendable, target, probe, sent1, lo),
+             ksw.W_ACK: lambda v: ksw.swim_ack_window_plain(
+                 v, ge, sendable, target, probe, sent2, lo)}
+    plain[ksw.W_COLLECT] = plain[ksw.W_GOSSIP]
+    work = {ph: v.clone() for ph, v in ins.items()}
+    outs = {}
+
+    def run_pass(ph):
+        if ph == ksw.W_ACK:
+            rec = torch.empty(n, dtype=torch.int32, device=dev)
+            call(ph, "swim_disseminate", view=work[ph], peer_rec=rec,
+                 **ptrs[ph])
+            outs[ph] = (work[ph], rec)
+        else:
+            outs[ph] = ksw._pass_window(call, ph, work[ph], **ptrs[ph])
+
+    err, ms, plain_ms = 0.0, 0.0, 0.0
+    for ph, v in ins.items():
+        work[ph].copy_(v)
+        run_pass(ph)
+        err = max(err, max_abs_err(outs[ph], plain[ph](v.clone())))
+        ms += time_inplace_ms(lambda: work[ph].copy_(v),
+                              lambda: run_pass(ph), 10)
+        plain_ms += time_ms(lambda: plain[ph](v.clone()), 3)
+    # the raises landing in my rows, a pass each
+    gt = ksw.rand_peers(keys, "gt", (n, params.gossip_targets), n, dev)
+    mine_gt = (gt >= lo) & (gt < lo + nl)
+    gossip_raises = int((alive[:, None, None]
+                         & ksw.surviving_legs(keys, "gloss",
+                                              (n, gt.shape[1], m),
+                                              params.loss, dev)
+                         & (alive[gt] & mine_gt)[:, :, None]
+                         & sendable.bool()[:, None, :]).sum())
+    t64 = target.to(torch.int64)
+    ping_raises = int((((probe & ksw.PING_OK) != 0)
+                       & (t64 >= lo) & (t64 < lo + nl))[:, None]
+                      .logical_and(sendable.bool()).sum())
+    ack_raises = int((((probe[w] & ksw.ACK_OK) != 0)[:, None]
+                      & sendable.bool()[t64[w]]).sum())
+    raises = gossip_raises + ping_raises + ack_raises
+    # the gathered selection, targets and flags read by the passes; a
+    # sector a raise; my selected cells read back twice; each prober's
+    # record at a target of mine; the targets' draws and the gossip legs'
+    out.append(window_result(
+        "swim_disseminate (window)", SWIM_SOURCE,
+        "corrosion_tpu/models/swim.py:226", err, ms, plain_ms,
+        (3 * n * m * 9 + n * 5 + raises * SECTOR + 2 * nl * m * (SECTOR + 4)
+         + nl * SECTOR + n * 4,
+         n * gt.shape[1] * 2 * INT_OPS_PER_HASH
+         + (n * gt.shape[1] * m * INT_OPS_PER_UNIFORM
+            if params.loss > 0 else 0)),
+        f"shard {SWIM_MESH_CHECK[1]}'s {nl} rows of N = {n}, tick {tick}: "
+        f"{gossip_raises} / {ping_raises} / {ack_raises} raises"))
+
+    # the settle
+    counts = sel["counts"]
+    view3 = v3[w].clone()
+
+    def settle():
+        ss = torch.empty_like(st.suspect_since[w])
+        inc = torch.empty(nl, dtype=torch.int32, device=dev)
+        tx = torch.empty_like(st.update_tx[w])
+        fl = torch.zeros(2, dtype=torch.int32, device=dev)
+        call(ksw.W_SETTLE, "swim_settle", view_in=st.view[w],
+             ss_in=st.suspect_since[w], tx_in=st.update_tx[w], view=view3,
+             ss=ss, inc=inc, tx=tx, target=target, inc1=sel["inc1"][w],
+             pinged=counts[1], ge=ge, sendable=sendable, peer_rec=peer_rec,
+             flags=fl)
+        return view3, ss, inc, tx, fl
+
+    got = settle()
+    want = ksw.swim_settle_window_plain(
+        v3[w], st.view[w], st.suspect_since[w], st.update_tx[w], ge,
+        sendable, target, sel["inc1"][w], counts, peer_rec, keys, tick,
+        params, alive, lo, victim, True)
+    err = max_abs_err(got, want)
+    out.append(window_result(
+        "swim_settle (window)", SWIM_SOURCE,
+        "corrosion_tpu/models/swim.py:277", err,
+        time_inplace_ms(lambda: view3.copy_(v3[w]), settle, 10),
+        time_ms(lambda: ksw.swim_settle_window_plain(
+            v3[w], st.view[w], st.suspect_since[w], st.update_tx[w], ge,
+            sendable, target, sel["inc1"][w], counts, peer_rec, keys, tick,
+            params, alive, lo, victim, True), 3),
+        (6 * mat + nl * m * 5 + nl * 12, 0),
+        f"shard {SWIM_MESH_CHECK[1]}'s {nl} rows of N = {n}, tick {tick}"))
+    return out
+
+
+def multichip_phase(record: dict, counted: dict, dev) -> list:
+    """Phase 22, the twin of ``dryrun_multichip`` through
+    ``corrosion_tpu_torch.entry``: (a) ``dryrun_multichip(8)`` as 8
+    shards of a ``LocalFabric`` on the card with every assert of the
+    reference's inline path; (b) the headline's width over the (2, 4)
+    mesh; (c) SWIM at 4096 over 4 node shards through churn; (d) each
+    window kernel against its plain version.  Returns (d)'s results
+    with the launches of (b) and (c), and adds their ``threefry_bits``
+    and ``seg_argsort`` launches to ``record["multichip_draws"]``."""
+    from corrosion_tpu_torch import entry
+
+    t0 = time.perf_counter()
+    torch.cuda.synchronize()
+    before = {k: f.launches for k, f in counted.items()}
+    dry = entry.dryrun_multichip(8, device="cuda")
+    torch.cuda.synchronize()
+    dry["launches"] = {k: f.launches - before[k]
+                       for k, f in counted.items()
+                       if f.launches != before[k]}
+    dry["s"] = time.perf_counter() - t0
+    record["dryrun_multichip"] = dry
+    print(json.dumps({"dryrun_multichip": {
+        "s": dry["s"], "launches": dry["launches"],
+        "fabric": dry["fabric"]}}), flush=True)
+
+    epidemic, e_check = multichip_epidemic(counted, dev)
+    record["multichip_epidemic"] = epidemic
+    print(json.dumps({"multichip_epidemic": epidemic}), flush=True)
+    swim, s_check = multichip_swim(counted, dev)
+    record["multichip_swim"] = swim
+    print(json.dumps({"multichip_swim": swim}), flush=True)
+
+    results = epidemic_window_checks(e_check, dev)
+    results += swim_window_checks(s_check, dev)
+    runs = {**epidemic["launches"], **swim["launches"]}
+    for r in results:  # "<counter> (window)"
+        r["launches"] = runs[r["name"].removesuffix(" (window)")]
+    record["multichip_draws"] = {k: epidemic["launches"][k]
+                                 for k in ("threefry_bits", "seg_argsort")}
+    print(json.dumps({"window_kernels": {r["name"]: {f: r[f] for f in (
+        "ms", "plain_ms", "bound_ms", "bound_by", "launches", "shape")}
+        for r in results}}), flush=True)
+    print(f"phase 22: the two-axis mesh held to the single-device steps in "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+    return results
+
+
 def main() -> int:
     import argparse
 
@@ -6683,6 +7205,12 @@ def main() -> int:
     for r in results:
         r["launches"] += sum(h["launches"].get(r["name"], 0)
                              for h in harness.values())
+
+    # phase 22: the twin of dryrun_multichip on the two-axis mesh
+    window_results = multichip_phase(record, counted, cuda)
+    for r in results:
+        r["launches"] += record["multichip_draws"].get(r["name"], 0)
+    results += window_results
     record["kernels"] = results
     with open(kernels.BUILD_DIR / "chip_smoke.json", "w") as f:
         json.dump(record, f, indent=1, default=str)

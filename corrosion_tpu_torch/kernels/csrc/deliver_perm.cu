@@ -30,6 +30,20 @@
 // columns' loads are in flight together (the sender ids and loss
 // draws, then the slots, then the rows), not one column after another.
 //
+// deliver_window_launch is the source delivery with the epidemic
+// tick's sender state, for one shard's window of receivers on a
+// ("seeds", "nodes") mesh (corrosion_tpu_torch/models/sharded.py
+// sharded_epidemic_tick, the twin of __graft_entry__.py :183-215):
+// deliver_source_kernel<R, HOPS>.  Each sender's hop candidate comes
+// from shops, gathered beside the rows (hop + 1 where the sender is
+// active, HOP_UNSET where not; the row is src_rows[s]), or, for a slot
+// map's source, 0 where its slot is present.  On top of the loss draw
+// it tests the partition (sender's block against the receiver's, while
+// in force), and its epilogue is deliver_perm_kernel's: the receiver's
+// own activity (tx > 0, next_send <= tick), the backoff schedule and
+// the hop-min.  The topologies' WAN draws and RTT tiers stay with the
+// single-device kernel.
+//
 // ring_receive_launch is the ring fabric's whole receive side from one
 // host call, two kernels chained by programmatic dependent launch over
 // a slot map that is kept between calls and never filled: each entry
@@ -41,7 +55,7 @@
 //      received ids (each source shard's section ascends within that
 //      shard's rows, then -1 pads), which makes the ids unique, and
 //      writes the generation into the map's flag word where it fails;
-//   2. deliver_source_kernel<R, true>: its prelude (own row, tx, msgs,
+//   2. deliver_source_kernel<R, RING>: its prelude (own row, tx, msgs,
 //      the K sender ids and loss draws) before griddepcontrol.wait,
 //      then the K tags; a tag of an earlier generation is an absent
 //      sender, so what earlier calls left in the map is never read as
@@ -76,6 +90,10 @@ using common::store_row;
 constexpr int SOURCE_THREADS = 64;  // a block of the source delivery
 constexpr int SLOT_THREADS = 256;   // a block of the ring's slot map
 constexpr int COLUMNS = 4;          // columns whose loads are in flight
+
+// deliver_source_kernel's modes: a slot map (the all_gather fabric),
+// the ring's tagged slot map, the window with the senders' hops
+enum SourceMode { SLOTS = 0, RING = 1, HOPS = 2 };
 
 struct DeliverArgs {
   const int* rows;
@@ -207,6 +225,18 @@ struct SourceArgs {
   int n, k, lo, n_global, max_tx;
   unsigned gen;         // the ring: this call's generation, >= 1
   float loss;
+  // HOPS only: the senders' hops (or, when null, slot_of's slots with
+  // hop candidate 0), the receivers' hops / next_send (each may be
+  // null), the partition (null: none) and the epilogue's schedule
+  const int* shops;     // [N] hop + 1 of an active sender, or HOP_UNSET
+  const int* hops;
+  const int* next_send;
+  int* hops_out;
+  int* next_out;
+  const int* part;
+  const unsigned char* sev;
+  int sev_b, part_active, tick;
+  float backoff;
 };
 
 // columns j0 .. j0 + COLUMNS - 1 (those below k) of receiver tg: the
@@ -225,23 +255,45 @@ __device__ __forceinline__ void columns(const SourceArgs& a, int tg, int j0,
               __ldg(a.loss_u + (size_t)tg * a.k + j0 + c) < a.loss;
 }
 
-// those columns' slots (on the ring, their tags), loaded together, then
-// the rows of the present ones, max-merged into acc
-template <int R, bool RING>
+// those columns' slots (on the ring, their tags; in the window, the
+// senders' hops and blocks), loaded together, then the rows of the
+// present ones, max-merged into acc (the window: their hop candidates
+// min-merged into cand; rp the receiver's block)
+template <int R, int MODE>
 __device__ __forceinline__ void merge_columns(const SourceArgs& a, int j0,
                                               const int (&s)[COLUMNS],
                                               const bool (&lost)[COLUMNS],
-                                              int (&acc)[R]) {
-  int slot[COLUMNS];
+                                              int (&acc)[R], int& cand,
+                                              int rp) {
+  int slot[COLUMNS], sh[COLUMNS];
 #pragma unroll
   for (int c = 0; c < COLUMNS; ++c) {
+    sh[c] = 0;
     if (j0 + c >= a.k) {
       slot[c] = -1;
-    } else if constexpr (RING) {
+    } else if constexpr (MODE == RING) {
       const unsigned long long tag = __ldcg(a.tags + s[c]);
       slot[c] = (unsigned)(tag >> 32) == a.gen ? (int)(unsigned)tag : -1;
+    } else if constexpr (MODE == HOPS) {
+      if (a.shops != nullptr) {
+        sh[c] = __ldg(a.shops + s[c]);
+        slot[c] = sh[c] < HOP_UNSET ? s[c] : -1;
+      } else {
+        slot[c] = __ldg(a.slot_of + s[c]);
+      }
     } else {
       slot[c] = __ldcg(a.slot_of + s[c]);
+    }
+  }
+  if constexpr (MODE == HOPS) {
+    // flow is sender -> receiver
+    if (a.part != nullptr && a.part_active) {
+#pragma unroll
+      for (int c = 0; c < COLUMNS; ++c)
+        if (slot[c] >= 0 &&
+            common::blocks_cross(__ldg(a.part + s[c]), rp, a.sev, a.sev_b,
+                                 false))
+          slot[c] = -1;
     }
   }
   int g[COLUMNS][R];
@@ -251,12 +303,14 @@ __device__ __forceinline__ void merge_columns(const SourceArgs& a, int j0,
       load_row<R>(a.src_rows + (size_t)slot[c] * R, g[c]);
 #pragma unroll
   for (int c = 0; c < COLUMNS; ++c)
-    if (!lost[c] && slot[c] >= 0)
+    if (!lost[c] && slot[c] >= 0) {
 #pragma unroll
       for (int e = 0; e < R; ++e) acc[e] = max(acc[e], g[c][e]);
+      if constexpr (MODE == HOPS) cand = min(cand, sh[c]);
+    }
 }
 
-template <int R, bool RING>
+template <int R, int MODE>
 __global__ void __launch_bounds__(SOURCE_THREADS)
     deliver_source_kernel(const SourceArgs a) {
   const int t = blockIdx.x * SOURCE_THREADS + threadIdx.x;  // my receiver
@@ -266,13 +320,16 @@ __global__ void __launch_bounds__(SOURCE_THREADS)
   bool lost[COLUMNS];
   load_row<R>(a.rows + (size_t)t * R, own);
   const int tx = a.tx[t], msgs = a.msgs[t];
+  int rp = 0, cand = HOP_UNSET;
+  if constexpr (MODE == HOPS)
+    if (a.part != nullptr) rp = __ldg(a.part + tg);
   columns(a, tg, 0, s, lost);
   // on the ring the slot map's kernel may run until here
   asm volatile("griddepcontrol.wait;" ::: "memory");
 #pragma unroll
   for (int e = 0; e < R; ++e) acc[e] = own[e];
   for (int j0 = 0;;) {
-    merge_columns<R, RING>(a, j0, s, lost, acc);
+    merge_columns<R, MODE>(a, j0, s, lost, acc, cand, rp);
     j0 += COLUMNS;
     if (j0 >= a.k) break;
     columns(a, tg, j0, s, lost);
@@ -281,12 +338,32 @@ __global__ void __launch_bounds__(SOURCE_THREADS)
 #pragma unroll
   for (int e = 0; e < R; ++e) learned |= acc[e] != own[e];
   store_row<R>(a.rows_out + (size_t)t * R, acc);
-  // retransmit decay for an active sender; fresh budget on learning
-  const bool act = tx > 0;
-  a.tx_out[t] = learned ? a.max_tx : (act ? tx - 1 : tx);
-  a.msgs_out[t] = msgs + (act ? a.k : 0);
-  if (RING && t == 0)  // this call's flag
-    *a.bad_out = __ldcg(a.tags + a.n_global) == a.gen;
+  if constexpr (MODE == HOPS) {
+    // deliver_perm_kernel's epilogue, without the RTT tiers
+    const bool act =
+        tx > 0 && (a.next_send == nullptr || a.next_send[t] <= a.tick);
+    const int tx2 = learned ? a.max_tx : (act ? tx - 1 : tx);
+    a.tx_out[t] = tx2;
+    a.msgs_out[t] = msgs + (act ? a.k : 0);
+    if (a.next_out) {
+      const int sent = a.max_tx - tx2;
+      const int gap = max(1, (int)rintf(__fmul_rn(a.backoff, (float)sent)));
+      int nxt = act ? a.tick + gap : a.next_send[t];
+      if (learned) nxt = a.tick + 1;
+      a.next_out[t] = nxt;
+    }
+    if (a.hops_out) {
+      const int h = a.hops[t];
+      a.hops_out[t] = learned ? min(h, cand) : h;
+    }
+  } else {
+    // retransmit decay for an active sender; fresh budget on learning
+    const bool act = tx > 0;
+    a.tx_out[t] = learned ? a.max_tx : (act ? tx - 1 : tx);
+    a.msgs_out[t] = msgs + (act ? a.k : 0);
+    if (MODE == RING && t == 0)  // this call's flag
+      *a.bad_out = __ldcg(a.tags + a.n_global) == a.gen;
+  }
 }
 
 // the ring's slot map: received slot q's id (in source shard q / cap's
@@ -372,7 +449,7 @@ extern "C" int deliver_perm_launch(
     a.n = n, a.k = k, a.lo = lo, a.n_global = n_global, a.max_tx = max_tx;
     a.loss = loss;
     if (!with_rows(r, [&](auto rc) {
-          deliver_source_kernel<decltype(rc)::value, false>
+          deliver_source_kernel<decltype(rc)::value, SLOTS>
               <<<blocks_of(n, SOURCE_THREADS), SOURCE_THREADS, 0, st>>>(a);
         }))
       return (int)cudaErrorInvalidValue;
@@ -415,6 +492,55 @@ extern "C" int deliver_perm_launch(
   if (!with_rows(r, [&](auto rc) {
         deliver_perm_kernel<decltype(rc)::value>
             <<<blocks_of(n, threads), threads, 0, st>>>(a);
+      }))
+    return (int)cudaErrorInvalidValue;
+  return (int)cudaGetLastError();
+}
+
+// One shard's window [lo, lo + n) of the epidemic tick's delivery:
+// rows, tx, msgs, hops, next_send [n] (hops / next_send may be null);
+// senders [K, N], loss_u [N, K] (null: no loss), part [N] and sev [B, B]
+// (null: none / symmetric); the senders' rows src_rows with shops [N]
+// ([N, R], identity) or slot_of [N] ([Q, R]), exactly one of the two
+extern "C" int deliver_window_launch(
+    const void* rows, const void* tx, const void* msgs, const void* hops,
+    const void* next_send, const void* senders, const void* loss_u,
+    const void* part, const void* sev, int sev_b, const void* src_rows,
+    const void* shops, const void* slot_of, void* rows_out, void* tx_out,
+    void* msgs_out, void* hops_out, void* next_out, int n, int r, int k,
+    float loss, int part_active, int tick, int max_tx, float backoff, int lo,
+    int n_global, void* stream) {
+  if (n <= 0) return 0;
+  if (src_rows == nullptr || (shops == nullptr) == (slot_of == nullptr) ||
+      lo < 0 || lo + n > n_global || (hops == nullptr) != (hops_out == nullptr) ||
+      (next_send == nullptr) != (next_out == nullptr))
+    return (int)cudaErrorInvalidValue;
+  SourceArgs a = {};
+  a.rows = static_cast<const int*>(rows);
+  a.tx = static_cast<const int*>(tx);
+  a.msgs = static_cast<const int*>(msgs);
+  a.senders = static_cast<const int*>(senders);
+  a.loss_u = static_cast<const float*>(loss_u);
+  a.src_rows = static_cast<const int*>(src_rows);
+  a.slot_of = static_cast<const int*>(slot_of);
+  a.rows_out = static_cast<int*>(rows_out);
+  a.tx_out = static_cast<int*>(tx_out);
+  a.msgs_out = static_cast<int*>(msgs_out);
+  a.n = n, a.k = k, a.lo = lo, a.n_global = n_global, a.max_tx = max_tx;
+  a.loss = loss;
+  a.shops = static_cast<const int*>(shops);
+  a.hops = static_cast<const int*>(hops);
+  a.next_send = static_cast<const int*>(next_send);
+  a.hops_out = static_cast<int*>(hops_out);
+  a.next_out = static_cast<int*>(next_out);
+  a.part = static_cast<const int*>(part);
+  a.sev = static_cast<const unsigned char*>(sev);
+  a.sev_b = sev_b, a.part_active = part_active, a.tick = tick;
+  a.backoff = backoff;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (!with_rows(r, [&](auto rc) {
+        deliver_source_kernel<decltype(rc)::value, HOPS>
+            <<<blocks_of(n, SOURCE_THREADS), SOURCE_THREADS, 0, st>>>(a);
       }))
     return (int)cudaErrorInvalidValue;
   return (int)cudaGetLastError();
@@ -468,7 +594,7 @@ extern "C" int ring_receive_launch(
   cfg.numAttrs = 1;
   with_rows(r, [&](auto rc) {
     e = cudaLaunchKernelEx(&cfg, deliver_source_kernel<decltype(rc)::value,
-                                                       true>, a);
+                                                       RING>, a);
   });
   return (int)e;
 }

@@ -43,6 +43,37 @@
 //       scheduler, the other nodes' DOWN and ALIVE records of the
 //       victim.
 //
+// swim_window_launch runs the same tick on one shard's window of viewer
+// rows [lo, lo + nl) of the [N, N] leaves (corrosion_tpu_torch/models/
+// sharded.py sharded_swim_step, the twin of the reference's swim_step
+// under __graft_entry__.py swim_shardings), five host calls a tick with
+// the exchanges between the shards in between (kernels/swim.py
+// swim_tick_window):
+//
+//   W_SELECT   swim_probe_select<true>: a warp a row of mine, its global
+//              id i = lo + il for the draws, the tie hashes (flat index
+//              i * N + j) and the charges; the announces replayed from
+//              the gathered incarnations and own records (diag_in).  Its
+//              charges go to an [N] count (msgs) and its delivered pings
+//              to another (pinged), summed over the shards after it.
+//   W_GOSSIP   swim_gossip_w, a thread a (node, gossip target, entry) of
+//              all N nodes: each gossip raise whose target row is mine,
+//              from the gathered selection; then swim_collect_w reads my
+//              rows' selected cells back (sent_out), the ping's payload.
+//   W_PING     swim_ping_w, a thread a (prober, entry) of all N: each
+//              ping raise whose target row is mine, carrying the gathered
+//              post-gossip cells; swim_collect_w then reads the ack's.
+//   W_ACK      swim_ack_w, a thread a (prober of mine, entry): the
+//              target's gathered post-ping cells; then swim_peer_rec_w, a
+//              thread a prober of all N, reads its record at its target
+//              where that row is mine (0 elsewhere), summed over the
+//              shards for the refutation.
+//   W_SETTLE   swim_settle<true>: a block a row of mine, the probed
+//              peer's record from that sum.
+//
+// Between passes the payload is read back from the view (nl * M cells)
+// rather than shadowed: each exchange is a kernel boundary anyway.
+//
 // Every draw is jax.random's partitionable threefry at the
 // reference's flat index (common.cuh): rand_peers' randint under the
 // two split keys, the loss uniforms only when loss > 0 (the reference
@@ -105,6 +136,14 @@ struct SwimArgs {
   unsigned char* sendable;  // [N, M]
   int* pay;  // [N, M]
   int* flags;  // [2] or null: others' DOWN / ALIVE records of victim
+  // the window form: the gathered own records, the summed records at
+  // the probers' targets, a pass's gathered payload and my read-back
+  const int* diag_in;  // [N]
+  const int* peer_rec;  // [N]
+  const int* sent;  // [N, M]
+  int* sent_out;  // [nl, M]
+  int* peer_rec_out;  // [N]
+  int lo, nl;  // my first row's global id, my rows
   int n, h, g, m, timeout, limit, tick, victim;
   int lossy;
   float loss;
@@ -139,10 +178,12 @@ struct Announce {
 };
 
 // node j's rejoin announce (:128-155); seed >= 0 iff it was delivered
+// (the window reads j's record from the gathered diagonal)
+template <bool WINDOW>
 __device__ Announce announce(const SwimArgs& a, int j) {
   Announce r;
   r.inc1 = a.inc_in[j];
-  r.diag = a.view_in[cell(a.n, j, j)];
+  r.diag = WINDOW ? a.diag_in[j] : a.view_in[cell(a.n, j, j)];
   r.seed = -1;
   if (a.revived != nullptr && a.revived[j]) {
     r.inc1 = max(r.inc1, r.diag / 4) + 1;
@@ -163,10 +204,11 @@ __device__ __forceinline__ int expire(const SwimArgs& a, size_t c, int v) {
 }
 
 // cell (i, j) with node j's announce landing in it, for j != i, t
+template <bool WINDOW>
 __device__ __forceinline__ int announced(const SwimArgs& a, int i, int j,
                                          int v) {
   if (a.revived != nullptr && __ldg(a.revived + j)) {
-    const Announce aj = announce(a, j);
+    const Announce aj = announce<WINDOW>(a, j);
     if (aj.seed == i) v = max(v, aj.diag);
   }
   return v;
@@ -309,16 +351,21 @@ struct Pass {
 // one offering only keys after the last one taken and reading its
 // payloads back from the row written; the first pass is its own
 // instantiation.  At most 64 registers, so 8 blocks (32 warps) fit an
-// SM and N = 4096's rows run in one wave.
+// SM and N = 4096's rows run in one wave.  WINDOW: row il of my window
+// is node i = lo + il (its cells local, its draws and ties global), its
+// own outputs (target, inc1, probe, ge, sendable, pay) at il.
+template <bool WINDOW>
 __global__ void __launch_bounds__(SEL_WARPS * 32, 8)
 swim_probe_select(const SwimArgs a) {
   // the gossip pass's draws need nothing of this kernel
   asm volatile("griddepcontrol.launch_dependents;");
   const int lane = threadIdx.x & 31;
-  const int i = blockIdx.x * SEL_WARPS + (threadIdx.x >> 5);
+  const int il = blockIdx.x * SEL_WARPS + (threadIdx.x >> 5);
   const int n = a.n;
-  if (i >= n) return;  // the whole warp
-  const size_t r0 = (size_t)i * n;
+  if (il >= (WINDOW ? a.nl : n)) return;  // the whole warp
+  const int i = WINDOW ? a.lo + il : il;
+  const size_t r0 = (size_t)il * n;  // my row's cells
+  const size_t g0 = (size_t)i * n;  // its flat index in the [N, N] draw
   const int t = rand_peer(a, K_PROBE, i, i);
 
   // the row as a scalar head up to the first 16-byte boundary, int4
@@ -343,7 +390,7 @@ swim_probe_select(const SwimArgs a) {
     // one column: its value on the first pass (in v), its key, or ~0
     // where an earlier pass took it
     auto column = [&](int j, int& v, int tx, float u) {
-      if (first) v = expire(a, r0 + j, announced(a, i, j, v));
+      if (first) v = expire(a, r0 + j, announced<WINDOW>(a, i, j, v));
       const unsigned long long key = score_key(a, tx, u, j);
       return first || key > after ? key : ~0ull;
     };
@@ -356,7 +403,7 @@ swim_probe_select(const SwimArgs a) {
         if (j < hi) {
           const size_t c = r0 + j;
           if (first) v = __ldg(a.view_in + c);
-          key = column(j, v, __ldg(a.tx_in + c), tie_uniform(a, c));
+          key = column(j, v, __ldg(a.tx_in + c), tie_uniform(a, g0 + j));
           if (first && j != i && j != t) a.view[c] = v;
         }
         sel.offer(key, v, lane);  // the warp converged
@@ -380,7 +427,7 @@ swim_probe_select(const SwimArgs a) {
       int w[4] = {v.x, v.y, v.z, v.w};
       unsigned long long k[4] = {~0ull, ~0ull, ~0ull, ~0ull};
       if (g < groups) {  // idle lanes of the last sweep offer nothing
-        const size_t c = r0 + j0;
+        const size_t c = g0 + j0;
         // the four hashes first, side by side, then the columns
         const float u0 = tie_uniform(a, c), u1 = tie_uniform(a, c + 1);
         const float u2 = tie_uniform(a, c + 2), u3 = tie_uniform(a, c + 3);
@@ -413,9 +460,9 @@ swim_probe_select(const SwimArgs a) {
         leg1 = leg_ok(a, K_LOSS1, i);
         leg2 = leg_ok(a, K_LOSS2, i);
       } else if (lane == 1) {
-        own = announce(a, i);
+        own = announce<WINDOW>(a, i);
       } else if (lane == 2) {
-        at = announce(a, t);
+        at = announce<WINDOW>(a, t);
       }
       leg1 = __shfl_sync(FULL, (int)leg1, 0);
       leg2 = __shfl_sync(FULL, (int)leg2, 0);
@@ -471,9 +518,9 @@ swim_probe_select(const SwimArgs a) {
         if (probe_ok && al) upd = max(cur, at.inc1 * 4 + ALIVE);
         if (!probe_ok && al && cur % 4 == ALIVE)
           upd = max(cur, (cur / 4) * 4 + SUSPECT);
-        a.target[i] = t;
-        a.inc1[i] = own.inc1;
-        a.probe[i] = (ping_ok ? PING_OK : 0) | (ack_ok ? ACK_OK : 0);
+        a.target[il] = t;
+        a.inc1[il] = own.inc1;
+        a.probe[il] = (ping_ok ? PING_OK : 0) | (ack_ok ? ACK_OK : 0);
         diag_w = expire(a, r0 + i, own.diag);
         probe_w = expire(a, r0 + t, upd);
         a.view[r0 + i] = diag_w;
@@ -489,7 +536,7 @@ swim_probe_select(const SwimArgs a) {
       if (!first) p = a.view[r0 + j];
       else if (j == i) p = diag_w;
       else if (j == t) p = probe_w;
-      const size_t o = (size_t)i * a.m + base + lane;
+      const size_t o = (size_t)il * a.m + base + lane;
       a.ge[o] = j;
       a.sendable[o] = (unsigned)(sel.key >> 32) != INF_BITS;
       a.pay[o] = p;
@@ -673,39 +720,44 @@ __global__ void __launch_bounds__(DIS_THREADS) swim_ack(const SwimArgs a) {
   if (l.ok) atomicMax(c, (int)(__ldcg(a.ack_pay + l.src) ^ 0x80000000u));
 }
 
+// WINDOW: block il is my row il, node i = lo + il; the probed peer's
+// record of it comes summed over the shards (peer_rec), the selection,
+// targets and pings gathered (indexed by i), inc1 mine (by il)
+template <bool WINDOW>
 __global__ void __launch_bounds__(THREADS) swim_settle(const SwimArgs a) {
   __shared__ int s_diag, s_charge;
   wait_prior();  // launched behind swim_ack
-  const int i = blockIdx.x;
+  const int il = blockIdx.x;
+  const int i = WINDOW ? a.lo + il : il;
   const int n = a.n;
   if (threadIdx.x == 0) {
     // refutation / renewal (:277-304)
     const int t = a.target[i];
     const bool al = a.alive[i];
-    const int self_key = a.view[cell(n, i, i)];
-    const int peer_rec = a.view[cell(n, t, i)];
+    const int self_key = a.view[cell(n, il, i)];
+    const int peer_rec = WINDOW ? a.peer_rec[i] : a.view[cell(n, t, i)];
     const bool told = al && a.alive[t] && peer_rec % 4 == DOWN &&
                       leg_ok(a, K_TU, 2ull * i) &&
                       leg_ok(a, K_TU, 2ull * i + 1);
     const int offending = max(self_key, told ? peer_rec : 0);
     const bool offended = al && (self_key % 4 != ALIVE || told);
-    const int inc1 = a.inc1[i];
+    const int inc1 = a.inc1[il];
     const int new_inc =
         offended ? offending / 4 + 1 : max(inc1, self_key / 4);
     const int inc = max(inc1, new_inc);
-    a.inc[i] = inc;
+    a.inc[il] = inc;
     s_diag = al ? inc * 4 + ALIVE : self_key;
     // backlog rounds of each sendable selected entry (:236-275)
     s_charge = 2 * al + a.pinged[i];
     if (a.flags != nullptr && i != a.victim) {
-      const int st = a.view[cell(n, i, a.victim)] % 4;
+      const int st = a.view[cell(n, il, a.victim)] % 4;
       if (st == DOWN) atomicAdd(a.flags, 1);
       if (st == ALIVE) atomicAdd(a.flags + 1, 1);
     }
   }
   __syncthreads();
   for (int j = threadIdx.x; j < n; j += THREADS) {
-    const size_t c = cell(n, i, j);
+    const size_t c = cell(n, il, j);
     int v = a.view[c];
     if (j == i) {
       v = s_diag;
@@ -724,9 +776,74 @@ __global__ void __launch_bounds__(THREADS) swim_settle(const SwimArgs a) {
   for (int r = threadIdx.x; r < a.m; r += THREADS) {
     const size_t o = (size_t)i * a.m + r;
     if (!a.sendable[o]) continue;
-    const size_t c = cell(n, i, a.ge[o]);
+    const size_t c = cell(n, il, a.ge[o]);
     if (a.view[c] == a.view_in[c]) a.tx[c] += s_charge;
   }
+}
+
+// -- the window form's dissemination passes (each raise lands in my rows)
+
+__device__ __forceinline__ bool is_mine(const SwimArgs& a, int row) {
+  return row >= a.lo && row < a.lo + a.nl;
+}
+
+// the gossip pass, a thread a (node i of all N, gossip target, entry)
+__global__ void __launch_bounds__(DIS_THREADS) swim_gossip_w(const SwimArgs a) {
+  const long long e = thread_index();
+  const int per = a.g * a.m;
+  if (e >= (long long)a.n * per) return;
+  const int i = (int)(e / per);
+  const int slot = (int)(e - (long long)i * per);
+  const int gg = slot / a.m, mm = slot - gg * a.m;
+  if (!__ldg(a.alive + i)) return;
+  const unsigned long long idx = (unsigned long long)i * a.g + gg;
+  const int d = rand_peer(a, K_GT, idx, i);
+  if (!is_mine(a, d) || !__ldg(a.alive + d)) return;
+  const size_t o = (size_t)i * a.m + mm;
+  if (!__ldg(a.sendable + o) || !leg_ok(a, K_GLOSS, idx * a.m + mm)) return;
+  atomicMax(a.view + cell(a.n, d - a.lo, __ldg(a.ge + o)), __ldg(a.pay + o));
+}
+
+// the ping piggyback, a thread a (prober i of all N, entry)
+__global__ void __launch_bounds__(DIS_THREADS) swim_ping_w(const SwimArgs a) {
+  const long long e = thread_index();
+  if (e >= (long long)a.n * a.m) return;
+  const int i = (int)(e / a.m);
+  if (!(__ldg(a.probe + i) & PING_OK) || !__ldg(a.sendable + e)) return;
+  const int t = __ldg(a.target + i);
+  if (!is_mine(a, t)) return;
+  atomicMax(a.view + cell(a.n, t - a.lo, __ldg(a.ge + e)), __ldg(a.sent + e));
+}
+
+// the ack piggyback, a thread a (prober of mine, entry of its target)
+__global__ void __launch_bounds__(DIS_THREADS) swim_ack_w(const SwimArgs a) {
+  const long long e = thread_index();
+  if (e >= (long long)a.nl * a.m) return;
+  const int il = (int)(e / a.m);
+  const int i = a.lo + il;
+  if (!(__ldg(a.probe + i) & ACK_OK)) return;
+  const size_t src = (size_t)__ldg(a.target + i) * a.m + (e - (long long)il * a.m);
+  if (!__ldg(a.sendable + src)) return;
+  atomicMax(a.view + cell(a.n, il, __ldg(a.ge + src)), __ldg(a.sent + src));
+}
+
+// my rows' selected cells as the pass before left them
+__global__ void __launch_bounds__(DIS_THREADS)
+    swim_collect_w(const SwimArgs a) {
+  const long long e = thread_index();
+  if (e >= (long long)a.nl * a.m) return;
+  const int il = (int)(e / a.m);
+  const int col = __ldg(a.ge + (size_t)a.lo * a.m + e);
+  a.sent_out[e] = a.view[cell(a.n, il, col)];
+}
+
+// each prober's record at its target, where the target row is mine
+__global__ void __launch_bounds__(DIS_THREADS)
+    swim_peer_rec_w(const SwimArgs a) {
+  const long long i = thread_index();
+  if (i >= a.n) return;
+  const int t = __ldg(a.target + i);
+  a.peer_rec_out[i] = is_mine(a, t) ? a.view[cell(a.n, t - a.lo, (int)i)] : 0;
 }
 
 unsigned blocks_for(long long work, int threads) {
@@ -801,6 +918,13 @@ extern "C" int swim_launch(
   a.sendable = static_cast<unsigned char*>(sendable);
   a.pay = static_cast<int*>(pay);
   a.flags = static_cast<int*>(flags);
+  a.diag_in = nullptr;
+  a.peer_rec = nullptr;
+  a.sent = nullptr;
+  a.sent_out = nullptr;
+  a.peer_rec_out = nullptr;
+  a.lo = 0;
+  a.nl = n;
   a.n = n;
   a.h = h;
   a.g = g;
@@ -817,8 +941,8 @@ extern "C" int swim_launch(
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   switch (phase) {
     case 0:
-      swim_probe_select<<<(n + SEL_WARPS - 1) / SEL_WARPS, SEL_WARPS * 32,
-                          0, st>>>(a);
+      swim_probe_select<false><<<(n + SEL_WARPS - 1) / SEL_WARPS,
+                                  SEL_WARPS * 32, 0, st>>>(a);
       return (int)cudaGetLastError();
     case 1:  // the dissemination with its gossip pass (gossip targets)
       if (g < 1) return (int)cudaErrorInvalidValue;
@@ -826,8 +950,100 @@ extern "C" int swim_launch(
     case 2:  // without it
       return (int)disseminate(a, phase == 1, st);
     case 3:
-      return (int)launch_after(swim_settle, (unsigned)n, THREADS, st, a);
+      return (int)launch_after(swim_settle<false>, (unsigned)n, THREADS, st,
+                               a);
     default:
       return (int)cudaErrorInvalidValue;
   }
+}
+
+// One phase of the window form (kernels/swim.py WindowCall): pointers as
+// the phase reads them (kernels/swim.py _WINDOW_POINTERS), null where it
+// reads none.  phase: 0 W_SELECT; 1 W_GOSSIP (the gossip pass, then the
+// read-back); 2 W_COLLECT (the read-back alone: no gossip targets);
+// 3 W_PING (the ping pass, then the read-back); 4 W_ACK (the ack pass,
+// then the records at the targets into peer_rec); 5 W_SETTLE.
+extern "C" int swim_window_launch(
+    const void* view_in, const void* ss_in, const void* inc_in,
+    const void* diag_in, const void* tx_in, const void* alive,
+    const void* revived, void* view, void* ss, void* inc, void* msgs,
+    void* pinged, void* tx, void* target, void* inc1, void* probe, void* ge,
+    void* sendable, void* pay, void* sent, void* sent_out, void* peer_rec,
+    void* flags, int n, int nl, int lo, int h, int g, int m, int timeout,
+    int limit, int tick, int victim, float loss, unsigned span, unsigned mult,
+    const unsigned* keys, int phase, void* stream) {
+  if (n <= 1 || m < 1 || m > n || h < 0 || g < 0 || span == 0 || tick < 0 ||
+      nl < 1 || lo < 0 || lo + nl > n)
+    return (int)cudaErrorInvalidValue;
+  SwimArgs a;
+  a.view_in = static_cast<const int*>(view_in);
+  a.ss_in = static_cast<const int*>(ss_in);
+  a.inc_in = static_cast<const int*>(inc_in);
+  a.tx_in = static_cast<const int*>(tx_in);
+  a.alive = static_cast<const unsigned char*>(alive);
+  a.revived = static_cast<const unsigned char*>(revived);
+  a.view = static_cast<int*>(view);
+  a.ss = static_cast<int*>(ss);
+  a.inc = static_cast<int*>(inc);
+  a.msgs = static_cast<int*>(msgs);
+  a.tx = static_cast<int*>(tx);
+  a.target = static_cast<int*>(target);
+  a.inc1 = static_cast<int*>(inc1);
+  a.probe = static_cast<unsigned char*>(probe);
+  a.pinged = static_cast<int*>(pinged);
+  a.ack_pay = nullptr;
+  a.ge = static_cast<int*>(ge);
+  a.sendable = static_cast<unsigned char*>(sendable);
+  a.pay = static_cast<int*>(pay);
+  a.flags = static_cast<int*>(flags);
+  a.diag_in = static_cast<const int*>(diag_in);
+  a.peer_rec = static_cast<const int*>(peer_rec);
+  a.sent = static_cast<const int*>(sent);
+  a.sent_out = static_cast<int*>(sent_out);
+  a.peer_rec_out = static_cast<int*>(peer_rec);
+  a.lo = lo;
+  a.nl = nl;
+  a.n = n;
+  a.h = h;
+  a.g = g;
+  a.m = m;
+  a.timeout = timeout;
+  a.limit = limit;
+  a.tick = tick;
+  a.victim = victim;
+  a.loss = loss;
+  a.lossy = loss > 0.0f;
+  a.span = span;
+  a.mult = mult;
+  for (int w = 0; w < K_WORDS; ++w) a.k[w] = keys[w];
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const long long rows = (long long)nl * m, all = (long long)n * m;
+  switch (phase) {
+    case 0:
+      swim_probe_select<true><<<(nl + SEL_WARPS - 1) / SEL_WARPS,
+                                 SEL_WARPS * 32, 0, st>>>(a);
+      break;
+    case 1:
+      if (g < 1) return (int)cudaErrorInvalidValue;
+      swim_gossip_w<<<blocks_for(all * g, DIS_THREADS), DIS_THREADS, 0, st>>>(
+          a);
+      // fall through: the read-back
+    case 2:
+      swim_collect_w<<<blocks_for(rows, DIS_THREADS), DIS_THREADS, 0, st>>>(a);
+      break;
+    case 3:
+      swim_ping_w<<<blocks_for(all, DIS_THREADS), DIS_THREADS, 0, st>>>(a);
+      swim_collect_w<<<blocks_for(rows, DIS_THREADS), DIS_THREADS, 0, st>>>(a);
+      break;
+    case 4:
+      swim_ack_w<<<blocks_for(rows, DIS_THREADS), DIS_THREADS, 0, st>>>(a);
+      swim_peer_rec_w<<<blocks_for(n, DIS_THREADS), DIS_THREADS, 0, st>>>(a);
+      break;
+    case 5:
+      swim_settle<true><<<nl, THREADS, 0, st>>>(a);
+      break;
+    default:
+      return (int)cudaErrorInvalidValue;
+  }
+  return (int)cudaGetLastError();
 }

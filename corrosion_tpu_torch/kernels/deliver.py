@@ -6,7 +6,10 @@ and the epilogue of ``broadcast_step`` (:243-280), and with a separate
 source and a receiver window the local delivery of
 corrosion_tpu/models/sharded.py ``sharded_broadcast_step`` (:121-147)
 and ``sharded_broadcast_step_ring`` (:253-279; the ring fabric calls
-it through ``kernels.fabric.ring_receive``).  Bound on the H100:
+it through ``kernels.fabric.ring_receive``), and with the senders' hops
+``shops`` gathered beside the rows one shard's window of the epidemic
+tick's delivery on a ``("seeds", "nodes")`` mesh (``__graft_entry__.py``
+:183-215, ``models/sharded.py`` ``sharded_epidemic_tick``).  Bound on the H100:
 bytes — the receiver's row, K randomly placed sender rows, the K
 sender ids and loss draws, and the [N] state words, each moved once.
 The kernel fuses the K column gathers, the validity masks, the
@@ -14,7 +17,10 @@ max-merge, the hop-min and the tx / msgs / next_send / hops update
 into registers, so nothing [N, K, R]-shaped reaches memory.  The
 delivery from a source is its own kernel (csrc/deliver_perm.cu
 ``deliver_source_kernel``: small blocks, the K columns' loads in
-flight together), which takes loss draws only.
+flight together): through a slot map it takes loss draws only (the
+fabrics), through ``shops`` also the receivers' hops and next_send and
+the partition (the epidemic's window; the topologies' WAN draws and RTT
+tiers stay single-device).
 """
 
 from __future__ import annotations
@@ -38,6 +44,11 @@ _ARGTYPES = (
        ctypes.c_float)
     + (ctypes.c_void_p,) * 2 + (ctypes.c_int, ctypes.c_int, ctypes.c_void_p)
 )
+_WINDOW_ARGTYPES = (
+    (ctypes.c_void_p,) * 9 + (ctypes.c_int,) + (ctypes.c_void_p,) * 8
+    + (ctypes.c_int,) * 3 + (ctypes.c_float,) + (ctypes.c_int,) * 3
+    + (ctypes.c_float,) + (ctypes.c_int,) * 2 + (ctypes.c_void_p,)
+)
 
 
 def _active(tx, next_send, tick):
@@ -47,11 +58,25 @@ def _active(tx, next_send, tick):
     return active
 
 
+def sender_hops(tx, next_send, tick, hops=None) -> torch.Tensor:
+    """Each sender's hop candidate, as the delivery reads it: hop + 1
+    (0 where hops are not tracked) where the sender is active this
+    tick (``tx > 0``, ``next_send <= tick``), ``HOP_UNSET`` where not.
+    A shard's window of it travels beside its rows (``shops``)."""
+    active = _active(tx, next_send, tick)
+    unset = torch.full_like(tx, HOP_UNSET)
+    if hops is not None:
+        return torch.where(active, torch.clamp_max(hops, HOP_UNSET - 2) + 1,
+                           unset)
+    return torch.where(active, torch.zeros_like(tx), unset)
+
+
 def deliver_perm_plain(rows, tx, msgs, senders, *, hops=None, next_send=None,
                        tick=0, loss_u=None, wan_u=None, region=None,
                        partition_id=None, sev=None, partition_active=False,
                        tier=None, loss=0.0, wan_loss=0.0, max_tx=8,
-                       backoff=0.0, src_rows=None, slot_of=None, lo=0):
+                       backoff=0.0, src_rows=None, slot_of=None, shops=None,
+                       lo=0):
     """Plain PyTorch version of the kernel (same arguments and results
     as :func:`deliver_perm`)."""
     k, n_global = senders.shape
@@ -61,12 +86,7 @@ def deliver_perm_plain(rows, tx, msgs, senders, *, hops=None, next_send=None,
     unset = torch.full_like(tx, HOP_UNSET)
     if src_rows is None:
         src_rows = rows
-        if hops is not None:
-            shops = torch.where(active,
-                                torch.clamp_max(hops, HOP_UNSET - 2) + 1,
-                                unset)
-        else:
-            shops = torch.where(active, torch.zeros_like(tx), unset)
+        shops = sender_hops(tx, next_send, tick, hops)
     new_rows = rows
     cand = unset
     for j in range(k):
@@ -74,7 +94,7 @@ def deliver_perm_plain(rows, tx, msgs, senders, *, hops=None, next_send=None,
         if slot_of is not None:
             slot = slot_of[s].to(torch.int64)
             valid = slot >= 0
-            sh = torch.where(valid, 0, HOP_UNSET)
+            sh = torch.where(valid, 0, HOP_UNSET).to(torch.int32)
             s_rows = src_rows[torch.clamp_min(slot, 0)]
         else:
             sh = shops[s]
@@ -119,7 +139,7 @@ def deliver_perm(rows, tx, msgs, senders, *, hops=None, next_send=None,
                  tick=0, loss_u=None, wan_u=None, region=None,
                  partition_id=None, sev=None, partition_active=False,
                  tier=None, loss=0.0, wan_loss=0.0, max_tx=8, backoff=0.0,
-                 src_rows=None, slot_of=None, lo=0):
+                 src_rows=None, slot_of=None, shops=None, lo=0):
     """One gossip delivery for every receiver, then the epilogue.
 
     rows [n, R] int32 packed keys; tx, msgs [n] int32; senders [K, N]
@@ -132,9 +152,13 @@ def deliver_perm(rows, tx, msgs, senders, *, hops=None, next_send=None,
     The receivers are the window ``[lo, lo + n)`` of the N nodes (all of
     them by default, n = N).  A sender's row comes from ``rows`` (then
     n = N); or, with ``slot_of`` [N] int32, from row ``slot_of[s]`` of
-    ``src_rows`` [Q, R], absent (an inactive sender) where it is -1.  A
-    source takes no ``hops``, and on the card only ``loss_u`` of the
-    draws and masks (the sharded fabrics' delivery).
+    ``src_rows`` [Q, R], absent (an inactive sender) where it is -1
+    (the sharded fabrics' delivery; a present sender's hop candidate is
+    0); or, with ``shops`` [N] int32 (``sender_hops`` of every sender),
+    from row s of the gathered ``src_rows`` [N, R], absent where
+    ``shops`` is ``HOP_UNSET`` (the epidemic's window).  A source takes
+    the receivers' hops and next_send, the loss draws and the
+    partition, not the topologies' ``wan_u`` / ``tier``.
 
     Returns (rows, tx, msgs, hops, next_send) as new tensors; hops and
     next_send are None when not given."""
@@ -142,12 +166,17 @@ def deliver_perm(rows, tx, msgs, senders, *, hops=None, next_send=None,
         raise ValueError("deliver_perm: wan_u needs region")
     k, n_global = senders.shape
     n, r = rows.shape
-    if (src_rows is None) != (slot_of is None):
-        raise ValueError("deliver_perm: src_rows and slot_of come together")
+    if (src_rows is None) != (slot_of is None and shops is None):
+        raise ValueError("deliver_perm: src_rows comes with slot_of or "
+                         "shops")
+    if slot_of is not None and shops is not None:
+        raise ValueError("deliver_perm: a source takes slot_of or shops, "
+                         "not both")
     if src_rows is None and (lo or n != n_global):
         raise ValueError("deliver_perm: a receiver window needs src_rows")
-    if src_rows is not None and hops is not None:
-        raise ValueError("deliver_perm: a source takes no hops")
+    if src_rows is not None and (wan_u is not None or tier is not None):
+        raise ValueError("deliver_perm: a source takes no topology "
+                         "(wan_u, tier)")
     if not 0 <= lo <= n_global - n:
         raise ValueError(f"deliver_perm: receivers {lo}..{lo + n} outside "
                          f"{n_global}")
@@ -158,11 +187,23 @@ def deliver_perm(rows, tx, msgs, senders, *, hops=None, next_send=None,
                 src_rows=src_rows, slot_of=slot_of, lo=lo)
     if kernels.on_cpu(rows, tx, msgs, senders, hops, next_send, loss_u,
                       wan_u, region, partition_id, sev, tier, src_rows,
-                      slot_of):
-        return deliver_perm_plain(rows, tx, msgs, senders, **args)
+                      slot_of, shops):
+        return deliver_perm_plain(rows, tx, msgs, senders, shops=shops,
+                                  **args)
 
-    fn = kernels.function("deliver_perm", "deliver_perm_launch", _ARGTYPES)
-    out = launch(fn, rows, tx, msgs, senders, **args)
+    if shops is not None or (slot_of is not None and any(
+            t is not None for t in (hops, next_send, partition_id))):
+        fn = kernels.function("deliver_perm", "deliver_window_launch",
+                              _WINDOW_ARGTYPES)
+        args = {f: args[f] for f in (
+            "hops", "next_send", "tick", "loss_u", "partition_id", "sev",
+            "partition_active", "loss", "max_tx", "backoff", "src_rows",
+            "slot_of", "lo")}
+        out = launch_window(fn, rows, tx, msgs, senders, shops=shops, **args)
+    else:
+        fn = kernels.function("deliver_perm", "deliver_perm_launch",
+                              _ARGTYPES)
+        out = launch(fn, rows, tx, msgs, senders, **args)
     deliver_perm.launches += 1
     return out
 
@@ -220,6 +261,56 @@ def launch(fn, rows, tx, msgs, senders, *, hops, next_send, tick, loss_u,
         int(bool(partition_active)), int(tick), int(max_tx), float(backoff),
         p(rows if src_rows is None else src_rows), p(slot_of), lo,
         n_global, kernels.stream(rows),
+    )
+    kernels.raise_on_error("deliver_perm", code)
+    return rows_out, tx_out, msgs_out, hops_out, next_out
+
+
+def launch_window(fn, rows, tx, msgs, senders, *, shops, hops, next_send,
+                  tick, loss_u, partition_id, sev, partition_active, loss,
+                  max_tx, backoff, src_rows, slot_of, lo):
+    """``deliver_perm``'s window on CUDA tensors (``fn`` the C
+    ``deliver_window_launch``, typed as ``_WINDOW_ARGTYPES``): checks
+    them, makes the outputs and launches; returns the outputs."""
+    k, n_global = senders.shape
+    n, r = rows.shape
+    if not 1 <= r <= MAX_ROWS:
+        raise ValueError(f"deliver_perm: the kernel takes 1..{MAX_ROWS} "
+                         f"cells per row, got {r}")
+    i32 = torch.int32
+    kernels.check("deliver_perm rows", rows, i32, (n, r), align=16)
+    kernels.check("deliver_perm src_rows", src_rows, i32,
+                  (n_global if shops is not None else src_rows.shape[0], r),
+                  align=16)
+    for name, t in (("tx", tx), ("msgs", msgs), ("hops", hops),
+                    ("next_send", next_send)):
+        if t is not None:
+            kernels.check(f"deliver_perm {name}", t, i32, (n,))
+    for name, t in (("shops", shops), ("slot_of", slot_of),
+                    ("partition_id", partition_id)):
+        if t is not None:
+            kernels.check(f"deliver_perm {name}", t, i32, (n_global,))
+    kernels.check("deliver_perm senders", senders, i32, (k, n_global))
+    if loss_u is not None:
+        kernels.check("deliver_perm loss_u", loss_u, torch.float32,
+                      (n_global, k))
+    sev_b = 0
+    if sev is not None:
+        sev_b = sev.shape[0]
+        sev = sev.to(torch.uint8)
+        kernels.check("deliver_perm sev", sev, torch.uint8, (sev_b, sev_b), 1)
+    rows_out = torch.empty_like(rows)
+    tx_out = torch.empty_like(tx)
+    msgs_out = torch.empty_like(msgs)
+    hops_out = None if hops is None else torch.empty_like(hops)
+    next_out = None if next_send is None else torch.empty_like(next_send)
+    p = kernels.ptr
+    code = fn(
+        p(rows), p(tx), p(msgs), p(hops), p(next_send), p(senders),
+        p(loss_u), p(partition_id), p(sev), sev_b, p(src_rows), p(shops),
+        p(slot_of), p(rows_out), p(tx_out), p(msgs_out), p(hops_out), p(next_out), n, r,
+        k, float(loss), int(bool(partition_active)), int(tick), int(max_tx),
+        float(backoff), lo, n_global, kernels.stream(rows),
     )
     kernels.raise_on_error("deliver_perm", code)
     return rows_out, tx_out, msgs_out, hops_out, next_out

@@ -19,6 +19,15 @@ tick key without moving them.
   :func:`sharded_broadcast_step`;
 * :func:`sharded_seq_sync_step` — the seq bitmaps all_gathered, the
   ``seq_sync`` kernel on the gathered state, each shard keeping its rows;
+* :func:`sharded_epidemic_tick` — the vmapped ``epidemic_tick`` over a
+  ``("seeds", "nodes")`` mesh (the twin of ``__graft_entry__.py``
+  :183-215): each seeds row runs its seeds, each node shard its window
+  of receivers, from one all_gather of the rows and one of the senders'
+  hops (``deliver_perm``'s window), and on sync ticks the rows again and
+  one all_reduce of the serving peers' charges (``sync_pull``'s window);
+* :func:`sharded_swim_step` — ``swim_step`` with the [N, N] leaves'
+  viewer rows over the mesh's ``nodes`` axis (the SWIM kernels' window
+  forms, ``kernels/swim.py`` ``swim_tick_window``);
 * the frontier layout (:func:`sharded_frontier_exact_step`, the ring
   row-sharded, every [S, N] leaf replicated, only the still-bad masks
   crossing) and the multi-host layout (:func:`sharded_frontier_host_step`,
@@ -35,7 +44,7 @@ from typing import NamedTuple
 
 import torch
 
-from corrosion_tpu_torch.kernels.deliver import deliver_perm
+from corrosion_tpu_torch.kernels.deliver import deliver_perm, sender_hops
 from corrosion_tpu_torch.kernels.exact_send import exact_commit
 from corrosion_tpu_torch.kernels.fabric import (
     bits_pack_active,
@@ -44,9 +53,14 @@ from corrosion_tpu_torch.kernels.fabric import (
     route_pack,
 )
 from corrosion_tpu_torch.mesh import all_gather, all_reduce, all_to_all
+from corrosion_tpu_torch.kernels.swim import swim_tick_window
+from corrosion_tpu_torch.kernels.sync_pull import sync_pull
 from corrosion_tpu_torch.models.broadcast import BroadcastParams, _perm_senders
+from corrosion_tpu_torch.models.common import severance_matrix
+from corrosion_tpu_torch.models.swim import SwimState
 from corrosion_tpu_torch.models.sync import SeqSyncParams, seq_sync_step
-from corrosion_tpu_torch.random import split, uniform
+from corrosion_tpu_torch.random import randint, split, uniform
+from corrosion_tpu_torch.sim import epidemic as ep
 from corrosion_tpu_torch.sim.calibrate import (
     FrontierExactState,
     HeadlineExactConfig,
@@ -349,3 +363,169 @@ def make_sharded_frontier_host_chunk(mesh, cfg: HeadlineExactConfig):
     statistics, measurement traffic charged as ``"stats"``)."""
     return _mesh_chunk(mesh, cfg, _layout(mesh, cfg, True, True))
 
+
+
+# -- the epidemic tick and the SWIM step on a ("seeds", "nodes") mesh ----
+
+
+def _nodes_window(mesh, sh: int, n: int) -> tuple:
+    """(first node, nodes) of shard ``sh``'s window of ``n`` nodes over
+    the mesh's ``nodes`` axis."""
+    d = mesh.axis_size("nodes")
+    if n % d:
+        raise ValueError(f"n_nodes {n} must divide over {d} node shards")
+    n_local = n // d
+    return mesh.coords(sh)[-1] * n_local, n_local
+
+
+def _aligned(x: torch.Tensor) -> torch.Tensor:
+    """``x``, or a copy where a kernel's 16-byte row loads need one."""
+    return x if x.data_ptr() % 16 == 0 else x.clone()
+
+
+def _check_epidemic_mesh(cfg) -> None:
+    if cfg.track_sent:
+        raise NotImplementedError("track_sent ([N, N] sent_to memory) is "
+                                  "not sharded on the mesh")
+    if cfg.n_universes is not None:
+        raise NotImplementedError("seed-flattened universes (n_universes) "
+                                  "are not sharded on the mesh: its seeds "
+                                  "axis holds the universes")
+    if cfg.topology != "uniform":
+        raise NotImplementedError(f"the {cfg.topology!r} topology is not "
+                                  "sharded on the mesh")
+
+
+def _epidemic_local(sh, st, keys, cfg, mesh):
+    """One vmapped epidemic tick on shard ``sh`` (generator): my seeds
+    ``keys`` (one tick key each) and my window of every leaf, [S_l,
+    n_local, ...]."""
+    lo, n_local = _nodes_window(mesh, sh, cfg.n_nodes)
+    n, tick = cfg.n_nodes, st.tick
+    dev = st.rows.device
+    params = cfg.broadcast_params
+    part = ep._partition_ids(cfg, dev)
+    part_active = tick < cfg.heal_tick
+    sev = None
+    if cfg.oneway_blocks:
+        sev = severance_matrix(cfg.oneway_blocks, device=dev)
+    hops = st.hops
+    shops = torch.stack([
+        sender_hops(st.tx_remaining[s], st.next_send[s], tick,
+                    None if hops is None else hops[s])
+        for s in range(len(keys))])
+    rows_all = yield all_gather(st.rows, "rows", dim=1)
+    shops_all = yield all_gather(shops, "hops", dim=1)
+    out, k_sync = [], []
+    for s, key in enumerate(keys):
+        k_b, k_s = split(key)
+        key_t, key_l = split(k_b)
+        k_sync.append(k_s)
+        out.append(deliver_perm(
+            st.rows[s], st.tx_remaining[s], st.msgs[s],
+            _senders(key_t, params, dev), hops=None if hops is None
+            else hops[s], next_send=st.next_send[s], tick=tick,
+            loss_u=_loss_u(key_l, params, dev), partition_id=part, sev=sev,
+            partition_active=part_active, loss=params.loss,
+            max_tx=params.max_transmissions, backoff=params.backoff_ticks,
+            src_rows=_aligned(rows_all[s]), shops=shops_all[s], lo=lo))
+    rows, tx, msgs, new_hops, next_send = (
+        None if x[0] is None else torch.stack(x) for x in zip(*out))
+    if ep._sync_due(cfg, tick):
+        rows_all = yield all_gather(rows, "rows", dim=1)
+        synced, deltas = [], []
+        for s, k_s in enumerate(k_sync):
+            offs = randint(k_s, (n, cfg.sync_peers), 1, max(n, 2),
+                           device=dev)
+            r_s, m_s, delta = sync_pull(
+                rows[s], msgs[s], offs, n, src_rows=_aligned(rows_all[s]),
+                lo=lo, partition_id=part, sev=sev,
+                partition_active=part_active,
+                cells_per_chunk=cfg.cells_per_chunk,
+                handshake_msgs=cfg.sync_params.handshake_msgs)
+            synced.append((r_s, m_s))
+            deltas.append(delta)
+        served = yield all_reduce(torch.stack(deltas), "sync")
+        rows = torch.stack([r for r, _ in synced])
+        msgs = (torch.stack([m for _, m in synced])
+                + served[:, lo:lo + n_local])
+    return ep.EpidemicState(rows, tx, msgs, tick + 1, new_hops, next_send,
+                            None)
+
+
+def sharded_epidemic_tick(mesh, cfg):
+    """``step(state, keys) -> state``: the vmapped ``epidemic_tick``
+    (``sim/epidemic.py``; ``jax.vmap`` over seeds under
+    ``epidemic_shardings`` in the reference) on a ``("seeds", "nodes")``
+    mesh.  ``state`` is a ``mesh.Sharded`` of ``EpidemicState`` windows
+    (``entry.shard_state``: leaves [S / seeds_ax, N / nodes_ax, ...],
+    the host tick shared), ``keys`` the S seeds' tick keys in seed
+    order; seeds row r runs seeds ``r * S_l .. (r + 1) * S_l - 1``, each
+    with its own key.  Per seed: the broadcast from one all_gather of
+    the rows and one of the senders' hops (``rows`` / ``hops``), each
+    shard delivering to its receivers; on the sync cadence the rows
+    again and the serving peers' charges summed (``sync``).  Bitwise
+    each seed's ``epidemic_tick``.  ``track_sent``, ``n_universes`` and
+    the non-uniform topologies raise ``NotImplementedError``."""
+    _check_epidemic_mesh(cfg)
+    seeds_ax = mesh.axis_size("seeds") if "seeds" in mesh.axes else 1
+
+    def step(state, keys):
+        keys = list(keys)
+        if len(keys) % seeds_ax:
+            raise ValueError(f"{len(keys)} seeds do not split over "
+                             f"{seeds_ax} seeds rows")
+        s_l = len(keys) // seeds_ax
+
+        def mine(sh):
+            row = mesh.coords(sh)[0] if seeds_ax > 1 else 0
+            return keys[row * s_l:(row + 1) * s_l]
+
+        out = mesh.run(_epidemic_local, {
+            sh: (state[sh], mine(sh), cfg, mesh)
+            for sh in mesh.local_shards})
+        return state.replace(out, state.tick + 1)
+
+    return step
+
+
+def _swim_local(sh, st: SwimState, key, tick, params, alive, revived,
+                victim, flagged, mesh):
+    lo, n_local = _nodes_window(mesh, sh, params.n_nodes)
+    out = yield from swim_tick_window(
+        st.view, st.suspect_since, st.incarnation, st.msgs, st.update_tx,
+        key, tick, params, alive, revived, lo=lo, victim=victim,
+        flags=flagged)
+    return out
+
+
+def sharded_swim_step(mesh, params):
+    """``step(state, key, tick, alive, revived=None, victim=None,
+    flags=None) -> state``: ``swim_step`` (``models/swim.py``) with every
+    leaf's viewer rows over the mesh's ``nodes`` axis
+    (``swim_shardings``); on a two-axis mesh each seeds row holds its
+    own replica.  ``state`` is a ``mesh.Sharded`` of ``SwimState``
+    windows (view, suspect_since, update_tx [N / nodes_ax, N],
+    incarnation and msgs [N / nodes_ax]); ``alive`` / ``revived`` [N]
+    bool and the key are replicated.  The draws and the [N]- and [N,
+    M]-sized work are replicated or gathered, the view's cross-row
+    steps each an exchange (``kernels/swim.py`` ``swim_tick_window``).
+    ``flags`` ([2] int32), when given, gains the churn counts of the
+    nodes other than ``victim`` (summed over one seeds row).  Bitwise
+    ``swim_step``."""
+
+    def step(state, key, tick, alive, revived=None, victim=None,
+             flags=None):
+        if flags is not None and not 0 <= victim < params.n_nodes:
+            raise ValueError("sharded_swim_step: flags need a victim in "
+                             "0..N-1")
+        out = mesh.run(_swim_local, {
+            sh: (state[sh], key, int(tick), params, alive, revived, victim,
+                 flags is not None, mesh)
+            for sh in mesh.local_shards})
+        parts = {sh: SwimState(*o[0]) for sh, o in out.items()}
+        if flags is not None:
+            flags += next(iter(out.values()))[1]
+        return state.replace(parts, state.tick + 1)
+
+    return step

@@ -419,16 +419,22 @@ def _run_chunks(cfg: EpidemicConfig, n_seeds: int, chunk_fn, state):
 # -- track_sent: the seed-batched [S, N, N] path ------------------------
 
 
+def batch_state(state, n_seeds: int):
+    """``state`` repeated for ``n_seeds`` seeds (the reference's
+    ``broadcast_to((S,) + shape)``): every tensor leaf [S, ...], the
+    host tick and ``None`` leaves as they are."""
+    return type(state)(*(
+        x if x is None or isinstance(x, int)
+        else x.expand((n_seeds,) + tuple(x.shape)).clone()
+        for x in state
+    ))
+
+
 def sent_seeds_init(cfg: EpidemicConfig, n_seeds: int,
                     device="cuda") -> EpidemicState:
     """``epidemic_init(cfg)`` (one universe, ``sent`` [N, N]) repeated
     for S seeds: every leaf [S, N, ...], ``sent`` [S, N, N]."""
-    one = epidemic_init(cfg, device=device)
-    return EpidemicState(*(
-        x if x is None or isinstance(x, int)
-        else x.expand((n_seeds,) + tuple(x.shape)).clone()
-        for x in one
-    ))
+    return batch_state(epidemic_init(cfg, device=device), n_seeds)
 
 
 def _sync_seeds(rows, msgs, k_sync: list, cfg: EpidemicConfig, part,
