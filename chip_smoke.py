@@ -278,7 +278,39 @@ package.  Phases, each ending the run with a non-zero exit on failure:
     launches of the sharded ticks alone); (d) each window kernel
     (``deliver_perm``'s and ``sync_pull``'s at (b)'s shape, the SWIM
     tick's phases at (c)'s) against its plain version, timed, with its
-    bound (the ``{"window_kernels": ...}`` line).
+    bound (the ``{"window_kernels": ...}`` line);
+23. the port's live agent (``agent/runtime.py``) on the card: (a)
+    ``run_bitmatch`` at 256 and 64 nodes with ``BITMATCH_N256.json``'s
+    and ``BITMATCH_N64.json``'s own arguments (loss 0.05, ring0-first
+    fanout, anti-entropy every 8 ticks), real agents run for the card
+    under the deterministic scheduler, held to the record field for
+    field: a check of the protocol, since the bit-match's versions are
+    one change each, which the storage applies change by change (its
+    wall, store launches and device memory printed: no kernel launches
+    and no cache array is made), and a two-node ``DetCluster`` whose
+    agents' caches must be torch stores on the card; (b) three agents
+    from ``launch_test_agent(device="cuda")`` on loopback, B and C
+    booted from A, both holding an older version of a fourth actor over
+    one row in sixteen (col_version 2, or 1 with a value above or below
+    A's): A writes one transaction of 70,000 rows of ``tests`` (its
+    version's changes counted with ``collect_changes``, more than
+    ``TORCH_AUTO_MIN``), B (whose sync client waits a minute) takes it by
+    broadcast in chunks of ``MAX_CHANGES_BYTE_SIZE`` and applies the
+    reassembled version at once, C starts after and catches up by sync
+    from A or B (B serves only the changes that won there, which must
+    still be more than ``TORCH_AUTO_MIN``),
+    A is handed the older version, then B updates 4096 of the rows
+    twice; all three must end with equal rows and clock state, the rows
+    those the merge rules give (the older version's where it wins),
+    every cache on the card with hits on A and C, both large applies
+    through ``seg_argsort``, ``seg_cummax``, ``winners_a`` and
+    ``winners_b``, ``store_set`` and ``store_gather`` launched in the
+    receivers' applies, and every winner decision and store call the
+    agents made there (recorded as they ran) bitwise its plain version's
+    on the same inputs, the decisions also the NumPy twin's (the
+    ``{"agent": ...}`` line: the walls, each receiver's large apply's
+    host-clock wall, the launches, the sizes checked).  Every wait is
+    bounded.
 
 ``python3 chip_smoke.py --parent DIR`` (DIR an unpacked ``git
 archive`` of the parent commit) also builds the parent's ``swim.cu``,
@@ -6942,6 +6974,476 @@ def multichip_phase(record: dict, counted: dict, dev) -> list:
     return results
 
 
+# -- the live agent on the card (phase 23) ---------------------------------
+
+BITMATCH_RECORDS = ("BITMATCH_N256.json", "BITMATCH_N64.json")
+# one local transaction whose version holds more changes than
+# ops.merge.TORCH_AUTO_MIN (one change a row: tests has one data column),
+# also without the changes that lose to the older version on B: C's sync
+# may be served by B, which serves only the changes that won there
+AGENT_ROWS = 70_000
+AGENT_UPDATE_ROWS = 4096  # the rows B updates, twice
+AGENT_WAIT_S = 180.0  # the bound on every wait of 23b
+# an older version of another actor over one row in AGENT_OLD_STEP of A's
+AGENT_OLD_SITE = bytes(range(200, 216))
+AGENT_OLD_STEP = 16
+AGENT_COUNTED = ("seg_argsort", "seg_cummax", "winners_a", "winners_b",
+                 "store_set", "store_gather")
+WINNER_KERNELS = AGENT_COUNTED[:4]
+STORE_KERNELS = AGENT_COUNTED[4:]
+
+
+def cache_arrays(agent) -> list:
+    """The arrays of an agent's clock cache (its tables' row and cell
+    clocks)."""
+    dc = agent.storage.device_cache
+    if dc is None:
+        return []
+    return [a for tc in dc._tables.values() for a in (tc.row_cl, tc.cell_ver)]
+
+
+def cache_on(agent, dev) -> bool:
+    """The agent's clock cache is a torch store on ``dev`` that holds
+    arrays, every one of them there."""
+    dc = agent.storage.device_cache
+    arrays = cache_arrays(agent)
+    return (dc is not None and dc.backend == "torch"
+            and dc.store.device.type == dev.type and bool(arrays)
+            and all(a.device.type == dev.type for a in arrays))
+
+
+def zero(counted) -> None:
+    if torch.cuda.is_available():
+        torch.cuda.synchronize()
+    for fn in counted.values():
+        fn.launches = 0
+
+
+def read_launches(counted, names) -> dict:
+    if torch.cuda.is_available():
+        torch.cuda.synchronize()
+    return {name: counted[name].launches for name in names}
+
+
+def bitmatch_run(counted, record: str, dev) -> dict:
+    """Phase 23a: ``run_bitmatch`` through the port's deterministic
+    cluster of real agents run for ``dev``, with the record's own
+    arguments, held to the record field for field.  A check of the
+    protocol: the bit-match's versions are one change each, which the
+    storage applies change by change, so its agents make no cache array
+    and launch no kernel (the launches and the device memory above the
+    baseline are printed, and are 0)."""
+    from corrosion_tpu_torch.sim.bitmatch import run_bitmatch
+
+    with open(os.path.join(HERE, record)) as fh:
+        want = json.load(fh)
+    zero(counted)
+    cuda = dev.type == "cuda"
+    if cuda:
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+    t0 = time.perf_counter()
+    got = run_bitmatch(
+        want["n_nodes"], writes=want["writes"], seed=want["seed"],
+        fanout=want["fanout"], max_transmissions=want["max_transmissions"],
+        backoff_ticks=want["backoff_ticks"], loss=want["loss"],
+        ring0_size=want["ring0_size"], sync_interval=want["sync_interval"],
+        sync_peers=want["sync_peers"], device=str(dev))
+    wall = time.perf_counter() - t0
+    launches = read_launches(counted, STORE_KERNELS)
+    out = dict(record=record, wall_s=wall, launches=launches,
+               per_write=[{k: w[k] for k in (
+                   "origin", "ticks_compared", "converged_tick_sim",
+                   "converged_tick_agents", "msgs_total",
+                   "sync_msgs_total")} for w in got["per_write"]])
+    if cuda:
+        out["peak_mem_bytes"] = torch.cuda.max_memory_allocated()
+        out["agents_mem_bytes"] = out["peak_mem_bytes"] - base
+    print(f"phase 23a {record}: " + json.dumps(out), flush=True)
+    if json.loads(json.dumps(got)) != want:
+        fail(f"{record}: run_bitmatch gave {got}, want {want}")
+    return out
+
+
+def det_placement(dev) -> None:
+    """Phase 23a: a ``DetCluster`` run for ``dev`` gives every agent a
+    clock cache whose torch store lies there."""
+    from corrosion_tpu_torch.agent.det import DetCluster, DetParams
+
+    cluster = DetCluster(DetParams(n_nodes=2), device=str(dev))
+    try:
+        for a in cluster.agents:
+            dc = a.storage.device_cache
+            if (dc is None or dc.backend != "torch"
+                    or dc.store.device.type != dev.type
+                    or a.storage.device.type != dev.type):
+                fail(f"phase 23a: a DetCluster agent's cache is not a "
+                     f"torch store on {dev}")
+    finally:
+        cluster.close()
+
+
+def old_version():
+    """Version 1 of another actor over one row in ``AGENT_OLD_STEP`` of
+    A's: by thirds, col_version 2 (it beats A's insert), or 1 with a
+    value above A's (the tie goes to the larger value) or below it.  B
+    and C hold it before A's write, A takes it after."""
+    from corrosion_tpu_torch.agent.pack import pack_values
+    from corrosion_tpu_torch.types import (
+        ActorId,
+        Changeset,
+        ChangeV1,
+        Timestamp,
+        Version,
+    )
+    from corrosion_tpu_torch.types.change import Change, CrsqlDbVersion
+    from corrosion_tpu_torch.types.change import CrsqlSeq
+
+    chs = []
+    for seq, i in enumerate(range(0, AGENT_ROWS, AGENT_OLD_STEP)):
+        ver, val = ((2, f"d-{i}"), (1, f"zz-{i}"), (1, f"aa-{i}"))[seq % 3]
+        chs.append(Change(
+            table="tests", pk=pack_values([i]), cid="text", val=val,
+            col_version=ver, db_version=CrsqlDbVersion(1),
+            seq=CrsqlSeq(seq), site_id=AGENT_OLD_SITE, cl=1))
+    n = len(chs)
+    cs = Changeset.full(Version(1), chs, (0, n - 1), n - 1,
+                        Timestamp.pack(1_600_000_000_000_000_000, 0))
+    return ChangeV1(actor_id=ActorId(AGENT_OLD_SITE), changeset=cs)
+
+
+def final_rows() -> list:
+    """The rows every node must end with: A's insert, the older version
+    where it wins, B's second update on the first rows."""
+    rows = []
+    for i in range(AGENT_ROWS):
+        text = f"row-{i}"
+        if i % AGENT_OLD_STEP == 0:
+            kind = (i // AGENT_OLD_STEP) % 3
+            text = (f"d-{i}", f"zz-{i}", text)[kind]
+        if i < AGENT_UPDATE_ROWS:
+            text = "b-1"
+        rows.append((i, text))
+    return rows
+
+
+def preseed(path: str, cv, dev) -> None:
+    """Apply ``cv`` to the node whose database lies in ``path``, before
+    the node starts."""
+    from corrosion_tpu_torch.agent.runtime import ChangeSource
+    from corrosion_tpu_torch.agent.testing import make_offline_agent
+
+    ag = make_offline_agent(tmpdir=path, device=str(dev), device_cache=True)
+    try:
+        if not ag.handle_change(cv, ChangeSource.SYNC, rebroadcast=False):
+            fail("phase 23b: the older version was not news to a new node")
+        ag.storage.flush_pending()
+    finally:
+        ag.storage.close()
+
+
+class ApplySpy:
+    """Records, while installed, each winner selection the agents'
+    applies run through the kernels (its plan and the decision they
+    took) and each call of a clock cache's torch store (its inputs and
+    what it gave), for ``check`` to hold against the plain versions."""
+
+    def __init__(self):
+        from corrosion_tpu_torch.ops import devcache, merge
+
+        self.merge, self.store_cls = merge, devcache.TorchStore
+        self.real = (merge._winners_torch, self.store_cls.set,
+                     self.store_cls.gather)
+        self.decisions, self.stores = [], []
+
+    def install(self) -> None:
+        real_winners, real_set, real_gather = self.real
+        spy = self
+
+        def winners(plan, device="cuda", plain=False):
+            dec = real_winners(plan, device, plain)
+            if not plain:
+                spy.decisions.append((plan, dec))
+            return dec
+
+        def store_set(store, arr, idx, vals):
+            before = arr.clone()
+            idx, vals = np.array(idx), np.array(vals)
+            out = real_set(store, arr, idx, vals)
+            spy.stores.append(("set", before, idx, vals, arr.clone()))
+            return out
+
+        def store_gather(store, arr, idx):
+            idx = np.array(idx)
+            got = real_gather(store, arr, idx)
+            spy.stores.append(("gather", arr.clone(), idx, None, got))
+            return got
+
+        self.merge._winners_torch = winners
+        self.store_cls.set, self.store_cls.gather = store_set, store_gather
+
+    def remove(self) -> None:
+        (self.merge._winners_torch, self.store_cls.set,
+         self.store_cls.gather) = self.real
+
+    def check(self, dev) -> dict:
+        """Each recorded decision bitwise the plain torch core's and the
+        NumPy twin's on its plan, each store call's result the plain
+        version's on its inputs; returns the sizes checked."""
+        from corrosion_tpu_torch.convert import decision_diff
+        from corrosion_tpu_torch.kernels import store as kstore
+
+        merge = self.merge
+        for plan, dec in self.decisions:
+            for other, name in (
+                    (merge._winners_torch(plan, dev, plain=True),
+                     "the plain torch core"),
+                    (merge._winners_np(plan), "the NumPy twin")):
+                diff = decision_diff(dec, other)
+                if diff:
+                    fail(f"phase 23b: the agent's winners on {plan.n} "
+                         f"changes differ from {name} in {diff}")
+        sizes = {"set": [], "gather": []}
+        for kind, arr, idx, vals, got in self.stores:
+            i = torch.from_numpy(kstore.host_index(idx, arr.shape[0])).to(
+                arr.device)
+            if kind == "set":
+                v = torch.from_numpy(np.ascontiguousarray(
+                    vals, dtype=np.int64).reshape(-1)).to(arr.device)
+                ok = torch.equal(kstore.store_set_plain(arr, i, v), got)
+            else:
+                ok = np.array_equal(
+                    kstore.store_gather_plain(arr, i).cpu().numpy(), got)
+            if not ok:
+                fail(f"phase 23b: the agent's store_{kind} of {len(idx)} "
+                     "differs from its plain version")
+            sizes[kind].append(len(idx))
+        return dict(winners=[plan.n for plan, _ in self.decisions],
+                    **{f"store_{k}": v for k, v in sizes.items()})
+
+
+def settled(agent, read):
+    """``read(conn)`` on the node's connection with its storage lock
+    held and the write-behind queue drained: an apply or a drain still
+    running on the agent's threads finishes first (the storage's
+    ``flush_pending`` returns at once while another thread drains)."""
+    from corrosion_tpu_torch.agent.locks import PRIO_HIGH
+
+    st = agent.storage
+    with st._lock.prio(PRIO_HIGH, "smoke-read", kind="apply"):
+        st._wb_drain_locked()
+        return read(st.conn)
+
+
+def served(agent, actor) -> int:
+    """The changes of ``actor`` in the node's clock of ``tests``: what the
+    node serves of that actor's versions (those that lost there are
+    gone)."""
+    return settled(agent, lambda c: c.execute(
+        "SELECT COUNT(*) FROM tests__corro_clock k JOIN __corro_sites s "
+        "ON s.ordinal = k.site_ordinal WHERE s.site_id = ?",
+        (bytes(actor),)).fetchone()[0])
+
+
+def clock_state(agent) -> dict:
+    """The node's rows of ``tests`` and its clock state: each cell's
+    (pk, cid, col_version, origin site) and each row's causal length,
+    in a fixed order (ordinals are local, so sites by id)."""
+    return settled(agent, lambda c: dict(
+        rows=c.execute("SELECT id, text FROM tests ORDER BY id").fetchall(),
+        clock=c.execute(
+            "SELECT k.pk, k.cid, k.col_version, s.site_id "
+            "FROM tests__corro_clock k JOIN __corro_sites s "
+            "ON s.ordinal = k.site_ordinal ORDER BY k.pk, k.cid").fetchall(),
+        cl=c.execute("SELECT pk, cl FROM tests__corro_cl ORDER BY pk"
+                     ).fetchall()))
+
+
+
+async def live_cluster(counted, dev, tmp: str, old) -> dict:
+    """Phase 23b: three of the port's agents on loopback, on ``dev``;
+    B and C hold ``old`` (``preseed``) when they start."""
+    import asyncio
+
+    from corrosion_tpu_torch.agent.runtime import ChangeSource
+    from corrosion_tpu_torch.agent.storage import CrConn
+    from corrosion_tpu_torch.agent.testing import launch_test_agent, wait_for
+    from corrosion_tpu_torch.ops.merge import TORCH_AUTO_MIN
+    from corrosion_tpu_torch.types.change import ChunkedChanges
+
+    # each receiver's host-clock wall for the large version's apply
+    walls = []
+    real_apply = CrConn.apply_changes_in_tx
+
+    def timed_apply(self, changes):
+        t0 = time.perf_counter()
+        out = real_apply(self, changes)
+        n = len(changes) if hasattr(changes, "__len__") else -1
+        if n > TORCH_AUTO_MIN:
+            walls.append((self.path, n, time.perf_counter() - t0))
+        return out
+
+    async def until(pred, what: str):
+        try:
+            await wait_for(pred, timeout=AGENT_WAIT_S)
+        except TimeoutError:
+            fail(f"phase 23b: {what} not within {AGENT_WAIT_S} s")
+
+    def has(x, actor, v) -> bool:
+        return x.bookie.for_actor(actor).contains_version(v)
+
+    out = {}
+    agents = []
+    spy = ApplySpy()
+    # A and B pull nothing by sync (their clients wait a minute): A's
+    # version reaches B by broadcast alone, and A takes the older
+    # version only when it is handed it, after its write
+    slow_sync = dict(sync_interval_min=60.0, sync_interval_max=60.0)
+    CrConn.apply_changes_in_tx = timed_apply
+    spy.install()
+    try:
+        a = await launch_test_agent(tmpdir=os.path.join(tmp, "a"),
+                                    device=str(dev), device_cache=True,
+                                    **slow_sync)
+        agents.append(a)
+        boot = [f"{a.gossip_addr[0]}:{a.gossip_addr[1]}"]
+        b = await launch_test_agent(bootstrap=boot, tmpdir=os.path.join(
+            tmp, "b"), device=str(dev), device_cache=True, **slow_sync)
+        agents.append(b)
+        await until(lambda: a.members.alive() and b.members.alive(),
+                    "A and B meet")
+        zero(counted)
+        t0 = time.perf_counter()
+        res = await asyncio.to_thread(a.execute_transaction, [
+            ("INSERT INTO tests (id, text) VALUES (?, ?)", (i, f"row-{i}"))
+            for i in range(AGENT_ROWS)])
+        out["write_s"] = time.perf_counter() - t0
+        v = res["version"]
+        dbv = a.bookie.for_actor(a.actor_id).versions[v][0]
+        changes = await asyncio.to_thread(a.storage.collect_changes,
+                                          (dbv, dbv))
+        out["version_changes"] = len(changes)
+        if len(changes) <= TORCH_AUTO_MIN:
+            fail(f"phase 23b: the version holds {len(changes)} changes, "
+                 f"not more than {TORCH_AUTO_MIN}")
+        # the broadcast's chunks of MAX_CHANGES_BYTE_SIZE
+        out["chunks"] = sum(1 for _ in ChunkedChanges(
+            changes, 0, len(changes) - 1))
+        await until(lambda: has(b, a.actor_id, v), "B applies the version")
+        out["b_received_s"] = time.perf_counter() - t0
+        out["b_serves"] = await asyncio.to_thread(served, b, a.actor_id)
+        if out["b_serves"] <= TORCH_AUTO_MIN:
+            fail(f"phase 23b: B holds {out['b_serves']} of A's changes, not "
+                 f"more than {TORCH_AUTO_MIN}: C's sync from B would not "
+                 "reach the winner kernels")
+        out["b_launches"] = read_launches(counted, AGENT_COUNTED)
+        zero(counted)
+        t0 = time.perf_counter()
+        c = await launch_test_agent(bootstrap=boot, tmpdir=os.path.join(
+            tmp, "c"), device=str(dev), device_cache=True)
+        agents.append(c)
+        await until(lambda: has(c, a.actor_id, v), "C catches up by sync")
+        out["c_caught_up_s"] = time.perf_counter() - t0
+        out["c_launches"] = read_launches(counted, AGENT_COUNTED)
+        zero(counted)
+        a.enqueue_change(old, ChangeSource.SYNC)
+        await until(lambda: has(a, AGENT_OLD_SITE, 1),
+                    "A applies the older version")
+        # B updates a subset of the rows twice: A's and C's caches hold
+        # them for the second
+        for k in range(2):
+            r = await asyncio.to_thread(b.execute_transaction, [(
+                "UPDATE tests SET text = ? WHERE id < ?",
+                (f"b-{k}", AGENT_UPDATE_ROWS))])
+            bv = r["version"]
+            await until(lambda: has(a, b.actor_id, bv) and has(
+                c, b.actor_id, bv), f"A and C apply B's update {k}")
+        out["update_launches"] = read_launches(counted, AGENT_COUNTED)
+        states = [await asyncio.to_thread(clock_state, x) for x in agents]
+        out["cache_counters"] = {name: dict(x.storage.device_cache.counters)
+                                 for name, x in zip("abc", agents)}
+        out["hits"] = {name: c["hits"]
+                       for name, c in out["cache_counters"].items()}
+        out["caches_on_device"] = {name: cache_on(x, dev)
+                                   for name, x in zip("abc", agents)}
+        paths = {x.storage.path: name for name, x in zip("abc", agents)}
+        out["apply_walls"] = [dict(node=paths.get(p, p), changes=n,
+                                   wall_s=w) for p, n, w in walls]
+        out["rows"] = len(states[0]["rows"])
+    finally:
+        spy.remove()
+        CrConn.apply_changes_in_tx = real_apply
+        for x in reversed(agents):
+            await x.stop()
+    out["checked"] = spy.check(dev)
+    print("phase 23b: " + json.dumps(out), flush=True)
+    if not (states[0] == states[1] == states[2]):
+        fail("phase 23b: the three nodes' rows or clock state differ")
+    if states[0]["rows"] != final_rows():
+        fail("phase 23b: the rows are not A's insert, the older version "
+             "where it wins and B's update")
+    if not all(out["caches_on_device"].values()):
+        fail(f"phase 23b: caches off {dev}: {out['caches_on_device']}")
+    if sorted(w["node"] for w in out["apply_walls"]) != ["b", "c"]:
+        fail(f"phase 23b: the large version's applies: {out['apply_walls']}")
+    if out["hits"]["a"] <= 0 or out["hits"]["c"] <= 0:
+        fail(f"phase 23b: the caches took no hits: {out['hits']}")
+    checked = out["checked"]
+    if sum(n > TORCH_AUTO_MIN for n in checked["winners"]) != 2:
+        fail(f"phase 23b: the large applies' winners: {checked['winners']}")
+    for k in ("store_set", "store_gather"):
+        if max(checked[k], default=0) < AGENT_UPDATE_ROWS:
+            fail(f"phase 23b: no {k} of the updates' rows: {checked[k]}")
+    if dev.type == "cuda":
+        for k in ("b_launches", "c_launches"):
+            idle = [n for n in WINNER_KERNELS if out[k][n] == 0]
+            if idle:
+                fail(f"phase 23b: {k}: kernels never launched: {idle}")
+        total = {n: out["b_launches"][n] + out["c_launches"][n]
+                 + out["update_launches"][n] for n in AGENT_COUNTED}
+        idle = [n for n, c in total.items() if c == 0]
+        if idle:
+            fail(f"phase 23b: kernels never launched: {idle}")
+    return out
+
+
+def agent_phase(record: dict, counted: dict, dev) -> dict:
+    """Phase 23: the port's live agent on ``dev``; returns the launches
+    of its kernels over the phase's runs."""
+    import asyncio
+
+    from corrosion_tpu_torch import kernels
+
+    t0 = time.perf_counter()
+    runs = [bitmatch_run(counted, r, dev) for r in BITMATCH_RECORDS]
+    det_placement(dev)
+    record["agent_bitmatch"] = runs
+    old = old_version()
+    with tempfile.TemporaryDirectory(prefix="agents-",
+                                     dir=kernels.BUILD_DIR) as tmp:
+        for name in "abc":
+            os.mkdir(os.path.join(tmp, name))
+        for name in "bc":
+            preseed(os.path.join(tmp, name), old, dev)
+        live = asyncio.run(live_cluster(counted, dev, tmp, old))
+    record["agent_cluster"] = live
+    launches = {n: sum(r["launches"].get(n, 0) for r in runs)
+                + live["b_launches"][n] + live["c_launches"][n]
+                + live["update_launches"][n] for n in AGENT_COUNTED}
+    print(json.dumps({"agent": {
+        "bitmatch": {r["record"]: {k: r.get(k) for k in (
+            "wall_s", "launches", "peak_mem_bytes", "agents_mem_bytes")}
+            for r in runs},
+        "cluster": {k: live[k] for k in (
+            "write_s", "version_changes", "chunks", "b_received_s",
+            "b_serves", "c_caught_up_s",
+            "apply_walls", "cache_counters", "b_launches", "c_launches",
+            "update_launches", "checked")},
+        "launches": launches,
+        "s": time.perf_counter() - t0}}), flush=True)
+    return launches
+
+
 def main() -> int:
     import argparse
 
@@ -7211,6 +7713,11 @@ def main() -> int:
     for r in results:
         r["launches"] += record["multichip_draws"].get(r["name"], 0)
     results += window_results
+
+    # phase 23: the live agent on the card
+    agent_launches = agent_phase(record, counted, cuda)
+    for r in results:
+        r["launches"] += agent_launches.get(r["name"], 0)
     record["kernels"] = results
     with open(kernels.BUILD_DIR / "chip_smoke.json", "w") as f:
         json.dump(record, f, indent=1, default=str)

@@ -269,6 +269,10 @@ class CrConn:
         # cache and SQLite becomes the durable sink behind the
         # write-behind flush below.  None == classic prefetch path.
         self.device_cache = None
+        # the device the batched apply's winner selection runs on
+        # (ops.merge.select_winners): None = the card when present;
+        # enable_device_cache and the agent set it
+        self.device = None
         self._wb = _WriteBehind()
         # metric-delta snapshot for the cache's monotonic counters
         self._devcache_emitted: Dict = {}
@@ -1815,7 +1819,7 @@ END;
         )
         if plan is None:
             return None
-        dec = mergeops.select_winners(plan)
+        dec = mergeops.select_winners(plan, device=self.device)
 
         states: Dict[bytes, list] = {}
         n_cid = plan.n_cid
@@ -1972,6 +1976,7 @@ END;
 
         if self.device_cache is not None:
             return
+        self.device = device
         self.device_cache = DeviceClockCache(
             slots=slots or DEFAULT_SLOTS, backend=backend, device=device
         )
@@ -2295,6 +2300,8 @@ END;
         is a single self-contained file."""
         import os
 
+        from corrosion_tpu_torch.agent.snapshot import fsync_dir
+
         # device-resident apply: pending flushes target the file being
         # REPLACED — discard them (their journal rows live in the old
         # inode; if the swap fails and we come back up on the previous
@@ -2377,25 +2384,6 @@ END;
 # ---------------------------------------------------------------------------
 # UDFs
 # ---------------------------------------------------------------------------
-
-
-def fsync_dir(path: str) -> None:
-    """fsync the directory holding ``path`` (corrosion_tpu/agent/
-    snapshot.py ``fsync_dir``): a rename is durable only once its
-    directory entry is."""
-    import os
-
-    d = os.path.dirname(os.path.abspath(path))
-    try:
-        fd = os.open(d, os.O_RDONLY)
-    except OSError:
-        return
-    try:
-        os.fsync(fd)
-    except OSError:
-        pass
-    finally:
-        os.close(fd)
 
 
 def _udf_pack(*args):

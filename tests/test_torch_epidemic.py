@@ -241,6 +241,9 @@ def test_port_imports_neither_jax_nor_the_jax_package():
         "import corrosion_tpu_torch.sim.calibrate\n"
         "import corrosion_tpu_torch.convert\n"
         "import corrosion_tpu_torch.profile_tick, chip_smoke\n"
+        "import corrosion_tpu_torch.agent.runtime\n"
+        "import corrosion_tpu_torch.agent.det\n"
+        "import corrosion_tpu_torch.sim.bitmatch\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'corrosion_tpu')]\n"
         "assert not bad, bad\n"
