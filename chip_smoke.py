@@ -288,29 +288,38 @@ package.  Phases, each ending the run with a non-zero exit on failure:
     one change each, which the storage applies change by change (its
     wall, store launches and device memory printed: no kernel launches
     and no cache array is made), and a two-node ``DetCluster`` whose
-    agents' caches must be torch stores on the card; (b) three agents
-    from ``launch_test_agent(device="cuda")`` on loopback, B and C
-    booted from A, both holding an older version of a fourth actor over
-    one row in sixteen (col_version 2, or 1 with a value above or below
-    A's): A writes one transaction of 70,000 rows of ``tests`` (its
-    version's changes counted with ``collect_changes``, more than
-    ``TORCH_AUTO_MIN``), B (whose sync client waits a minute) takes it by
+    agents' caches must be torch stores on the card; (b) four agents
+    from ``launch_test_agent(device="cuda")`` on loopback at the
+    reference's default surfaces (the HTTP API, subscriptions, SWIM over
+    foca datagrams, broadcast and sync over the multiplexed transport),
+    B and two catch-up nodes booted from A, the three holding an older
+    version of a fourth actor over one row in sixteen (col_version 2, or
+    1 with a value above or below A's); each catch-up node opens a
+    subscription ``SELECT id, text FROM tests`` over its HTTP API before
+    A writes one transaction of 70,000 rows of ``tests`` (its version's
+    changes counted with ``collect_changes``, more than
+    ``TORCH_AUTO_MIN``); B (whose sync client waits a minute) takes it by
     broadcast in chunks of ``MAX_CHANGES_BYTE_SIZE`` and applies the
-    reassembled version at once, C starts after and catches up by sync
-    from A or B (B serves only the changes that won there, which must
-    still be more than ``TORCH_AUTO_MIN``),
-    A is handed the older version, then B updates 4096 of the rows
-    twice; all three must end with equal rows and clock state, the rows
-    those the merge rules give (the older version's where it wins),
-    every cache on the card with hits on A and C, both large applies
-    through ``seg_argsort``, ``seg_cummax``, ``winners_a`` and
-    ``winners_b``, ``store_set`` and ``store_gather`` launched in the
-    receivers' applies, and every winner decision and store call the
-    agents made there (recorded as they ran) bitwise its plain version's
-    on the same inputs, the decisions also the NumPy twin's (the
-    ``{"agent": ...}`` line: the walls, each receiver's large apply's
-    host-clock wall, the launches, the sizes checked).  Every wait is
-    bounded.
+    reassembled version at once, A and B drop their broadcasts to the
+    catch-up nodes, which then catch up by sync in two arms, one from A
+    and one from B alone (``Agent._choose_sync_peers`` wrapped; B serves
+    only the changes that won there, which must still be more than
+    ``TORCH_AUTO_MIN``; each arm's received changes and its servers'
+    served needs counted), A is handed the older version, then B updates
+    4096 of the rows twice; all four must end with equal rows and clock
+    state, the rows those the merge rules give (the older version's
+    where it wins), each subscription's stream (resumed from the change
+    log at a gap) holding those rows, SWIM datagrams all foca, broadcast
+    frames and sync channels on the mux, every cache on the card with
+    hits on A and both catch-up nodes, the three large applies through
+    ``seg_argsort``, ``seg_cummax``, ``winners_a`` and ``winners_b``,
+    ``store_set`` and ``store_gather`` launched in the receivers'
+    applies, and every winner decision and store call the agents made
+    there (recorded as they ran) bitwise its plain version's on the same
+    inputs, the decisions also the NumPy twin's (the ``{"agent": ...}``
+    line: the walls, each receiver's large apply's host-clock wall, the
+    arms, the subscriptions, the wire counts, the launches, the sizes
+    checked).  Every wait is bounded.
 
 ``python3 chip_smoke.py --parent DIR`` (DIR an unpacked ``git
 archive`` of the parent commit) also builds the parent's ``swim.cu``,
@@ -7260,12 +7269,129 @@ def clock_state(agent) -> dict:
 
 
 
-async def live_cluster(counted, dev, tmp: str, old) -> dict:
-    """Phase 23b: three of the port's agents on loopback, on ``dev``;
-    B and C hold ``old`` (``preseed``) when they start."""
-    import asyncio
+# the catch-up arms of 23b: the node C of each syncs from this one
+AGENT_ARMS = ("a", "b")
+AGENT_SUB_SQL = "SELECT id, text FROM tests"
 
-    from corrosion_tpu_torch.agent.runtime import ChangeSource
+
+class SubStream:
+    """A subscription opened over an agent's HTTP API, its NDJSON events
+    read on a thread into the rows they describe (a snapshot, then each
+    change by row id).  The server drops the oldest events of a reader
+    slower than its matcher; at a gap in the change ids the stream
+    resumes from the last id it holds, as a client of the API does."""
+
+    def __init__(self, agent, sql: str):
+        import threading
+
+        self.addr = agent.api_addr
+        self.rows, self.events, self.last_change_id = {}, 0, None
+        self.error, self.closed, self.resumes = None, False, 0
+        try:
+            resp = self._open("POST", "/v1/subscriptions",
+                              json.dumps(sql).encode())
+        except OSError as e:
+            fail(f"phase 23b: a subscription over HTTP: {e!r}")
+        self.id = resp.headers["x-corro-query-id"]
+        self.thread = threading.Thread(target=self._run, args=(resp,),
+                                       daemon=True)
+        self.thread.start()
+
+    def _open(self, method: str, path: str, body=None):
+        import http.client
+
+        self.conn = http.client.HTTPConnection(*self.addr)
+        self.conn.request(method, path, body)
+        resp = self.conn.getresponse()
+        if resp.status != 200:
+            raise OSError(f"{method} {path} gave {resp.status}")
+        return resp
+
+    def _run(self, resp) -> None:
+        import http.client
+
+        try:
+            while resp is not None:
+                resp = self._read(resp)
+        except (OSError, ValueError, http.client.HTTPException) as e:
+            if not self.closed:
+                self.error = repr(e)
+
+    def _read(self, resp):
+        """Apply ``resp``'s events; returns the resumed stream at a gap,
+        None at its end."""
+        for line in resp:
+            ev = json.loads(line)
+            self.events += 1
+            if "columns" in ev:
+                self.rows = {}
+            elif "row" in ev:
+                rid, cells = ev["row"]
+                self.rows[rid] = tuple(cells)
+            elif "change" in ev:
+                kind, rid, cells, cid = ev["change"]
+                if cid != self.last_change_id + 1:
+                    self.resumes += 1
+                    self.conn.close()
+                    return self._open("GET", f"/v1/subscriptions/{self.id}"
+                                      f"?from={self.last_change_id}")
+                if kind == "delete":
+                    self.rows.pop(rid, None)
+                else:
+                    self.rows[rid] = tuple(cells)
+                self.last_change_id = cid
+            elif "eoq" in ev:
+                self.last_change_id = ev["eoq"]["change_id"]
+        return None
+
+    def close(self) -> None:
+        import socket
+
+        self.closed = True
+        if self.conn.sock is not None:
+            self.conn.sock.shutdown(socket.SHUT_RDWR)
+        self.thread.join(timeout=10)
+        self.conn.close()
+
+
+class WireCount:
+    """Counts, while installed, the SWIM datagrams the port's agents
+    receive on each wire (the receiver's sniff: JSON envelopes start
+    with ``{``, foca datagrams do not)."""
+
+    def __init__(self):
+        from corrosion_tpu_torch.agent.runtime import _UdpProtocol
+
+        self.cls, self.real = _UdpProtocol, _UdpProtocol.datagram_received
+        self.counts = {"foca": 0, "json": 0}
+
+    def install(self) -> None:
+        real, counts = self.real, self.counts
+
+        def received(proto, data, addr):
+            counts["json" if data.startswith(b"{") else "foca"] += 1
+            return real(proto, data, addr)
+
+        self.cls.datagram_received = received
+
+    def remove(self) -> None:
+        self.cls.datagram_received = self.real
+
+
+async def live_cluster(counted, dev, tmp: str, old) -> dict:
+    """Phase 23b: four of the port's agents on loopback at the
+    reference's defaults (HTTP API, subscriptions, foca SWIM, the
+    multiplexed transport), on ``dev``; B and the two catch-up nodes
+    (C of each arm, in ``c_a`` and ``c_b``) hold ``old`` (``preseed``)
+    when they start."""
+    import asyncio
+    import types
+
+    from corrosion_tpu_torch.agent.runtime import (
+        Agent,
+        AgentConfig,
+        ChangeSource,
+    )
     from corrosion_tpu_torch.agent.storage import CrConn
     from corrosion_tpu_torch.agent.testing import launch_test_agent, wait_for
     from corrosion_tpu_torch.ops.merge import TORCH_AUTO_MIN
@@ -7283,6 +7409,24 @@ async def live_cluster(counted, dev, tmp: str, old) -> dict:
             walls.append((self.path, n, time.perf_counter() - t0))
         return out
 
+    # each C syncs from nobody until its arm, then from its arm's node
+    # alone: no other peer is chosen, and a session cut short is not
+    # retried elsewhere (the next round asks its node again); every
+    # other agent syncs as the reference's does
+    real_choose, real_parallel = (Agent._choose_sync_peers,
+                                  Agent.parallel_sync)
+    pinned = {}
+
+    def choose(self, ours):
+        if id(self) not in pinned:
+            return real_choose(self, ours)
+        want = pinned[id(self)]
+        return [m for m in self.members.alive() if m.actor_id == want]
+
+    async def parallel(self, members, ours=None, _retry=True):
+        return await real_parallel(self, members, ours,
+                                   _retry=_retry and id(self) not in pinned)
+
     async def until(pred, what: str):
         try:
             await wait_for(pred, timeout=AGENT_WAIT_S)
@@ -7292,26 +7436,56 @@ async def live_cluster(counted, dev, tmp: str, old) -> dict:
     def has(x, actor, v) -> bool:
         return x.bookie.for_actor(actor).contains_version(v)
 
+    def counter(x, name, **labels) -> float:
+        if labels:
+            return x.metrics.get_counter(name, **labels)
+        return x.metrics.get_counter_sum(name)
+
     out = {}
-    agents = []
-    spy = ApplySpy()
+    agents, streams = {}, {}
+    spy, wires = ApplySpy(), WireCount()
     # A and B pull nothing by sync (their clients wait a minute): A's
     # version reaches B by broadcast alone, and A takes the older
     # version only when it is handed it, after its write
     slow_sync = dict(sync_interval_min=60.0, sync_interval_max=60.0)
+    # the catch-up nodes sync on the reference's default timers: on the
+    # test helper's (0.15-0.4 s) a round asks again for the chunks the
+    # round before delivered and the node has not applied yet
+    default_sync = dict(sync_interval_min=AgentConfig.sync_interval_min,
+                        sync_interval_max=AgentConfig.sync_interval_max)
     CrConn.apply_changes_in_tx = timed_apply
+    Agent._choose_sync_peers, Agent.parallel_sync = choose, parallel
     spy.install()
+    wires.install()
     try:
-        a = await launch_test_agent(tmpdir=os.path.join(tmp, "a"),
-                                    device=str(dev), device_cache=True,
-                                    **slow_sync)
-        agents.append(a)
+        a = agents["a"] = await launch_test_agent(
+            tmpdir=os.path.join(tmp, "a"), device=str(dev),
+            device_cache=True, **slow_sync)
         boot = [f"{a.gossip_addr[0]}:{a.gossip_addr[1]}"]
-        b = await launch_test_agent(bootstrap=boot, tmpdir=os.path.join(
-            tmp, "b"), device=str(dev), device_cache=True, **slow_sync)
-        agents.append(b)
-        await until(lambda: a.members.alive() and b.members.alive(),
-                    "A and B meet")
+        b = agents["b"] = await launch_test_agent(
+            bootstrap=boot, tmpdir=os.path.join(tmp, "b"), device=str(dev),
+            device_cache=True, **slow_sync)
+        for arm in AGENT_ARMS:
+            c = agents["c_" + arm] = await launch_test_agent(
+                bootstrap=boot, tmpdir=os.path.join(tmp, "c_" + arm),
+                device=str(dev), device_cache=True, **default_sync)
+            pinned[id(c)] = None
+        await until(lambda: all(len(x.members.alive()) == len(agents) - 1
+                                for x in agents.values()), "the nodes meet")
+        # the catch-up nodes take A's version by sync alone: A and B
+        # drop their broadcasts to them until both arms have run
+        c_addrs = {tuple(agents["c_" + arm].gossip_addr)
+                   for arm in AGENT_ARMS}
+        drop = types.SimpleNamespace(drop=True, delay=0.0)
+        for x in (a, b):
+            x.transport.fault_filter = (
+                lambda ch, addr: drop if ch == "uni"
+                and tuple(addr) in c_addrs else None)
+        for arm in AGENT_ARMS:
+            streams[arm] = await asyncio.to_thread(
+                SubStream, agents["c_" + arm], AGENT_SUB_SQL)
+            await until(lambda: streams[arm].last_change_id is not None,
+                        f"C_{arm}'s subscription snapshot")
         zero(counted)
         t0 = time.perf_counter()
         res = await asyncio.to_thread(a.execute_transaction, [
@@ -7337,74 +7511,165 @@ async def live_cluster(counted, dev, tmp: str, old) -> dict:
                  f"more than {TORCH_AUTO_MIN}: C's sync from B would not "
                  "reach the winner kernels")
         out["b_launches"] = read_launches(counted, AGENT_COUNTED)
-        zero(counted)
-        t0 = time.perf_counter()
-        c = await launch_test_agent(bootstrap=boot, tmpdir=os.path.join(
-            tmp, "c"), device=str(dev), device_cache=True)
-        agents.append(c)
-        await until(lambda: has(c, a.actor_id, v), "C catches up by sync")
-        out["c_caught_up_s"] = time.perf_counter() - t0
-        out["c_launches"] = read_launches(counted, AGENT_COUNTED)
+        out["arms"] = {}
+        want_n = {"a": out["version_changes"], "b": out["b_serves"]}
+        for arm in AGENT_ARMS:
+            c, server = agents["c_" + arm], agents[arm]
+            other = agents["b" if arm == "a" else "a"]
+            if has(c, a.actor_id, v):
+                fail(f"phase 23b: C_{arm} holds A's version before its sync")
+            served_before = (counter(server, "corro_sync_needs_served_total"),
+                             counter(other, "corro_sync_needs_served_total"))
+            zero(counted)
+            t0 = time.perf_counter()
+            pinned[id(c)] = server.actor_id
+            await until(lambda: has(c, a.actor_id, v),
+                        f"C_{arm} catches up by sync from {arm.upper()}")
+            arm_out = dict(
+                caught_up_s=time.perf_counter() - t0,
+                launches=read_launches(counted, AGENT_COUNTED),
+                sync_changes=counter(c, "corro_sync_changes_received_total"),
+                partial_retries=counter(
+                    c, "corro_sync_partial_retries_total"),
+                partial_sessions=counter(
+                    c, "corro_sync_partial_sessions_total"),
+                server_aborts=counter(
+                    server, "corro_sync_slow_peer_aborts_total"),
+                served_by_arm=counter(
+                    server, "corro_sync_needs_served_total")
+                - served_before[0],
+                served_by_other=counter(
+                    other, "corro_sync_needs_served_total")
+                - served_before[1])
+            out["arms"][arm] = arm_out
+            if (arm_out["sync_changes"] < want_n[arm]
+                    or arm_out["served_by_arm"] <= 0
+                    or arm_out["served_by_other"] != 0
+                    or arm_out["partial_retries"] != 0):
+                fail(f"phase 23b: C_{arm} was not served A's version by "
+                     f"{arm.upper()} alone: {arm_out}, want "
+                     f"{want_n[arm]} changes")
+            # no more syncs of this C while the other arm runs
+            pinned[id(c)] = None
+        for x in (a, b):
+            x.transport.fault_filter = None
+        for arm in AGENT_ARMS:
+            pinned[id(agents["c_" + arm])] = agents[arm].actor_id
         zero(counted)
         a.enqueue_change(old, ChangeSource.SYNC)
         await until(lambda: has(a, AGENT_OLD_SITE, 1),
                     "A applies the older version")
-        # B updates a subset of the rows twice: A's and C's caches hold
-        # them for the second
+        # B updates a subset of the rows twice: A's and the Cs' caches
+        # hold them for the second
+        takers = [x for name, x in agents.items() if name != "b"]
         for k in range(2):
             r = await asyncio.to_thread(b.execute_transaction, [(
                 "UPDATE tests SET text = ? WHERE id < ?",
                 (f"b-{k}", AGENT_UPDATE_ROWS))])
             bv = r["version"]
-            await until(lambda: has(a, b.actor_id, bv) and has(
-                c, b.actor_id, bv), f"A and C apply B's update {k}")
+            await until(lambda: all(has(x, b.actor_id, bv) for x in takers),
+                        f"A and the Cs apply B's update {k}")
         out["update_launches"] = read_launches(counted, AGENT_COUNTED)
-        states = [await asyncio.to_thread(clock_state, x) for x in agents]
+        # each subscription's stream reaches its node's last change
+        for arm in AGENT_ARMS:
+            c, st = agents["c_" + arm], streams[arm]
+            handle = c.subs.get(st.id)
+            if handle is None:
+                fail(f"phase 23b: C_{arm} lost subscription {st.id}")
+            await until(lambda: c.subs.idle()
+                        and st.last_change_id == handle.last_change_id,
+                        f"C_{arm}'s subscription stream")
+        out["subscriptions"] = {arm: dict(
+            events=st.events, rows=len(st.rows), resumes=st.resumes,
+            dropped=counter(agents["c_" + arm],
+                            "corro_subs_events_dropped_total"),
+            last_change_id=st.last_change_id, error=st.error,
+            equal=sorted(st.rows.values()) == final_rows())
+            for arm, st in streams.items()}
+        states = [await asyncio.to_thread(clock_state, x)
+                  for x in agents.values()]
         out["cache_counters"] = {name: dict(x.storage.device_cache.counters)
-                                 for name, x in zip("abc", agents)}
+                                 for name, x in agents.items()}
         out["hits"] = {name: c["hits"]
                        for name, c in out["cache_counters"].items()}
         out["caches_on_device"] = {name: cache_on(x, dev)
-                                   for name, x in zip("abc", agents)}
-        paths = {x.storage.path: name for name, x in zip("abc", agents)}
+                                   for name, x in agents.items()}
+        out["wire"] = dict(
+            swim=dict(wires.counts),
+            mux={name: x.transport.mux for name, x in agents.items()},
+            uni_frames={name: counter(x, "corro_transport_frames_total",
+                                      channel="uni")
+                        for name, x in agents.items()},
+            bi_channels={name: counter(x, "corro_transport_bi_channels_total")
+                         for name, x in agents.items()},
+            bi_bytes={name: counter(x, "corro_transport_bytes_total",
+                                    channel="bi")
+                      for name, x in agents.items()})
+        paths = {x.storage.path: name for name, x in agents.items()}
         out["apply_walls"] = [dict(node=paths.get(p, p), changes=n,
                                    wall_s=w) for p, n, w in walls]
         out["rows"] = len(states[0]["rows"])
     finally:
+        wires.remove()
         spy.remove()
+        Agent._choose_sync_peers, Agent.parallel_sync = (real_choose,
+                                                         real_parallel)
         CrConn.apply_changes_in_tx = real_apply
-        for x in reversed(agents):
+        for st in streams.values():
+            st.close()
+        for x in reversed(list(agents.values())):
             await x.stop()
     out["checked"] = spy.check(dev)
     print("phase 23b: " + json.dumps(out), flush=True)
-    if not (states[0] == states[1] == states[2]):
-        fail("phase 23b: the three nodes' rows or clock state differ")
+    if any(st != states[0] for st in states):
+        fail("phase 23b: the four nodes' rows or clock state differ")
     if states[0]["rows"] != final_rows():
         fail("phase 23b: the rows are not A's insert, the older version "
              "where it wins and B's update")
+    for arm, sub in out["subscriptions"].items():
+        if not sub["equal"] or sub["error"] is not None:
+            fail(f"phase 23b: C_{arm}'s subscription over HTTP does not "
+                 f"hold the final rows: {sub}")
     if not all(out["caches_on_device"].values()):
         fail(f"phase 23b: caches off {dev}: {out['caches_on_device']}")
-    if sorted(w["node"] for w in out["apply_walls"]) != ["b", "c"]:
+    if sorted(w["node"] for w in out["apply_walls"]) != ["b", "c_a", "c_b"]:
         fail(f"phase 23b: the large version's applies: {out['apply_walls']}")
-    if out["hits"]["a"] <= 0 or out["hits"]["c"] <= 0:
+    if any(out["hits"][name] <= 0 for name in ("a", "c_a", "c_b")):
         fail(f"phase 23b: the caches took no hits: {out['hits']}")
+    wire = out["wire"]
+    if wire["swim"]["foca"] <= 0 or wire["swim"]["json"] != 0:
+        fail(f"phase 23b: SWIM did not go over foca alone: {wire['swim']}")
+    if (not all(wire["mux"].values())
+            or min(wire["uni_frames"][n] for n in ("a", "b")) <= 0
+            or min(wire["bi_channels"]["c_" + arm] for arm in AGENT_ARMS) <= 0
+            or min(wire["bi_bytes"][arm] for arm in AGENT_ARMS) <= 0):
+        fail(f"phase 23b: broadcast and sync did not go over the mux: {wire}")
     checked = out["checked"]
-    if sum(n > TORCH_AUTO_MIN for n in checked["winners"]) != 2:
+    if sum(n > TORCH_AUTO_MIN for n in checked["winners"]) != 3:
         fail(f"phase 23b: the large applies' winners: {checked['winners']}")
     for k in ("store_set", "store_gather"):
         if max(checked[k], default=0) < AGENT_UPDATE_ROWS:
             fail(f"phase 23b: no {k} of the updates' rows: {checked[k]}")
     if dev.type == "cuda":
-        for k in ("b_launches", "c_launches"):
-            idle = [n for n in WINNER_KERNELS if out[k][n] == 0]
+        runs = {"b_launches": out["b_launches"],
+                **{f"arm {arm}": out["arms"][arm]["launches"]
+                   for arm in AGENT_ARMS}}
+        for k, launches in runs.items():
+            idle = [n for n in WINNER_KERNELS if launches[n] == 0]
             if idle:
                 fail(f"phase 23b: {k}: kernels never launched: {idle}")
-        total = {n: out["b_launches"][n] + out["c_launches"][n]
-                 + out["update_launches"][n] for n in AGENT_COUNTED}
-        idle = [n for n, c in total.items() if c == 0]
+        idle = [n for n, c in agent_launches(out).items() if c == 0]
         if idle:
             fail(f"phase 23b: kernels never launched: {idle}")
     return out
+
+
+def agent_launches(live: dict) -> dict:
+    """Each counted kernel's launches over 23b's runs: B's broadcast
+    apply, both catch-up arms and the updates."""
+    return {n: live["b_launches"][n] + live["update_launches"][n]
+            + sum(arm["launches"][n] for arm in live["arms"].values())
+            for n in AGENT_COUNTED}
 
 
 def agent_phase(record: dict, counted: dict, dev) -> dict:
@@ -7419,26 +7684,28 @@ def agent_phase(record: dict, counted: dict, dev) -> dict:
     det_placement(dev)
     record["agent_bitmatch"] = runs
     old = old_version()
+    t1 = time.perf_counter()
     with tempfile.TemporaryDirectory(prefix="agents-",
                                      dir=kernels.BUILD_DIR) as tmp:
-        for name in "abc":
+        names = ["a", "b"] + ["c_" + arm for arm in AGENT_ARMS]
+        for name in names:
             os.mkdir(os.path.join(tmp, name))
-        for name in "bc":
+        for name in names[1:]:
             preseed(os.path.join(tmp, name), old, dev)
         live = asyncio.run(live_cluster(counted, dev, tmp, old))
+    live["s"] = time.perf_counter() - t1
     record["agent_cluster"] = live
-    launches = {n: sum(r["launches"].get(n, 0) for r in runs)
-                + live["b_launches"][n] + live["c_launches"][n]
-                + live["update_launches"][n] for n in AGENT_COUNTED}
+    cluster = agent_launches(live)
+    launches = {n: sum(r["launches"].get(n, 0) for r in runs) + cluster[n]
+                for n in AGENT_COUNTED}
     print(json.dumps({"agent": {
         "bitmatch": {r["record"]: {k: r.get(k) for k in (
             "wall_s", "launches", "peak_mem_bytes", "agents_mem_bytes")}
             for r in runs},
         "cluster": {k: live[k] for k in (
-            "write_s", "version_changes", "chunks", "b_received_s",
-            "b_serves", "c_caught_up_s",
-            "apply_walls", "cache_counters", "b_launches", "c_launches",
-            "update_launches", "checked")},
+            "s", "write_s", "version_changes", "chunks", "b_received_s",
+            "b_serves", "arms", "apply_walls", "subscriptions", "wire",
+            "cache_counters", "b_launches", "update_launches", "checked")},
         "launches": launches,
         "s": time.perf_counter() - t0}}), flush=True)
     return launches

@@ -41,9 +41,7 @@ Cited reference behavior: fanout sampling and sent_to exclusion
 
 A copy of ``corrosion_tpu/agent/det.py`` re-rooted on this package: the
 cluster's agents run on ``device`` (default ``"cuda"``, each agent's
-clock cache on the card), with the agent surfaces this package does not
-port yet switched off — the scheduler never starts an agent, so none of
-them is reached either way.
+clock cache on the card) with the reference's config.
 """
 
 from __future__ import annotations
@@ -55,12 +53,7 @@ import tempfile
 from dataclasses import dataclass, field
 from typing import Dict, List, Optional, Set, Tuple
 
-from corrosion_tpu_torch.agent.runtime import (
-    PORTED_ONLY,
-    Agent,
-    AgentConfig,
-    ChangeSource,
-)
+from corrosion_tpu_torch.agent.runtime import Agent, AgentConfig, ChangeSource
 from corrosion_tpu_torch.agent.testing import TEST_SCHEMA
 from corrosion_tpu_torch.bridge import speedy
 
@@ -166,9 +159,9 @@ class DetCluster:
                 fanout=params.fanout,
                 max_transmissions=params.max_transmissions,
                 sync_peers=params.sync_peers,
+                subs_enabled=False,
                 ring0_enabled=params.ring0_size > 0,
                 debug_hops=False,
-                **PORTED_ONLY,
                 device=device,
                 device_cache=device_cache,
             )

@@ -25,7 +25,11 @@ SQL, wire bytes, timers and protocol are the reference's.  The agent
 runs on ``AgentConfig.device`` (default ``"cuda"``): its clock cache's
 store and its batched apply's winner selection live there.  The
 surfaces this package does not port yet (``UNPORTED_SURFACES``) raise
-``NotImplementedError`` when a config asks for one.
+``NotImplementedError`` when a config asks for one.  One deliberate
+difference: a version that arrives in chunks reaches ``on_change`` (the
+subscriptions) once, whole, when its last chunk applies it; the
+reference's hands over each chunk on arrival, before the buffered
+chunks are in the tables, and its subscriptions miss their rows.
 """
 
 from __future__ import annotations
@@ -426,16 +430,9 @@ class AgentConfig:
 # lists them in the order they are to be ported.
 UNPORTED_SURFACES = (
     # (field, the value that switches it off, asks, what it asks for)
-    ("api_port", None, lambda c: c.api_port is not None, "the HTTP API"),
-    ("subs_enabled", False, lambda c: bool(c.subs_enabled),
-     "subscriptions"),
     ("admin_path", None, lambda c: bool(c.admin_path), "the admin socket"),
     ("pg_port", None, lambda c: c.pg_port is not None,
      "the PostgreSQL wire protocol"),
-    ("transport_mux", False, lambda c: bool(c.transport_mux),
-     "the multiplexed transport"),
-    ("swim_wire", "json", lambda c: c.swim_wire == "foca",
-     "foca SWIM datagrams"),
     ("sig_secret", None, lambda c: c.sig_secret is not None,
      "signed changeset attribution"),
     ("sig_key_file", None, lambda c: bool(c.sig_key_file),
@@ -749,6 +746,9 @@ class Agent:
         self.gossip_addr: Tuple[str, int] = (config.gossip_host, config.gossip_port)
         self.api_addr: Tuple[str, int] = (config.api_host, config.api_port)
         self.on_change = None  # hook(ChangeV1) for subscriptions layer
+        # (actor, version) -> the changes of a partial version its last
+        # chunk just promoted, for that chunk's on_change
+        self._promoted: Dict[Tuple[bytes, int], list] = {}
         # fault injection (corrosion_tpu_torch.faults): the controller and the
         # per-agent hook, installed by devcluster/chaos harnesses before
         # start(); None in production
@@ -906,6 +906,10 @@ class Agent:
             self.members.set_quarantined(
                 actor, True, reason="signed_equivocation"
             )
+        if self.config.subs_enabled:
+            from corrosion_tpu_torch.agent.pubsub import SubsManager
+
+            self.subs = SubsManager(self, self.config.subs_path)
         self._tasks = [
             self._spawn_task(self._announce_loop(), "announce"),
             self._spawn_task(self._probe_loop(), "probe"),
@@ -936,6 +940,11 @@ class Agent:
             self._tasks.append(
                 self._spawn_task(self.flight.run(), "flight")
             )
+        if self.config.api_port is not None:
+            from corrosion_tpu_torch.agent.http import start_http_api
+
+            self._http = start_http_api(self)
+            self.api_addr = self._http.server_address[:2]
 
     async def stop(self, graceful: bool = True) -> None:
         # graceful leave (broadcast/mod.rs:327-366 leave_cluster): tell
@@ -3766,6 +3775,17 @@ class Agent:
                  self._meta_sig(meta))
             )
         if news and self.on_change is not None:
+            cs = cv.changeset
+            if cs.is_full and not cs.is_complete():
+                # a chunk of a partial version: the subscriptions see
+                # the version once, whole, when its last chunk applies
+                # it (buffered chunks are not in the tables yet)
+                done = self._promoted.pop(
+                    (cv.actor_id.bytes, int(cs.version)), None)
+                if done is None:
+                    return
+                cv = ChangeV1(actor_id=cv.actor_id, changeset=Changeset.full(
+                    cs.version, done, (0, cs.last_seq), cs.last_seq, cs.ts))
             self.on_change(cv)
 
     def _record_provenance(self, cv: ChangeV1, source: ChangeSource,
@@ -3964,6 +3984,8 @@ class Agent:
                     int(cs.last_seq), ts,
                 )
                 self.bookie.clear_partial(actor, v)
+                if self.on_change is not None:
+                    self._promoted[(actor, v)] = buffered
                 # promoted partials record NO digest: their chunks can
                 # legitimately mix broadcast and sync deliveries, and
                 # sync-served content reflects serve-time compaction —
@@ -4764,9 +4786,9 @@ class Agent:
             elif prelude == STREAM_BI:
                 await self._serve_sync(reader, writer)
             elif prelude == STREAM_MUX:
-                writer.close()
-                raise _unported("transport_mux",
-                                "the multiplexed transport")
+                from corrosion_tpu_torch.agent.mux import serve_mux
+
+                await serve_mux(self, reader, writer)
             else:
                 writer.close()
         except asyncio.CancelledError:
@@ -5938,8 +5960,11 @@ class _UdpProtocol(asyncio.DatagramProtocol):
         # wire sniff: JSON envelopes start with '{'; foca datagrams
         # start with the uuid length prefix (0x10).  Receivers accept
         # both so mixed-wire clusters interoperate.
-        if data[:1] == b"\x10":
-            raise _unported("swim_wire", "foca SWIM datagrams")
+        if not data.startswith(b"{"):
+            from corrosion_tpu_torch.agent import swim_foca
+
+            swim_foca.handle_datagram(a, data, addr)
+            return
         try:
             msg = wire.decode_datagram(data)
         except ValueError:

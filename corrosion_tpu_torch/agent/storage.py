@@ -7,7 +7,10 @@ the batched apply resolves winners through this package's
 ``enable_device_cache``, seeds and stages through this package's
 ``ops.devcache`` (a ``TorchStore`` on the card by default).  SQL, UDFs,
 the write-behind journal and the transaction boundary are the
-reference's, unchanged.
+reference's, unchanged.  One deliberate difference: the read barrier
+(``flush_pending``) also waits for a drain that another thread has
+taken off the queue and not yet committed; the reference's returns at
+once, and a read then misses that drain's winners.
 
 This is our implementation of the semantics the reference gets from the
 vendored cr-sqlite C extension (loaded at
@@ -102,15 +105,19 @@ class _WriteBehind:
     them at the FRONT (their journal deletes roll back with the tx).
     ``unflushed`` maps table -> pks with any not-yet-flushed state —
     the overlap guard that forces a flush before SQLite is read for
-    those rows."""
+    those rows.  ``flushing`` counts drains that have taken entries off
+    ``pending`` and not yet committed them: a read barrier waits for
+    those too."""
 
-    __slots__ = ("pending", "draining", "tx_staged", "unflushed")
+    __slots__ = ("pending", "draining", "tx_staged", "unflushed",
+                 "flushing")
 
     def __init__(self):
         self.pending: List[tuple] = []
         self.draining: List[tuple] = []
         self.tx_staged: List[tuple] = []
         self.unflushed: Dict[str, set] = {}
+        self.flushing = 0
 
     def recompute(self) -> None:
         u: Dict[str, set] = {}
@@ -1986,9 +1993,14 @@ END;
         BARRIER: any apply whose commit was observable before this call
         takes the lock has its winners durably in the clock tables when
         it returns (entries are journaled + enqueued inside the apply
-        transaction itself).  Cheap no-op when nothing is pending."""
+        transaction itself).  Cheap no-op when nothing is pending or
+        being drained; a drain running on another thread is waited for
+        (it holds the storage lock until it commits), so a read after
+        the barrier never misses the winners that drain is writing."""
         wb = self._wb
-        if not wb.pending and not wb.tx_staged:
+        # pending first: a drain raises ``flushing`` before it empties
+        # ``pending``
+        if not wb.pending and not wb.tx_staged and not wb.flushing:
             return
         from corrosion_tpu_torch.agent.locks import PRIO_HIGH
 
@@ -2034,20 +2046,24 @@ END;
             return
         if not wb.pending:
             return
-        entries, wb.pending = wb.pending, []
-        wb.recompute()
-        self.conn.execute("BEGIN IMMEDIATE")
+        wb.flushing += 1
         try:
-            self._set_state("apply_mode", 1)
-            self._wb_flush_entries_in_tx(entries)
-            self._set_state("apply_mode", 0)
-        except BaseException:
-            wb.pending = entries + wb.pending
+            entries, wb.pending = wb.pending, []
             wb.recompute()
-            if self.conn.in_transaction:
-                self.conn.execute("ROLLBACK")
-            raise
-        self.conn.execute("COMMIT")
+            self.conn.execute("BEGIN IMMEDIATE")
+            try:
+                self._set_state("apply_mode", 1)
+                self._wb_flush_entries_in_tx(entries)
+                self._set_state("apply_mode", 0)
+            except BaseException:
+                wb.pending = entries + wb.pending
+                wb.recompute()
+                if self.conn.in_transaction:
+                    self.conn.execute("ROLLBACK")
+                raise
+            self.conn.execute("COMMIT")
+        finally:
+            wb.flushing -= 1
         self._emit_cache_metrics()
 
     def _wb_flush_all_in_tx(self) -> None:

@@ -1,13 +1,14 @@
 """Test harness: boot complete real agents on loopback.
 
 Parity: ``crates/corro-tests/src/lib.rs:13-95`` — ``launch_test_agent``
-boots a full agent (gossip on 127.0.0.1:0, tempdir DB, schema applied)
-so integration tests exercise real gossip, not mocks.
+boots a full agent (gossip on 127.0.0.1:0, HTTP on :0, tempdir DB, schema
+applied) so integration tests exercise real gossip, not mocks.
 
 A copy of ``corrosion_tpu/agent/testing.py`` re-rooted on this package.
-Its agents switch off the surfaces this package does not port yet
-(``runtime.PORTED_ONLY``) and run on ``device`` (pass ``device="cpu"``
-without a card); explicit overrides still win.
+Its agents run the reference's surfaces, switch off the ones this
+package does not port yet (``runtime.PORTED_ONLY``, all off by default)
+and run on ``device`` (pass ``device="cpu"`` without a card); explicit
+overrides still win.
 """
 
 from __future__ import annotations
@@ -115,7 +116,7 @@ def make_offline_agent(
     timers or socket setup.  Callers must ``agent.storage.close()`` (or
     use it inside asyncio.run and close after)."""
     d = tmpdir or tempfile.mkdtemp(prefix="corro-offline-")
-    kwargs = dict(PORTED_ONLY)
+    kwargs = dict(PORTED_ONLY, api_port=None)
     kwargs.update(overrides)
     cfg = AgentConfig(
         db_path=f"{d}/corrosion.db",

@@ -1,8 +1,9 @@
-"""The speedy wire codec the agent speaks (port of
-``corrosion_tpu.bridge``: ``speedy``, the Python twin of the reference's
-native codec).  The reference's golden cr-sqlite engine
-(``bridge/crsqlite_ref``) serves its tests only and is not ported."""
+"""The wire codecs the agent speaks (port of ``corrosion_tpu.bridge``:
+``speedy``, the Python twin of the reference's native codec, and
+``foca``, the SWIM datagram codec over ``bincode``).  The reference's
+golden cr-sqlite engine (``bridge/crsqlite_ref``) serves its tests only
+and is not ported."""
 
-from corrosion_tpu_torch.bridge import speedy  # noqa: F401
+from corrosion_tpu_torch.bridge import foca, speedy  # noqa: F401
 
-__all__ = ["speedy"]
+__all__ = ["foca", "speedy"]

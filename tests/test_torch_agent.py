@@ -11,8 +11,12 @@ host modules) against the reference's, on the CPU.
   CPU) and the winner selection's plain torch core give the cache-off
   state;
 * a mixed cluster: a reference agent and a port agent meet on loopback,
-  write on both sides and converge;
+  write on both sides and converge, on the JSON wire with a connection
+  per channel class and at the reference's defaults (foca SWIM, the
+  multiplexed transport, HTTP and subscriptions on);
 * resume: a port agent boots on a reference agent's database;
+* the defaults: a bare ``AgentConfig`` starts, serves ``/v1/members``
+  and stops;
 * refusals: the card without one, and every unported surface.
 """
 
@@ -361,18 +365,48 @@ def _rows(agent):
         "SELECT id, text FROM tests ORDER BY id")[1]
 
 
-def test_mixed_cluster_converges_on_loopback(tmp_path):
+def _count_datagrams(monkeypatch):
+    """Count, per package, the SWIM datagrams its agents decode as foca
+    and as JSON envelopes."""
+    from corrosion_tpu.agent import swim_foca as ref_foca
+    from corrosion_tpu.agent import wire as ref_wire
+    from corrosion_tpu_torch.agent import swim_foca as port_foca
+    from corrosion_tpu_torch.agent import wire as port_wire
+
+    seen = {(p, w): 0 for p in ("ref", "port") for w in ("foca", "json")}
+    for pkg, mod, name, w in (
+            ("ref", ref_foca, "handle_datagram", "foca"),
+            ("port", port_foca, "handle_datagram", "foca"),
+            ("ref", ref_wire, "decode_datagram", "json"),
+            ("port", port_wire, "decode_datagram", "json")):
+        def counted(*a, _real=getattr(mod, name), _key=(pkg, w)):
+            seen[_key] += 1
+            return _real(*a)
+        monkeypatch.setattr(mod, name, counted)
+    return seen
+
+
+def _mux_counts(agent):
+    """(uni mux frames sent, bi mux channels opened) by ``agent``."""
+    m = agent.metrics
+    return (m.get_counter("corro_transport_frames_total", channel="uni"),
+            m.get_counter("corro_transport_bi_channels_total"))
+
+
+@pytest.mark.parametrize("cfg", [MIXED, {}], ids=["mixed", "defaults"])
+def test_mixed_cluster_converges_on_loopback(cfg, tmp_path, monkeypatch):
     (tmp_path / "ref").mkdir()
     (tmp_path / "port").mkdir()
+    seen = _count_datagrams(monkeypatch)
 
     async def main():
         ref = await ref_testing.launch_test_agent(tmpdir=str(tmp_path / "ref"),
-                                                  **MIXED)
+                                                  **cfg)
         port = None
         try:
             port = await port_testing.launch_test_agent(
                 bootstrap=[f"{ref.gossip_addr[0]}:{ref.gossip_addr[1]}"],
-                tmpdir=str(tmp_path / "port"), device="cpu")
+                tmpdir=str(tmp_path / "port"), device="cpu", **cfg)
             await port_testing.wait_for(
                 lambda: ref.members.alive() and port.members.alive(),
                 timeout=10)
@@ -391,6 +425,18 @@ def test_mixed_cluster_converges_on_loopback(tmp_path):
                 lambda: _dump(ref) == _dump(port), timeout=10)
             assert ref.bookie.for_actor(port.actor_id).contains_version(2)
             assert port.bookie.for_actor(ref.actor_id).contains_version(1)
+            await port.sync_round()
+            await ref.sync_round()
+            for name, a in (("ref", ref), ("port", port)):
+                foca_in, json_in = seen[name, "foca"], seen[name, "json"]
+                uni, bi = _mux_counts(a)
+                if cfg:
+                    assert foca_in == 0 and json_in > 0
+                    assert uni == 0 and bi == 0
+                else:
+                    assert foca_in > 0 and json_in == 0
+                    assert uni > 0 and bi > 0
+                    assert a.api_addr[1] != 0 and a.subs is not None
         finally:
             if port is not None:
                 await port.stop()
@@ -439,12 +485,8 @@ def test_card_without_one_raises_before_opening(tmp_path, monkeypatch):
 
 
 UNPORTED = {
-    "api_port": 0,
-    "subs_enabled": True,
     "admin_path": "admin.sock",
     "pg_port": 0,
-    "transport_mux": True,
-    "swim_wire": "foca",
     "sig_secret": bytes(32),
     "sig_key_file": "key.hex",
     "sig_pubkeys": {},
@@ -464,33 +506,95 @@ def test_unported_surface_raises(field, tmp_path):
     assert not db.exists()
 
 
-def test_reference_defaults_ask_for_unported_surfaces(tmp_path):
-    # AgentConfig keeps the reference's defaults: the HTTP API comes
-    # first among the surfaces they ask for
-    with pytest.raises(NotImplementedError, match="AgentConfig.api_port "):
-        port_runtime.Agent(port_runtime.AgentConfig(
-            db_path=str(tmp_path / "c.db"), device="cpu"))
+def test_bare_config_starts_at_the_reference_defaults(tmp_path):
+    """A bare ``AgentConfig`` asks for the reference's surfaces, which
+    the port now runs: it starts, serves ``/v1/members`` over HTTP and
+    stops, leaving none of its threads behind."""
+    import json
+    import threading
+    import urllib.request
 
+    from corrosion_tpu.agent.runtime import AgentConfig as RefAgentConfig
 
-def test_foca_datagram_and_mux_stream_raise(tmp_path):
+    ref_cfg = RefAgentConfig(db_path="x")
+    cfg = port_runtime.AgentConfig(db_path=str(tmp_path / "c.db"),
+                                   device="cpu",
+                                   schema_sql=port_testing.TEST_SCHEMA)
+    for name in ("api_port", "subs_enabled", "transport_mux", "swim_wire"):
+        assert getattr(cfg, name) == getattr(ref_cfg, name)
+    before = set(threading.enumerate())
+
     async def main():
-        a = await port_testing.launch_test_agent(tmpdir=str(tmp_path),
-                                                 device="cpu")
+        a = port_runtime.Agent(cfg)
+        await a.start()
         try:
-            proto = port_runtime._UdpProtocol(a)
-            with pytest.raises(NotImplementedError, match="swim_wire"):
-                proto.datagram_received(b"\x10" + bytes(16), ("127.0.0.1", 1))
-            # data that is neither JSON nor foca is dropped, as the JSON
-            # branch drops a malformed envelope
-            for junk in (b"", b"\x00junk", b"\xff" * 9, b"{not json"):
-                proto.datagram_received(junk, ("127.0.0.1", 1))
-            r, w = await asyncio.open_connection(*a.gossip_addr)
-            w.write(port_runtime.STREAM_MUX)
-            await w.drain()
-            # the server closes the stream and raises in its handler
-            assert await asyncio.wait_for(r.read(), 5) == b""
-            w.close()
+            assert a.transport.mux and a.subs is not None
+            url = f"http://{a.api_addr[0]}:{a.api_addr[1]}/v1/members"
+            body = await asyncio.to_thread(
+                lambda: urllib.request.urlopen(url, timeout=10).read())
+            assert json.loads(body) == {"members": []}
         finally:
             await a.stop()
 
     asyncio.run(asyncio.wait_for(main(), 30))
+    left = []
+    for t in set(threading.enumerate()) - before:
+        t.join(timeout=5)
+        if t.is_alive():
+            left.append(t.name)
+    assert left == []
+
+
+SURFACE_MODULES = ("bridge/bincode.py", "bridge/foca.py",
+                   "agent/swim_foca.py", "agent/mux.py", "agent/http.py",
+                   "agent/pubsub.py")
+
+
+def test_port_imports_neither_jax_nor_the_reference():
+    """No module of the port, its agent's surfaces included, and not
+    ``chip_smoke.py``, imports ``jax`` or ``corrosion_tpu``: read from
+    the sources, and from ``sys.modules`` after importing the surfaces
+    and starting an agent at the reference's defaults."""
+    import ast
+    import os
+    import subprocess
+    import sys
+    from pathlib import Path
+
+    root = Path(__file__).resolve().parents[1]
+    pkg = root / "corrosion_tpu_torch"
+    for rel in SURFACE_MODULES:
+        assert (pkg / rel).is_file(), rel
+    files = [f for f in pkg.rglob("*.py") if "build" not in f.parts]
+    files.append(root / "chip_smoke.py")
+    for f in files:
+        for node in ast.walk(ast.parse(f.read_text(), str(f))):
+            if isinstance(node, ast.Import):
+                mods = [a.name for a in node.names]
+            elif isinstance(node, ast.ImportFrom) and node.module:
+                mods = [node.module]
+            else:
+                continue
+            for mod in mods:
+                assert mod.split(".")[0] not in (
+                    "jax", "jaxlib", "corrosion_tpu"), (f, mod)
+    code = (
+        "import asyncio, sys, tempfile\n"
+        + "".join(f"import corrosion_tpu_torch.{m[:-3].replace('/', '.')}\n"
+                  for m in SURFACE_MODULES)
+        + "from corrosion_tpu_torch.agent import runtime, testing\n"
+        "async def main():\n"
+        "    d = tempfile.mkdtemp()\n"
+        "    a = runtime.Agent(runtime.AgentConfig(\n"
+        "        db_path=d + '/c.db', device='cpu',\n"
+        "        schema_sql=testing.TEST_SCHEMA))\n"
+        "    await a.start()\n"
+        "    await a.stop()\n"
+        "asyncio.run(asyncio.wait_for(main(), 30))\n"
+        "bad = [m for m in sys.modules if m.split('.')[0] in "
+        "('jax', 'jaxlib', 'corrosion_tpu')]\n"
+        "assert not bad, bad\n"
+    )
+    env = dict(os.environ, PYTHONPATH=str(root))
+    subprocess.run([sys.executable, "-c", code], cwd=root, env=env,
+                   check=True, timeout=120)

@@ -214,6 +214,41 @@ def test_read_paths_barrier_unflushed_winners(tmp_path):
     port.close()
 
 
+def test_read_barrier_waits_for_a_drain_on_another_thread(tmp_path):
+    """A drain on one thread takes the queue off ``pending`` before it
+    writes: a ``read_query`` on another thread meanwhile waits for that
+    drain's commit and sees its winners (the reference's barrier returns
+    at once there, and its read misses them)."""
+    import threading
+
+    port = _arm(tmp_path, "race", "device", True)
+    port.apply_changes_batched(changes_from_reference(_wide_changes(10, 1)))
+    assert len(port._wb.pending) > 0
+    taken, release = threading.Event(), threading.Event()
+    real = port._wb_flush_entries_in_tx
+
+    def held_flush(entries):
+        taken.set()
+        assert release.wait(10)
+        return real(entries)
+
+    port._wb_flush_entries_in_tx = held_flush
+    drain = threading.Thread(target=port.flush_pending)
+    drain.start()
+    assert taken.wait(10) and port._wb.pending == []
+    got = []
+    read = threading.Thread(target=lambda: got.append(port.read_query(
+        "SELECT a FROM items WHERE id = 3")[1]))
+    read.start()
+    read.join(0.3)
+    assert read.is_alive() and got == []  # waiting for the drain
+    release.set()
+    drain.join(10)
+    read.join(10)
+    assert got == [[("v1-3",)]] and port._wb.flushing == 0
+    port.close()
+
+
 def test_snapshot_install_invalidates_and_purges_journal(tmp_path):
     """Installing a donor's snapshot drops the cache and purges the
     donor's journal rows unread; later applies re-seed from the file."""
