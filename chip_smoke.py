@@ -279,7 +279,12 @@ package.  Phases, each ending the run with a non-zero exit on failure:
     (``deliver_perm``'s and ``sync_pull``'s at (b)'s shape, the SWIM
     tick's phases at (c)'s) against its plain version, timed, with its
     bound (the ``{"window_kernels": ...}`` line);
-23. the port's live agent (``agent/runtime.py``) on the card: (a)
+23. the port's live agent (``agent/runtime.py``) on the card: first
+    the port's native host module (``native/_corrosion_native.cc``)
+    must have built from this checkout and loaded, and the agent's
+    value codec (``agent/pack.py``) and speedy's change loops and
+    deframer must be its functions, equal to their Python twins on a
+    sample (the ``phase 23 native`` line); then (a)
     ``run_bitmatch`` at 256 and 64 nodes with ``BITMATCH_N256.json``'s
     and ``BITMATCH_N64.json``'s own arguments (loss 0.05, ring0-first
     fanout, anti-entropy every 8 ticks), real agents run for the card
@@ -319,7 +324,23 @@ package.  Phases, each ending the run with a non-zero exit on failure:
     inputs, the decisions also the NumPy twin's (the ``{"agent": ...}``
     line: the walls, each receiver's large apply's host-clock wall, the
     arms, the subscriptions, the wire counts, the launches, the sizes
-    checked).  Every wait is bounded.
+    checked); (c) three agents on the card with every further surface of
+    the reference on: each an admin socket and a signing key, one shared
+    directory of their public keys, A the PostgreSQL wire, B and C
+    holding the older version; A writes (b)'s 70,000 rows in one
+    transaction over the PG wire (one recursive CTE INSERT; its version
+    must equal (b)'s change for change), B takes it by broadcast, C by
+    sync from A alone, A takes the older version and B updates 4096 rows
+    twice; B's and C's applies must go through the four winner kernels,
+    every decision bitwise its plain version's; A's PG session must read
+    back the rows the merge rules give, equal on all three nodes; every
+    node's admin socket must answer ``health``, ``cluster_members`` (3
+    alive), ``actor_version`` of A's actor (equal on all three),
+    ``sync_sessions`` and ``db_info``; a small signed write from A must
+    be verified on B and C (``corro_sig_verifications_total`` ok, no
+    failure) (the ``phase 23c`` line: the PG write, B's reassembly, C's
+    sync, the PG read, each apply's wall, the launches).  Every wait is
+    bounded.
 
 ``python3 chip_smoke.py --parent DIR`` (DIR an unpacked ``git
 archive`` of the parent commit) also builds the parent's ``swim.cu``,
@@ -6992,7 +7013,7 @@ BITMATCH_RECORDS = ("BITMATCH_N256.json", "BITMATCH_N64.json")
 # may be served by B, which serves only the changes that won there
 AGENT_ROWS = 70_000
 AGENT_UPDATE_ROWS = 4096  # the rows B updates, twice
-AGENT_WAIT_S = 180.0  # the bound on every wait of 23b
+AGENT_WAIT_S = 180.0  # the bound on every wait of 23b and 23c
 # an older version of another actor over one row in AGENT_OLD_STEP of A's
 AGENT_OLD_SITE = bytes(range(200, 216))
 AGENT_OLD_STEP = 16
@@ -7378,6 +7399,100 @@ class WireCount:
         self.cls.datagram_received = self.real
 
 
+def waiter(phase: str):
+    """An awaitable ``until(pred, what)`` bounded by ``AGENT_WAIT_S``
+    that fails ``phase`` when ``pred`` does not come true."""
+    from corrosion_tpu_torch.agent.testing import wait_for
+
+    async def until(pred, what: str):
+        try:
+            await wait_for(pred, timeout=AGENT_WAIT_S)
+        except TimeoutError:
+            fail(f"phase {phase}: {what} not within {AGENT_WAIT_S} s")
+
+    return until
+
+
+def has(x, actor, v) -> bool:
+    return x.bookie.for_actor(actor).contains_version(v)
+
+
+def counter(x, name, **labels) -> float:
+    if labels:
+        return x.metrics.get_counter(name, **labels)
+    return x.metrics.get_counter_sum(name)
+
+
+class SyncPins:
+    """While installed, an agent pinned to a peer syncs from that peer
+    alone (from nobody while pinned to None), and a session cut short is
+    not retried elsewhere (the next round asks its peer again); every
+    other agent syncs as the reference's does."""
+
+    def __init__(self):
+        from corrosion_tpu_torch.agent.runtime import Agent
+
+        self.cls = Agent
+        self.real = (Agent._choose_sync_peers, Agent.parallel_sync)
+        self.pinned = {}
+
+    def pin(self, agent, actor) -> None:
+        self.pinned[id(agent)] = actor
+
+    def install(self) -> None:
+        (real_choose, real_parallel), pinned = self.real, self.pinned
+
+        def choose(agent, ours):
+            if id(agent) not in pinned:
+                return real_choose(agent, ours)
+            want = pinned[id(agent)]
+            return [m for m in agent.members.alive() if m.actor_id == want]
+
+        async def parallel(agent, members, ours=None, _retry=True):
+            return await real_parallel(
+                agent, members, ours,
+                _retry=_retry and id(agent) not in pinned)
+
+        self.cls._choose_sync_peers, self.cls.parallel_sync = choose, parallel
+
+    def remove(self) -> None:
+        self.cls._choose_sync_peers, self.cls.parallel_sync = self.real
+
+
+class ApplyWalls:
+    """Records, while installed, the host-clock wall of each apply of
+    more than ``TORCH_AUTO_MIN`` changes (a large version's), by the
+    applying node's database path."""
+
+    def __init__(self):
+        from corrosion_tpu_torch.agent.storage import CrConn
+        from corrosion_tpu_torch.ops.merge import TORCH_AUTO_MIN
+
+        self.cls, self.real = CrConn, CrConn.apply_changes_in_tx
+        self.min, self.walls = TORCH_AUTO_MIN, []
+
+    def install(self) -> None:
+        real, walls, least = self.real, self.walls, self.min
+
+        def timed_apply(conn, changes):
+            t0 = time.perf_counter()
+            out = real(conn, changes)
+            n = len(changes) if hasattr(changes, "__len__") else -1
+            if n > least:
+                walls.append((conn.path, n, time.perf_counter() - t0))
+            return out
+
+        self.cls.apply_changes_in_tx = timed_apply
+
+    def remove(self) -> None:
+        self.cls.apply_changes_in_tx = self.real
+
+    def named(self, paths: dict) -> list:
+        """The walls, each under its node's name in ``paths``."""
+        return [dict(node=paths.get(p, p), changes=n, wall_s=w)
+                for p, n, w in self.walls]
+
+
 async def live_cluster(counted, dev, tmp: str, old) -> dict:
     """Phase 23b: four of the port's agents on loopback at the
     reference's defaults (HTTP API, subscriptions, foca SWIM, the
@@ -7387,63 +7502,15 @@ async def live_cluster(counted, dev, tmp: str, old) -> dict:
     import asyncio
     import types
 
-    from corrosion_tpu_torch.agent.runtime import (
-        Agent,
-        AgentConfig,
-        ChangeSource,
-    )
-    from corrosion_tpu_torch.agent.storage import CrConn
-    from corrosion_tpu_torch.agent.testing import launch_test_agent, wait_for
+    from corrosion_tpu_torch.agent.runtime import AgentConfig, ChangeSource
+    from corrosion_tpu_torch.agent.testing import launch_test_agent
     from corrosion_tpu_torch.ops.merge import TORCH_AUTO_MIN
     from corrosion_tpu_torch.types.change import ChunkedChanges
 
-    # each receiver's host-clock wall for the large version's apply
-    walls = []
-    real_apply = CrConn.apply_changes_in_tx
-
-    def timed_apply(self, changes):
-        t0 = time.perf_counter()
-        out = real_apply(self, changes)
-        n = len(changes) if hasattr(changes, "__len__") else -1
-        if n > TORCH_AUTO_MIN:
-            walls.append((self.path, n, time.perf_counter() - t0))
-        return out
-
-    # each C syncs from nobody until its arm, then from its arm's node
-    # alone: no other peer is chosen, and a session cut short is not
-    # retried elsewhere (the next round asks its node again); every
-    # other agent syncs as the reference's does
-    real_choose, real_parallel = (Agent._choose_sync_peers,
-                                  Agent.parallel_sync)
-    pinned = {}
-
-    def choose(self, ours):
-        if id(self) not in pinned:
-            return real_choose(self, ours)
-        want = pinned[id(self)]
-        return [m for m in self.members.alive() if m.actor_id == want]
-
-    async def parallel(self, members, ours=None, _retry=True):
-        return await real_parallel(self, members, ours,
-                                   _retry=_retry and id(self) not in pinned)
-
-    async def until(pred, what: str):
-        try:
-            await wait_for(pred, timeout=AGENT_WAIT_S)
-        except TimeoutError:
-            fail(f"phase 23b: {what} not within {AGENT_WAIT_S} s")
-
-    def has(x, actor, v) -> bool:
-        return x.bookie.for_actor(actor).contains_version(v)
-
-    def counter(x, name, **labels) -> float:
-        if labels:
-            return x.metrics.get_counter(name, **labels)
-        return x.metrics.get_counter_sum(name)
-
+    until = waiter("23b")
     out = {}
     agents, streams = {}, {}
-    spy, wires = ApplySpy(), WireCount()
+    spy, wires, pins, walls = ApplySpy(), WireCount(), SyncPins(), ApplyWalls()
     # A and B pull nothing by sync (their clients wait a minute): A's
     # version reaches B by broadcast alone, and A takes the older
     # version only when it is handed it, after its write
@@ -7453,8 +7520,8 @@ async def live_cluster(counted, dev, tmp: str, old) -> dict:
     # round before delivered and the node has not applied yet
     default_sync = dict(sync_interval_min=AgentConfig.sync_interval_min,
                         sync_interval_max=AgentConfig.sync_interval_max)
-    CrConn.apply_changes_in_tx = timed_apply
-    Agent._choose_sync_peers, Agent.parallel_sync = choose, parallel
+    walls.install()
+    pins.install()
     spy.install()
     wires.install()
     try:
@@ -7469,7 +7536,7 @@ async def live_cluster(counted, dev, tmp: str, old) -> dict:
             c = agents["c_" + arm] = await launch_test_agent(
                 bootstrap=boot, tmpdir=os.path.join(tmp, "c_" + arm),
                 device=str(dev), device_cache=True, **default_sync)
-            pinned[id(c)] = None
+            pins.pin(c, None)
         await until(lambda: all(len(x.members.alive()) == len(agents) - 1
                                 for x in agents.values()), "the nodes meet")
         # the catch-up nodes take A's version by sync alone: A and B
@@ -7497,6 +7564,7 @@ async def live_cluster(counted, dev, tmp: str, old) -> dict:
         changes = await asyncio.to_thread(a.storage.collect_changes,
                                           (dbv, dbv))
         out["version_changes"] = len(changes)
+        out["version_digest"] = version_digest(changes)
         if len(changes) <= TORCH_AUTO_MIN:
             fail(f"phase 23b: the version holds {len(changes)} changes, "
                  f"not more than {TORCH_AUTO_MIN}")
@@ -7522,7 +7590,7 @@ async def live_cluster(counted, dev, tmp: str, old) -> dict:
                              counter(other, "corro_sync_needs_served_total"))
             zero(counted)
             t0 = time.perf_counter()
-            pinned[id(c)] = server.actor_id
+            pins.pin(c, server.actor_id)
             await until(lambda: has(c, a.actor_id, v),
                         f"C_{arm} catches up by sync from {arm.upper()}")
             arm_out = dict(
@@ -7550,11 +7618,11 @@ async def live_cluster(counted, dev, tmp: str, old) -> dict:
                      f"{arm.upper()} alone: {arm_out}, want "
                      f"{want_n[arm]} changes")
             # no more syncs of this C while the other arm runs
-            pinned[id(c)] = None
+            pins.pin(c, None)
         for x in (a, b):
             x.transport.fault_filter = None
         for arm in AGENT_ARMS:
-            pinned[id(agents["c_" + arm])] = agents[arm].actor_id
+            pins.pin(agents["c_" + arm], agents[arm].actor_id)
         zero(counted)
         a.enqueue_change(old, ChangeSource.SYNC)
         await until(lambda: has(a, AGENT_OLD_SITE, 1),
@@ -7606,15 +7674,13 @@ async def live_cluster(counted, dev, tmp: str, old) -> dict:
                                     channel="bi")
                       for name, x in agents.items()})
         paths = {x.storage.path: name for name, x in agents.items()}
-        out["apply_walls"] = [dict(node=paths.get(p, p), changes=n,
-                                   wall_s=w) for p, n, w in walls]
+        out["apply_walls"] = walls.named(paths)
         out["rows"] = len(states[0]["rows"])
     finally:
         wires.remove()
         spy.remove()
-        Agent._choose_sync_peers, Agent.parallel_sync = (real_choose,
-                                                         real_parallel)
-        CrConn.apply_changes_in_tx = real_apply
+        pins.remove()
+        walls.remove()
         for st in streams.values():
             st.close()
         for x in reversed(list(agents.values())):
@@ -7664,12 +7730,284 @@ async def live_cluster(counted, dev, tmp: str, old) -> dict:
     return out
 
 
+def version_digest(changes) -> str:
+    """A digest of a version's changes as a node serves them: each
+    change's table, pk, column, value, col_version, seq and causal
+    length, in order (not its db_version or site: local to the writer)."""
+    import hashlib
+
+    h = hashlib.sha256()
+    for c in changes:
+        h.update(repr((c.table, bytes(c.pk), c.cid, c.val, c.col_version,
+                       int(c.seq), c.cl)).encode())
+    return h.hexdigest()
+
+
+# the one recursive statement that writes 23b's version over the PG wire
+AGENT_PG_INSERT = (
+    "WITH RECURSIVE r(i) AS (SELECT 0 UNION ALL SELECT i + 1 FROM r "
+    "WHERE i < {last}) INSERT INTO tests (id, text) "
+    "SELECT i, 'row-' || i FROM r")
+AGENT_ADMIN = ("health", "cluster_members", "actor_version",
+               "sync_sessions", "db_info")
+
+
+def admin_answers(path: str, actor: bytes) -> dict:
+    """The admin socket at ``path``: each of ``AGENT_ADMIN``'s replies
+    (``actor_version`` for ``actor``)."""
+    from corrosion_tpu_torch.agent.admin import AdminClient
+
+    c = AdminClient(path, timeout=AGENT_WAIT_S)
+    try:
+        return {cmd: c.call(cmd, **({"actor": actor.hex()}
+                                    if cmd == "actor_version" else {}))
+                for cmd in AGENT_ADMIN}
+    except RuntimeError as e:
+        fail(f"phase 23c: the admin socket {path}: {e}")
+    finally:
+        c.close()
+
+
+async def surfaces_cluster(counted, dev, tmp: str, old,
+                           want_digest: str) -> dict:
+    """Phase 23c: three of the port's agents on loopback on ``dev`` with
+    every surface of the reference on: each an admin socket and a
+    signing key, one shared directory of their public keys, A the
+    PostgreSQL wire.  B and C hold ``old`` when they start.  A writes
+    23b's version over the PG wire in one transaction; B takes it by
+    broadcast, C by sync from A alone; A takes ``old`` and B updates
+    ``AGENT_UPDATE_ROWS`` rows twice; A's PG session reads the table
+    back; every admin socket answers; a small signed write from A is
+    verified on B and C."""
+    import asyncio
+    import types
+
+    from corrosion_tpu_torch.agent.runtime import AgentConfig, ChangeSource
+    from corrosion_tpu_torch.agent.testing import launch_test_agent
+    from corrosion_tpu_torch.ops.merge import TORCH_AUTO_MIN
+    from corrosion_tpu_torch.types import crypto
+    from tests.pgwire_client import PgClient
+
+    until = waiter("23c")
+    out, agents, directory, pg = {}, {}, {}, None
+    keys = {name: crypto.seed_keypair(b"smoke-23c-" + name.encode())
+            for name in "abc"}
+    spy, pins, walls = ApplySpy(), SyncPins(), ApplyWalls()
+    # A and B pull nothing by sync; C syncs on the reference's timers
+    slow_sync = dict(sync_interval_min=60.0, sync_interval_max=60.0)
+    default_sync = dict(sync_interval_min=AgentConfig.sync_interval_min,
+                        sync_interval_max=AgentConfig.sync_interval_max)
+
+    def boot(name, **kw):
+        return launch_test_agent(
+            tmpdir=os.path.join(tmp, name), device=str(dev),
+            device_cache=True,
+            # relative: a socket's path has room for 107 bytes
+            admin_path=os.path.relpath(os.path.join(tmp, name + ".sock")),
+            sig_secret=keys[name][0], sig_pubkeys=directory, **kw)
+
+    walls.install()
+    pins.install()
+    spy.install()
+    try:
+        a = agents["a"] = await boot("a", pg_port=0, **slow_sync)
+        seed = [f"{a.gossip_addr[0]}:{a.gossip_addr[1]}"]
+        b = agents["b"] = await boot("b", bootstrap=seed, **slow_sync)
+        c = agents["c"] = await boot("c", bootstrap=seed, **default_sync)
+        pins.pin(c, None)
+        for name, x in agents.items():
+            directory[x.actor_id] = keys[name][1]
+        await until(lambda: all(len(x.members.alive()) == 2
+                                for x in agents.values()), "the nodes meet")
+        # C takes A's version by sync alone
+        drop = types.SimpleNamespace(drop=True, delay=0.0)
+        for x in (a, b):
+            x.transport.fault_filter = (
+                lambda ch, addr: drop if ch == "uni"
+                and tuple(addr) == tuple(c.gossip_addr) else None)
+        pg = await asyncio.to_thread(PgClient, *a.pg_addr,
+                                     timeout=AGENT_WAIT_S)
+        zero(counted)
+        t0 = time.perf_counter()
+        for sql in ("BEGIN", AGENT_PG_INSERT.format(last=AGENT_ROWS - 1),
+                    "COMMIT"):
+            _, _, _, errors = await asyncio.to_thread(pg.query, sql)
+            if errors:
+                fail(f"phase 23c: {sql[:40]}... over PG: {errors}")
+        out["pg_write_s"] = time.perf_counter() - t0
+        v = a.bookie.for_actor(a.actor_id).last()
+        dbv = a.bookie.for_actor(a.actor_id).versions[v][0]
+        changes = await asyncio.to_thread(a.storage.collect_changes,
+                                          (dbv, dbv))
+        out["version_changes"] = len(changes)
+        out["same_version_as_23b"] = version_digest(changes) == want_digest
+        await until(lambda: has(b, a.actor_id, v), "B applies the version")
+        out["b_received_s"] = time.perf_counter() - t0
+        out["b_launches"] = read_launches(counted, AGENT_COUNTED)
+        zero(counted)
+        t0 = time.perf_counter()
+        pins.pin(c, a.actor_id)
+        await until(lambda: has(c, a.actor_id, v),
+                    "C catches up by sync from A")
+        out["c_sync_s"] = time.perf_counter() - t0
+        out["c_launches"] = read_launches(counted, AGENT_COUNTED)
+        out["c_sync_changes"] = counter(c, "corro_sync_changes_received_total")
+        for x in (a, b):
+            x.transport.fault_filter = None
+        zero(counted)
+        a.enqueue_change(old, ChangeSource.SYNC)
+        await until(lambda: has(a, AGENT_OLD_SITE, 1),
+                    "A applies the older version")
+        for k in range(2):
+            r = await asyncio.to_thread(b.execute_transaction, [(
+                "UPDATE tests SET text = ? WHERE id < ?",
+                (f"b-{k}", AGENT_UPDATE_ROWS))])
+            bv = r["version"]
+            await until(lambda: has(a, b.actor_id, bv)
+                        and has(c, b.actor_id, bv),
+                        f"A and C apply B's update {k}")
+        out["update_launches"] = read_launches(counted, AGENT_COUNTED)
+        t0 = time.perf_counter()
+        _, rows, _, errors = await asyncio.to_thread(
+            pg.query, "SELECT id, text FROM tests ORDER BY id")
+        out["pg_read_s"] = time.perf_counter() - t0
+        out["pg_rows"] = len(rows)
+        out["pg_rows_equal"] = (not errors and [(int(i), t) for i, t in rows]
+                                == final_rows())
+        states = [await asyncio.to_thread(clock_state, x)
+                  for x in agents.values()]
+        out["admin"] = {name: await asyncio.to_thread(
+            admin_answers, x.config.admin_path, a.actor_id)
+            for name, x in agents.items()}
+        # the signed write: B and C spot-check every signed version
+        for x in (b, c):
+            x.config.sig_spot_check_rate = 1.0
+        pins.pin(c, None)
+        ok_before = {n: counter(agents[n], "corro_sig_verifications_total",
+                                result="ok") for n in ("b", "c")}
+        _, _, _, errors = await asyncio.to_thread(
+            pg.query, "INSERT INTO tests2 (id, text) VALUES (1, 'signed')")
+        if errors:
+            fail(f"phase 23c: the signed write over PG: {errors}")
+        sv = a.bookie.for_actor(a.actor_id).last()
+        await until(lambda: all(
+            counter(agents[n], "corro_sig_verifications_total", result="ok")
+            > ok_before[n] for n in ("b", "c")),
+            "B and C verify A's signed write")
+        out["signatures"] = {n: {r: counter(
+            agents[n], "corro_sig_verifications_total", result=r)
+            for r in ("ok", "fail", "skipped")} for n in ("b", "c")}
+        out["signed_version_on"] = {n: has(agents[n], a.actor_id, sv)
+                                    for n in ("b", "c")}
+        paths = {x.storage.path: name for name, x in agents.items()}
+        out["apply_walls"] = walls.named(paths)
+        out["caches_on_device"] = {name: cache_on(x, dev)
+                                   for name, x in agents.items()}
+    finally:
+        if pg is not None:
+            pg.close()
+        spy.remove()
+        pins.remove()
+        walls.remove()
+        for x in reversed(list(agents.values())):
+            await x.stop()
+    out["checked"] = spy.check(dev)
+    admin = out["admin"]
+    members = {name: sum(m["state"] == "alive" for m in r["cluster_members"])
+               + 1 for name, r in admin.items()}
+    versions = [r["actor_version"] for r in admin.values()]
+    print("phase 23c: " + json.dumps(dict(out, admin={
+        name: dict(alive=members[name], actor_version=r["actor_version"],
+                   db_info=r["db_info"], sync_sessions=len(r["sync_sessions"]),
+                   health=sorted(r["health"]))
+        for name, r in admin.items()})), flush=True)
+    if out["version_changes"] <= TORCH_AUTO_MIN or not out[
+            "same_version_as_23b"]:
+        fail("phase 23c: the version written over PG is not 23b's "
+             f"({out['version_changes']} changes)")
+    if out["c_sync_changes"] < out["version_changes"]:
+        fail(f"phase 23c: C was not served A's version by sync: "
+             f"{out['c_sync_changes']} changes")
+    if any(st != states[0] for st in states) or states[0]["rows"] != (
+            final_rows()):
+        fail("phase 23c: the three nodes' rows or clock state differ, or "
+             "are not the rows the merge gives")
+    if not out["pg_rows_equal"]:
+        fail(f"phase 23c: A's PG session read {out['pg_rows']} rows, not "
+             "the final rows")
+    if set(members.values()) != {3} or any(v != versions[0]
+                                           for v in versions):
+        fail(f"phase 23c: the admin sockets: members {members}, "
+             f"versions {versions}")
+    for n, sig in out["signatures"].items():
+        if sig["ok"] < 1 or sig["fail"] != 0 or not out["signed_version_on"][n]:
+            fail(f"phase 23c: {n.upper()} verified no signature: {sig}")
+    if not all(out["caches_on_device"].values()):
+        fail(f"phase 23c: caches off {dev}: {out['caches_on_device']}")
+    if sorted(w["node"] for w in out["apply_walls"]) != ["b", "c"]:
+        fail(f"phase 23c: the large version's applies: {out['apply_walls']}")
+    if sum(n > TORCH_AUTO_MIN for n in out["checked"]["winners"]) != 2:
+        fail(f"phase 23c: the large applies' winners: "
+             f"{out['checked']['winners']}")
+    if dev.type == "cuda":
+        for k in ("b_launches", "c_launches"):
+            idle = [n for n in WINNER_KERNELS if out[k][n] == 0]
+            if idle:
+                fail(f"phase 23c: {k}: kernels never launched: {idle}")
+    return out
+
+
 def agent_launches(live: dict) -> dict:
     """Each counted kernel's launches over 23b's runs: B's broadcast
     apply, both catch-up arms and the updates."""
     return {n: live["b_launches"][n] + live["update_launches"][n]
             + sum(arm["launches"][n] for arm in live["arms"].values())
             for n in AGENT_COUNTED}
+
+
+def surface_launches(surf: dict) -> dict:
+    """Each counted kernel's launches over 23c's runs: B's broadcast
+    apply, C's sync apply and the updates."""
+    return {n: sum(surf[k][n] for k in ("b_launches", "c_launches",
+                                         "update_launches"))
+            for n in AGENT_COUNTED}
+
+
+def native_check() -> dict:
+    """Phase 23's first check: the port's native host module built from
+    this checkout and loaded, the agent's codec (``agent/pack.py``) and
+    speedy's change-array loops and deframer its functions, each equal to
+    its Python twin on a sample."""
+    from corrosion_tpu_torch import native
+    from corrosion_tpu_torch.agent import pack
+    from corrosion_tpu_torch.bridge import speedy
+
+    t0 = time.perf_counter()
+    mod = native.load()
+    if mod is None:
+        fail("phase 23: the port's native host module did not build or load")
+    wired = {
+        "pack_values": pack.pack_values is mod.pack_values,
+        "unpack_values": pack.unpack_values is mod.unpack_values,
+        "value_cmp": pack.value_cmp is mod.value_cmp,
+        "speedy_changes": speedy._native is mod,
+        "deframe": speedy._native_mod is mod
+        and speedy.deframe is not speedy._py_deframe,
+    }
+    vals = [None, 7, -2**62, 0.5, "row-1", b"\x00\xff", True]
+    blob = pack._py_pack_values(vals)
+    frames = b"".join(speedy.frame(bytes([i]) * i) for i in range(9))
+    agree = (pack.pack_values(vals) == blob
+             and pack.unpack_values(blob) == pack._py_unpack_values(blob)
+             and speedy.deframe(frames[:-3]) == speedy._py_deframe(
+                 frames[:-3]))
+    out = dict(module=os.path.relpath(mod.__file__, HERE), wired=wired,
+               agree=agree, load_s=time.perf_counter() - t0)
+    print("phase 23 native: " + json.dumps(out), flush=True)
+    if not all(wired.values()) or not agree:
+        fail(f"phase 23: the agent's host codec is not the native "
+             f"module's: {out}")
+    return out
 
 
 def agent_phase(record: dict, counted: dict, dev) -> dict:
@@ -7680,6 +8018,7 @@ def agent_phase(record: dict, counted: dict, dev) -> dict:
     from corrosion_tpu_torch import kernels
 
     t0 = time.perf_counter()
+    record["agent_native"] = native_check()
     runs = [bitmatch_run(counted, r, dev) for r in BITMATCH_RECORDS]
     det_placement(dev)
     record["agent_bitmatch"] = runs
@@ -7695,9 +8034,20 @@ def agent_phase(record: dict, counted: dict, dev) -> dict:
         live = asyncio.run(live_cluster(counted, dev, tmp, old))
     live["s"] = time.perf_counter() - t1
     record["agent_cluster"] = live
-    cluster = agent_launches(live)
+    t1 = time.perf_counter()
+    with tempfile.TemporaryDirectory(prefix="surfaces-",
+                                     dir=kernels.BUILD_DIR) as tmp:
+        for name in "abc":
+            os.mkdir(os.path.join(tmp, name))
+        for name in "bc":
+            preseed(os.path.join(tmp, name), old, dev)
+        surf = asyncio.run(surfaces_cluster(counted, dev, tmp, old,
+                                            live["version_digest"]))
+    surf["s"] = time.perf_counter() - t1
+    record["agent_surfaces"] = surf
+    cluster, surfaces = agent_launches(live), surface_launches(surf)
     launches = {n: sum(r["launches"].get(n, 0) for r in runs) + cluster[n]
-                for n in AGENT_COUNTED}
+                + surfaces[n] for n in AGENT_COUNTED}
     print(json.dumps({"agent": {
         "bitmatch": {r["record"]: {k: r.get(k) for k in (
             "wall_s", "launches", "peak_mem_bytes", "agents_mem_bytes")}
@@ -7706,6 +8056,10 @@ def agent_phase(record: dict, counted: dict, dev) -> dict:
             "s", "write_s", "version_changes", "chunks", "b_received_s",
             "b_serves", "arms", "apply_walls", "subscriptions", "wire",
             "cache_counters", "b_launches", "update_launches", "checked")},
+        "surfaces": {k: surf[k] for k in (
+            "s", "pg_write_s", "version_changes", "b_received_s", "c_sync_s",
+            "c_sync_changes", "pg_read_s", "apply_walls", "signatures",
+            "b_launches", "c_launches", "update_launches")},
         "launches": launches,
         "s": time.perf_counter() - t0}}), flush=True)
     return launches

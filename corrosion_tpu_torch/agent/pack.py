@@ -151,9 +151,17 @@ def unpack_values(blob: bytes) -> List[SqlValue]:
     return out
 
 
-# the reference keeps these twins and swaps in its native host C++
-# kernels; this package runs the Python forms (the reference's tests pin
-# the two byte for byte), under the reference's names for both
+# keep the Python twins importable for cross-checking, then prefer the
+# native kernels (corrosion_tpu_torch/native) — these run inside the CRR
+# triggers on every row write, so the constant factor matters
 _py_pack_values = pack_values
 _py_unpack_values = unpack_values
 _py_value_cmp = value_cmp
+
+from corrosion_tpu_torch.native import load_or_none as _load_native
+
+_native = _load_native()
+if _native is not None:
+    pack_values = _native.pack_values  # type: ignore[assignment]
+    unpack_values = _native.unpack_values  # type: ignore[assignment]
+    value_cmp = _native.value_cmp  # type: ignore[assignment]

@@ -23,9 +23,11 @@ functions so QUIC/mTLS or a native codec can replace them.
 A copy of ``corrosion_tpu/agent/runtime.py`` re-rooted on this package.
 SQL, wire bytes, timers and protocol are the reference's.  The agent
 runs on ``AgentConfig.device`` (default ``"cuda"``): its clock cache's
-store and its batched apply's winner selection live there.  The
-surfaces this package does not port yet (``UNPORTED_SURFACES``) raise
-``NotImplementedError`` when a config asks for one.  One deliberate
+store and its batched apply's winner selection live there.  Every
+surface of the reference's config runs: the HTTP API, subscriptions,
+foca SWIM, the multiplexed transport, the PostgreSQL wire
+(``pg_port``), the admin socket (``admin_path``) and signed
+attribution (``sig_*``).  One deliberate
 difference: a version that arrives in chunks reaches ``on_change`` (the
 subscriptions) once, whole, when its last chunk applies it; the
 reference's hands over each chunk on arrival, before the buffered
@@ -425,41 +427,6 @@ class AgentConfig:
     device: str = "cuda"
 
 
-# The agent surfaces this package does not port yet: (config field,
-# test on the config, what it asks for).  ROADMAP.md queue 1 item 4
-# lists them in the order they are to be ported.
-UNPORTED_SURFACES = (
-    # (field, the value that switches it off, asks, what it asks for)
-    ("admin_path", None, lambda c: bool(c.admin_path), "the admin socket"),
-    ("pg_port", None, lambda c: c.pg_port is not None,
-     "the PostgreSQL wire protocol"),
-    ("sig_secret", None, lambda c: c.sig_secret is not None,
-     "signed changeset attribution"),
-    ("sig_key_file", None, lambda c: bool(c.sig_key_file),
-     "signed changeset attribution"),
-    ("sig_pubkeys", None, lambda c: c.sig_pubkeys is not None,
-     "signed changeset attribution"),
-)
-# the config overrides that switch every unported surface off
-PORTED_ONLY = {name: off for name, off, _, _ in UNPORTED_SURFACES}
-
-
-def _unported(field: str, what: str) -> NotImplementedError:
-    return NotImplementedError(
-        f"AgentConfig.{field} asks for {what}, which "
-        "corrosion_tpu_torch does not port yet (ROADMAP.md queue 1 "
-        f"item 4); set {field} off"
-    )
-
-
-def refuse_unported(config: "AgentConfig") -> None:
-    """Raise ``NotImplementedError`` naming the first field of
-    ``config`` that asks for a surface this package does not port."""
-    for name, _, asks, what in UNPORTED_SURFACES:
-        if asks(config):
-            raise _unported(name, what)
-
-
 async def _cancel_tasks(tasks, rounds: int = 5, timeout: float = 2.0):
     """Cancel ``tasks`` and wait until every one actually exits.
 
@@ -495,7 +462,6 @@ class Agent:
         # the device first: an agent asked for the card on a host
         # without one raises before it opens anything
         self.device = resolve_device(config.device)
-        refuse_unported(config)
         self.config = config
         from corrosion_tpu_torch.agent.locks import LockRegistry
         from corrosion_tpu_torch.clock import SYSTEM_CLOCK
@@ -945,6 +911,19 @@ class Agent:
 
             self._http = start_http_api(self)
             self.api_addr = self._http.server_address[:2]
+        if self.config.admin_path:
+            from corrosion_tpu_torch.agent.admin import start_admin
+
+            self._admin = await start_admin(self, self.config.admin_path)
+        if self.config.pg_port is not None:
+            from corrosion_tpu_torch.agent.pg import serve_pg
+
+            self._pg = await serve_pg(
+                self,
+                self.config.pg_host or self.config.api_host,
+                self.config.pg_port,
+            )
+            self.pg_addr = self._pg.sockets[0].getsockname()[:2]
 
     async def stop(self, graceful: bool = True) -> None:
         # graceful leave (broadcast/mod.rs:327-366 leave_cluster): tell

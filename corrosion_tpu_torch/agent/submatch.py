@@ -20,8 +20,8 @@ per-pk liveness from the same batch.  The matcher factors it out:
 
 Twins here: ``shard_of`` (submatch.py:41), ``SubSpec`` (:55),
 ``ShardIndex`` (:70), ``resolve_wave`` (:126) and ``match_wave``
-(:149): the whole module.  Its consumers, the pubsub manager and the
-live agent, are not ported yet.
+(:149): the whole module, consumed by the pubsub manager
+(``agent/pubsub.py``) of the live agent.
 """
 
 from __future__ import annotations

@@ -5,10 +5,8 @@ boots a full agent (gossip on 127.0.0.1:0, HTTP on :0, tempdir DB, schema
 applied) so integration tests exercise real gossip, not mocks.
 
 A copy of ``corrosion_tpu/agent/testing.py`` re-rooted on this package.
-Its agents run the reference's surfaces, switch off the ones this
-package does not port yet (``runtime.PORTED_ONLY``, all off by default)
-and run on ``device`` (pass ``device="cpu"`` without a card); explicit
-overrides still win.
+Its agents run every surface of the reference and run on ``device``
+(pass ``device="cpu"`` without a card); explicit overrides still win.
 """
 
 from __future__ import annotations
@@ -17,7 +15,7 @@ import asyncio
 import tempfile
 from typing import List, Optional
 
-from corrosion_tpu_torch.agent.runtime import PORTED_ONLY, Agent, AgentConfig
+from corrosion_tpu_torch.agent.runtime import Agent, AgentConfig
 
 TEST_SCHEMA = """
 CREATE TABLE IF NOT EXISTS tests (
@@ -52,7 +50,6 @@ async def launch_test_agent(
         sync_interval_min=0.15,
         sync_interval_max=0.4,
         bcast_flush_interval=0.02,
-        **PORTED_ONLY,
     )
     kwargs.update(overrides)
     cfg = AgentConfig(
@@ -116,12 +113,11 @@ def make_offline_agent(
     timers or socket setup.  Callers must ``agent.storage.close()`` (or
     use it inside asyncio.run and close after)."""
     d = tmpdir or tempfile.mkdtemp(prefix="corro-offline-")
-    kwargs = dict(PORTED_ONLY, api_port=None)
-    kwargs.update(overrides)
     cfg = AgentConfig(
         db_path=f"{d}/corrosion.db",
         schema_sql=schema,
-        **kwargs,
+        api_port=None,
+        **overrides,
     )
     return Agent(cfg)
 

@@ -1,9 +1,25 @@
-"""The wire codecs the agent speaks (port of ``corrosion_tpu.bridge``:
-``speedy``, the Python twin of the reference's native codec, and
-``foca``, the SWIM datagram codec over ``bincode``).  The reference's
-golden cr-sqlite engine (``bridge/crsqlite_ref``) serves its tests only
-and is not ported."""
+"""Interop bridge (port of ``corrosion_tpu.bridge``): golden cr-sqlite
+reference engine + speedy wire codec.
+
+``speedy`` speaks the reference agent's speedy-encoded wire types (its
+change-array loops and deframer in the native host module where it
+builds, the Python twins otherwise), ``foca`` the SWIM datagram codec
+over ``bincode``, and ``crsqlite_ref`` loads the real cr-sqlite
+extension, where one is found, to validate the CRDT merge against it
+(tests only; the agent never depends on it).
+"""
 
 from corrosion_tpu_torch.bridge import foca, speedy  # noqa: F401
+from corrosion_tpu_torch.bridge.crsqlite_ref import (
+    CrsqliteRef,
+    crsqlite_available,
+    find_crsqlite_so,
+)
 
-__all__ = ["foca", "speedy"]
+__all__ = [
+    "CrsqliteRef",
+    "crsqlite_available",
+    "find_crsqlite_so",
+    "foca",
+    "speedy",
+]

@@ -59,9 +59,22 @@ class SpeedyError(ValueError):
     pass
 
 
-# The reference swaps its native host C++ extension in for the change-
-# array loops and the deframer; this package runs the Python twins, which
-# the reference's tests pin byte for byte to that extension.
+def _load_native():
+    from corrosion_tpu_torch.native import load_or_none
+
+    return load_or_none()
+
+
+# the C extension, gated per feature so a stale build missing newer
+# entry points falls back to the Python twin for just those paths
+_native_mod = _load_native()
+_native = (
+    _native_mod
+    if _native_mod is not None
+    and hasattr(_native_mod, "speedy_encode_changes")
+    and hasattr(_native_mod, "speedy_decode_changes")
+    else None
+)
 
 
 # ---------------------------------------------------------------------------
@@ -295,13 +308,34 @@ _CS_EMPTY, _CS_FULL, _CS_EMPTY_SET = 0, 1, 2
 
 
 def _w_changes(w: Writer, changes) -> None:
-    """The change-array hot loop (the reference's native encoder's
-    Python twin)."""
+    """The change-array hot loop: native when available (the C
+    extension packs the speedy layout directly), Python twin otherwise."""
+    if _native is not None:
+        try:
+            w.raw(_native.speedy_encode_changes(changes))
+        except (TypeError, OverflowError) as e:
+            # error-type parity with the Python twin's SpeedyError
+            raise SpeedyError(str(e)) from None
+        return
     for c in changes:
         _w_change(w, c)
 
 
 def _r_changes(r: Reader, count: int) -> List[Change]:
+    if _native is not None:
+        try:
+            tups, end = _native.speedy_decode_changes(r.data, r.pos, count)
+        except ValueError as e:
+            raise SpeedyError(str(e)) from None
+        r.pos = end
+        return [
+            Change(
+                table=t, pk=pk, cid=cid, val=val, col_version=cv,
+                db_version=CrsqlDbVersion(dv), seq=CrsqlSeq(sq),
+                site_id=site, cl=cl,
+            )
+            for t, pk, cid, val, cv, dv, sq, site, cl in tups
+        ]
     return [_r_change(r) for _ in range(count)]
 
 
@@ -818,7 +852,15 @@ def _py_deframe(buf: bytes) -> Tuple[List[bytes], bytes]:
     return frames, buf[pos:]
 
 
-deframe = _py_deframe
+if _native_mod is not None and hasattr(_native_mod, "deframe"):
+    def deframe(buf: bytes) -> Tuple[List[bytes], bytes]:
+        """Native frame splitter (semantics pinned to :func:`_py_deframe`)."""
+        try:
+            return _native_mod.deframe(buf, MAX_FRAME_LEN)
+        except ValueError as e:
+            raise SpeedyError(str(e)) from None
+else:
+    deframe = _py_deframe
 
 
 class FrameReader:

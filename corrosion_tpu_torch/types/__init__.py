@@ -1,6 +1,6 @@
 """Core value types shared by the simulator and the host agent (port of
-``corrosion_tpu.types``: plain copies of its modules, ``crypto`` left
-out until the agent's signed attribution is ported)."""
+``corrosion_tpu.types``: plain copies of its modules, ``crypto`` the
+pure-Python Ed25519 of signed changeset attribution)."""
 
 from corrosion_tpu_torch.types.base import Version, CrsqlDbVersion, CrsqlSeq
 from corrosion_tpu_torch.types.actor import ActorId, Actor, ClusterId

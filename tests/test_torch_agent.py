@@ -17,7 +17,11 @@ host modules) against the reference's, on the CPU.
 * resume: a port agent boots on a reference agent's database;
 * the defaults: a bare ``AgentConfig`` starts, serves ``/v1/members``
   and stops;
-* refusals: the card without one, and every unported surface.
+* every further surface (the admin socket, the PostgreSQL wire, signed
+  attribution by key, key file or trust directory) starts, serves and
+  stops; a signed conflicting pair gives the reference's verdict and
+  proof row;
+* refusal: the card without one.
 """
 
 import asyncio
@@ -484,26 +488,168 @@ def test_card_without_one_raises_before_opening(tmp_path, monkeypatch):
     assert not db.exists()
 
 
-UNPORTED = {
-    "admin_path": "admin.sock",
-    "pg_port": 0,
-    "sig_secret": bytes(32),
-    "sig_key_file": "key.hex",
-    "sig_pubkeys": {},
-}
+def _threads_left(before):
+    """The threads started since ``before`` that do not end within 5 s."""
+    import threading
+
+    left = []
+    for t in set(threading.enumerate()) - before:
+        t.join(timeout=5)
+        if t.is_alive():
+            left.append(t.name)
+    return left
 
 
-@pytest.mark.parametrize("field", list(UNPORTED))
-def test_unported_surface_raises(field, tmp_path):
-    assert {s[0] for s in port_runtime.UNPORTED_SURFACES} == set(UNPORTED)
-    assert port_runtime.PORTED_ONLY == {
-        s[0]: s[1] for s in port_runtime.UNPORTED_SURFACES}
-    kw = dict(MIXED, device="cpu")
-    kw[field] = UNPORTED[field]
-    db = tmp_path / "corrosion.db"
-    with pytest.raises(NotImplementedError, match=f"AgentConfig.{field} "):
-        port_runtime.Agent(port_runtime.AgentConfig(db_path=str(db), **kw))
-    assert not db.exists()
+# each surface the reference's config offers beyond its defaults, on
+SURFACES = ("admin_path", "pg_port", "sig_secret", "sig_key_file",
+            "sig_pubkeys")
+
+
+@pytest.mark.parametrize("field", SURFACES)
+def test_surface_starts_serves_and_stops(field, tmp_path):
+    """A CPU port agent with ``field`` on starts, serves the surface
+    and stops, leaving none of its threads behind: the admin socket
+    answers, a write over the PostgreSQL wire reaches the peer, and a
+    signed write (the key given, or read from a file) is verified on the
+    peer whose directory holds the signer's key."""
+    import threading
+
+    from corrosion_tpu_torch.agent.admin import AdminClient
+    from corrosion_tpu_torch.types import crypto
+    from tests.pgwire_client import PgClient
+
+    sec, pub = crypto.seed_keypair(b"surface-" + field.encode())
+    key_file = tmp_path / "key.hex"
+    key_file.write_text(sec.hex() + "\n")
+    directory = {}
+    on = {
+        "admin_path": dict(admin_path=str(tmp_path / "admin.sock")),
+        "pg_port": dict(pg_port=0),
+        "sig_secret": dict(sig_secret=sec),
+        "sig_key_file": dict(sig_key_file=str(key_file)),
+        "sig_pubkeys": dict(sig_pubkeys=directory, sig_spot_check_rate=1.0),
+    }[field]
+    # the peer: it verifies the signer's writes, or signs its own
+    peer_kw = (dict(sig_secret=sec) if field == "sig_pubkeys" else
+               dict(sig_pubkeys=directory, sig_spot_check_rate=1.0))
+    for d in ("a", "b"):
+        (tmp_path / d).mkdir()
+    before = set(threading.enumerate())
+
+    async def main():
+        a = await port_testing.launch_test_agent(
+            tmpdir=str(tmp_path / "a"), device="cpu", **on)
+        b = None
+        try:
+            b = await port_testing.launch_test_agent(
+                bootstrap=[f"{a.gossip_addr[0]}:{a.gossip_addr[1]}"],
+                tmpdir=str(tmp_path / "b"), device="cpu", **peer_kw)
+            signer, verifier = (b, a) if field == "sig_pubkeys" else (a, b)
+            directory[signer.actor_id] = pub
+            await port_testing.wait_for(
+                lambda: a.members.alive() and b.members.alive(), timeout=10)
+            if field == "pg_port":
+                def drive():
+                    c = PgClient(*a.pg_addr)
+                    try:
+                        return c.query(
+                            "INSERT INTO tests (id, text) VALUES (1, 'pg')")
+                    finally:
+                        c.close()
+
+                assert (await asyncio.to_thread(drive))[2] == ["INSERT 0 1"]
+            else:
+                await asyncio.to_thread(signer.execute_transaction, [
+                    ("INSERT INTO tests (id, text) VALUES (1, 'pg')",)])
+            peer = a if signer is b else b
+            await port_testing.wait_for(
+                lambda: _rows(peer) == [(1, "pg")], timeout=10)
+            if field == "admin_path":
+                def admin():
+                    c = AdminClient(on["admin_path"])
+                    try:
+                        return c.call("ping"), c.call("cluster_members")
+                    finally:
+                        c.close()
+
+                pong, members = await asyncio.to_thread(admin)
+                assert pong == "pong"
+                assert [m["actor"] for m in members] == [b.actor_id.hex()]
+            elif field.startswith("sig_"):
+                assert signer._sig_pub == pub
+                await port_testing.wait_for(
+                    lambda: verifier.metrics.get_counter(
+                        "corro_sig_verifications_total", result="ok") >= 1,
+                    timeout=10)
+                assert verifier.metrics.get_counter(
+                    "corro_sig_verifications_total", result="fail") == 0
+        finally:
+            if b is not None:
+                await b.stop()
+            await a.stop()
+
+    asyncio.run(asyncio.wait_for(main(), 60))
+    assert _threads_left(before) == []
+
+
+def _signed_verdict(pkg, runtime, crypto, tmp):
+    """A signed conflicting pair (two full changesets of one actor's
+    version 1, each signed by the actor's key) delivered to an offline
+    node of ``pkg``: what each delivery returned, the signatures, the
+    verdict, the member record and the proof row."""
+    import hashlib
+    import math
+
+    t, ch = pkg["types"], pkg["change"]
+    sec, pub = crypto.seed_keypair(b"keyed-hostile")
+    actor = hashlib.blake2b(b"equivocator:3", digest_size=16).digest()
+    ts = t.Timestamp.pack(1_650_000_000_000_000_000, 0)
+    pair = []
+    for text in ("honest", "forked"):
+        c = ch.Change(table="tests", pk=pkg["pack"].pack_values([1]),
+                      cid="text", val=text, col_version=1,
+                      db_version=ch.CrsqlDbVersion(1), seq=ch.CrsqlSeq(0),
+                      site_id=actor, cl=1)
+        cs = t.Changeset.full(t.Version(1), [c], (0, 0), 0, ts)
+        pair.append(t.ChangeV1(actor_id=t.ActorId(actor), changeset=cs))
+    sigs = [crypto.sign(sec, runtime.sig_message(actor, cv.changeset))
+            for cv in pair]
+    kw = {"device": "cpu"} if pkg is PORT else {}
+    a = pkg["testing"].make_offline_agent(
+        tmpdir=str(tmp), sig_pubkeys={actor: pub}, equiv_quarantine_s=5.0,
+        **kw)
+    try:
+        a.members.upsert(actor, ("x", 1))
+        took = [a.handle_change(cv, pkg["source"].BROADCAST,
+                                rebroadcast=False, meta=(None, 0, sig, None))
+                for cv, sig in zip(pair, sigs)]
+        m = a.members.get(actor)
+        return dict(
+            took=took, sigs=sigs,
+            permanent=a._equiv_quarantined.get(actor) == math.inf,
+            member=(m.quarantined, m.quarantine_reason),
+            proofs=a.storage.conn.execute(
+                "SELECT * FROM __corro_equiv_proofs").fetchall(),
+            verified=a.metrics.get_counter(
+                "corro_sig_verifications_total", result="ok"),
+            rows=_rows(a))
+    finally:
+        a.storage.close()
+
+
+def test_signed_equivocation_equals_reference(tmp_path):
+    from corrosion_tpu.agent import runtime as ref_runtime
+    from corrosion_tpu.types import crypto as ref_crypto
+    from corrosion_tpu_torch.types import crypto as port_crypto
+
+    (tmp_path / "ref").mkdir()
+    (tmp_path / "port").mkdir()
+    want = _signed_verdict(REF, ref_runtime, ref_crypto, tmp_path / "ref")
+    got = _signed_verdict(PORT, port_runtime, port_crypto, tmp_path / "port")
+    assert got["took"] == [True, False]
+    assert got["permanent"] and got["member"] == (True, "signed_equivocation")
+    assert len(got["proofs"]) == 1 and got["verified"] >= 1
+    assert got == want
 
 
 def test_bare_config_starts_at_the_reference_defaults(tmp_path):
@@ -537,24 +683,22 @@ def test_bare_config_starts_at_the_reference_defaults(tmp_path):
             await a.stop()
 
     asyncio.run(asyncio.wait_for(main(), 30))
-    left = []
-    for t in set(threading.enumerate()) - before:
-        t.join(timeout=5)
-        if t.is_alive():
-            left.append(t.name)
-    assert left == []
+    assert _threads_left(before) == []
 
 
 SURFACE_MODULES = ("bridge/bincode.py", "bridge/foca.py",
                    "agent/swim_foca.py", "agent/mux.py", "agent/http.py",
-                   "agent/pubsub.py")
+                   "agent/pubsub.py", "agent/sqlstate.py", "agent/pgsql.py",
+                   "agent/pgparse.py", "agent/pg.py", "agent/admin.py",
+                   "types/crypto.py", "bridge/crsqlite_ref.py",
+                   "native/__init__.py")
 
 
 def test_port_imports_neither_jax_nor_the_reference():
     """No module of the port, its agent's surfaces included, and not
     ``chip_smoke.py``, imports ``jax`` or ``corrosion_tpu``: read from
     the sources, and from ``sys.modules`` after importing the surfaces
-    and starting an agent at the reference's defaults."""
+    and starting an agent with every surface on."""
     import ast
     import os
     import subprocess
@@ -580,14 +724,17 @@ def test_port_imports_neither_jax_nor_the_reference():
                     "jax", "jaxlib", "corrosion_tpu"), (f, mod)
     code = (
         "import asyncio, sys, tempfile\n"
-        + "".join(f"import corrosion_tpu_torch.{m[:-3].replace('/', '.')}\n"
+        + "".join("import corrosion_tpu_torch."
+                  f"{m[:-3].replace('/', '.').removesuffix('.__init__')}\n"
                   for m in SURFACE_MODULES)
         + "from corrosion_tpu_torch.agent import runtime, testing\n"
         "async def main():\n"
         "    d = tempfile.mkdtemp()\n"
         "    a = runtime.Agent(runtime.AgentConfig(\n"
         "        db_path=d + '/c.db', device='cpu',\n"
-        "        schema_sql=testing.TEST_SCHEMA))\n"
+        "        schema_sql=testing.TEST_SCHEMA, pg_port=0,\n"
+        "        admin_path=d + '/admin.sock', sig_secret=bytes(32),\n"
+        "        sig_pubkeys={}))\n"
         "    await a.start()\n"
         "    await a.stop()\n"
         "asyncio.run(asyncio.wait_for(main(), 30))\n"
